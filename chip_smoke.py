@@ -11,8 +11,8 @@ and prints no result):
 1. **build** — compile the CUDA contraction kernel from the sources in
    this checkout (``nvcc`` for ``sm_90a``) and bind it.
 2. **kernel vs plain** — every fusion group of the full-width llama3-8b
-   serving programs (decode: ``slots`` rows, KV window ``max_len``;
-   prefill: a ``--bucket``-row prompt bucket) runs on the card through the
+   serving programs (decode: ``SLOTS`` rows, KV window ``MAX_LEN``;
+   prefill: a ``BUCKET``-row prompt bucket) runs on the card through the
    kernel and through its plain PyTorch version on the same inputs; the
    results must agree within ``max|kernel - plain| <= RTOL * (1 + max|plain|)``
    over each unit's output (float32 sums of up to 14336 terms, taken in
@@ -23,20 +23,25 @@ and prints no result):
 3. **stripe_matmul** — the Stripe-compiled matmul (one launch of the same
    kernel) on the cases of tests/test_kernels.py, against its plain
    version and the plain matmul oracle.
-4. **serve** — llama3-8b at full width (``--layers`` deep; random bf16
-   block weights from a seeded ``torch.Generator``, ~14 GB, cast to
-   float32 per call as the JAX package's programs do; embeddings, the
-   activations and the KV pages in float32) serves 4 requests through
-   ``ServingEngine(backend="cuda")``: every request must finish ``ok``,
-   every unit of every compiled program must have lowered to the kernel
-   with no fallback, and the kernel must have been launched at least once
-   per unit per layer per step.  The same requests are served again with
-   ``backend="torch"``; the greedy tokens must be identical.  (With
-   bfloat16 activations every layer re-rounds the residual stream, and the
-   two backends' float32 summation orders then flip bfloat16 ulps that a
-   random 32-layer model amplifies into other tokens within 16 steps;
-   float32 activations keep the comparison about the kernel.
-   ``--activations bfloat16`` runs that variant.)
+4. **serve** — llama3-8b at full width and at its configured dtype
+   (``--layers`` deep; random bfloat16 weights from a seeded
+   ``torch.Generator``, ~16 GB; bfloat16 activations and KV pages) serves
+   4 requests through ``ServingEngine(backend="cuda")``: every request
+   must finish ``ok``, every unit of every compiled program must have
+   lowered to the kernel with no fallback, and the kernel must have been
+   launched at least once per unit per layer per step.  The same requests
+   are served again with ``backend="torch"``.  The logits behind every
+   greedy token are held between the two backends to ``LOGIT_RTOL`` of the
+   row's largest logit, per request up to and including the first token
+   where the two differ: bfloat16 re-rounds the residual stream in every
+   layer, so two float32 summation orders can flip a near-tie, and after
+   a flip the two contexts differ and nothing more is compared.  Within
+   the tolerance a flip can only happen where the two tokens' logits are
+   within ``2 * LOGIT_RTOL`` of the row's scale.
+5. **serve, float32 activations** — the same weights and requests with
+   float32 activations and KV pages (the block weights stay bfloat16 and
+   are cast per call, as the JAX package's programs do): the two backends'
+   greedy tokens must be identical, and their logits agree as above.
 
 The last lines are the kernel summary (JSON), the card's name and power
 limit as ``nvidia-smi`` reports them, and the result line
@@ -64,6 +69,13 @@ F32_FLOPS_PER_S = 67e12
 # float32 sums of up to 14336 terms taken in another order, relative to
 # the largest output of the unit
 RTOL = 1e-4
+# logits of the cuda and torch backends, relative to the row's largest
+# logit, after 32 layers of bfloat16 rounding
+LOGIT_RTOL = 5e-2
+# the serving geometry of the check: decode batch, KV window, page size,
+# the prefill bucket of phase 2, and the seed of weights and prompts
+SLOTS, MAX_LEN, PAGE_SIZE, BUCKET, SEED = 4, 256, 16, 128, 0
+PROMPT_LENS = (17, 40, 64, 100)
 
 
 def _fail(msg: str) -> None:
@@ -130,9 +142,9 @@ def _einsum_of(semantic, members):
     raise AssertionError(f"no contraction among {members}")
 
 
-def check_units(torch, api, K, cfg, slots: int, max_len: int, bucket: int, reps: int):
+def check_units(torch, api, K, cfg, reps: int):
     """Phase 2: every unit of the full-width serving programs, kernel
-    against plain.  Returns (per-unit rows, decode-layer summary)."""
+    against plain.  Returns one row per unit."""
     from repro_torch.core import cache as stripe_cache
     from repro_torch.serving import stripe_decode as sd
 
@@ -142,7 +154,7 @@ def check_units(torch, api, K, cfg, slots: int, max_len: int, bucket: int, reps:
     gen = torch.Generator(device="cuda").manual_seed(1)
     timer = _Timer(torch, reps)
     rows = []
-    for phase, m, window in (("decode", slots, max_len), ("prefill", bucket, None)):
+    for phase, m, window in (("decode", SLOTS, MAX_LEN), ("prefill", BUCKET, None)):
         progs = sd.build_programs(cfg, m, jc, kv_window=window)
         for pname in ("qkv", "attn_out", "mlp", "scores", "values"):
             prog = getattr(progs, pname)
@@ -223,14 +235,15 @@ def check_matmul(torch, K) -> float:
     return worst
 
 
-def serve(torch, api, K, cfg, params, backend: str, slots: int, max_len: int,
-          page_size: int, new_tokens: int, seed: int):
-    """Phase 3: one engine run; returns (tokens by uid, stats)."""
+def serve(torch, api, K, cfg, params, backend: str, new_tokens: int):
+    """One engine run.  Returns (tokens by uid, the float32 logits behind
+    each token by (uid, index) on the host, stats)."""
     import numpy as np
+    from repro_torch.models import lm
 
     engine = api.ServingEngine(
         api.build_model(cfg),
-        api.EngineConfig(slots=slots, max_len=max_len, page_size=page_size,
+        api.EngineConfig(slots=SLOTS, max_len=MAX_LEN, page_size=PAGE_SIZE,
                          backend=backend))
     step_ms = []
     inner = engine._decode_fn
@@ -243,20 +256,42 @@ def serve(torch, api, K, cfg, params, backend: str, slots: int, max_len: int,
         step_ms.append((time.perf_counter() - t0) * 1e3)
         return out
 
+    # Every greedy token is the argmax of one ``lm._logits`` row: a prefill
+    # (one row, for the admitted request that has no token yet) or a decode
+    # step (one row per slot, for the slot's next token).
+    logits = {}
+    head = lm._logits
+
+    def recorded(p, c, x):
+        out = head(p, c, x)
+        rows = out[:, -1, : c.vocab].float().cpu()
+        reqs = [r for r in engine._slot_req if r is not None]
+        admitting = [r for r in reqs if not r.out_tokens]
+        if admitting:
+            logits[admitting[0].uid, 0] = rows[0]
+        else:
+            for s, r in enumerate(engine._slot_req):
+                if r is not None:
+                    logits[r.uid, len(r.out_tokens)] = rows[s]
+        return out
+
     engine._decode_fn = timed
-    rng = np.random.RandomState(seed)
-    plens = [17, 40, 64, 100]
-    for uid, plen in enumerate(plens):
+    lm._logits = recorded
+    rng = np.random.RandomState(SEED)
+    for uid, plen in enumerate(PROMPT_LENS):
         engine.submit(api.Request(uid=uid, prompt=rng.randint(1, cfg.vocab, size=plen),
                                   sampling=api.SamplingParams(max_new_tokens=new_tokens)))
     K.launches = 0
     t0 = time.perf_counter()
-    done = engine.run(params)
-    torch.cuda.synchronize()
+    try:
+        done = engine.run(params)
+        torch.cuda.synchronize()
+    finally:
+        lm._logits = head
     wall = time.perf_counter() - t0
     launched = K.launches
     engine.close()
-    if sorted(r.uid for r in done) != list(range(len(plens))):
+    if sorted(r.uid for r in done) != list(range(len(PROMPT_LENS))):
         raise AssertionError(f"{backend}: finished {[r.uid for r in done]}")
     for r in done:
         if r.status != "ok" or len(r.out_tokens) != new_tokens:
@@ -265,7 +300,7 @@ def serve(torch, api, K, cfg, params, backend: str, slots: int, max_len: int,
     if engine.quarantine_entries():
         raise AssertionError(f"{backend}: quarantine {engine.quarantine_entries()}")
     met = engine.metrics()
-    stats = {"wall_s": wall, "tokens": met["tokens_out"],
+    stats = {"dtype": cfg.dtype, "wall_s": wall, "tokens": met["tokens_out"],
              "tok_per_s": met["tokens_out"] / wall,
              "decode_steps": met["decode_steps"],
              "decode_step_ms_median": statistics.median(step_ms),
@@ -275,27 +310,47 @@ def serve(torch, api, K, cfg, params, backend: str, slots: int, max_len: int,
             if (rec.backend != "cuda" or rec.fallback_reasons()
                     or any(b != "cuda" for b in rec.block_backends.values())):
                 raise AssertionError(f"{name}: {rec.backend} {rec.fallback_reasons()}")
-        n_prefill = len(plens)
-        want = cfg.n_layers * (9 * met["decode_steps"] + 7 * n_prefill)
+        want = cfg.n_layers * (9 * met["decode_steps"] + 7 * len(PROMPT_LENS))
         if launched < want:
             raise AssertionError(f"kernel launched {launched} times, the path needs >= {want}")
         stats["launches_needed"] = want
-    return {r.uid: list(r.out_tokens) for r in done}, stats
+    return {r.uid: list(r.out_tokens) for r in done}, logits, stats
+
+
+def compare(runs, exact: bool) -> dict:
+    """Hold the cuda run against the torch run: per request, the logits
+    behind each token up to and including the first token where the two
+    differ agree within ``LOGIT_RTOL`` of the row's largest logit; with
+    ``exact`` the tokens must not differ at all."""
+    (ta, la, _), (tb, lb, _) = runs["cuda"], runs["torch"]
+    out = {"max_logit_rel_err": 0.0, "compared": 0, "first_divergence": {}}
+    for uid in sorted(ta):
+        div = next((j for j, (x, y) in enumerate(zip(ta[uid], tb[uid])) if x != y), None)
+        out["first_divergence"][uid] = div
+        for j in range(len(ta[uid]) if div is None else div + 1):
+            a, b = la[uid, j], lb[uid, j]
+            rel = (a - b).abs().max().item() / b.abs().max().item()
+            out["max_logit_rel_err"] = max(out["max_logit_rel_err"], rel)
+            out["compared"] += 1
+            if not rel <= LOGIT_RTOL:
+                raise AssertionError(f"request {uid} token {j}: logits differ by {rel:.3e} "
+                                     f"of the largest (tolerance {LOGIT_RTOL})")
+        if div is not None:
+            # the torch run's gap between the two chosen tokens, over the
+            # row's largest logit: a near-tie
+            b = lb[uid, div]
+            out.setdefault("gap_at_divergence", {})[uid] = (
+                (b[tb[uid][div]] - b[ta[uid][div]]).item() / b.abs().max().item())
+    if exact and any(d is not None for d in out["first_divergence"].values()):
+        raise AssertionError(f"greedy tokens differ: cuda {ta} torch {tb}")
+    return out
 
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--layers", type=int, default=32, help="model depth (full: 32)")
-    ap.add_argument("--slots", type=int, default=4)
-    ap.add_argument("--max-len", type=int, default=256)
-    ap.add_argument("--page-size", type=int, default=16)
     ap.add_argument("--new-tokens", type=int, default=16)
-    ap.add_argument("--bucket", type=int, default=128,
-                    help="prompt bucket of the prefill units in phase 2")
     ap.add_argument("--reps", type=int, default=10, help="timed launches per unit")
-    ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--activations", choices=("float32", "bfloat16"), default="float32",
-                    help="activation and KV-page type of the serve phase")
     args = ap.parse_args()
 
     if not (SRC / "repro_torch" / "csrc" / "contraction.cu").is_file():
@@ -322,7 +377,7 @@ def main() -> None:
             print(f"  ptxas: {line.strip()}")
 
     full = api.configs.get("llama3-8b")
-    rows = check_units(torch, api, K, full, args.slots, args.max_len, args.bucket, args.reps)
+    rows = check_units(torch, api, K, full, args.reps)
     print(f"kernel vs plain: {len(rows)} units, tolerance max|k-p| <= {RTOL}*(1+max|p|)")
     for r in rows:
         print("  unit " + json.dumps(r), flush=True)
@@ -331,32 +386,32 @@ def main() -> None:
     print(f"stripe_matmul: 9 cases on the card, max abs error {mm_err:.3e}", flush=True)
 
     import dataclasses
-    wcfg = dataclasses.replace(full, n_layers=args.layers)
-    gen = torch.Generator(device="cuda").manual_seed(args.seed)
+    cfg = dataclasses.replace(full, n_layers=args.layers)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
     t0 = time.perf_counter()
-    params = api.build_model(wcfg).init(gen, device="cuda")
-    act = getattr(torch, args.activations)
-    for name in ("embed", "unembed"):
-        params[name] = params[name].to(act)
-    params["final_norm"] = {k: v.to(act) for k, v in params["final_norm"].items()}
-    cfg = dataclasses.replace(wcfg, dtype=args.activations)  # activations, KV pages
+    params = api.build_model(cfg).init(gen, device="cuda")
     torch.cuda.synchronize()
     print(f"model: {cfg.name} {cfg.n_layers} layers, d_model {cfg.d_model}, "
-          f"{wcfg.dtype} block weights, {args.activations} activations, init "
-          f"{time.perf_counter() - t0:.1f} s, "
+          f"{cfg.dtype} weights, init {time.perf_counter() - t0:.1f} s, "
           f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB on the card", flush=True)
-    results = {}
+    # the main path: the configuration as it stands
+    runs = {}
     for backend in ("cuda", "torch"):
-        toks, stats = serve(torch, api, K, cfg, params, backend, args.slots, args.max_len,
-                            args.page_size, args.new_tokens, args.seed)
-        results[backend] = toks
-        print(f"serve[{backend}]: " + json.dumps(stats), flush=True)
-        if backend == "cuda":
-            serve_launches = stats["launches"]
-    if results["cuda"] != results["torch"]:
-        raise AssertionError(f"greedy tokens differ: cuda {results['cuda']} "
-                             f"torch {results['torch']}")
-    print(f"tokens identical across backends: {results['cuda']}")
+        runs[backend] = serve(torch, api, K, cfg, params, backend, args.new_tokens)
+        print(f"serve[{backend}, {cfg.dtype}]: " + json.dumps(runs[backend][2]), flush=True)
+    serve_launches = runs["cuda"][2]["launches"]
+    print(f"cuda vs torch, {cfg.dtype}: " + json.dumps(compare(runs, exact=False)), flush=True)
+
+    # float32 activations and KV pages over the same bfloat16 block weights
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    params32 = dict(params, embed=params["embed"].float(), unembed=params["unembed"].float(),
+                    final_norm={k: v.float() for k, v in params["final_norm"].items()})
+    runs32 = {}
+    for backend in ("cuda", "torch"):
+        runs32[backend] = serve(torch, api, K, cfg32, params32, backend, args.new_tokens)
+        print(f"serve[{backend}, float32]: " + json.dumps(runs32[backend][2]), flush=True)
+    print("cuda vs torch, float32: " + json.dumps(compare(runs32, exact=True)), flush=True)
+    print(f"tokens identical across backends (float32): {runs32['cuda'][0]}")
 
     decode = [r for r in rows if r["unit"].startswith("decode/")]
     t_bytes = sum(r["bytes"] for r in decode) / HBM_BYTES_PER_S
@@ -368,7 +423,7 @@ def main() -> None:
         "replaces": "src/repro/core/lower_pallas.py:979",
         "launches": serve_launches,
         "max_abs_err": max(max(r["max_abs_err"] for r in rows), mm_err),
-        # one decode layer: the 9 units at slots rows, KV window max_len
+        # one decode layer: the 9 units at SLOTS rows, KV window MAX_LEN
         "ms": sum(r["ms"] for r in decode),
         "plain_ms": sum(r["plain_ms"] for r in decode),
         "bound_ms": sum(r["bound_ms"] for r in decode),

@@ -33,8 +33,8 @@ from typing import Any, Dict, List, Optional
 RESIDUAL_LOG_NAME = "residuals.jsonl"
 
 # Rotation: the log is compacted once it exceeds this many rows (the
-# newest half is kept; older rows fold into the tuning DB's running
-# residual summaries, so long-run bias statistics survive rotation).
+# newest half is kept; older rows fold into a tuning DB when the caller
+# passes one, and are dropped otherwise).
 ENV_RESIDUAL_CAP = "STRIPE_RESIDUAL_CAP"
 DEFAULT_RESIDUAL_CAP = 20_000
 
@@ -67,10 +67,9 @@ def append_residuals(rows: List[Dict[str, Any]], path=None,
 
     Growth is bounded: past ``cap`` rows (``$STRIPE_RESIDUAL_CAP``,
     default 20k; <= 0 disables) the log rotates — the newest ``cap // 2``
-    rows are kept and the older ones fold into the tuning DB next to the
-    log (``db`` overrides which DB; None opens ``tuning_db.json`` in the
-    log's directory), so ``python -m repro_torch.obs residuals`` still reports
-    the full history via the DB's running summaries."""
+    rows are kept and the older ones fold into ``db`` (an object with
+    ``fold_residuals(rows)``) when one is given, else they are dropped:
+    the port has no tuning DB yet (ROADMAP A6)."""
     if not rows:
         return None
     p = Path(path) if path is not None else residual_log_path()
@@ -100,22 +99,21 @@ def _rotate_locked(p: Path, cap: int, db=None) -> None:
         return
     keep = lines[-max(cap // 2, 1):]
     fold = lines[: len(lines) - len(keep)]
-    try:
-        if db is None:
-            from ..tune.db import TuningDB
-
-            db = TuningDB(dir=p.parent)
-        folded_rows = []
-        for ln in fold:
-            try:
-                folded_rows.append(json.loads(ln))
-            except ValueError:
-                continue
-        db.fold_residuals(folded_rows)
-    except Exception:
-        # compaction must never fail profiling; the rows are still
-        # dropped below so the log stays bounded either way
-        pass
+    # The port has no tuning DB yet (ROADMAP A6): with no ``db`` given the
+    # older rows are dropped, not folded.
+    if db is not None:
+        try:
+            folded_rows = []
+            for ln in fold:
+                try:
+                    folded_rows.append(json.loads(ln))
+                except ValueError:
+                    continue
+            db.fold_residuals(folded_rows)
+        except Exception:
+            # compaction must never fail profiling; the rows are still
+            # dropped below so the log stays bounded either way
+            pass
     try:
         import tempfile
 

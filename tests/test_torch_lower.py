@@ -325,6 +325,36 @@ def test_driver_rejects_unported_arguments():
         t_jit(prog, t_hw("cpu_test"), "cuda", tune=True)
 
 
+@pytest.mark.parametrize("with_db", [True, False])
+def test_residual_log_rotation(tmp_path, with_db):
+    """The port's residual log rotates as the reference's does: the newest
+    half stays and a given DB receives the rest; with no DB (the port has
+    no tuning DB yet) the rest is dropped."""
+    from repro.obs import profile as j_profile
+    from repro_torch.obs import profile as t_profile
+
+    class _DB:
+        def __init__(self):
+            self.rows = []
+
+        def fold_residuals(self, rows):
+            self.rows.extend(rows)
+
+    rows = [{"block": f"b{i}", "predicted_s": 1e-6, "measured_s": 2e-6 * (i + 1)}
+            for i in range(9)]
+    logs = {}
+    for name, mod in (("ref", j_profile), ("port", t_profile)):
+        db = _DB() if with_db or name == "ref" else None
+        path = tmp_path / name / "residuals.jsonl"
+        for r in rows:
+            mod.append_residuals([r], path=path, cap=4, db=db)
+        logs[name] = (mod.read_residuals(path), db.rows if db is not None else None)
+    assert logs["port"][0] == logs["ref"][0]
+    assert len(logs["port"][0]) < len(rows)
+    if with_db:
+        assert logs["port"][1] == logs["ref"][1]
+
+
 def test_kernel_wrapper_uses_plain_version_only_for_cpu_tensors():
     prog = _serving_program(TTile, "attn_out", _cfg(t_configs)).build()
     c = t_jit(prog, t_hw("h100"), "cuda", cache=t_cache.CompilationCache(use_disk=False),
