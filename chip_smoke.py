@@ -8,8 +8,9 @@ NVIDIA card.
 Phases, each of which raises on failure (the script then exits non-zero
 and prints no result):
 
-1. **build** — compile the CUDA contraction kernel from the sources in
-   this checkout (``nvcc`` for ``sm_90a``) and bind it.
+1. **build** — compile the three CUDA kernels (contraction, elementwise,
+   windowed) from the sources in this checkout, one ``nvcc`` per source
+   for ``sm_90a``, all started together, and bind them.
 2. **kernel vs plain** — every fusion group of the full-width llama3-8b
    serving programs (decode: ``SLOTS`` rows, KV window ``MAX_LEN``;
    prefill: a ``BUCKET``-row prompt bucket) runs on the card through the
@@ -23,7 +24,25 @@ and prints no result):
 3. **stripe_matmul** — the Stripe-compiled matmul (one launch of the same
    kernel) on the cases of tests/test_kernels.py, against its plain
    version and the plain matmul oracle.
-4. **serve** — llama3-8b at full width and at its configured dtype
+   Then the card's time of one 256x512 @ 512x384 product beside
+   ``torch.matmul``.
+4. **corpus units** — every unit of the exploration corpus (``default``
+   plus ``conv_mlp`` and ``fig5_conv_f32``) compiled under ``h100`` and
+   under ``h100`` without the fusion pass (whose unfused activation, bias
+   and gate units run on the elementwise kernel), a bf16 and an
+   int8 -> int32 1024-cube matmul (the contraction kernel's 16-bit and
+   integer paths), and ResNet-50's conv2_x 3x3 layer (He et al. 2016,
+   Table 1: NHWC, batch 8, 56x56, 64 -> 64 channels) in float32, bf16 and
+   int8 -> int32 on the windowed kernel: each unit's kernels against
+   their plain versions on the same inputs.  Tolerances against the
+   unit's largest output: integers exactly; float32 within ``RTOL``;
+   bf16 within ``BF16_RTOL`` (kernel and plain round the same float32
+   sum to bf16 once each, in different summation orders, which moves the
+   result by at most one rounding step, 2**-8 = 3.9e-3 of the element).
+   Each unit is timed as in phase 2, beside one library call of the
+   same function where PyTorch has one (``torch.einsum``, ``torch._int_mm``,
+   cuDNN's ``conv2d``; none for an elementwise DAG or an int8 conv).
+5. **serve** — llama3-8b at full width and at its configured dtype
    (``--layers`` deep; random bfloat16 weights from a seeded
    ``torch.Generator``, ~16 GB; bfloat16 activations and KV pages) serves
    4 requests through ``ServingEngine(backend="cuda")``: every request
@@ -38,13 +57,23 @@ and prints no result):
    a flip the two contexts differ and nothing more is compared.  Within
    the tolerance a flip can only happen where the two tokens' logits are
    within ``2 * LOGIT_RTOL`` of the row's scale.
-5. **serve, float32 activations** — the same weights and requests with
+6. **serve, float32 activations** — the same weights and requests with
    float32 activations and KV pages (the block weights stay bfloat16 and
    are cast per call, as the JAX package's programs do): the two backends'
    greedy tokens must be identical, and their logits agree as above.
+7. **sweep** — the design-exploration path:
+   ``run_sweep(get_space("h100-sweep"), "default", budget=8,
+   measure_top_k=3)`` compiles the corpus at 8 points of the H100 design
+   space, ranks them by the cost model, and measures the baseline and the
+   top 3 on the card through the ``cuda`` backend.  Every unit of every
+   measured point must have run on its kernel, and each of the three
+   kernels must have been launched; the best predicted point's programs
+   are then held against the ``torch`` backend.
 
-The last lines are the kernel summary (JSON), the card's name and power
-limit as ``nvidia-smi`` reports them, and the result line
+Launch counts are read per path: every count is set to 0 just before the
+serve phase (path 1) and before the sweep (path 2), and read just after
+each.  The last lines are the kernel summary (JSON), the card's name and
+power limit as ``nvidia-smi`` reports them, and the result line
 ``{"ok": true, "device": {...}}``.  TF32 is off wherever the plain
 version and the yardstick run.
 """
@@ -62,13 +91,18 @@ ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 
 # Data sheet figures of one H100 SXM (dense, no sparsity): the bound of a
-# launch is the larger of its bytes over the memory rate and its float32
-# operations over the CUDA cores' float32 rate.
+# launch is the larger of its bytes over the memory rate and its
+# operations over the card's peak rate for the operands' type.
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS_PER_S = 67e12
+PEAK_OPS = {"float32": F32_FLOPS_PER_S, "bfloat16": 989e12, "float16": 989e12,
+            "int8": 1979e12}
 # float32 sums of up to 14336 terms taken in another order, relative to
 # the largest output of the unit
 RTOL = 1e-4
+# bf16 outputs, relative to the unit's largest output: one bf16 rounding
+# step (2**-8) of any element, with a 5x margin
+BF16_RTOL = 2e-2
 # logits of the cuda and torch backends, relative to the row's largest
 # logit, after 32 layers of bfloat16 rounding
 LOGIT_RTOL = 5e-2
@@ -76,6 +110,15 @@ LOGIT_RTOL = 5e-2
 # the prefill bucket of phase 2, and the seed of weights and prompts
 SLOTS, MAX_LEN, PAGE_SIZE, BUCKET, SEED = 4, 256, 16, 128, 0
 PROMPT_LENS = (17, 40, 64, 100)
+# the exploration corpus of phase 4 and the sweep of phase 7
+CORPUS = ("mm_bias_gelu", "ffn_relu2", "attn_scores", "moe_ffn", "fig4_conv", "conv_mlp",
+          "fig5_conv_f32")
+SWEEP = dict(space="h100-sweep", workloads="default", budget=8, measure_top_k=3)
+RESNET_BATCH = 8
+KERNEL_MODULES = ("contraction", "elementwise", "windowed")
+# where phases 4 and 7 put their tensors (a rehearsal on the CPU sets
+# "cpu": the kernels' plain versions then run, and nothing is launched)
+DEVICE = "cuda"
 
 
 def _fail(msg: str) -> None:
@@ -117,29 +160,6 @@ class _Timer:
             b.synchronize()
             times.append(a.elapsed_time(b))
         return statistics.median(times)
-
-
-def _einsum_of(semantic, members):
-    """(equation, operand buffers) of the one contraction among a unit's
-    semantic members: the yardstick call."""
-    from repro_torch.core.flat import _product_leaves, analyze_flat
-    from repro_torch.core.ir import Block
-
-    for s in semantic.entry.stmts:
-        if isinstance(s, Block) and s.name in members:
-            op = analyze_flat(s)
-            prod = _product_leaves(op.root)
-            if op.agg == "add" and prod is not None:
-                letters = {}
-                terms = []
-                for leaf in prod[0]:
-                    axes = [e.terms[0][0] for e in leaf.ref.offsets]
-                    for v in axes:
-                        letters.setdefault(v, chr(ord("a") + len(letters)))
-                    terms.append("".join(letters[v] for v in axes))
-                out = "".join(letters[v] for v in op.out_vars)
-                return ",".join(terms) + "->" + out, [l.ref.from_buf for l in prod[0]]
-    raise AssertionError(f"no contraction among {members}")
 
 
 def check_units(torch, api, K, cfg, reps: int):
@@ -189,18 +209,18 @@ def check_units(torch, api, K, cfg, reps: int):
                     flops = 2 * plan.output_points() * plan.reduction_points()
                     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
                     t_ops = flops / F32_FLOPS_PER_S * 1e3
-                    eq, ops = _einsum_of(prog.program.source, _unit.members)
-                    args = [env[b] for b in ops]
+                    lib = _library_call(torch, prog.program.source, _unit.members, env)
                     rows.append({
                         "unit": f"{phase}/{pname}/{_unit.name}", "m": m,
                         "max_abs_err": err, "max_abs_out": scale,
                         "max_rel_err": err / max(scale, 1e-30),
                         "ms": timer(lambda: fn(env)),
                         "plain_ms": timer(lambda: fn.plain(env)),
-                        "library_ms": timer(lambda: torch.einsum(eq, *args)),
+                        "library_ms": timer(lib),
                         "bound_ms": max(t_bytes, t_ops),
                         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-                        "bytes": nbytes, "flops": flops,
+                        "bytes": nbytes, "ops": flops, "t_bytes_ms": t_bytes,
+                        "t_ops_ms": t_ops,
                     })
     return rows
 
@@ -233,6 +253,248 @@ def check_matmul(torch, K) -> float:
         if bf.dtype != torch.bfloat16 or not torch.isfinite(bf.float()).all():
             raise AssertionError("stripe_matmul bfloat16 inputs")
     return worst
+
+
+def time_matmul(torch, timer) -> dict:
+    """The card's time of one stripe_matmul launch (256x512 @ 512x384,
+    float32) beside its plain version and ``torch.matmul``."""
+    from repro_torch.kernels.stripe_matmul import matmul
+    from repro_torch.kernels.stripe_matmul.kernel import build_matmul_kernel
+
+    m, k, n = 256, 512, 384
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    x = torch.randn(m, k, generator=gen, device="cuda")
+    w = torch.randn(k, n, generator=gen, device="cuda")
+    plain = build_matmul_kernel(m, k, n, None, False).kernel.plain
+    t_bytes = 4 * (m * k + k * n + m * n) / HBM_BYTES_PER_S * 1e3
+    t_ops = 2 * m * k * n / F32_FLOPS_PER_S * 1e3
+    return {"unit": f"stripe_matmul {m}x{k}x{n} float32",
+            "ms": timer(lambda: matmul(x, w)),
+            "plain_ms": timer(lambda: plain({"X": x, "W": w})),
+            "library_ms": timer(lambda: torch.matmul(x, w)),
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+# ------------------------------------------------------------ new units
+def _kernel_modules():
+    from repro_torch.kernels import contraction, elementwise, windowed
+
+    return {"contraction": contraction, "elementwise": elementwise, "windowed": windowed}
+
+
+def _close(torch, got, want, what: str) -> float:
+    """Largest error of ``got`` against ``want`` by output type (integers
+    exactly; float32 within RTOL, bf16 within BF16_RTOL, of the largest
+    output); raises past it."""
+    if got.dtype != want.dtype or got.shape != want.shape:
+        raise AssertionError(f"{what}: {got.dtype}{tuple(got.shape)} against "
+                             f"{want.dtype}{tuple(want.shape)}")
+    g, w = got.double(), want.double()
+    err = (g - w).abs().max().item() if g.numel() else 0.0
+    scale = w.abs().max().item() if w.numel() else 0.0
+    if not got.dtype.is_floating_point:
+        ok = err == 0
+    else:
+        tol = RTOL if got.dtype == torch.float32 else BF16_RTOL
+        ok = bool(torch.isfinite(g).all()) and err <= tol * (1 + scale)
+    if not ok:
+        raise AssertionError(f"{what}: kernel and plain differ (max abs {err:.3e}, "
+                             f"largest output {scale:.3e})")
+    return err
+
+
+def _op_rate(dtypes) -> float:
+    """The card's peak for a unit's operand types: the slowest type it
+    computes in (a float32 operand makes the product float32)."""
+    return min(PEAK_OPS.get(str(d).replace("torch.", ""), F32_FLOPS_PER_S) for d in dtypes)
+
+
+def _live_points(torch, plan, clip) -> int:
+    """(output, reduction) points a windowed plan must compute: inside the
+    clip and where every constraint holds, counted per tap combination."""
+    import itertools
+    import math
+    from repro_torch.kernels.windowed import _mask
+
+    names = plan.out_vars + plan.red_vars
+    ext = dict(zip(names, plan.out_ext + plan.red_ext))
+    tap_pos = [names.index(t) for t in plan.taps]
+    rest = math.prod(e for v, e in zip(plan.red_vars, plan.red_ext) if v not in plan.taps)
+    inside = torch.ones(plan.out_ext, dtype=torch.bool, device=DEVICE)
+    for d, c in enumerate(clip):
+        coord = torch.zeros(plan.out_ext, dtype=torch.int64, device=DEVICE)
+        for i, (dd, coef, e) in enumerate(zip(plan.out_dim, plan.out_coef, plan.out_ext)):
+            if dd == d:
+                shape = [1] * len(plan.out_ext)
+                shape[i] = e
+                coord = coord + coef * torch.arange(e, device=DEVICE).reshape(shape)
+        inside &= coord < c
+    total = 0
+    for combo in itertools.product(*[range(ext[t]) for t in plan.taps]):
+        m = _mask(plan, combo, tap_pos, DEVICE)
+        total += int((inside if m is None else inside & m).sum()) * rest
+    return total
+
+
+def _work(torch, fn, clip, env) -> tuple:
+    """(operations, operand types) of one kernel launch."""
+    import math
+
+    plan = fn.plan
+    if fn.kernel == "contraction":
+        types = [env[s.buf].dtype for s in plan.slots]
+        return 2 * math.prod(clip) * plan.reduction_points(), types
+    if fn.kernel == "windowed":
+        types = [env[i.buf].dtype for i in plan.ins]
+        per = 2 if plan.n_sides == 2 else 1
+        return per * _live_points(torch, plan, clip), types
+    types = [env[s.buf].dtype for s in plan.ins]
+    n_ops = sum(1 for code, _ in plan.prog if code >= 16)
+    return n_ops * math.prod(clip), types
+
+
+def _library_call(torch, semantic, members, env):
+    """One PyTorch call of the unit's function, the yardstick: the
+    contraction as ``torch.einsum`` (operands promoted to one type, the
+    cast inside the timed call), an int8 matmul as ``torch._int_mm``, a
+    float 2-D convolution as cuDNN's ``conv2d``; None for anything else."""
+    from repro_torch.core.flat import _product_leaves, analyze_flat
+    from repro_torch.core.ir import Block
+
+    for s in semantic.entry.stmts:
+        if not (isinstance(s, Block) and s.name in members):
+            continue
+        op = analyze_flat(s)
+        prod = _product_leaves(op.root)
+        if op.agg != "add" or prod is None or len(prod[0]) != 2:
+            continue
+        leaves = prod[0]
+        bufs = [l.ref.from_buf for l in leaves]
+        args = [env[b] for b in bufs]
+        multi = [any(len(e.terms) > 1 for e in l.ref.offsets) for l in leaves]
+        if any(multi):
+            x, w = (args[0], args[1]) if multi[0] else (args[1], args[0])
+            if not x.dtype.is_floating_point or w.dim() != 4:
+                return None
+            pad = w.shape[0] // 2
+            lead = x.dim() == 3
+            xn = (x[None] if lead else x).permute(0, 3, 1, 2)
+            wn = w.permute(3, 2, 0, 1)
+            return lambda: torch.nn.functional.conv2d(xn, wn, padding=pad)
+        if args[0].dtype == torch.int8 and args[1].dtype == torch.int8:
+            return lambda: torch._int_mm(args[0], args[1])
+        letters = {}
+        terms = []
+        for leaf in leaves:
+            axes = [e.terms[0][0] for e in leaf.ref.offsets]
+            for v in axes:
+                letters.setdefault(v, chr(ord("a") + len(letters)))
+            terms.append("".join(letters[v] for v in axes))
+        eq = ",".join(terms) + "->" + "".join(letters[v] for v in op.out_vars)
+        common = torch.promote_types(args[0].dtype, args[1].dtype)
+        return lambda: torch.einsum(eq, *[a.to(common) for a in args])
+    return None
+
+
+def _time_library(timer, lib, what):
+    """The yardstick's time, or None where PyTorch has no such call (or
+    refuses these operands: the yardstick is not the port)."""
+    if lib is None:
+        return None
+    try:
+        return timer(lib)
+    except RuntimeError as e:
+        print(f"  library call of {what} refused: {str(e).splitlines()[0]}", flush=True)
+        return None
+
+
+def unit_rows(torch, LC, timer, label, compiled, env) -> list:
+    """Phase 4 for one compiled program: each unit's kernels against their
+    plain versions (the unit's output buffer compared whole), timed; the
+    kernel's result feeds the units after it.  One row per unit."""
+    buffers = compiled.program.buffers
+    semantic = compiled.program.source
+    rows = []
+    for unit, kind, fns in compiled._fn.steps:
+        if kind != "cuda":
+            raise AssertionError(f"{label}/{unit.name} is on {kind}")
+        outs = {fn.out_buf for fn in fns}
+        got_env = {k: v for k, v in env.items() if k not in outs}
+        want_env = dict(got_env)
+        for fn in fns:
+            got_env[fn.out_buf] = LC._place(got_env, buffers[fn.out_buf], fn, fn(env))
+            want_env[fn.out_buf] = LC._place(want_env, buffers[fn.out_buf], fn, fn.plain(env))
+        if DEVICE == "cuda":
+            torch.cuda.synchronize()
+        (out,) = outs
+        what = f"{label}/{unit.name}"
+        err = _close(torch, got_env[out], want_env[out], what)
+        ins = {b for fn in fns for b in fn.in_bufs}
+        nbytes = (sum(env[b].numel() * env[b].element_size() for b in ins)
+                  + got_env[out].numel() * got_env[out].element_size())
+        flops, types = 0, []
+        for fn in fns:
+            f, t = _work(torch, fn, fn.out_clip, env)
+            flops += f
+            types += t
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = flops / _op_rate(types) * 1e3
+        lib = _library_call(torch, semantic, unit.members, env) if semantic else None
+
+        def run(which, fns=fns):
+            for fn in fns:
+                fn(env) if which == "kernel" else fn.plain(env)
+
+        env[out] = got_env[out]
+        rows.append({
+            "unit": what, "kernel": sorted({fn.kernel for fn in fns}),
+            "launches": len(fns), "dtype": str(got_env[out].dtype).replace("torch.", ""),
+            "max_abs_err": err, "max_abs_out": got_env[out].double().abs().max().item(),
+            "ms": timer(lambda: run("kernel")), "plain_ms": timer(lambda: run("plain")),
+            "library_ms": _time_library(timer, lib, what),
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes": nbytes, "ops": flops, "t_bytes_ms": t_bytes, "t_ops_ms": t_ops})
+    return rows
+
+
+def _matmul_program(api, dtype: str, n: int = 1024):
+    tp = api.TileProgram(f"mm_{dtype}")
+    out = "int32" if dtype == "int8" else dtype
+    tp.input("A", (n, n), dtype)
+    tp.input("B", (n, n), dtype)
+    tp.output("O", (n, n), out)
+    tp.op("O[i, j] += A[i, c] * B[c, j]", name="mm")
+    return tp.build()
+
+
+def check_new_units(torch, api, LC, timer) -> list:
+    """Phase 4: the corpus under h100 with and without fusion, the bf16 and
+    int8 matmuls, and the ResNet-50 conv in three types."""
+    from repro_torch.core import cache as stripe_cache
+    from repro_torch.explore.runner import _random_arrays
+    from repro_torch.explore.workloads import get_workloads, resnet50_conv2_3x3
+
+    corpus = {w.name: w for w in get_workloads("all")}
+    h100 = api.get_config("h100")
+    cases = []
+    for fuse, hw in (("h100", h100), ("h100-nofuse", h100.without_pass("fuse"))):
+        cases += [(f"{fuse}/{name}", corpus[name].build(), hw) for name in CORPUS]
+    cases += [(f"h100/mm_{dt}_1024", _matmul_program(api, dt), h100)
+              for dt in ("bfloat16", "int8")]
+    cases += [(f"h100/resnet50_conv2_3x3_b{RESNET_BATCH}_{dt}",
+               resnet50_conv2_3x3(RESNET_BATCH, dt), h100)
+              for dt in ("float32", "bfloat16", "int8")]
+    rows = []
+    for label, prog, hw in cases:
+        c = api.jit(prog, hw, "cuda", cache=stripe_cache.CompilationCache(use_disk=False),
+                    use_disk=False)
+        if set(c.record.block_backends.values()) != {"cuda"}:
+            raise AssertionError(f"{label}: {c.record.fallback_reasons()}")
+        rows += unit_rows(torch, LC, timer, label, c,
+                          _random_arrays(c.program.source, seed=SEED, device=DEVICE))
+    return rows
 
 
 def serve(torch, api, K, cfg, params, backend: str, new_tokens: int):
@@ -281,7 +543,9 @@ def serve(torch, api, K, cfg, params, backend: str, new_tokens: int):
     for uid, plen in enumerate(PROMPT_LENS):
         engine.submit(api.Request(uid=uid, prompt=rng.randint(1, cfg.vocab, size=plen),
                                   sampling=api.SamplingParams(max_new_tokens=new_tokens)))
-    K.launches = 0
+    mods = _kernel_modules()
+    for mod in mods.values():
+        mod.launches = 0
     t0 = time.perf_counter()
     try:
         done = engine.run(params)
@@ -289,7 +553,8 @@ def serve(torch, api, K, cfg, params, backend: str, new_tokens: int):
     finally:
         lm._logits = head
     wall = time.perf_counter() - t0
-    launched = K.launches
+    counts = {name: mod.launches for name, mod in mods.items()}
+    launched = counts["contraction"]
     engine.close()
     if sorted(r.uid for r in done) != list(range(len(PROMPT_LENS))):
         raise AssertionError(f"{backend}: finished {[r.uid for r in done]}")
@@ -304,7 +569,7 @@ def serve(torch, api, K, cfg, params, backend: str, new_tokens: int):
              "tok_per_s": met["tokens_out"] / wall,
              "decode_steps": met["decode_steps"],
              "decode_step_ms_median": statistics.median(step_ms),
-             "launches": launched}
+             "launches": launched, "launches_by_kernel": counts}
     if backend == "cuda":
         for name, rec in engine.compile_records().items():
             if (rec.backend != "cuda" or rec.fallback_reasons()
@@ -346,6 +611,71 @@ def compare(runs, exact: bool) -> dict:
     return out
 
 
+def sweep(torch, api) -> dict:
+    """Phase 7, the exploration path.  Returns the launch counts of the
+    sweep's run and its validation."""
+    mods = _kernel_modules()
+    for mod in mods.values():
+        mod.launches = 0
+    t0 = time.perf_counter()
+    sw = api.run_sweep(api.get_space(SWEEP["space"]), SWEEP["workloads"],
+                       budget=SWEEP["budget"], measure_top_k=SWEEP["measure_top_k"],
+                       measure_device=DEVICE)
+    if DEVICE == "cuda":
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {name: mod.launches for name, mod in mods.items()}
+    v = sw.validation
+    for e in v["entries"]:
+        if e["error"]:
+            raise AssertionError(f"sweep point {e['config']}: {e['error']}")
+        for wl, backends in e["block_backends"].items():
+            if not backends or set(backends.values()) != {"cuda"}:
+                raise AssertionError(f"sweep point {e['config']}/{wl}: {backends}")
+    missing = [k for k in KERNEL_MODULES if counts[k] == 0]
+    if missing:
+        raise AssertionError(f"the sweep launched no {missing} kernel: {counts}")
+    # the best predicted point's programs against the torch backend
+    from repro_torch.core import cache as stripe_cache
+    from repro_torch.explore.runner import _random_arrays
+    from repro_torch.explore.workloads import get_workloads
+
+    best = min(sw.unique_points(), key=lambda p: p.latency_s)
+    hw = sw.space.apply(best.point)
+    held = 0.0
+    for w in get_workloads(SWEEP["workloads"]):
+        ref = api.jit(w.build(), hw, "torch", cache=stripe_cache.CompilationCache(use_disk=False),
+                      use_disk=False)
+        got = api.jit(w.build(), hw, "cuda", cache=stripe_cache.CompilationCache(use_disk=False),
+                      use_disk=False)
+        arrays = _random_arrays(got.program.source, seed=SEED, device=DEVICE)
+        want, out = ref(arrays), got(arrays)
+        for name in got.program.outputs:
+            held = max(held, _close(torch, out[name], want[name], f"sweep {best.config_name}/"
+                                    f"{w.name}/{name} against torch"))
+    return {"wall_s": wall, "launches": counts, "validation": v,
+            "points": [(p.index, p.config_name, p.latency_s, p.n_kernels, p.dedup_of)
+                       for p in sw.points],
+            "best": best.config_name, "max_abs_err_vs_torch": held}
+
+
+def _pick(rows, prefix):
+    return [r for r in rows if r["unit"].startswith(prefix)]
+
+
+def _kernel_entry(name, source, replaces, launches, rows, err) -> dict:
+    """One kernel of the summary line, its times the sums over ``rows``
+    (the bound: the sum of the rows' bounds, by what bounds most of it)."""
+    libs = [r["library_ms"] for r in rows]
+    by_bytes = sum(r["t_bytes_ms"] for r in rows) >= sum(r["t_ops_ms"] for r in rows)
+    return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": launches, "max_abs_err": err,
+            "ms": sum(r["ms"] for r in rows), "plain_ms": sum(r["plain_ms"] for r in rows),
+            "bound_ms": sum(r["bound_ms"] for r in rows),
+            "bound_by": "bytes" if by_bytes else "operations",
+            "library_ms": None if any(x is None for x in libs) else sum(libs)}
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--layers", type=int, default=32, help="model depth (full: 32)")
@@ -353,7 +683,7 @@ def main() -> None:
     ap.add_argument("--reps", type=int, default=10, help="timed launches per unit")
     args = ap.parse_args()
 
-    if not (SRC / "repro_torch" / "csrc" / "contraction.cu").is_file():
+    if not all((SRC / "repro_torch" / "csrc" / f"{k}.cu").is_file() for k in KERNEL_MODULES):
         _fail(f"no repro_torch sources under {SRC}: run from a checkout of the repo")
     sys.path.insert(0, str(SRC))
     import torch
@@ -366,15 +696,20 @@ def main() -> None:
     print(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}", flush=True)
 
     from repro_torch import api
+    from repro_torch.core import lower_cuda as LC
+    from repro_torch.kernels import _build
     from repro_torch.kernels import contraction as K
 
     t0 = time.perf_counter()
-    K.load_library()
-    print(f"build: {K.BUILD_INFO.get('path')} in {time.perf_counter() - t0:.2f} s "
-          f"(cached={K.BUILD_INFO.get('cached')})", flush=True)
-    for line in str(K.BUILD_INFO.get("ptxas", "")).splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"  ptxas: {line.strip()}")
+    _build.build_all()
+    for name in KERNEL_MODULES:
+        _kernel_modules()[name].load_library()
+        info = _build.BUILD_INFO[name]
+        print(f"build {name}: {info['path']} (cached={info['cached']})", flush=True)
+        for line in str(info.get("ptxas", "")).splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"  ptxas: {line.strip()}")
+    print(f"build: 3 kernels in {time.perf_counter() - t0:.2f} s", flush=True)
 
     full = api.configs.get("llama3-8b")
     rows = check_units(torch, api, K, full, args.reps)
@@ -382,8 +717,19 @@ def main() -> None:
     for r in rows:
         print("  unit " + json.dumps(r), flush=True)
 
+    timer = _Timer(torch, args.reps)
     mm_err = check_matmul(torch, K)
+    mm_row = time_matmul(torch, timer)
     print(f"stripe_matmul: 9 cases on the card, max abs error {mm_err:.3e}", flush=True)
+    print("  unit " + json.dumps(mm_row), flush=True)
+
+    t0 = time.perf_counter()
+    new_rows = check_new_units(torch, api, LC, timer)
+    print(f"corpus and ResNet units, kernel vs plain: {len(new_rows)} units in "
+          f"{time.perf_counter() - t0:.1f} s; tolerance: integers exact, float32 "
+          f"{RTOL}*(1+max|p|), bf16 {BF16_RTOL}*(1+max|p|)", flush=True)
+    for r in new_rows:
+        print("  unit " + json.dumps(r), flush=True)
 
     import dataclasses
     cfg = dataclasses.replace(full, n_layers=args.layers)
@@ -413,23 +759,41 @@ def main() -> None:
     print("cuda vs torch, float32: " + json.dumps(compare(runs32, exact=True)), flush=True)
     print(f"tokens identical across backends (float32): {runs32['cuda'][0]}")
 
-    decode = [r for r in rows if r["unit"].startswith("decode/")]
-    t_bytes = sum(r["bytes"] for r in decode) / HBM_BYTES_PER_S
-    t_ops = sum(r["flops"] for r in decode) / F32_FLOPS_PER_S
-    summary = {"kernels": [{
-        "name": "contraction",
-        "route": "cuda",
-        "source": "src/repro_torch/csrc/contraction.cu",
-        "replaces": "src/repro/core/lower_pallas.py:979",
-        "launches": serve_launches,
-        "max_abs_err": max(max(r["max_abs_err"] for r in rows), mm_err),
-        # one decode layer: the 9 units at SLOTS rows, KV window MAX_LEN
-        "ms": sum(r["ms"] for r in decode),
-        "plain_ms": sum(r["plain_ms"] for r in decode),
-        "bound_ms": sum(r["bound_ms"] for r in decode),
-        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-        "library_ms": sum(r["library_ms"] for r in decode),
-    }]}
+    sw = sweep(torch, api)
+    v = sw["validation"]
+    print(f"sweep: {SWEEP} in {sw['wall_s']:.1f} s; launches {json.dumps(sw['launches'])}",
+          flush=True)
+    for p in sw["points"]:
+        print(f"  point {json.dumps(p)}")
+    for e in v["entries"]:
+        print("  measured " + json.dumps({k: e[k] for k in (
+            "index", "config", "predicted_latency_s", "measured_total_us", "measured_us")}))
+    print(f"sweep ranks (-1 = baseline): predicted {v['predicted_rank']}, measured "
+          f"{v['measured_rank']}; every unit of every measured point on its kernel; "
+          f"best predicted {sw['best']} against torch: max abs {sw['max_abs_err_vs_torch']:.3e}",
+          flush=True)
+
+    decode = _pick(rows, "decode/")
+    ew = [r for r in new_rows if r["kernel"] == ["elementwise"]]
+    conv = _pick(new_rows, f"h100/resnet50_conv2_3x3_b{RESNET_BATCH}_float32")
+    # contraction: one decode layer (the 9 units at SLOTS rows, KV window
+    # MAX_LEN); elementwise: every unfused elementwise unit of the corpus;
+    # windowed: the float32 ResNet-50 conv.  launches: serve + sweep.
+    summary = {"kernels": [
+        _kernel_entry("contraction", "src/repro_torch/csrc/contraction.cu",
+                      "src/repro/core/lower_pallas.py:979",
+                      serve_launches + sw["launches"]["contraction"], decode,
+                      max([r["max_abs_err"] for r in rows]
+                          + [r["max_abs_err"] for r in new_rows if r["kernel"] == ["contraction"]]
+                          + [mm_err])),
+        _kernel_entry("elementwise", "src/repro_torch/csrc/elementwise.cu",
+                      "src/repro/core/lower_pallas.py:1097", sw["launches"]["elementwise"],
+                      ew, max(r["max_abs_err"] for r in ew)),
+        _kernel_entry("windowed", "src/repro_torch/csrc/windowed.cu",
+                      "src/repro/core/lower_pallas.py:812", sw["launches"]["windowed"],
+                      conv, max(r["max_abs_err"] for r in new_rows
+                                if r["kernel"] == ["windowed"])),
+    ]}
     print(json.dumps(summary))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -10,6 +10,10 @@ Hardware & model configs:
     (architecture registry: ``configs.get(name)``), ``build_model``
 Serving:
     ``ServingEngine``, ``EngineConfig``, ``Request``, ``SamplingParams``
+Exploration:
+    ``explore`` (subpackage: ``run_sweep``, ``get_space``,
+    ``pareto_front``, ``dominating_baseline``, ...), ``get_workloads``,
+    ``roofline_hillclimb``
 Reliability:
     ``faults`` (fault-injection module), ``FaultPlan``, ``InjectedFault``
 Conversion:
@@ -17,10 +21,13 @@ Conversion:
 """
 from __future__ import annotations
 
-from . import configs
+from . import configs, explore
 from .convert import params_from_jax
 from .core import CompiledProgram, TileProgram, compile_cached, stripe_jit
 from .core.hwconfig import HardwareConfig, get_config
+from .explore import dominating_baseline, get_space, pareto_front, run_sweep
+from .explore.hillclimb import roofline_hillclimb
+from .explore.workloads import get_workloads
 from .models.build import build_model
 from .reliability import FaultPlan, InjectedFault, faults
 from .serving import EngineConfig, Request, SamplingParams, ServingEngine
@@ -32,5 +39,7 @@ __all__ = [
     "jit", "compile", "stripe_jit", "compile_cached", "TileProgram",
     "CompiledProgram", "get_config", "HardwareConfig", "configs", "build_model",
     "ServingEngine", "EngineConfig", "Request", "SamplingParams",
+    "explore", "get_workloads", "roofline_hillclimb", "run_sweep", "get_space",
+    "pareto_front", "dominating_baseline",
     "faults", "FaultPlan", "InjectedFault", "params_from_jax",
 ]

@@ -1,7 +1,8 @@
 """CUDA backend: lower optimized (tiled/fused) Stripe blocks to the
-hand-written CUDA C++ contraction kernel (``csrc/contraction.cu``).
+hand-written CUDA C++ kernels (``csrc/contraction.cu``,
+``csrc/elementwise.cu``, ``csrc/windowed.cu``).
 
-The twin of the JAX package's Pallas backend.  Three parts:
+The twin of the JAX package's Pallas backend.  Four parts:
 
 * **Plan extraction**, copied from the Pallas backend and framework
   neutral: ``DimSpec``/``GridRef``, the tile-compute graph (``_TNode``),
@@ -18,15 +19,20 @@ The twin of the JAX package's Pallas backend.  Three parts:
   serving ``scores``/``values`` programs); every other variable is summed,
   the TPU's sequential reduction grid axes included.  The plan's tile is
   an input to the flattening, not the launch shape.
+* **The elementwise and windowed emitters** (``_emit_elementwise``,
+  ``_emit_windowed``), flattened the same way: a map unit becomes one
+  launch of the elementwise kernel; a halo, conv or masked-remainder unit
+  one launch of the windowed kernel, whose inputs are addressed by affine
+  coordinates (an out-of-range read is the reference's zero padding) and
+  whose constraints are affine masks, so no operand is gathered.
 * **The composer** ``lower_program_hybrid``: unit formation, wavefront
   order, output-region placement, refusal of overlapping writes, and a
-  per-unit fallback to the torch backend for a unit no emitter takes.
+  per-unit fallback to the torch backend for a unit no emitter takes (the
+  reference's own legality fallbacks, e.g. a ``max=`` aggregation).
 
-The elementwise and windowed emitters of the Pallas backend are not
-ported yet: a unit that needs them raises ``UnsupportedCuda`` ("... emitter
-not yet ported") and falls back to the torch backend visibly, with its
-reason on the record.  The kernel takes float32 only; other dtypes fall
-back the same way.
+Tensors may be float32, bf16, f16, int8 or int32; every kernel accumulates
+in the reference's ``_acc_dtype`` (int32 for an integer output, else
+float32) and rounds once to the output's type.
 """
 from __future__ import annotations
 
@@ -41,10 +47,16 @@ from . import memplan
 from .ir import (Block, Constant, Intrinsic, Load, Program, Refinement,
                  RefDir, Store, TensorDecl)
 from .lower_torch import synchronize, torch_dtype
+from ..kernels import _build
 from ..kernels import contraction as K
+from ..kernels import elementwise as EW
+from ..kernels import windowed as WK
 
-MAX_WINDOW_STEPS = 512           # unrolled kernel steps per grid point
-MAX_HALO_BYTES = 256 * 2**20     # materialized (gathered) operand budget
+# Window positions one grid point may enumerate (the reference's unroll
+# limit, kept so both backends take the same blocks).  The reference's
+# MAX_HALO_BYTES has no counterpart: the windowed kernel reads halos in
+# place instead of gathering them.
+MAX_WINDOW_STEPS = 512
 
 
 class UnsupportedCuda(Exception):
@@ -613,10 +625,13 @@ _BINARY_CODE = {n: K.OP_BINARY + i for i, n in enumerate(K.BINARY_OPS)}
 
 
 class _Postfix:
-    """Compiles DAGs to postfix programs sharing one constant table."""
+    """Compiles DAGs to postfix programs sharing one constant table.  An
+    integer unit (``int_mode``) takes only the ops closed over the
+    integers: the kernels evaluate it in int32."""
 
-    def __init__(self):
+    def __init__(self, int_mode: bool = False):
         self.consts: List[float] = []
+        self.int_mode = int_mode
 
     def const(self, value: float) -> Tuple[int, int]:
         value = float(value)
@@ -625,6 +640,9 @@ class _Postfix:
         return (K.OP_CONST, self.consts.index(value))
 
     def op(self, name: str, nargs: int) -> Tuple[int, int]:
+        if self.int_mode and name not in (K.INT_UNARY if nargs == 1 else K.INT_BINARY):
+            raise UnsupportedCuda(f"intrinsic {name!r} on integers (an integer unit "
+                                  f"evaluates in int32)")
         if nargs == 1 and name in _UNARY_CODE:
             return (_UNARY_CODE[name], 0)
         if nargs == 2 and name in _BINARY_CODE:
@@ -777,8 +795,7 @@ def _reader(nest: _Nest, li: int, name: str, buffers: Mapping[str, TensorDecl]
     decl = buffers.get(buf)
     if decl is None:
         raise UnsupportedCuda(f"{name} reads unknown buffer {buf}")
-    if str(decl.dtype) != "float32":
-        raise UnsupportedCuda(f"{buf} is {decl.dtype}; the kernel takes float32")
+    _check_dtype(buf, decl)
     shape = tuple(decl.shape)
     if len(shape) != len(dims):
         raise UnsupportedCuda(f"{name} addresses rank {len(dims)} of rank-{len(shape)} {buf}")
@@ -794,6 +811,62 @@ def _reader(nest: _Nest, li: int, name: str, buffers: Mapping[str, TensorDecl]
         for k, c in coefs.items():
             vstride[k] = vstride.get(k, 0) + c * st
     return buf, base, vstride
+
+
+def _check_dtype(buf: str, decl: TensorDecl) -> str:
+    if str(decl.dtype) not in _build.DTYPE_CODES:
+        raise UnsupportedCuda(f"{buf} is {decl.dtype}; the kernels take "
+                              f"{', '.join(_build.DTYPE_CODES)}")
+    return str(decl.dtype)
+
+
+def _output_map(nest: _Nest, out_li: int, out_name: str, out_ref: GridRef,
+                grid_sizes: Mapping[str, int], buffers: Mapping[str, TensorDecl]):
+    """The output region of a unit whose store is refinement ``out_name``
+    at level ``out_li``: (region shape, region base in the buffer, output
+    dimension and coefficient of every variable that addresses it, output
+    type).  Each output dimension must be covered exactly once."""
+    out_buf, _local, out_dims = nest.chain(out_li, out_name)
+    if out_buf is None or out_buf != out_ref.ref.from_buf:
+        raise UnsupportedCuda(f"the unit's store does not reach {out_ref.ref.from_buf}")
+    decl = buffers.get(out_buf)
+    if decl is None:
+        raise UnsupportedCuda(f"output {out_buf} is not declared")
+    out_dtype = _check_dtype(out_buf, decl)
+    out_shape = tuple(s * (grid_sizes[v] if v else 1)
+                      for s, v in zip(out_ref.block_shape, out_ref.dim_vars))
+    base = out_ref.base
+    out_of: Dict[str, Tuple[int, int]] = {}
+    for d, (coefs, const) in enumerate(out_dims):
+        if const != base[d]:
+            raise UnsupportedCuda(f"inner constant offset on output dim {d}")
+        for key, c in coefs.items():
+            if c <= 0 or key in out_of:
+                raise UnsupportedCuda(f"output variable {key} is not a plain index")
+            out_of[key] = (d, c)
+    for d, size in enumerate(out_shape):
+        span = 0
+        for c, e in sorted((c, nest.ext[k]) for k, (dd, c) in out_of.items() if dd == d):
+            if c <= span:
+                raise UnsupportedCuda(f"output dim {d} is written twice")
+            span += c * (e - 1)
+        if span + 1 != size:
+            raise UnsupportedCuda(f"output dim {d}: variables cover {span + 1} of {size}")
+    return out_shape, base, out_of, out_dtype
+
+
+def _launch_order(out_keys: List[str], ostr: Mapping[str, int], ext: Mapping[str, int],
+                  big: Mapping[str, int]) -> List[str]:
+    """Output variable 0 is the one with the smallest output stride (the
+    threads of a warp store side by side); then the variables the largest
+    operand ``big`` does not depend on (blocks that read its same columns
+    run side by side), then by extent."""
+    if not out_keys:
+        return []
+    v0 = min(out_keys, key=lambda k: (ostr[k], -ext[k]))
+    rest = sorted((k for k in out_keys if k != v0),
+                  key=lambda k: (big.get(k, 0) != 0, ext[k]))
+    return [v0] + rest
 
 
 def _merge_vars(keys: List[str], ext: Dict[str, int], tables: List[Dict[str, int]],
@@ -842,46 +915,20 @@ def _emit_contraction(plan: ContractionPlan, outer: Block,
     levels, epi_level = _levels(outer)
     nest = _Nest(levels)
     leaf_li = len(levels) - 1
-    leaf_stores = [s for s in levels[-1].stmts if isinstance(s, Store)]
-    if len(leaf_stores) != 1:
-        raise UnsupportedCuda(f"leaf has {len(leaf_stores)} stores")
+    leaf_store = _leaf_store(levels)
     if epi_level is None:
-        out_li, out_name = leaf_li, leaf_stores[0].buf
+        out_li, out_name = leaf_li, leaf_store.buf
     else:
-        _buf, local, _dims = nest.chain(leaf_li, leaf_stores[0].buf)
+        _buf, local, _dims = nest.chain(leaf_li, leaf_store.buf)
         if local is None or not local.is_scalar_view():
             raise UnsupportedCuda("the fused contraction does not accumulate into a scalar local")
         stores = [s for s in plan.epilogue if isinstance(s, Store)]
         if len(stores) != 1:
             raise UnsupportedCuda(f"epilogue has {len(stores)} stores")
         out_li, out_name = epi_level, stores[0].buf
-    out_buf, _local, out_dims = nest.chain(out_li, out_name)
-    if out_buf is None or out_buf != plan.out_ref.ref.from_buf:
-        raise UnsupportedCuda(f"the group's store does not reach {plan.out_ref.ref.from_buf}")
-    decl = buffers.get(out_buf)
-    if decl is None or str(decl.dtype) != "float32":
-        raise UnsupportedCuda(f"output {out_buf} is not a float32 buffer")
-
     # output variables: one dim each, a mixed-radix cover of the region
-    out_shape = tuple(s * (plan.grid_sizes[v] if v else 1)
-                      for s, v in zip(plan.out_ref.block_shape, plan.out_ref.dim_vars))
-    base = plan.out_ref.base
-    out_of: Dict[str, Tuple[int, int]] = {}
-    for d, (coefs, const) in enumerate(out_dims):
-        if const != base[d]:
-            raise UnsupportedCuda(f"inner constant offset on output dim {d}")
-        for key, c in coefs.items():
-            if c <= 0 or key in out_of:
-                raise UnsupportedCuda(f"output variable {key} is not a plain index")
-            out_of[key] = (d, c)
-    for d, size in enumerate(out_shape):
-        span = 0
-        for c, e in sorted((c, nest.ext[k]) for k, (dd, c) in out_of.items() if dd == d):
-            if c <= span:
-                raise UnsupportedCuda(f"output dim {d} is written twice")
-            span += c * (e - 1)
-        if span + 1 != size:
-            raise UnsupportedCuda(f"output dim {d}: variables cover {span + 1} of {size}")
+    out_shape, base, out_of, out_dtype = _output_map(nest, out_li, out_name, plan.out_ref,
+                                                     plan.grid_sizes, buffers)
     if epi_level is not None and any(nest.level_of[k] > epi_level for k in out_of):
         raise UnsupportedCuda("an inner level writes the fused accumulator")
     red_keys = [k for k in nest.ext if k not in out_of]
@@ -912,24 +959,17 @@ def _emit_contraction(plan: ContractionPlan, outer: Block,
                            same=lambda a, b: out_of[a][0] == out_of[b][0])
     red_keys = _merge_vars(red_keys, ext, [r[2] for r in readers])
 
-    # launch order: output variable 0 is the one with the smallest output
-    # stride; then the variables the largest operand does not depend on
-    # (so blocks sharing its columns run side by side), then by extent
-    out_order: List[str] = []
-    if out_keys:
-        v0 = min(out_keys, key=lambda k: (ostr[k], -ext[k]))
-        big = max(readers, key=lambda r: math.prod(buffers[r[0]].shape))[2] if readers else {}
-        rest = sorted((k for k in out_keys if k != v0),
-                      key=lambda k: (big.get(k, 0) != 0, ext[k]))
-        out_order = [v0] + rest
+    big = max(readers, key=lambda r: math.prod(buffers[r[0]].shape))[2] if readers else {}
+    out_order = _launch_order(out_keys, ostr, ext, big)
     red_order = sorted(red_keys, key=lambda k: -ext[k])
 
     def slot(r) -> K.Slot:
         buf, b, vs = r
         return K.Slot(buf=buf, base=b, ostride=tuple(vs.get(k, 0) for k in out_order),
-                      rstride=tuple(vs.get(k, 0) for k in red_order))
+                      rstride=tuple(vs.get(k, 0) for k in red_order),
+                      dtype=str(buffers[buf].dtype))
 
-    pf = _Postfix()
+    pf = _Postfix(int_mode=K.acc_dtype(out_dtype) == "int32")
     slot_of = {n: i for i, n in enumerate(slot_names)}
     lhs = tuple(pf.tnode(plan.lhs, slot_of))
     rhs = tuple(pf.tnode(plan.rhs, slot_of))
@@ -953,7 +993,8 @@ def _emit_contraction(plan: ContractionPlan, outer: Block,
         out_coef=tuple(out_of[k][1] for k in out_order), out_shape=out_shape,
         red_vars=tuple(red_order), red_ext=tuple(ext[k] for k in red_order),
         slots=tuple(slot(r) for r in readers), eslots=tuple(slot(r) for r in ereaders),
-        lhs=lhs, rhs=rhs, epi=epi, consts=tuple(pf.consts), scale=float(plan.scale))
+        lhs=lhs, rhs=rhs, epi=epi, consts=tuple(pf.consts), scale=float(plan.scale),
+        out_dtype=out_dtype)
 
     def operands(arrays):
         return ([_as_input(arrays[s.buf], buffers[s.buf]) for s in kplan.slots],
@@ -966,16 +1007,214 @@ def _emit_contraction(plan: ContractionPlan, outer: Block,
         return K.contraction_plain(kplan, *operands(arrays), getattr(fn, "out_clip", out_shape))
 
     fn.out_shape = out_shape
-    fn.out_dtype = torch.float32
+    fn.out_dtype = torch_dtype(out_dtype)
     fn.out_base = base
     fn.in_bufs = [s.buf for s in kplan.slots + kplan.eslots]
     fn.plan = kplan
     fn.plain = plain
+    fn.kernel = "contraction"
     return fn
 
 
-def _not_ported(emitter: str, _plan) -> Callable:
-    raise UnsupportedCuda(f"{emitter} emitter not yet ported")
+def _leaf_store(levels: List[Block]) -> Store:
+    stores = [s for s in levels[-1].stmts if isinstance(s, Store)]
+    if len(stores) != 1:
+        raise UnsupportedCuda(f"leaf has {len(stores)} stores")
+    return stores[0]
+
+
+def _load_names(*nodes: _TNode) -> List[str]:
+    names: List[str] = []
+    for n in nodes:
+        for ld in n.loads():
+            if ld.buf not in names:
+                names.append(ld.buf)
+    return names
+
+
+def _check_limits(limits) -> None:
+    for n, cap, what in limits:
+        if n > cap:
+            raise UnsupportedCuda(f"{n} {what} (the kernel takes {cap})")
+
+
+def _emit_elementwise(plan: ElementwisePlan, outer: Block,
+                      buffers: Mapping[str, TensorDecl]) -> Callable:
+    """One map unit as one launch of the elementwise kernel: the block
+    nest flattened to variables that all address the output, each input
+    read through its per-variable strides (0 where it broadcasts)."""
+    levels, epi_level = _levels(outer)
+    if epi_level is not None:
+        raise UnsupportedCuda("elementwise block with trailing epilogue")
+    nest = _Nest(levels)
+    leaf_li = len(levels) - 1
+    out_shape, base, out_of, out_dtype = _output_map(
+        nest, leaf_li, _leaf_store(levels).buf, plan.out_ref, plan.grid_sizes, buffers)
+    extra = [k for k in nest.ext if k not in out_of]
+    if extra:
+        raise UnsupportedCuda(f"elementwise variables {extra} do not address the output")
+    names = _load_names(plan.root)
+    if not names:
+        raise UnsupportedCuda("elementwise unit with no input")
+    readers = [_reader(nest, leaf_li, n, buffers) for n in names]
+
+    ext = dict(nest.ext)
+    rs = _row_strides(out_shape)
+    ostr = {k: c * rs[d] for k, (d, c) in out_of.items()}
+    out_keys = _merge_vars(list(out_of), ext, [ostr] + [r[2] for r in readers],
+                           same=lambda a, b: out_of[a][0] == out_of[b][0])
+    order = _launch_order(out_keys, ostr, ext, {})
+    pf = _Postfix(int_mode=K.acc_dtype(out_dtype) == "int32")
+    prog = tuple(pf.tnode(plan.root, {n: i for i, n in enumerate(names)}))
+    _check_limits([(len(order), K.MAXV, "output variables"), (len(names), K.MAXE, "inputs"),
+                   (len(prog), K.MAXP, "program length"), (len(pf.consts), K.MAXC, "constants"),
+                   (len(out_shape), K.MAXD, "output rank"),
+                   (K.stack_depth(prog), K.MAXSTACK, "stack depth")])
+    mplan = EW.MapPlan(
+        out_vars=tuple(order), out_ext=tuple(ext[k] for k in order),
+        out_dim=tuple(out_of[k][0] for k in order),
+        out_coef=tuple(out_of[k][1] for k in order), out_shape=out_shape,
+        ins=tuple(K.Slot(buf=buf, base=b, ostride=tuple(vs.get(k, 0) for k in order),
+                         rstride=(), dtype=str(buffers[buf].dtype))
+                  for buf, b, vs in readers),
+        prog=prog, consts=tuple(pf.consts), out_dtype=out_dtype)
+
+    def inputs(arrays):
+        return [_as_input(arrays[s.buf], buffers[s.buf]) for s in mplan.ins]
+
+    def fn(arrays: Mapping[str, torch.Tensor]) -> torch.Tensor:
+        return EW.elementwise(mplan, inputs(arrays), getattr(fn, "out_clip", out_shape))
+
+    def plain(arrays: Mapping[str, torch.Tensor]) -> torch.Tensor:
+        return EW.elementwise_plain(mplan, inputs(arrays), getattr(fn, "out_clip", out_shape))
+
+    fn.out_shape = out_shape
+    fn.out_dtype = torch_dtype(out_dtype)
+    fn.out_base = base
+    fn.in_bufs = [s.buf for s in mplan.ins]
+    fn.plan = mplan
+    fn.plain = plain
+    fn.kernel = "elementwise"
+    return fn
+
+
+def _emit_windowed(plan: WindowedPlan, outer: Block, buffers: Mapping[str, TensorDecl],
+                   mp: Optional[memplan.BlockPlan] = None) -> Callable:
+    """One halo / conv / masked-remainder unit as one launch of the
+    windowed kernel: the grid and tile variables flattened, every input
+    coordinate and every constraint an affine function of them."""
+    has_red = bool(plan.red_vars)
+    if mp is not None and ((mp.acc_bytes > 0) != has_red
+                           or set(mp.red_vars) != set(plan.red_vars)):
+        raise UnsupportedCuda(
+            f"memory plan disagrees with emitter: plan acc={mp.acc_bytes}B "
+            f"red={sorted(mp.red_vars)} vs emitter red={sorted(plan.red_vars)}")
+    levels, _epi = _levels(outer)
+    nest = _Nest(levels)
+    tile_li = len(levels) - 1
+    out_shape, base, out_of, out_dtype = _output_map(
+        nest, tile_li, _leaf_store(levels).buf, plan.out_ref, plan.grid_sizes, buffers)
+    red_keys = [k for k in nest.ext if k not in out_of]
+
+    sides = plan.sides if plan.sides is not None else [plan.root]
+    names = _load_names(*sides)
+    if not names:
+        raise UnsupportedCuda("windowed unit with no input")
+    inputs: List[Tuple[str, Tuple[int, ...], str, Coords]] = []
+    for n in names:
+        buf, _local, dims = nest.chain(tile_li, n)
+        if buf is None:
+            raise UnsupportedCuda(f"{n} reads a block-local buffer")
+        decl = buffers.get(buf)
+        if decl is None:
+            raise UnsupportedCuda(f"{n} reads unknown buffer {buf}")
+        if len(decl.shape) != len(dims):
+            raise UnsupportedCuda(f"{n} addresses rank {len(dims)} of rank-{len(decl.shape)} {buf}")
+        if any(c < 0 for coefs, _k in dims for c in coefs.values()):
+            raise UnsupportedCuda(f"{n} walks {buf} backwards")
+        inputs.append((buf, tuple(decl.shape), _check_dtype(buf, decl), dims))
+    cons: Coords = [nest.resolve(0, c.expr) for c in levels[0].constraints]
+    cons += [nest.resolve(li, c.expr) for li in range(1, len(levels))
+             for c in levels[li].constraints]
+
+    ext = dict(nest.ext)
+    rs = _row_strides(out_shape)
+    ostr = {k: c * rs[d] for k, (d, c) in out_of.items()}
+    tables = [dict(coefs) for _buf, _shape, _dt, dims in inputs for coefs, _k in dims]
+    tables += [dict(coefs) for coefs, _k in cons]
+    out_keys = _merge_vars(list(out_of), ext, [ostr] + tables,
+                           same=lambda a, b: out_of[a][0] == out_of[b][0])
+    red_keys = _merge_vars(red_keys, ext, tables)
+    out_order = _launch_order(out_keys, ostr, ext, {})
+    it = iter(tables)
+    inputs = [(buf, shape, dt, [(next(it), k) for _c, k in dims])
+              for buf, shape, dt, dims in inputs]
+    cons = [(next(it), k) for _c, k in cons]
+    # reduction variable 0, the kernel's inner loop: the largest one that
+    # moves no input coordinate that can leave its dimension and no
+    # constraint (a conv's channels, not its taps)
+    guarded = {k for coefs, _k in cons for k in coefs}
+    for _buf, shape, _dt, dims in inputs:
+        for (coefs, const), size in zip(dims, shape):
+            lo = const + sum(min(0, c * (ext[k] - 1)) for k, c in coefs.items())
+            hi = const + sum(max(0, c * (ext[k] - 1)) for k, c in coefs.items())
+            if lo < 0 or hi >= size:
+                guarded.update(coefs)
+    red_order = sorted(red_keys, key=lambda k: (k in guarded, -ext[k]))
+
+    def affine(coefs: Mapping[str, int], const: int) -> WK.Affine:
+        return (const, tuple(coefs.get(k, 0) for k in out_order),
+                tuple(coefs.get(k, 0) for k in red_order))
+
+    # the plain version enumerates the reference's window variables: the
+    # reduction variables of a constraint, and those that share an input
+    # dimension with an output variable
+    taps = {k for coefs, _k in cons for k in coefs if k in red_order}
+    for _buf, _shape, _dt, dims in inputs:
+        for coefs, _k in dims:
+            if any(k in out_order for k in coefs):
+                taps.update(k for k in coefs if k in red_order)
+    int_mode = K.acc_dtype(out_dtype) == "int32"
+    pf = _Postfix(int_mode=int_mode)
+    slot_of = {n: i for i, n in enumerate(names)}
+    progs = [tuple(pf.tnode(side, slot_of)) for side in sides]
+    wplan = WK.WinPlan(
+        out_vars=tuple(out_order), out_ext=tuple(ext[k] for k in out_order),
+        out_dim=tuple(out_of[k][0] for k in out_order),
+        out_coef=tuple(out_of[k][1] for k in out_order), out_shape=out_shape,
+        red_vars=tuple(red_order), red_ext=tuple(ext[k] for k in red_order),
+        ins=tuple(WK.WinInput(buf=buf, shape=shape, dtype=dt,
+                              dims=tuple(affine(c, k) for c, k in dims))
+                  for buf, shape, dt, dims in inputs),
+        constraints=tuple(affine(c, k) for c, k in cons),
+        lhs=progs[0], rhs=progs[1] if len(progs) == 2 else (), n_sides=len(progs),
+        consts=tuple(pf.consts), scale=float(plan.scale),
+        taps=tuple(k for k in red_order if k in taps), out_dtype=out_dtype)
+    _check_limits([(len(out_order), K.MAXV, "output variables"),
+                   (len(red_order), K.MAXV, "reduction variables"),
+                   (len(names), WK.MAXS, "inputs"),
+                   (wplan.n_tracked(), WK.MAXQ, "tracked offsets, coordinates and constraints"),
+                   (max(len(p) for p in progs), K.MAXP, "program length"),
+                   (len(pf.consts), K.MAXC, "constants"), (len(out_shape), K.MAXD, "output rank"),
+                   (max(K.stack_depth(p) for p in progs), K.MAXSTACK, "stack depth")])
+
+    def arrays_of(arrays):
+        return [_as_input(arrays[i.buf], buffers[i.buf]) for i in wplan.ins]
+
+    def fn(arrays: Mapping[str, torch.Tensor]) -> torch.Tensor:
+        return WK.windowed(wplan, arrays_of(arrays), getattr(fn, "out_clip", out_shape))
+
+    def plain(arrays: Mapping[str, torch.Tensor]) -> torch.Tensor:
+        return WK.windowed_plain(wplan, arrays_of(arrays), getattr(fn, "out_clip", out_shape))
+
+    fn.out_shape = out_shape
+    fn.out_dtype = torch_dtype(out_dtype)
+    fn.out_base = base
+    fn.in_bufs = [i.buf for i in wplan.ins]
+    fn.plan = wplan
+    fn.plain = plain
+    fn.kernel = "windowed"
+    return fn
 
 
 def lower_op_cuda(outer: Block, pipeline_depth: int = 2,
@@ -1014,7 +1253,8 @@ def lower_op_cuda(outer: Block, pipeline_depth: int = 2,
 
     contraction = lambda: _emit_contraction(  # noqa: E731
         extract_contraction(outer), outer, buffers, mp=mp)
-    elementwise = lambda: _not_ported("elementwise", extract_elementwise(outer))  # noqa: E731
+    elementwise = lambda: _emit_elementwise(  # noqa: E731
+        extract_elementwise(outer), outer, buffers)
     if not constrained:
         if agg == "assign" and not outer.sub_blocks():
             attempt("elementwise", elementwise)
@@ -1026,7 +1266,9 @@ def lower_op_cuda(outer: Block, pipeline_depth: int = 2,
             attempt("elementwise", elementwise)
         else:
             attempt("contraction", contraction)
-    attempt("windowed", lambda: _not_ported("windowed", extract_windowed(outer)))
+    # the general halo/masked path: constraint-carrying blocks (boundary
+    # remainders, conv halos) and halo views of constraint-free interiors
+    attempt("windowed", lambda: _emit_windowed(extract_windowed(outer), outer, buffers, mp=mp))
     if fn is None:
         raise UnsupportedCuda("; ".join(errors))
     fn.out_buf = out_ref.from_buf

@@ -1,5 +1,5 @@
 // One Stripe fusion group as one CUDA kernel: prologue DAGs on the operand
-// elements, a float32 contraction, an optional scale, then the epilogue DAG
+// elements, the contraction, an optional scale, then the epilogue DAG
 // (bias, activations, diamond joins, extra tensor inputs) and the store.
 //
 // Replaces: src/repro/core/lower_pallas.py::_emit_contraction (the
@@ -19,8 +19,19 @@
 // summed.  The sequential ("arbitrary") reduction grid axes of the TPU
 // kernel, its tile-level reduction and its leaf reduction are all one loop
 // inside the thread: CUDA blocks run in no fixed order and share no
-// scratch.  The accumulator is a float32 register; the epilogue runs once,
-// after the whole reduction; the store writes only inside the clip.
+// scratch.  The epilogue runs once, after the whole reduction; the store
+// writes only inside the clip.
+//
+// Types: every operand, epilogue input and the output carries a type code
+// (float32, bf16, f16, int8, int32).  Loads convert to the accumulator's
+// type, which is the reference's (_acc_dtype): int32 when the output is an
+// integer, else float32; the store rounds once to the output's type (see
+// dag.cuh for how that relates to the reference's tile evaluation).  The
+// loop of a group whose two sides are plain loads of one type (float32,
+// bf16, f16, or int8 into int32), or of float32 and bf16 (a float32
+// intermediate times bf16 weights), is specialised on those types; any
+// other group runs the general loop, which evaluates the prologue
+// programs.
 //
 // Launch: one output element per threadIdx.x, and blockDim.y threads that
 // split its reduction (each takes every blockDim.y-th step of reduction
@@ -45,45 +56,32 @@
 // the operand tiles (a row block of the weights is re-read by each output
 // row from L2, and from HBM when the rows run far apart, as in prefill);
 // no register tiling (one output per thread, two loads per multiply-add);
-// no tensor cores (wgmma) and no TMA; float32 weights (the serving path
-// hands bf16 weights over as float32).  Those are later work.
+// no tensor cores (wgmma) and no TMA; the serving path still hands bf16
+// weights over as float32.  Those are later work.
 
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stddef.h>
-#include <stdint.h>
+#include "dag.cuh"
 
 #define MAXV 8     // output variables, and reduction variables
 #define MAXS 6     // operand slots (distinct leaf loads)
 #define MAXE 6     // extra epilogue inputs
-#define MAXP 32    // postfix program length
-#define MAXC 8     // constants
 #define MAXD 8     // output rank
-#define MAXSTACK 8 // evaluation stack depth
-
-// op-codes; must match repro_torch/kernels/contraction.py
-#define OP_LOAD 0
-#define OP_CONST 1
-#define OP_ACC 2
-#define OP_UNARY 16   // + index into the unary table
-#define OP_BINARY 48  // + index into the binary table
-
-struct Prog {
-    int n;
-    int code[MAXP];
-    int arg[MAXP];
-};
 
 struct Params {
-    float* out;
-    const float* slot[MAXS];
-    const float* eslot[MAXE];
+    void* out;
+    const void* slot[MAXS];
+    const void* eslot[MAXE];
     long long slot_base[MAXS];
     long long slot_ostride[MAXS][MAXV];
     long long slot_rstride[MAXS][MAXV];
     long long eslot_base[MAXE];
     long long eslot_ostride[MAXE][MAXV];
     long long out_ostride[MAXV];
+    double scale;
+    double consts[MAXC];
+    int slot_dt[MAXS];
+    int eslot_dt[MAXE];
+    int out_dt;
+    int acc_int;  // accumulate in int32 (integer output), else float32
     int out_ext[MAXV];
     int out_dim[MAXV];
     int out_coef[MAXV];
@@ -97,73 +95,18 @@ struct Params {
     int block_x;  // blockDim.x: outputs per block
     int block_k;  // blockDim.y: threads splitting one output's reduction
     int fast;     // lhs is exactly "load slot 0" and rhs "load slot 1"
-    float scale;
-    float consts[MAXC];
     Prog lhs;
     Prog rhs;
     Prog epi;
 };
 
-__device__ __forceinline__ float unary_op(int k, float x) {
-    switch (k) {
-        case 0: return -x;                                        // neg
-        case 1: return expf(x);                                   // exp
-        case 2: return logf(x);                                   // log
-        case 3: return tanhf(x);                                  // tanh
-        case 4: return sqrtf(x);                                  // sqrt
-        case 5: return rsqrtf(x);                                 // rsqrt
-        case 6: return 1.0f / (1.0f + expf(-x));                  // sigmoid
-        case 7: return x > 0.0f ? x : 0.0f;                       // relu
-        case 8: return fabsf(x);                                  // abs
-        case 9: return x * x;                                     // square
-        case 10: return erff(x);                                  // erf
-        case 11: return 0.5f * x * (1.0f + erff(x * 0.70710678118654752f));  // gelu (exact)
-        case 12: return x / (1.0f + expf(-x));                    // silu
-        case 13: return (float)((x > 0.0f) - (x < 0.0f));         // sign
-        case 14: return floorf(x);                                // floor
-        default: return x;                                        // cast
-    }
-}
+__device__ __forceinline__ float mac(float a, float b, float acc) { return fmaf(a, b, acc); }
+__device__ __forceinline__ int mac(int a, int b, int acc) { return a * b + acc; }
 
-__device__ __forceinline__ float binary_op(int k, float a, float b) {
-    switch (k) {
-        case 0: return a + b;          // add
-        case 1: return a - b;          // sub
-        case 2: return a * b;          // mul
-        case 3: return a / b;          // div
-        case 4: return fmaxf(a, b);    // max
-        case 5: return fminf(a, b);    // min
-        default: return powf(a, b);    // pow
-    }
-}
-
-__device__ float eval_prog(const Prog& pg, const float* const* ptr,
-                           const long long* off, float acc,
-                           const float* consts) {
-    float st[MAXSTACK];
-    int sp = 0;
-    for (int i = 0; i < pg.n; ++i) {
-        const int c = pg.code[i];
-        const int a = pg.arg[i];
-        if (c == OP_LOAD) {
-            st[sp++] = ptr[a][off[a]];
-        } else if (c == OP_CONST) {
-            st[sp++] = consts[a];
-        } else if (c == OP_ACC) {
-            st[sp++] = acc;
-        } else if (c < OP_BINARY) {
-            st[sp - 1] = unary_op(c - OP_UNARY, st[sp - 1]);
-        } else {
-            const float b = st[--sp];
-            st[sp - 1] = binary_op(c - OP_BINARY, st[sp - 1], b);
-        }
-    }
-    return st[sp - 1];
-}
-
-template <bool FAST>
+// T: accumulator type; FAST: both sides are plain loads of types SA, SB
+template <typename T, typename SA, typename SB, bool FAST>
 __global__ void contraction_kernel(const __grid_constant__ Params p) {
-    __shared__ float part[1024];
+    __shared__ T part[1024];
     const int tx = threadIdx.x;
     const int ty = threadIdx.y;
     const int tk = blockDim.y;
@@ -184,7 +127,7 @@ __global__ void contraction_kernel(const __grid_constant__ Params p) {
     for (int d = 0; d < p.out_rank; ++d)
         if (coord[d] >= p.out_clip[d]) valid = false;
 
-    float acc = 0.0f;
+    T acc = (T)0;
     if (valid) {
         long long so[MAXS];
         for (int s = 0; s < p.n_slot; ++s) {
@@ -204,10 +147,10 @@ __global__ void contraction_kernel(const __grid_constant__ Params p) {
             if (FAST) {
                 const long long sa = p.n_red > 0 ? p.slot_rstride[0][0] : 0;
                 const long long sb = p.n_red > 0 ? p.slot_rstride[1][0] : 0;
-                const float* a = p.slot[0] + so[0] + ty * sa;
-                const float* b = p.slot[1] + so[1] + ty * sb;
+                const SA* a = (const SA*)p.slot[0] + so[0] + ty * sa;
+                const SB* b = (const SB*)p.slot[1] + so[1] + ty * sb;
                 for (int k = ty; k < inner; k += tk) {
-                    acc = fmaf(__ldg(a), __ldg(b), acc);
+                    acc = mac(as_t<T>(__ldg(a)), as_t<T>(__ldg(b)), acc);
                     a += sa * tk;
                     b += sb * tk;
                 }
@@ -216,9 +159,9 @@ __global__ void contraction_kernel(const __grid_constant__ Params p) {
                 for (int s = 0; s < p.n_slot; ++s)
                     o[s] = so[s] + (p.n_red > 0 ? ty * p.slot_rstride[s][0] : 0);
                 for (int k = ty; k < inner; k += tk) {
-                    const float l = eval_prog(p.lhs, p.slot, o, 0.0f, p.consts);
-                    const float r = eval_prog(p.rhs, p.slot, o, 0.0f, p.consts);
-                    acc = fmaf(l, r, acc);
+                    const T l = eval_prog<T>(p.lhs, p.slot, p.slot_dt, o, ~0u, (T)0, p.consts);
+                    const T r = eval_prog<T>(p.rhs, p.slot, p.slot_dt, o, ~0u, (T)0, p.consts);
+                    acc = mac(l, r, acc);
                     if (p.n_red > 0)
                         for (int s = 0; s < p.n_slot; ++s) o[s] += p.slot_rstride[s][0] * tk;
                 }
@@ -240,7 +183,7 @@ __global__ void contraction_kernel(const __grid_constant__ Params p) {
     }
     if (!valid) return;
 
-    float val = acc * p.scale;
+    T val = p.scale != 1.0 ? acc * (T)p.scale : acc;
     if (p.epi.n > 0) {
         long long eo[MAXE];
         for (int s = 0; s < p.n_eslot; ++s) {
@@ -248,11 +191,17 @@ __global__ void contraction_kernel(const __grid_constant__ Params p) {
             for (int i = 0; i < p.n_out; ++i) o += p.eslot_ostride[s][i] * ov[i];
             eo[s] = o;
         }
-        val = eval_prog(p.epi, p.eslot, eo, val, p.consts);
+        val = eval_prog<T>(p.epi, p.eslot, p.eslot_dt, eo, ~0u, val, p.consts);
     }
     long long oo = 0;
     for (int i = 0; i < p.n_out; ++i) oo += p.out_ostride[i] * ov[i];
-    p.out[oo] = val;
+    store_as(p.out, p.out_dt, oo, val);
+}
+
+template <typename T, typename SA, typename SB, bool FAST>
+static void launch(const Params* p, long long n_blocks, cudaStream_t st) {
+    const dim3 block(p->block_x, p->block_k);
+    contraction_kernel<T, SA, SB, FAST><<<(unsigned int)n_blocks, block, 0, st>>>(*p);
 }
 
 extern "C" {
@@ -260,11 +209,23 @@ extern "C" {
 // Launches one fusion group on ``stream``; returns cudaGetLastError().
 int stripe_contraction_launch(const Params* p, long long n_blocks, void* stream) {
     const cudaStream_t st = (cudaStream_t)stream;
-    const dim3 block(p->block_x, p->block_k);
-    if (p->fast)
-        contraction_kernel<true><<<(unsigned int)n_blocks, block, 0, st>>>(*p);
+    const int a = p->slot_dt[0], b = p->slot_dt[1];
+    if (p->fast && !p->acc_int && a == DT_F32 && b == DT_F32)
+        launch<float, float, float, true>(p, n_blocks, st);
+    else if (p->fast && !p->acc_int && a == DT_BF16 && b == DT_BF16)
+        launch<float, __nv_bfloat16, __nv_bfloat16, true>(p, n_blocks, st);
+    else if (p->fast && !p->acc_int && a == DT_F16 && b == DT_F16)
+        launch<float, __half, __half, true>(p, n_blocks, st);
+    else if (p->fast && !p->acc_int && a == DT_F32 && b == DT_BF16)
+        launch<float, float, __nv_bfloat16, true>(p, n_blocks, st);
+    else if (p->fast && !p->acc_int && a == DT_BF16 && b == DT_F32)
+        launch<float, __nv_bfloat16, float, true>(p, n_blocks, st);
+    else if (p->fast && p->acc_int && a == DT_I8 && b == DT_I8)
+        launch<int, int8_t, int8_t, true>(p, n_blocks, st);
+    else if (p->acc_int)
+        launch<int, int, int, false>(p, n_blocks, st);
     else
-        contraction_kernel<false><<<(unsigned int)n_blocks, block, 0, st>>>(*p);
+        launch<float, float, float, false>(p, n_blocks, st);
     return (int)cudaGetLastError();
 }
 

@@ -128,6 +128,20 @@ def conv_mlp(x: int = 24, y: int = 24, c: int = 8, k: int = 16, m: int = 32) -> 
     return tp.build()
 
 
+def resnet50_conv2_3x3(batch: int = 8, dtype: str = "float32") -> Program:
+    """The 3x3 convolution of ResNet-50's conv2_x stage (He et al. 2016,
+    Table 1): 56x56 maps, 64 -> 64 channels, stride 1, zero padding 1, in
+    NHWC.  An int8 layer accumulates into int32.  Not in the sweep corpus
+    (its compile alone takes seconds): the card check measures the
+    windowed kernel on it at real size."""
+    out_dtype = "int32" if dtype == "int8" else dtype
+    return single_op_program(
+        "O[b, x, y, k] += I[b, x + i - 1, y + j - 1, c] * F[i, j, c, k]",
+        {"I": ((batch, 56, 56, 64), dtype), "F": ((3, 3, 64, 64), dtype),
+         "O": ((batch, 56, 56, 64), out_dtype)},
+        out="O", name=f"resnet50_conv2_3x3_{dtype}")
+
+
 _ALL: Dict[str, Workload] = {w.name: w for w in (
     Workload("mm_bias_gelu", mm_bias_gelu, tags=("linear", "fusion")),
     Workload("ffn_relu2", ffn_relu2, tags=("ffn", "fusion")),

@@ -1,45 +1,50 @@
-"""The fusion-group contraction kernel: its plan, its build and binding, its
-launch counter, and its plain PyTorch version.
+"""The fusion-group contraction kernel: its plan, its binding, its launch
+counter, and its plain PyTorch version.
 
 ``csrc/contraction.cu`` is one fixed CUDA C++ source for ``sm_90a`` that
 takes a fusion group as data (a :class:`KernelPlan`): output and reduction
-variables with their extents, per-variable element strides of every
-operand, and the prologue / epilogue DAGs as postfix programs.  It replaces
-the TPU kernel ``src/repro/core/lower_pallas.py::_emit_contraction``.  The
-plan is built from a Stripe fusion group by
-:mod:`repro_torch.core.lower_cuda`; this module knows no IR.
+variables with their extents, per-variable element strides and the element
+type of every operand, and the prologue / epilogue DAGs as postfix
+programs.  It replaces the TPU kernel
+``src/repro/core/lower_pallas.py::_emit_contraction``.  The plan is built
+from a Stripe fusion group by :mod:`repro_torch.core.lower_cuda`; this
+module knows no IR.
 
-The library is compiled with ``nvcc`` into a shared object with a plain C
-interface at first use, from the sources in the repository only, into
-``build/kernels/<hash of the sources>/`` at the repository root, and bound
-with ``ctypes``.  :func:`contraction` launches the kernel for CUDA tensors
-(raising on any failure: there is no fallback) and runs
-:func:`contraction_plain`, the plain PyTorch version of the same function,
-only for tensors on the CPU.  ``launches`` counts kernel launches.
+Types follow the reference's ``_acc_dtype``: the group accumulates in
+int32 when its output is an integer, else in float32; every operand
+converts to that type as it is read, and the result is rounded once to the
+output's type.
+
+The library is built by :mod:`repro_torch.kernels._build` at first use.
+:func:`contraction` launches the kernel for CUDA tensors (raising on any
+failure: there is no fallback) and runs :func:`contraction_plain`, the
+plain PyTorch version of the same function, only for tensors on the CPU.
+``launches`` counts kernel launches.  This module also holds what the three
+kernels share on the host side: the op-codes and the postfix evaluator.
 """
 from __future__ import annotations
 
 import ctypes
 import dataclasses
-import hashlib
 import math
-import os
-import shutil
-import subprocess
-import tempfile
-import time
-from pathlib import Path
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 
+from . import _build
+from ._build import KernelBuildError, KernelLaunchError  # noqa: F401 (re-exported)
+
 # ---------------------------------------------------------------- op-codes
-# Must match csrc/contraction.cu.
+# Must match csrc/dag.cuh.
 OP_LOAD, OP_CONST, OP_ACC = 0, 1, 2
 OP_UNARY, OP_BINARY = 16, 48
 UNARY_OPS = ("neg", "exp", "log", "tanh", "sqrt", "rsqrt", "sigmoid", "relu",
              "abs", "square", "erf", "gelu", "silu", "sign", "floor", "cast")
 BINARY_OPS = ("add", "sub", "mul", "div", "max", "min", "pow")
+
+# the ops an integer program may use (closed over the integers)
+INT_UNARY = ("neg", "relu", "abs", "square", "sign", "floor", "cast")
+INT_BINARY = ("add", "sub", "mul", "max", "min")
 
 MAXV, MAXS, MAXE, MAXP, MAXC, MAXD, MAXSTACK = 8, 6, 6, 32, 8, 8, 8
 
@@ -50,23 +55,23 @@ Program = Tuple[Tuple[int, int], ...]  # postfix (op-code, argument) pairs
 launches = 0
 
 
-class KernelBuildError(RuntimeError):
-    """The CUDA library could not be built or loaded."""
-
-
-class KernelLaunchError(RuntimeError):
-    """A kernel launch was refused (cudaGetLastError() != 0)."""
-
-
 @dataclasses.dataclass(frozen=True)
 class Slot:
     """One tensor the kernel reads: element offset ``base`` plus, per
-    variable, an element stride (0 where the tensor lacks the variable)."""
+    variable, an element stride (0 where the tensor lacks the variable),
+    and its element type."""
 
     buf: str
     base: int
     ostride: Tuple[int, ...]  # per output variable
     rstride: Tuple[int, ...]  # per reduction variable
+    dtype: str = "float32"
+
+
+def acc_dtype(out_dtype: str) -> str:
+    """The reference's accumulator type (``_acc_dtype``): int32 for an
+    integer output, else float32 (the kernels take no float64)."""
+    return "int32" if str(out_dtype).startswith(("int", "uint")) else "float32"
 
 
 @dataclasses.dataclass
@@ -92,11 +97,16 @@ class KernelPlan:
     epi: Program
     consts: Tuple[float, ...]
     scale: float
+    out_dtype: str = "float32"
     _cparams: Dict = dataclasses.field(default_factory=dict, repr=False, compare=False)
 
     @property
     def fast(self) -> bool:
         return self.lhs == ((OP_LOAD, 0),) and self.rhs == ((OP_LOAD, 1),)
+
+    @property
+    def acc(self) -> str:
+        return acc_dtype(self.out_dtype)
 
     def reduction_points(self) -> int:
         return math.prod(self.red_ext)
@@ -140,14 +150,18 @@ def stack_depth(prog: Program) -> int:
 
 
 class _TensorOps:
-    """Postfix operations on (tensor, vars) pairs, broadcasting by name."""
+    """Postfix operations on (tensor, vars) pairs, broadcasting by name;
+    constants take the evaluation type ``dtype``."""
 
-    def __init__(self, ext: Dict[str, int], device):
+    def __init__(self, ext: Dict[str, int], device, dtype=torch.float32):
         self.ext = ext
         self.device = device
+        self.dtype = dtype
 
     def const(self, v):
-        return torch.tensor(v, dtype=torch.float32, device=self.device), ()
+        if not self.dtype.is_floating_point:
+            v = int(v)
+        return torch.tensor(v, dtype=self.dtype, device=self.device), ()
 
     def unary(self, name, x):
         from ..core.lower_torch import _J_UNARY
@@ -166,9 +180,9 @@ class _TensorOps:
         return _J_BINARY[name](self._align(a, union), self._align(b, union)), union
 
 
-def _slot_view(t: torch.Tensor, slot: Slot, plan: KernelPlan):
-    names = plan.out_vars + plan.red_vars
-    exts = plan.out_ext + plan.red_ext
+def _slot_view(t: torch.Tensor, slot: Slot, names: Sequence[str], exts: Sequence[int]):
+    """The elements ``slot`` reads, one axis per variable it depends on;
+    returns (view, variable names)."""
     strides = slot.ostride + slot.rstride
     keep = [(n, e, s) for n, e, s in zip(names, exts, strides) if s != 0]
     t = t.contiguous()
@@ -183,42 +197,63 @@ def _expand_to(x, names: Sequence[str], ext: Dict[str, int], ops: _TensorOps):
     return t.expand([ext[n] for n in names])
 
 
+def einsum_acc(eq: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``torch.einsum`` in the operands' type, which is the accumulator's.
+    CUDA has no integer matrix product: int32 operands go through float64,
+    which holds every partial sum of int8 products exactly below 2**53."""
+    if a.dtype == torch.int32 and a.is_cuda:
+        return torch.einsum(eq, a.to(torch.float64), b.to(torch.float64)).to(torch.int32)
+    return torch.einsum(eq, a, b)
+
+
 def contraction_plain(plan: KernelPlan, slots: Sequence[torch.Tensor],
                       eslots: Sequence[torch.Tensor],
                       clip: Optional[Tuple[int, ...]] = None) -> torch.Tensor:
-    """The plain PyTorch version of the kernel: the prologue DAGs on the
-    operands, ``torch.einsum`` in float32, the scale and the epilogue DAG.
-    Returns the output region cut to ``clip``."""
+    """The plain PyTorch version of the kernel: the operands converted to
+    the accumulator's type, the prologue DAGs, ``torch.einsum``, the scale
+    and the epilogue DAG, rounded to the output's type.  Returns the output
+    region cut to ``clip``."""
+    from ..core.lower_torch import torch_dtype
+
     clip = tuple(plan.out_shape if clip is None else clip)
     device = slots[0].device if slots else torch.device("cpu")
     ext = dict(zip(plan.out_vars + plan.red_vars, plan.out_ext + plan.red_ext))
-    ops = _TensorOps(ext, device)
-    views = [_slot_view(t.to(torch.float32), s, plan) for t, s in zip(slots, plan.slots)]
+    acc_t = torch_dtype(plan.acc)
+    ops = _TensorOps(ext, device, acc_t)
+    names, exts = plan.out_vars + plan.red_vars, plan.out_ext + plan.red_ext
+    views = [_slot_view(t.to(acc_t), s, names, exts) for t, s in zip(slots, plan.slots)]
     lhs = run_postfix(plan.lhs, views, None, plan.consts, ops)
     rhs = run_postfix(plan.rhs, views, None, plan.consts, ops)
     letters = {v: chr(ord("a") + i) for i, v in enumerate(plan.out_vars + plan.red_vars)}
     present = [v for v in plan.out_vars if v in lhs[1] or v in rhs[1]]
     eq = ("".join(letters[v] for v in lhs[1]) + "," + "".join(letters[v] for v in rhs[1])
           + "->" + "".join(letters[v] for v in present))
-    acc = torch.einsum(eq, lhs[0], rhs[0])
+    acc = einsum_acc(eq, lhs[0], rhs[0])
     # a reduction variable neither side depends on adds the same product
     # once per point, as the kernel's loop does
     absent = math.prod(e for v, e in zip(plan.red_vars, plan.red_ext)
                        if v not in lhs[1] and v not in rhs[1])
     if absent != 1:
-        acc = acc * float(absent)
+        acc = acc * absent
     if plan.scale != 1.0:
-        acc = acc * plan.scale
+        acc = acc * ops.const(plan.scale)[0]
     val = (acc, tuple(present))
     if plan.epi:
-        evs = [_slot_view(t.to(torch.float32), s, plan) for t, s in zip(eslots, plan.eslots)]
+        evs = [_slot_view(t.to(acc_t), s, names, exts) for t, s in zip(eslots, plan.eslots)]
         val = run_postfix(plan.epi, evs, val, plan.consts, ops)
-    res = _expand_to(val, plan.out_vars, ext, ops)
-    region = torch.zeros(plan.out_shape, dtype=torch.float32, device=device)
+    return place_region(_expand_to(val, plan.out_vars, ext, ops), plan, clip)
+
+
+def place_region(res: torch.Tensor, plan, clip: Tuple[int, ...]) -> torch.Tensor:
+    """Write ``res`` (one axis per output variable of ``plan``) into a zero
+    output region of the plan's shape and output type; cut it to ``clip``."""
+    from ..core.lower_torch import torch_dtype
+
+    region = torch.zeros(plan.out_shape, dtype=torch_dtype(plan.out_dtype), device=res.device)
     rstr = _row_strides(plan.out_shape)
     torch.as_strided(region, list(plan.out_ext),
                      [c * rstr[d] for d, c in zip(plan.out_dim, plan.out_coef)]).copy_(res)
-    if clip != tuple(plan.out_shape):
+    if tuple(clip) != tuple(plan.out_shape):
         region = region[tuple(slice(0, c) for c in clip)].contiguous()
     return region
 
@@ -247,6 +282,12 @@ class _Params(ctypes.Structure):
         ("eslot_base", ctypes.c_longlong * MAXE),
         ("eslot_ostride", (ctypes.c_longlong * MAXV) * MAXE),
         ("out_ostride", ctypes.c_longlong * MAXV),
+        ("scale", ctypes.c_double),
+        ("consts", ctypes.c_double * MAXC),
+        ("slot_dt", ctypes.c_int * MAXS),
+        ("eslot_dt", ctypes.c_int * MAXE),
+        ("out_dt", ctypes.c_int),
+        ("acc_int", ctypes.c_int),
         ("out_ext", ctypes.c_int * MAXV),
         ("out_dim", ctypes.c_int * MAXV),
         ("out_coef", ctypes.c_int * MAXV),
@@ -260,89 +301,28 @@ class _Params(ctypes.Structure):
         ("block_x", ctypes.c_int),
         ("block_k", ctypes.c_int),
         ("fast", ctypes.c_int),
-        ("scale", ctypes.c_float),
-        ("consts", ctypes.c_float * MAXC),
         ("lhs", _Prog),
         ("rhs", _Prog),
         ("epi", _Prog),
     ]
 
 
-_SRC = Path(__file__).resolve().parent.parent / "csrc" / "contraction.cu"
-BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "kernels"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-
-_LIB: Optional[ctypes.CDLL] = None
-# what the build did: {"path", "seconds", "cached", "ptxas"}
-BUILD_INFO: Dict[str, object] = {}
-
-
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    for cand in ("/usr/local/cuda/bin/nvcc",):
-        if os.path.exists(cand):
-            return cand
-    raise KernelBuildError("nvcc not found: the CUDA kernels build only where the "
-                           "CUDA toolkit is installed")
-
-
-def library_path() -> Path:
-    h = hashlib.sha256(_SRC.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_ROOT / h / "libstripe_contraction.so"
-
-
-def build() -> Path:
-    """Compile the library if this source hash has not been built yet."""
-    so = library_path()
-    if so.exists():
-        BUILD_INFO.update(path=str(so), seconds=0.0, cached=True)
-        return so
-    so.parent.mkdir(parents=True, exist_ok=True)
-    t0 = time.perf_counter()
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=so.parent)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(_SRC)]
-    try:
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-    except OSError as e:
-        os.unlink(tmp)
-        raise KernelBuildError(f"cannot run nvcc: {e}") from e
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise KernelBuildError(f"nvcc failed ({proc.returncode}):\n{proc.stderr[-4000:]}")
-    os.replace(tmp, so)
-    BUILD_INFO.update(path=str(so), seconds=time.perf_counter() - t0, cached=False,
-                      ptxas=proc.stderr.strip())
-    return so
-
-
-def load_library() -> ctypes.CDLL:
-    """Build (at first use) and bind the library; raises KernelBuildError."""
-    global _LIB
-    if _LIB is not None:
-        return _LIB
-    so = build()
-    try:
-        lib = ctypes.CDLL(str(so))
-    except OSError as e:
-        raise KernelBuildError(f"cannot load {so}: {e}") from e
+def _bind(lib: ctypes.CDLL) -> None:
     lib.stripe_contraction_launch.argtypes = [ctypes.c_void_p, ctypes.c_longlong,
                                               ctypes.c_void_p]
     lib.stripe_contraction_launch.restype = ctypes.c_int
     lib.stripe_contraction_layout.argtypes = [ctypes.c_void_p]
     lib.stripe_contraction_layout.restype = None
-    got = (ctypes.c_longlong * 6)()
-    lib.stripe_contraction_layout(ctypes.addressof(got))
-    want = (ctypes.sizeof(_Params), _Params.slot_base.offset, _Params.out_ext.offset,
-            _Params.scale.offset, _Params.lhs.offset, _Params.epi.offset)
-    if tuple(got) != want:
-        raise KernelBuildError(f"Params layout differs between C {tuple(got)} "
-                               f"and the ctypes binding {want}")
-    _LIB = lib
-    return lib
+    _build.check_layout(lib.stripe_contraction_layout,
+                        (ctypes.sizeof(_Params), _Params.slot_base.offset,
+                         _Params.out_ext.offset, _Params.scale.offset,
+                         _Params.lhs.offset, _Params.epi.offset))
+
+
+def load_library() -> ctypes.CDLL:
+    """Build (at first use, with the other kernels) and bind the library;
+    raises KernelBuildError."""
+    return _build.load("contraction", _bind)
 
 
 def _fill_prog(dst: _Prog, prog: Program) -> None:
@@ -375,12 +355,14 @@ def _params(plan: KernelPlan, clip: Tuple[int, ...]) -> Tuple[_Params, int]:
         return hit
     p = _Params()
     for s, slot in enumerate(plan.slots):
+        p.slot_dt[s] = _build.dtype_code(slot.dtype)
         p.slot_base[s] = slot.base
         for i, v in enumerate(slot.ostride):
             p.slot_ostride[s][i] = v
         for j, v in enumerate(slot.rstride):
             p.slot_rstride[s][j] = v
     for s, slot in enumerate(plan.eslots):
+        p.eslot_dt[s] = _build.dtype_code(slot.dtype)
         p.eslot_base[s] = slot.base
         for i, v in enumerate(slot.ostride):
             p.eslot_ostride[s][i] = v
@@ -401,6 +383,8 @@ def _params(plan: KernelPlan, clip: Tuple[int, ...]) -> Tuple[_Params, int]:
     p.n_eslot = len(plan.eslots)
     p.block_x, p.block_k = launch_shape(plan)
     p.fast = int(plan.fast)
+    p.out_dt = _build.dtype_code(plan.out_dtype)
+    p.acc_int = int(plan.acc == "int32")
     p.scale = plan.scale
     for i, c in enumerate(plan.consts):
         p.consts[i] = c
@@ -414,14 +398,6 @@ def _params(plan: KernelPlan, clip: Tuple[int, ...]) -> Tuple[_Params, int]:
     return p, n_blocks
 
 
-def _check_cuda(t: torch.Tensor, what: str, device) -> torch.Tensor:
-    if not t.is_cuda or t.device != device:
-        raise ValueError(f"{what} is on {t.device}, the launch is on {device}")
-    if t.dtype != torch.float32:
-        raise TypeError(f"{what} is {t.dtype}; the kernel takes float32")
-    return t.contiguous()
-
-
 def contraction(plan: KernelPlan, slots: Sequence[torch.Tensor],
                 eslots: Sequence[torch.Tensor],
                 clip: Optional[Tuple[int, ...]] = None) -> torch.Tensor:
@@ -433,23 +409,27 @@ def contraction(plan: KernelPlan, slots: Sequence[torch.Tensor],
     if not tensors or not tensors[0].is_cuda:
         if any(t.is_cuda for t in tensors):
             raise ValueError("contraction: operands on the CPU and on the card")
+        for t, s in zip(tensors, plan.slots + plan.eslots):
+            _build.check_type(t, f"operand {s.buf}", s.dtype)
         return contraction_plain(plan, slots, eslots, clip)
+    from ..core.lower_torch import torch_dtype
+
     device = tensors[0].device
-    slots = [_check_cuda(t, f"operand {s.buf}", device) for t, s in zip(slots, plan.slots)]
-    eslots = [_check_cuda(t, f"epilogue input {s.buf}", device)
+    slots = [_build.check_cuda(t, f"operand {s.buf}", device, s.dtype)
+             for t, s in zip(slots, plan.slots)]
+    eslots = [_build.check_cuda(t, f"epilogue input {s.buf}", device, s.dtype)
               for t, s in zip(eslots, plan.eslots)]
     lib = load_library()
     p, n_blocks = _params(plan, clip)
-    out = torch.empty(clip, dtype=torch.float32, device=device)
+    out = torch.empty(clip, dtype=torch_dtype(plan.out_dtype), device=device)
     p.out = out.data_ptr()
     for s, t in enumerate(slots):
         p.slot[s] = t.data_ptr()
     for s, t in enumerate(eslots):
         p.eslot[s] = t.data_ptr()
     if n_blocks > 0 and out.numel() > 0:
-        stream = torch.cuda.current_stream(device).cuda_stream
-        rc = lib.stripe_contraction_launch(ctypes.addressof(p), n_blocks, stream)
-        if rc != 0:
-            raise KernelLaunchError(f"contraction launch failed: CUDA error {rc}")
+        rc = lib.stripe_contraction_launch(ctypes.addressof(p), n_blocks,
+                                           _build.stream_of(device))
+        _build.launch_rc(rc, "contraction")
         launches += 1
     return out

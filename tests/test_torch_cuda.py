@@ -1,6 +1,7 @@
-"""Tests that need an NVIDIA card: the CUDA contraction kernel against its
-plain PyTorch version.  They skip without a card.  On a machine with one
-(and no JAX), run them alone, without the JAX package's conftest:
+"""Tests that need an NVIDIA card: the CUDA kernels (contraction,
+elementwise, windowed) against their plain PyTorch versions.  They skip
+without a card.  On a machine with one (and no JAX), run them alone,
+without the JAX package's conftest:
 
     python -m pytest -q --noconftest -m cuda tests/test_torch_cuda.py
 
@@ -15,8 +16,14 @@ from repro_torch.core import lower_cuda as LC  # noqa: E402
 from repro_torch.core.driver import stripe_jit  # noqa: E402
 from repro_torch.core.frontend import TileProgram  # noqa: E402
 from repro_torch.core.hwconfig import get_config  # noqa: E402
+from repro_torch.explore.runner import _random_arrays  # noqa: E402
+from repro_torch.explore.workloads import get_workloads, resnet50_conv2_3x3  # noqa: E402
 from repro_torch.kernels import contraction as K  # noqa: E402
+from repro_torch.kernels import elementwise as EW  # noqa: E402
+from repro_torch.kernels import windowed as WK  # noqa: E402
 from repro_torch.kernels.stripe_matmul import matmul, matmul_ref  # noqa: E402
+
+KERNELS = {"contraction": K, "elementwise": EW, "windowed": WK}
 
 
 def _card():
@@ -78,3 +85,96 @@ def test_stripe_matmul_kernel_on_the_card():
     got = matmul(x, w, b, act="silu")
     assert K.launches == before + 1
     torch.testing.assert_close(got, matmul_ref(x, w, b, act="silu"), rtol=1e-5, atol=1e-5)
+
+
+def _assert_kernel_close(got, want, what):
+    """Kernel against plain, by output type: integers exactly; float32
+    within 1e-4 of the largest output (sums in another order); 16-bit
+    floats within 2e-2 of it (both round the same float32 result once; the
+    summation orders can move that result across one rounding step, at
+    most 2**-8 = 3.9e-3 of the element)."""
+    assert got.dtype == want.dtype and got.shape == want.shape, what
+    if not got.dtype.is_floating_point:
+        assert torch.equal(got, want), what
+        return
+    g, w = got.float(), want.float()
+    assert torch.isfinite(g).all(), what
+    tol = 1e-4 if got.dtype == torch.float32 else 2e-2
+    err = (g - w).abs().max().item()
+    assert err <= tol * (1 + w.abs().max().item()), (what, err)
+
+
+def _units_against_plain(c, env):
+    """Run every unit of a compiled program: each kernel against its plain
+    version on the same inputs.  Returns the kernels that ran."""
+    ran = set()
+    for unit, kind, fns in c._fn.steps:
+        assert kind == "cuda", unit.name
+        for fn in fns:
+            mod = KERNELS[fn.kernel]
+            before = mod.launches
+            got, want = fn(env), fn.plain(env)
+            torch.cuda.synchronize()
+            assert mod.launches == before + 1
+            _assert_kernel_close(got, want, f"{unit.name} ({fn.kernel})")
+            env[fn.out_buf] = LC._place(env, c.program.buffers[fn.out_buf], fn, got)
+            ran.add(fn.kernel)
+    return ran
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fuse", [True, False], ids=["fuse", "no-fuse"])
+@pytest.mark.parametrize("name", ["mm_bias_gelu", "ffn_relu2", "attn_scores", "moe_ffn",
+                                  "fig4_conv", "fig5_conv_f32", "conv_mlp"])
+def test_corpus_units_kernel_matches_plain_on_the_card(name, fuse):
+    _card()
+    hw = get_config("h100") if fuse else get_config("h100").without_pass("fuse")
+    prog = {w.name: w for w in get_workloads("all")}[name].build()
+    c = stripe_jit(prog, hw, "cuda", cache=t_cache.CompilationCache(use_disk=False),
+                   use_disk=False)
+    assert set(c.record.block_backends.values()) == {"cuda"}, c.record.fallback_reasons()
+    ran = _units_against_plain(c, _random_arrays(c.program.source, seed=3))
+    if name in ("fig4_conv", "fig5_conv_f32", "conv_mlp"):
+        assert "windowed" in ran
+    if not fuse and name in ("mm_bias_gelu", "ffn_relu2", "moe_ffn"):
+        assert "elementwise" in ran
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int8"])
+def test_resnet_conv_on_the_windowed_kernel(dtype):
+    """ResNet-50's conv2_x 3x3 layer at batch 2: every piece on the
+    windowed kernel, held against its plain version, and the whole layer
+    against ``conv2d`` in float64 (int8: bit-exact)."""
+    _card()
+    torch.backends.cudnn.allow_tf32 = False
+    prog = resnet50_conv2_3x3(batch=2, dtype=dtype)
+    c = stripe_jit(prog, get_config("h100"), "cuda",
+                   cache=t_cache.CompilationCache(use_disk=False), use_disk=False)
+    env = _random_arrays(c.program.source, seed=4)
+    assert _units_against_plain(c, dict(env)) == {"windowed"}
+    got = c(env)["O"]
+    x = env["I"].permute(0, 3, 1, 2).double()
+    w = env["F"].permute(3, 2, 0, 1).double()
+    want = torch.nn.functional.conv2d(x, w, padding=1).permute(0, 2, 3, 1)
+    if dtype == "int8":
+        assert got.dtype == torch.int32 and torch.equal(got.double(), want)
+    else:
+        _assert_kernel_close(got, want.to(got.dtype), "resnet conv vs conv2d")
+
+
+@pytest.mark.cuda
+def test_elementwise_broadcasts_and_rounds_on_the_card():
+    _card()
+    tp = TileProgram("bcast")
+    tp.input("X", (4, 33, 70), "bfloat16"); tp.input("b", (70,)); tp.input("s", (33, 1))
+    tp.output("O", (4, 33, 70), "bfloat16")
+    tp.op("O[n, i, j] = silu(X[n, i, j] + b[j]) * s[i, 0]", name="map")
+    prog = tp.build()
+    c = stripe_jit(prog, get_config("h100"), "cuda",
+                   cache=t_cache.CompilationCache(use_disk=False), use_disk=False)
+    env = _random_arrays(c.program.source, seed=5)
+    assert _units_against_plain(c, dict(env)) == {"elementwise"}
+    x, b, sc = env["X"].float(), env["b"], env["s"]
+    want = (torch.nn.functional.silu(x + b) * sc).to(torch.bfloat16)
+    _assert_kernel_close(c(env)["O"], want, "silu(X + b) * s")
