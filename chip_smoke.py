@@ -8,9 +8,10 @@ NVIDIA card.
 Phases, each of which raises on failure (the script then exits non-zero
 and prints no result):
 
-1. **build** — compile the three CUDA kernels (contraction, elementwise,
-   windowed) from the sources in this checkout, one ``nvcc`` per source
-   for ``sm_90a``, all started together, and bind them.
+1. **build** — compile the five CUDA kernels (contraction, elementwise,
+   windowed, flash_attention, gla) from the sources in this checkout, one
+   ``nvcc`` per source for ``sm_90a``, all started together, and bind
+   them.
 2. **kernel vs plain** — every fusion group of the full-width llama3-8b
    serving programs (decode: ``SLOTS`` rows, KV window ``MAX_LEN``;
    prefill: a ``BUCKET``-row prompt bucket) runs on the card through the
@@ -69,10 +70,29 @@ and prints no result):
    measured point must have run on its kernel, and each of the three
    kernels must have been launched; the best predicted point's programs
    are then held against the ``torch`` backend.
+8. **attention and recurrence kernels** — the entry points
+   ``kernels.flash_attention.flash_attention``,
+   ``kernels.mlstm_chunk.mlstm_chunk`` and ``kernels.ssd_chunk.ssd_chunk``
+   at the full width of the models that use them, blocks and chunks left
+   to the autotiler: llama3-8b's prefill attention (B 1, Hq 32, Hkv 8,
+   D 128) in bf16 at S 4096 causal, in float32 at S 2048 causal and full,
+   and causal with Sq 512 < Sk 2048 (top-left mask); xlstm-125m's mLSTM
+   (arXiv:2405.04517: inner 1536, 4 heads, Dk = Dv = 384, B 8, S 2048,
+   bf16, forget-gate bias 3); zamba2-2.7b's Mamba2 SSD (80 heads, P = N =
+   64, B 2, S 4096, bf16, A = -(1..16), D = 1); the mLSTM and SSD calls
+   again in float32 on the same values.  Inputs come from a CUDA
+   ``torch.Generator``.  Each output is held against the kernel's plain
+   version on the same inputs (``RTOL`` / ``BF16_RTOL`` of the largest
+   plain output, by the inputs' type; the median plain output is printed
+   beside it, for the headroom: the bf16 tolerance can exceed a typical
+   output, and the float32 cases hold the same code tightly at these
+   shapes) and timed as in phase 2, beside its bound and, for flash,
+   ``scaled_dot_product_attention`` (the yardstick; GLA has no single
+   PyTorch call).
 
 Launch counts are read per path: every count is set to 0 just before the
-serve phase (path 1) and before the sweep (path 2), and read just after
-each.  The last lines are the kernel summary (JSON), the card's name and
+serve phase (path 1), before the sweep (path 2) and before phase 8's
+calls of the entry points (path 3), and read just after each.  The last lines are the kernel summary (JSON), the card's name and
 power limit as ``nvidia-smi`` reports them, and the result line
 ``{"ok": true, "device": {...}}``.  TF32 is off wherever the plain
 version and the yardstick run.
@@ -115,7 +135,21 @@ CORPUS = ("mm_bias_gelu", "ffn_relu2", "attn_scores", "moe_ffn", "fig4_conv", "c
           "fig5_conv_f32")
 SWEEP = dict(space="h100-sweep", workloads="default", budget=8, measure_top_k=3)
 RESNET_BATCH = 8
-KERNEL_MODULES = ("contraction", "elementwise", "windowed")
+# every kernel (its source is csrc/<name>.cu), and those the compiler's
+# units launch (the sweep must reach each of these)
+KERNEL_MODULES = ("contraction", "elementwise", "windowed", "flash_attention", "gla")
+UNIT_KERNELS = ("contraction", "elementwise", "windowed")
+# phase 8: llama3-8b attention (B, Hq, Hkv, D) and its cases (S_q, S_k,
+# causal, dtype); xlstm-125m's mLSTM (B, heads, S, Dk = Dv); zamba2-2.7b's
+# SSD (B, heads, S, P = N)
+LLAMA_ATTN = (1, 32, 8, 128)
+FLASH_CASES = ((4096, 4096, True, "bfloat16"), (2048, 2048, True, "float32"),
+               (2048, 2048, False, "float32"), (512, 2048, True, "float32"))
+XLSTM = (8, 4, 2048, 384)
+ZAMBA2_SSD = (2, 80, 4096, 64)
+# the GLA cases run in the models' type and again in float32 on the same
+# values, where RTOL holds the kernel at the same widths
+GLA_DTYPES = ("bfloat16", "float32")
 # where phases 4 and 7 put their tensors (a rehearsal on the CPU sets
 # "cpu": the kernels' plain versions then run, and nothing is launched)
 DEVICE = "cuda"
@@ -279,14 +313,17 @@ def time_matmul(torch, timer) -> dict:
 # ------------------------------------------------------------ new units
 def _kernel_modules():
     from repro_torch.kernels import contraction, elementwise, windowed
+    from repro_torch.kernels.flash_attention import kernel as flash
+    from repro_torch.kernels.mlstm_chunk import kernel as gla
 
-    return {"contraction": contraction, "elementwise": elementwise, "windowed": windowed}
+    return {"contraction": contraction, "elementwise": elementwise, "windowed": windowed,
+            "flash_attention": flash, "gla": gla}
 
 
-def _close(torch, got, want, what: str) -> float:
+def _close(torch, got, want, what: str, tol: float | None = None) -> float:
     """Largest error of ``got`` against ``want`` by output type (integers
     exactly; float32 within RTOL, bf16 within BF16_RTOL, of the largest
-    output); raises past it."""
+    output; ``tol`` in place of either); raises past it."""
     if got.dtype != want.dtype or got.shape != want.shape:
         raise AssertionError(f"{what}: {got.dtype}{tuple(got.shape)} against "
                              f"{want.dtype}{tuple(want.shape)}")
@@ -296,11 +333,12 @@ def _close(torch, got, want, what: str) -> float:
     if not got.dtype.is_floating_point:
         ok = err == 0
     else:
-        tol = RTOL if got.dtype == torch.float32 else BF16_RTOL
+        if tol is None:
+            tol = RTOL if got.dtype == torch.float32 else BF16_RTOL
         ok = bool(torch.isfinite(g).all()) and err <= tol * (1 + scale)
     if not ok:
         raise AssertionError(f"{what}: kernel and plain differ (max abs {err:.3e}, "
-                             f"largest output {scale:.3e})")
+                             f"largest output {scale:.3e}, tolerance {tol})")
     return err
 
 
@@ -632,7 +670,7 @@ def sweep(torch, api) -> dict:
         for wl, backends in e["block_backends"].items():
             if not backends or set(backends.values()) != {"cuda"}:
                 raise AssertionError(f"sweep point {e['config']}/{wl}: {backends}")
-    missing = [k for k in KERNEL_MODULES if counts[k] == 0]
+    missing = [k for k in UNIT_KERNELS if counts[k] == 0]
     if missing:
         raise AssertionError(f"the sweep launched no {missing} kernel: {counts}")
     # the best predicted point's programs against the torch backend
@@ -657,6 +695,143 @@ def sweep(torch, api) -> dict:
             "points": [(p.index, p.config_name, p.latency_s, p.n_kernels, p.dedup_of)
                        for p in sw.points],
             "best": best.config_name, "max_abs_err_vs_torch": held}
+
+
+def _sdpa(torch, q, k, v, causal):
+    """``scaled_dot_product_attention`` on the same inputs (the yardstick;
+    the port never calls it) and the backend torch chose for them."""
+    F = torch.nn.functional
+    try:
+        from torch.nn.attention import SDPBackend
+
+        backend = SDPBackend(torch._fused_sdp_choice(q, k, v, is_causal=causal,
+                                                     enable_gqa=True)).name
+    except (AttributeError, RuntimeError, TypeError, ValueError) as e:
+        backend = f"unknown ({type(e).__name__})"
+    return (lambda: F.scaled_dot_product_attention(q, k, v, is_causal=causal, enable_gqa=True),
+            backend)
+
+
+def _attention_bound(torch, ins, out, pairs_macs: int) -> dict:
+    """Bytes (each input read once, the output written once) over the HBM
+    rate against ``pairs_macs`` multiply-adds over the peak of the inputs'
+    type."""
+    nbytes = sum(t.numel() * t.element_size() for t in ins) + out.numel() * out.element_size()
+    ops = 2 * pairs_macs
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / _op_rate([ins[0].dtype]) * 1e3
+    return {"bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes": nbytes, "ops": ops, "t_bytes_ms": t_bytes, "t_ops_ms": t_ops}
+
+
+def _gla_macs(b, h, s, dk, dv, chunk) -> int:
+    """Multiply-adds of the chunk's four products over the whole sequence:
+    the scores q k^T and scores @ v on and below the diagonal, q @ C and
+    (k w)^T v in full."""
+    tri = chunk * (chunk + 1) // 2
+    return b * h * (s // chunk) * (tri * (dk + dv) + 2 * chunk * dk * dv)
+
+
+def check_attention_kernels(torch, timer) -> dict:
+    """Phase 8, path 3: the attention and recurrence entry points at full
+    width.  Returns the launch counts of the path, one row per case, and
+    the largest error per kernel."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import kernel as FA
+    from repro_torch.kernels.mlstm_chunk import kernel as GLA
+    from repro_torch.kernels.mlstm_chunk import choose_chunk, mlstm_chunk
+    from repro_torch.kernels.ssd_chunk import ssd_chunk
+    from repro_torch.nn.scan_ops import chunked_gla_torch
+
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+
+    def randn(*shape, dtype="bfloat16"):
+        return torch.randn(*shape, generator=gen, device=DEVICE).to(getattr(torch, dtype))
+
+    b, hq, hkv, d = LLAMA_ATTN
+    flash_in = [(randn(b, hq, sq, d, dtype=dt), randn(b, hkv, sk, d, dtype=dt),
+                 randn(b, hkv, sk, d, dtype=dt)) for sq, sk, _c, dt in FLASH_CASES]
+    xb, xh, xs, xd = XLSTM
+    mq, mk, mv = (randn(xb, xh, xs, xd) for _ in range(3))
+    m_i, m_f = randn(xb, xh, xs), (3.0 + randn(xb, xh, xs, dtype="float32")).bfloat16()
+    sb, sh, ss, sp = ZAMBA2_SSD
+    sx, sB, sC = (randn(sb, sh, ss, sp) for _ in range(3))
+    s_dt = F.softplus(randn(sb, sh, ss, dtype="float32")).bfloat16()
+    s_A = -torch.exp(torch.log(torch.linspace(1.0, 16.0, sh, device=DEVICE)))
+    s_D = torch.ones(sh, device=DEVICE)
+    # the GLA inputs in each of GLA_DTYPES, the same values
+    mlstm_in = {ty: [t.to(getattr(torch, ty)) for t in (mq, mk, mv, m_i, m_f)]
+                for ty in GLA_DTYPES}
+    ssd_in = {ty: [t.to(getattr(torch, ty)) for t in (sx, s_dt, sB, sC)] for ty in GLA_DTYPES}
+
+    mods = _kernel_modules()
+    for mod in mods.values():
+        mod.launches = 0
+    t0 = time.perf_counter()
+    flash_out = [FA.flash_attention(q, k, v, causal=c)
+                 for (q, k, v), (_sq, _sk, c, _dt) in zip(flash_in, FLASH_CASES)]
+    m_out = {ty: mlstm_chunk(*ins) for ty, ins in mlstm_in.items()}
+    s_out = {ty: ssd_chunk(x, dt, s_A, B, C, s_D) for ty, (x, dt, B, C) in ssd_in.items()}
+    if DEVICE == "cuda":
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {name: mod.launches for name, mod in mods.items()}
+    for name in ("flash_attention", "gla"):
+        if counts[name] == 0:
+            raise AssertionError(f"phase 8 launched no {name} kernel: {counts}")
+
+    rows, worst = [], {"flash_attention": 0.0, "gla": 0.0}
+
+    def hold(what, kernel, got, want, ty):
+        tol = RTOL if ty == "float32" else BF16_RTOL
+        err = _close(torch, got, want, what, tol)
+        worst[kernel] = max(worst[kernel], err)
+        w = want.float().abs()
+        scale = w.max().item()
+        return {"dtype": ty, "max_abs_err": err, "max_abs_out": scale,
+                "median_abs_out": w.median().item(), "rtol": tol,
+                "tolerance": tol * (1 + scale)}
+
+    for (q, k, v), (sq, sk, causal, dt), got in zip(flash_in, FLASH_CASES, flash_out):
+        bq, bk = FA.choose_block_sizes(sq, sk, d)
+        what = f"flash llama3-8b B{b} Hq{hq} Hkv{hkv} Sq{sq} Sk{sk} D{d} {dt} " + \
+            ("causal" if causal else "full")
+        row = {"unit": what, "kernel": "flash_attention", "blocks": [bq, bk]}
+        row.update(hold(what, "flash_attention", got,
+                        FA.flash_attention_plain(q, k, v, causal=causal), dt))
+        pairs = sum(min(i + 1, sk) for i in range(sq)) if causal else sq * sk
+        row.update(_attention_bound(torch, (q, k, v), got, 2 * b * hq * pairs * d))
+        lib, backend = _sdpa(torch, q, k, v, causal)
+        row.update({"ms": timer(lambda: FA.flash_attention(q, k, v, causal=causal)),
+                    "plain_ms": timer(lambda: FA.flash_attention_plain(q, k, v, causal=causal)),
+                    "library_ms": _time_library(timer, lib, what), "library": backend})
+        rows.append(row)
+
+    # the GLA rows: each entry point's output against the plain version of
+    # the same composition (the SSD adds its D skip in float32 to both),
+    # within the tolerance of the inputs' type; the times are of the
+    # kernel's own call and its plain version on the same inputs
+    for ty in GLA_DTYPES:
+        (q, k, v, i_gate, f_gate), (x, dt, B, C) = mlstm_in[ty], ssd_in[ty]
+        skip = s_D[None, :, None, None] * x
+        for what, out, ins, kw, post, dims in (
+                (f"mlstm xlstm-125m B{xb} H{xh} S{xs} Dk=Dv={xd} {ty}", m_out[ty],
+                 (q, k, v, F.logsigmoid(f_gate), torch.exp(torch.clamp(i_gate, max=8.0))),
+                 {"normalize": True, "scale": xd ** -0.5}, None, (xb, xh, xs, xd, xd)),
+                (f"ssd zamba2-2.7b B{sb} H{sh} S{ss} P=N={sp} {ty}", s_out[ty],
+                 (C, B, x, dt * s_A[None, :, None], dt),
+                 {"normalize": False, "scale": 1.0}, lambda y: y + skip, (sb, sh, ss, sp, sp))):
+            chunk = choose_chunk(dims[2], dims[3], dims[4])
+            what = f"{what} chunk {chunk}"
+            row = {"unit": what, "kernel": "gla", "chunk": chunk}
+            want = chunked_gla_torch(*ins, chunk=chunk, **kw)
+            row.update(hold(what, "gla", out, want if post is None else post(want), ty))
+            row.update(_attention_bound(torch, ins, want, _gla_macs(*dims, chunk)))
+            row.update({"ms": timer(lambda: GLA.chunked_gla(*ins, chunk=chunk, **kw)),
+                        "plain_ms": timer(lambda: chunked_gla_torch(*ins, chunk=chunk, **kw)),
+                        "library_ms": None, "library": None})
+            rows.append(row)
+    return {"wall_s": wall, "launches": counts, "rows": rows, "max_abs_err": worst}
 
 
 def _pick(rows, prefix):
@@ -709,7 +884,7 @@ def main() -> None:
         for line in str(info.get("ptxas", "")).splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  ptxas: {line.strip()}")
-    print(f"build: 3 kernels in {time.perf_counter() - t0:.2f} s", flush=True)
+    print(f"build: {len(KERNEL_MODULES)} kernels in {time.perf_counter() - t0:.2f} s", flush=True)
 
     full = api.configs.get("llama3-8b")
     rows = check_units(torch, api, K, full, args.reps)
@@ -773,12 +948,24 @@ def main() -> None:
           f"best predicted {sw['best']} against torch: max abs {sw['max_abs_err_vs_torch']:.3e}",
           flush=True)
 
+    del params, params32
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    attn = check_attention_kernels(torch, timer)
+    print(f"attention and recurrence kernels: {len(attn['rows'])} cases in "
+          f"{time.perf_counter() - t0:.1f} s (the entry points' run {attn['wall_s']:.2f} s); "
+          f"launches {json.dumps(attn['launches'])}; tolerance max|k-p| <= rtol*(1+max|p|), "
+          f"float32 {RTOL}, bf16 {BF16_RTOL}", flush=True)
+    for r in attn["rows"]:
+        print("  unit " + json.dumps(r), flush=True)
+
     decode = _pick(rows, "decode/")
     ew = [r for r in new_rows if r["kernel"] == ["elementwise"]]
     conv = _pick(new_rows, f"h100/resnet50_conv2_3x3_b{RESNET_BATCH}_float32")
     # contraction: one decode layer (the 9 units at SLOTS rows, KV window
     # MAX_LEN); elementwise: every unfused elementwise unit of the corpus;
-    # windowed: the float32 ResNet-50 conv.  launches: serve + sweep.
+    # windowed: the float32 ResNet-50 conv.  launches: serve + sweep (for
+    # the three compiler kernels).
     summary = {"kernels": [
         _kernel_entry("contraction", "src/repro_torch/csrc/contraction.cu",
                       "src/repro/core/lower_pallas.py:979",
@@ -793,6 +980,17 @@ def main() -> None:
                       "src/repro/core/lower_pallas.py:812", sw["launches"]["windowed"],
                       conv, max(r["max_abs_err"] for r in new_rows
                                 if r["kernel"] == ["windowed"])),
+        # flash: llama3-8b's bf16 prefill attention at S 4096; gla: the
+        # bf16 mLSTM and SSD calls together.  launches: phase 8's path.
+        _kernel_entry("flash_attention", "src/repro_torch/csrc/flash_attention.cu",
+                      "src/repro/kernels/flash_attention/kernel.py:108",
+                      attn["launches"]["flash_attention"], attn["rows"][:1],
+                      attn["max_abs_err"]["flash_attention"]),
+        _kernel_entry("chunked_gla", "src/repro_torch/csrc/gla.cu",
+                      "src/repro/kernels/mlstm_chunk/kernel.py:115", attn["launches"]["gla"],
+                      [r for r in attn["rows"]
+                       if r["kernel"] == "gla" and r["dtype"] == "bfloat16"],
+                      attn["max_abs_err"]["gla"]),
     ]}
     print(json.dumps(summary))
     print(card)

@@ -14,10 +14,13 @@ Exploration:
     ``explore`` (subpackage: ``run_sweep``, ``get_space``,
     ``pareto_front``, ``dominating_baseline``, ...), ``get_workloads``,
     ``roofline_hillclimb``
+Kernels:
+    ``matmul``, ``matmul_ref`` (the Stripe-compiled matmul),
+    ``choose_block_sizes`` (flash attention's blocks under ``h100``)
 Reliability:
     ``faults`` (fault-injection module), ``FaultPlan``, ``InjectedFault``
 Conversion:
-    ``params_from_jax``
+    ``params_from_jax`` (onto the card unless ``device="cpu"``)
 """
 from __future__ import annotations
 
@@ -28,6 +31,8 @@ from .core.hwconfig import HardwareConfig, get_config
 from .explore import dominating_baseline, get_space, pareto_front, run_sweep
 from .explore.hillclimb import roofline_hillclimb
 from .explore.workloads import get_workloads
+from .kernels.flash_attention.ops import choose_block_sizes
+from .kernels.stripe_matmul.ops import matmul, matmul_ref
 from .models.build import build_model
 from .reliability import FaultPlan, InjectedFault, faults
 from .serving import EngineConfig, Request, SamplingParams, ServingEngine
@@ -41,5 +46,6 @@ __all__ = [
     "ServingEngine", "EngineConfig", "Request", "SamplingParams",
     "explore", "get_workloads", "roofline_hillclimb", "run_sweep", "get_space",
     "pareto_front", "dominating_baseline",
+    "matmul", "matmul_ref", "choose_block_sizes",
     "faults", "FaultPlan", "InjectedFault", "params_from_jax",
 ]

@@ -1,0 +1,326 @@
+// Flash attention forward, GQA, causal or full, as one CUDA kernel.
+//
+// Replaces: src/repro/kernels/flash_attention/kernel.py::flash_attention
+// (the pl.pallas_call at :137, body _fa_kernel at :63).  On the TPU the
+// grid is (B*Hq, q blocks, kv blocks) with the kv axis "arbitrary": the
+// running (m, l, acc) of a q block sits in VMEM scratch from one kv step
+// to the next.  CUDA blocks run in no order, so here one CTA owns one
+// (b*Hq head, q tile of block_q rows) and loops over the kv tiles itself.
+//
+// What it computes, as the reference does: s = (q . k) * sm_scale in
+// float32; under ``causal`` the mask qpos >= kpos with both counted from 0
+// (top-left aligned when Sq != Sk), masked scores -1e30 (not -inf: exp
+// gives 0, never NaN); the online softmax m, l, acc in float32; a row
+// whose l is 0 writes 0; the output is rounded once to the type of q.  The
+// kv head of q head h is h / (Hq / Hkv).  For ``causal`` the kv loop ends
+// after the last kv tile of block_k keys that starts at or before the
+// tile's last query (the reference's block skip, kernel.py:76-78).
+//
+// Layout of the work.  8 warps; warp w owns R consecutive rows of the q
+// tile (R = block_q / 8 rounded up to a power of two, a template
+// parameter, so each thread keeps R rows of state in registers).  The Q
+// tile lives in shared memory as float32 for the whole kv loop.  K and V
+// come through shared memory 32 keys at a time, one key per lane: for its
+// key a lane forms the R scores (float4 reads, the Q rows broadcast), the
+// warp reduces max and sum with shuffles, and the probabilities go
+// through a per-warp shared buffer for P @ V, where each lane owns the
+// head-dim columns lane, lane + 32, ... (DPL of them).  A warp whose rows
+// all lie above a 32-key slab skips it: every score there is masked and
+// would add exactly 0.  Operands load as their type (f32 or bf16: a
+// template parameter) and convert to float32 once, on the way into shared
+// memory.
+//
+// What bounds it: operations.  At Sq = Sk = 4096, D = 128 a q tile of 128
+// rows does 2 * 128 * 4096 * 128 * 2 flops (half of them under causal)
+// per 2 * 4096 * 128 operand elements: far above the H100's ridge.  This
+// first version runs them on the CUDA cores in float32 (67 TFLOP/s on the
+// data sheet) where the card's bf16 tensor cores give 989: the product of
+// a later PR is mma / wgmma on bf16 tiles fed by TMA, which this design
+// leaves out.  Its shared-memory traffic (one float4 read of K plus R
+// broadcast float4 reads of Q per 4R multiply-adds) caps the score loop
+// near 80% of the float32 rate at R = 16.  The loads into shared memory
+// run at compile-time trip counts, eight in flight per thread, so a tile
+// costs about one round trip to L2 rather than one per element.
+
+#include "dag.cuh"
+
+#define FA_WARPS 8
+#define FA_NEG -1e30f  // the reference's NEG_INF
+
+struct FaParams {
+    const void* q;  // (B, Hq, Sq, D)
+    const void* k;  // (B, Hkv, Sk, D)
+    const void* v;  // (B, Hkv, Sk, D)
+    void* o;        // (B, Hq, Sq, D)
+    int sq, sk, d;
+    int hq, hkv, group;
+    int block_q, block_k, n_q;
+    int causal;
+    int dt;  // element type of q, k, v and o (DT_F32 or DT_BF16)
+    float sm_scale;
+};
+
+__device__ __forceinline__ float warp_max(float x) {
+    for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
+    return x;
+}
+
+__device__ __forceinline__ float warp_sum(float x) {
+    for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
+    return x;
+}
+
+// element ``off`` of a tensor of element type T, as float
+template <typename T>
+__device__ __forceinline__ float ld(const void* p, long long off) {
+    return Elem<T>::f(__ldg((const T*)p + off));
+}
+
+// shared memory of one CTA, in floats
+template <int DPL, int R>
+__host__ __device__ constexpr int fa_smem_floats() {
+    return FA_WARPS * R * (DPL * 32 + 4) + 32 * (DPL * 32 + 4) + 32 * DPL * 32 + FA_WARPS * R * 32;
+}
+
+// T: the element type of q, k, v and o
+template <typename T, int DPL, int R>
+__global__ void __launch_bounds__(FA_WARPS * 32, 1) flash_fwd_kernel(const __grid_constant__ FaParams p) {
+    constexpr int NT = FA_WARPS * 32;
+    constexpr int DP = DPL * 32;  // head dim padded to a multiple of the warp
+    constexpr int QS = DP + 4;    // row stride of Q and K: float4-aligned, conflict-free
+    constexpr int ROWS = FA_WARPS * R;
+    constexpr int QN = ROWS * DP / NT, QB = QN < 8 ? QN : 8;  // Q tile: loads a thread, a batch
+    constexpr int KN = 32 * DP / NT, KB = KN < 8 ? KN : 8;    // K, V slab: the same
+    extern __shared__ float4 fa_smem4[];
+    float* Qs = (float*)fa_smem4;  // [ROWS][QS]
+    float* Ks = Qs + ROWS * QS;    // [32][QS]
+    float* Vs = Ks + 32 * QS;      // [32][DP]
+    float* Ps = Vs + 32 * DP;      // [FA_WARPS][R][32]
+
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    const int qi = p.n_q - 1 - (int)blockIdx.x;  // the longest causal tiles first
+    const int bh = blockIdx.y;
+    const int b = bh / p.hq, h = bh % p.hq;
+    const int q0 = qi * p.block_q;
+    const long long q_base = ((long long)bh * p.sq + q0) * p.d;
+    const long long kv_base = ((long long)b * p.hkv + h / p.group) * p.sk * p.d;
+
+#pragma unroll 1
+    for (int u0 = 0; u0 < QN; u0 += QB) {
+        float x[QB];
+#pragma unroll
+        for (int u = 0; u < QB; ++u) {
+            const int i = threadIdx.x + (u0 + u) * NT, r = i / DP, c = i % DP;
+            x[u] = (r < p.block_q && c < p.d) ? ld<T>(p.q, q_base + (long long)r * p.d + c) : 0.0f;
+        }
+#pragma unroll
+        for (int u = 0; u < QB; ++u) {
+            const int i = threadIdx.x + (u0 + u) * NT;
+            Qs[(i / DP) * QS + i % DP] = x[u];
+        }
+    }
+
+    int kv_end = p.sk;
+    if (p.causal) {
+        const long long last_q = (long long)q0 + p.block_q - 1;
+        kv_end = (int)min((long long)p.sk, (last_q / p.block_k + 1) * p.block_k);
+    }
+    const int row0 = warp * R;                     // first row of this warp in the tile
+    const int n_rows = min(R, p.block_q - row0);   // <= 0: an idle warp
+    const int last_q = q0 + row0 + n_rows - 1;
+    float* Pw = Ps + warp * R * 32;
+
+    float m[R], l[R], acc[R][DPL];
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+        m[r] = FA_NEG;
+        l[r] = 0.0f;
+#pragma unroll
+        for (int t = 0; t < DPL; ++t) acc[r][t] = 0.0f;
+    }
+
+    for (int kv0 = 0; kv0 < kv_end; kv0 += 32) {
+        __syncthreads();  // every warp is done with the previous slab
+#pragma unroll 1
+        for (int u0 = 0; u0 < KN; u0 += KB) {
+            float kx[KB], vx[KB];
+#pragma unroll
+            for (int u = 0; u < KB; ++u) {
+                const int i = threadIdx.x + (u0 + u) * NT, j = i / DP, c = i % DP;
+                kx[u] = vx[u] = 0.0f;
+                if (kv0 + j < kv_end && c < p.d) {
+                    const long long off = kv_base + (long long)(kv0 + j) * p.d + c;
+                    kx[u] = ld<T>(p.k, off);
+                    vx[u] = ld<T>(p.v, off);
+                }
+            }
+#pragma unroll
+            for (int u = 0; u < KB; ++u) {
+                const int i = threadIdx.x + (u0 + u) * NT, j = i / DP, c = i % DP;
+                Ks[j * QS + c] = kx[u];
+                Vs[j * DP + c] = vx[u];
+            }
+        }
+        __syncthreads();
+        if (n_rows <= 0 || (p.causal && kv0 > last_q)) continue;
+
+        // the scores of this lane's key against the warp's R rows
+        float s[R];
+#pragma unroll
+        for (int r = 0; r < R; ++r) s[r] = 0.0f;
+        const float4* k4 = (const float4*)(Ks + lane * QS);
+#pragma unroll 4
+        for (int c4 = 0; c4 < DP / 4; ++c4) {
+            const float4 kk = k4[c4];
+#pragma unroll
+            for (int r = 0; r < R; ++r) {
+                const float4 qq = ((const float4*)(Qs + (row0 + r) * QS))[c4];
+                s[r] = fmaf(qq.x, kk.x, s[r]);
+                s[r] = fmaf(qq.y, kk.y, s[r]);
+                s[r] = fmaf(qq.z, kk.z, s[r]);
+                s[r] = fmaf(qq.w, kk.w, s[r]);
+            }
+        }
+        const int key = kv0 + lane;
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+            float x = s[r] * p.sm_scale;
+            if (key >= kv_end) x = -INFINITY;  // past the loop's end: no key
+            else if (p.causal && q0 + row0 + r < key) x = FA_NEG;
+            const float m_new = fmaxf(m[r], warp_max(x));
+            const float alpha = expf(m[r] - m_new);
+            const float pe = expf(x - m_new);
+            l[r] = l[r] * alpha + warp_sum(pe);
+            m[r] = m_new;
+#pragma unroll
+            for (int t = 0; t < DPL; ++t) acc[r][t] *= alpha;
+            Pw[r * 32 + lane] = pe;
+        }
+        __syncwarp();
+        // acc += P @ V over the slab's 32 keys
+#pragma unroll 2
+        for (int j = 0; j < 32; j += 4) {
+            float v0[DPL], v1[DPL], v2[DPL], v3[DPL];
+#pragma unroll
+            for (int t = 0; t < DPL; ++t) {
+                v0[t] = Vs[(j + 0) * DP + lane + 32 * t];
+                v1[t] = Vs[(j + 1) * DP + lane + 32 * t];
+                v2[t] = Vs[(j + 2) * DP + lane + 32 * t];
+                v3[t] = Vs[(j + 3) * DP + lane + 32 * t];
+            }
+#pragma unroll
+            for (int r = 0; r < R; ++r) {
+                const float4 pp = *(const float4*)(Pw + r * 32 + j);
+#pragma unroll
+                for (int t = 0; t < DPL; ++t) {
+                    acc[r][t] = fmaf(pp.x, v0[t], acc[r][t]);
+                    acc[r][t] = fmaf(pp.y, v1[t], acc[r][t]);
+                    acc[r][t] = fmaf(pp.z, v2[t], acc[r][t]);
+                    acc[r][t] = fmaf(pp.w, v3[t], acc[r][t]);
+                }
+            }
+        }
+        __syncwarp();
+    }
+
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+        if (r >= n_rows) break;
+        const float lr = l[r] == 0.0f ? 1.0f : l[r];
+        const long long row = q_base + (long long)(row0 + r) * p.d;
+#pragma unroll
+        for (int t = 0; t < DPL; ++t) {
+            const int c = lane + 32 * t;
+            if (c < p.d) store_as(p.o, p.dt, row + c, acc[r][t] / lr);
+        }
+    }
+}
+
+// one (T, DPL, R) instantiation: dynamic shared memory above 48 KB is
+// opted into per kernel before its launch
+template <typename T, int DPL, int R>
+static int launch_fa(const FaParams* p, int n_bh, cudaStream_t st) {
+    constexpr int bytes = fa_smem_floats<DPL, R>() * (int)sizeof(float);
+    const cudaError_t e = cudaFuncSetAttribute(
+        flash_fwd_kernel<T, DPL, R>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (e != cudaSuccess) return (int)e;
+    flash_fwd_kernel<T, DPL, R><<<dim3(p->n_q, n_bh), FA_WARPS * 32, bytes, st>>>(*p);
+    return (int)cudaGetLastError();
+}
+
+template <typename T, int DPL>
+static int fa_by_rows(const FaParams* p, int rows, int n_bh, cudaStream_t st) {
+    switch (rows) {
+        case 1: return launch_fa<T, DPL, 1>(p, n_bh, st);
+        case 2: return launch_fa<T, DPL, 2>(p, n_bh, st);
+        case 4: return launch_fa<T, DPL, 4>(p, n_bh, st);
+        case 8: return launch_fa<T, DPL, 8>(p, n_bh, st);
+        case 16:
+            if constexpr (DPL <= 4) return launch_fa<T, DPL, 16>(p, n_bh, st);
+            return -1;
+        default: return -1;
+    }
+}
+
+template <typename T>
+static int fa_by_dpl(const FaParams* p, int dpl, int rows, int n_bh, cudaStream_t st) {
+    switch (dpl) {
+        case 1: return fa_by_rows<T, 1>(p, rows, n_bh, st);
+        case 2: return fa_by_rows<T, 2>(p, rows, n_bh, st);
+        case 4: return fa_by_rows<T, 4>(p, rows, n_bh, st);
+        case 8: return fa_by_rows<T, 8>(p, rows, n_bh, st);
+        default: return -1;
+    }
+}
+
+template <int DPL>
+static int smem_by_rows(int rows) {
+    switch (rows) {
+        case 1: return fa_smem_floats<DPL, 1>() * 4;
+        case 2: return fa_smem_floats<DPL, 2>() * 4;
+        case 4: return fa_smem_floats<DPL, 4>() * 4;
+        case 8: return fa_smem_floats<DPL, 8>() * 4;
+        case 16:
+            if constexpr (DPL <= 4) return fa_smem_floats<DPL, 16>() * 4;
+            return -1;
+        default: return -1;
+    }
+}
+
+extern "C" {
+
+// Launches one flash-attention forward on ``stream``: ``dpl`` = the head
+// dim rounded up to a multiple of 32, over 32 (1, 2, 4 or 8); ``rows`` =
+// rows per warp R (1, 2, 4, 8, or 16 where dpl <= 4); ``n_bh`` = B * Hq;
+// the element type is p->dt (f32 or bf16).  Returns
+// cudaGetLastError(), or -1 for a combination not built.
+int stripe_flash_attention_launch(const FaParams* p, int dpl, int rows, int n_bh, void* stream) {
+    const cudaStream_t st = (cudaStream_t)stream;
+    switch (p->dt) {
+        case DT_F32: return fa_by_dpl<float>(p, dpl, rows, n_bh, st);
+        case DT_BF16: return fa_by_dpl<__nv_bfloat16>(p, dpl, rows, n_bh, st);
+        default: return -1;
+    }
+}
+
+// Shared memory of one CTA of (dpl, rows), in bytes (-1: not built).
+int stripe_flash_attention_smem(int dpl, int rows) {
+    switch (dpl) {
+        case 1: return smem_by_rows<1>(rows);
+        case 2: return smem_by_rows<2>(rows);
+        case 4: return smem_by_rows<4>(rows);
+        case 8: return smem_by_rows<8>(rows);
+        default: return -1;
+    }
+}
+
+// Layout of FaParams as this compiler laid it out, for the binding's check.
+void stripe_flash_attention_layout(long long* out) {
+    out[0] = (long long)sizeof(FaParams);
+    out[1] = (long long)offsetof(FaParams, sq);
+    out[2] = (long long)offsetof(FaParams, causal);
+    out[3] = (long long)offsetof(FaParams, dt);
+    out[4] = (long long)offsetof(FaParams, sm_scale);
+}
+
+}  // extern "C"

@@ -1,14 +1,15 @@
 """Build and load the port's CUDA libraries.
 
 Each kernel is one CUDA C++ source under ``csrc/`` with a plain C
-interface (``contraction.cu``, ``elementwise.cu``, ``windowed.cu``); all of
-them include ``csrc/dag.cuh``, the shared device code (element types,
-typed loads and stores, the postfix DAG evaluator).  Each source compiles
-with ``nvcc`` for ``sm_90a`` into its own shared object under
-``build/kernels/<hash>/`` at the repository root, the hash covering the
-source, the header and the flags, and is bound with ``ctypes``.  The first
-load starts one ``nvcc`` per missing library, all at once, and waits for
-them together, so the three builds cost the time of the slowest.
+interface (``contraction.cu``, ``elementwise.cu``, ``windowed.cu``,
+``flash_attention.cu``, ``gla.cu``); all of them include ``csrc/dag.cuh``,
+the shared device code (element types, typed loads and stores, the
+postfix DAG evaluator).  Each source compiles with ``nvcc`` for ``sm_90a``
+into its own shared object under ``build/kernels/<hash>/`` at the
+repository root, the hash covering the source, the header and the flags,
+and is bound with ``ctypes``.  The first load starts one ``nvcc`` per
+missing library, all at once, and waits for them together, so the five
+builds cost the time of the slowest.
 
 Nothing is built on import: only a kernel launch (or an explicit
 :func:`build_all`) compiles, which happens only where ``nvcc`` exists.
@@ -29,7 +30,8 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = {"contraction": "contraction.cu", "elementwise": "elementwise.cu",
-           "windowed": "windowed.cu"}
+           "windowed": "windowed.cu", "flash_attention": "flash_attention.cu",
+           "gla": "gla.cu"}
 HEADERS = ("dag.cuh",)
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -148,8 +150,9 @@ def grid_stride_blocks(n_points: int) -> int:
     return max(1, min(MAX_BLOCKS, -(-n_points // BLOCK)))
 
 
-def dtype_code(dtype: str) -> int:
-    return DTYPE_CODES[str(dtype)]
+def dtype_code(dtype) -> int:
+    """The kernels' type code of a dtype name or a ``torch.dtype``."""
+    return DTYPE_CODES[str(dtype).replace("torch.", "")]
 
 
 def launch_rc(rc: int, what: str) -> None:

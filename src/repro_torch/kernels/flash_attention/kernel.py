@@ -1,0 +1,303 @@
+"""Flash attention forward: the CUDA kernel's binding, its launch counter,
+its plain PyTorch version, and the block sizes the autotiler chooses.
+
+``csrc/flash_attention.cu`` replaces the TPU kernel
+``src/repro/kernels/flash_attention/kernel.py::flash_attention``: GQA
+attention, causal or full, with the online softmax (m, l, acc) in float32.
+One CTA owns one (b*Hq head, q tile of ``block_q`` rows) and loops over the
+kv tiles of ``block_k`` keys itself, up to the diagonal under ``causal``;
+the source says how the work is laid out.
+
+:func:`flash_attention` launches the kernel for CUDA tensors (raising on
+any failure) and runs :func:`flash_attention_plain` only for CPU tensors.
+``launches`` counts kernel launches.
+"""
+from __future__ import annotations
+
+import ctypes
+import math
+from typing import Optional, Tuple
+
+import torch
+
+from .. import _build
+
+NEG_INF = -1e30
+
+# Kernel launches since import (or since the caller last reset it).
+launches = 0
+
+# The kernel's geometry (csrc/flash_attention.cu): 8 warps; each warp owns
+# R rows of the q tile, R a power of two up to 16 (8 where the head dim
+# needs more than 4 columns a lane); the head dim up to 256.
+WARPS = 8
+MAX_HEAD_DIM = 256
+_TYPES = (torch.float32, torch.bfloat16)
+
+
+def _dpl(head_dim: int) -> int:
+    """Head-dim columns per lane: ``head_dim`` rounded up to 32, 64, 128 or
+    256, over 32."""
+    return 1 << max(0, math.ceil(math.log2(-(-head_dim // 32))))
+
+
+def _max_rows(head_dim: int) -> int:
+    return 16 if _dpl(head_dim) <= 4 else 8
+
+
+def max_block_q(head_dim: int) -> int:
+    """The most query rows one CTA of the kernel holds at ``head_dim``."""
+    return WARPS * _max_rows(head_dim)
+
+
+def rows_per_warp(block_q: int) -> int:
+    """R: the rows each of the 8 warps owns, a power of two."""
+    return 1 << max(0, math.ceil(math.log2(-(-block_q // WARPS))))
+
+
+def smem_bytes(block_q: int, head_dim: int) -> int:
+    """Shared memory of one CTA (``fa_smem_floats`` in the source): the Q
+    tile, a 32-key slab of K and of V, and each warp's probabilities."""
+    dp = 32 * _dpl(head_dim)
+    rows = WARPS * rows_per_warp(block_q)
+    return 4 * (rows * (dp + 4) + 32 * (dp + 4) + 32 * dp + rows * 32)
+
+
+# ------------------------------------------------------------ block sizes
+_PARAMS = {"cost": "roofline", "search": "pow2", "mem_cap_frac": 0.2, "count_untiled": True}
+
+
+def _block_unit(hw):
+    """The memory one kernel block works in: the unit the config's
+    ``localize`` pass names (``SMEM`` under ``h100``, ``VMEM`` under
+    ``tpu_v5e``)."""
+    for name, params in hw.passes:
+        if name == "localize" and "inner" in params:
+            return hw.mem(params["inner"])
+    return hw.inner_mem()
+
+
+def search_params(hw) -> dict:
+    """The reference's search parameters, capped by the per-block unit:
+    ``mem_cap_frac`` is a fraction of the inner unit (L2 under ``h100``,
+    VMEM under ``tpu_v5e``); where 0.2 of it exceeds the block unit, the
+    fraction shrinks to the block unit's size.  Under ``tpu_v5e`` the block
+    unit is the inner unit and the parameters are the reference's."""
+    params = dict(_PARAMS)
+    inner, block = hw.inner_mem(), _block_unit(hw)
+    if block.size_bytes < params["mem_cap_frac"] * inner.size_bytes:
+        params["mem_cap_frac"] = block.size_bytes / inner.size_bytes
+    return params
+
+
+def search_block_sizes(seq_q: int, seq_k: int, head_dim: int, hw) -> Tuple[int, int]:
+    """The Stripe autotiler's (block_q, block_k) for the score contraction
+    S[q,k] += Q[q,d] * K[k,d] under ``hw``, with :func:`search_params` and
+    the reference's clamp (``kernel.py:52-53``).  Not memoized."""
+    from ...core.frontend import single_op_program
+    from ...core.passes.autotile import choose_tiling
+
+    prog = single_op_program(
+        "S[q, k] += Q[q, d] * K[k, d]",
+        {"Q": ((seq_q, head_dim), "bfloat16"), "K": ((seq_k, head_dim), "bfloat16"),
+         "S": ((seq_q, seq_k), "float32")},
+        out="S",
+    )
+    tiles, _cost = choose_tiling(prog.entry.stmts[0], hw, search_params(hw))
+    bq = max(min(tiles.get("q", 512), seq_q), min(128, seq_q))
+    bk = max(min(tiles.get("k", 512), seq_k), min(128, seq_k))
+    return bq, bk
+
+
+def choose_block_sizes(seq_q: int, seq_k: int, head_dim: int) -> Tuple[int, int]:
+    """(block_q, block_k) for the kernel, memoized through the compilation
+    cache.
+
+    The search runs under the ``h100`` config, capped twice so that the
+    tile fits one CTA: the search's tile by the config's per-block ``SMEM``
+    unit (227 KB; the reference's 0.2 of the inner unit would be 0.2 of the
+    50 MB L2, which gives block_q = 4096 at (4096, 4096, 128)), and then
+    ``block_q`` by the rows one CTA of the kernel holds
+    (:func:`max_block_q`): where the search's block_q is larger, it becomes
+    the largest divisor of ``seq_q`` within that limit."""
+    from ...core import cache as stripe_cache
+    from ...core.hwconfig import get_config
+
+    hw = get_config("h100")
+    memo_version = 1  # bump when the caps below change
+
+    def search():
+        bq, bk = search_block_sizes(seq_q, seq_k, head_dim, hw)
+        cap = max_block_q(head_dim)
+        if bq > cap:
+            bq = max(d for d in range(1, cap + 1) if seq_q % d == 0)
+        return [bq, bk]
+
+    bq, bk = stripe_cache.memoize(
+        "flash_attn_blocks",
+        [memo_version, seq_q, seq_k, head_dim, sorted(search_params(hw).items()),
+         hw.fingerprint()],
+        search)
+    return int(bq), int(bk)
+
+
+def _resolve(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, sm_scale, block_q,
+             block_k) -> Tuple[float, int, int]:
+    """The reference's argument handling (``kernel.py:114-126``), its
+    asserts as ``ValueError``."""
+    if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
+        raise ValueError(f"flash_attention: q {tuple(q.shape)}, k {tuple(k.shape)}, "
+                         f"v {tuple(v.shape)}; want (B, Hq, Sq, D) and (B, Hkv, Sk, D) twice")
+    b, hq, sq, d = q.shape
+    if k.shape[0] != b or k.shape[3] != d or hq % k.shape[1]:
+        raise ValueError(f"flash_attention: q {tuple(q.shape)} against k {tuple(k.shape)}")
+    sk = k.shape[2]
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(d)
+    if block_q is None or block_k is None:
+        cq, ck = choose_block_sizes(sq, sk, d)
+        block_q = block_q or min(cq, sq)
+        block_k = block_k or min(ck, sk)
+    block_q = min(block_q, sq)
+    block_k = min(block_k, sk)
+    if sq % block_q or sk % block_k:
+        raise ValueError(f"flash_attention: blocks ({block_q}, {block_k}) do not divide "
+                         f"(Sq, Sk) = ({sq}, {sk})")
+    return float(sm_scale), block_q, block_k
+
+
+def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          causal: bool = True, sm_scale: Optional[float] = None,
+                          block_q: Optional[int] = None,
+                          block_k: Optional[int] = None) -> torch.Tensor:
+    """The plain PyTorch version of the kernel: the reference's online
+    softmax over kv blocks of ``block_k`` keys, in float32, every q row at
+    once.  A kv block the reference skips for a q block (all of it above
+    the diagonal) adds exactly nothing here: its scores are -1e30, so its
+    probabilities are 0 and the running max does not move.  The causal mask
+    is ``qpos >= kpos`` from 0 (top-left aligned when Sq != Sk); a row
+    whose sum ``l`` is 0 writes 0."""
+    sm_scale, _block_q, block_k = _resolve(q, k, v, sm_scale, block_q, block_k)
+    b, hq, sq, d = q.shape
+    hkv, sk = k.shape[1], k.shape[2]
+    qf = q.float().reshape(b, hkv, hq // hkv, sq, d)
+    kf = k.float().unsqueeze(2)
+    vf = v.float().unsqueeze(2)
+    m = torch.full((b, hkv, hq // hkv, sq, 1), NEG_INF, device=q.device)
+    l = torch.zeros_like(m)
+    acc = torch.zeros_like(qf)
+    qpos = torch.arange(sq, device=q.device)[:, None]
+    # the last kv block any q block reaches: the reference's block skip
+    kv_end = min(sk, ((sq - 1) // block_k + 1) * block_k) if causal else sk
+    for k0 in range(0, kv_end, block_k):
+        s = torch.matmul(qf, kf[..., k0:k0 + block_k, :].transpose(-1, -2)) * sm_scale
+        if causal:
+            kpos = torch.arange(k0, k0 + block_k, device=q.device)[None, :]
+            s = torch.where(qpos >= kpos, s, torch.full_like(s, NEG_INF))
+        m_cur = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+        alpha = torch.exp(m - m_cur)
+        p = torch.exp(s - m_cur)
+        l = l * alpha + p.sum(dim=-1, keepdim=True)
+        acc = acc * alpha + torch.matmul(p, vf[..., k0:k0 + block_k, :])
+        m = m_cur
+    l = torch.where(l == 0.0, torch.ones_like(l), l)
+    return (acc / l).reshape(b, hq, sq, d).to(q.dtype)
+
+
+# ---------------------------------------------------------- C binding
+class _FaParams(ctypes.Structure):
+    _fields_ = [
+        ("q", ctypes.c_void_p),
+        ("k", ctypes.c_void_p),
+        ("v", ctypes.c_void_p),
+        ("o", ctypes.c_void_p),
+        ("sq", ctypes.c_int),
+        ("sk", ctypes.c_int),
+        ("d", ctypes.c_int),
+        ("hq", ctypes.c_int),
+        ("hkv", ctypes.c_int),
+        ("group", ctypes.c_int),
+        ("block_q", ctypes.c_int),
+        ("block_k", ctypes.c_int),
+        ("n_q", ctypes.c_int),
+        ("causal", ctypes.c_int),
+        ("dt", ctypes.c_int),
+        ("sm_scale", ctypes.c_float),
+    ]
+
+
+def _bind(lib: ctypes.CDLL) -> None:
+    lib.stripe_flash_attention_launch.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                                                  ctypes.c_int, ctypes.c_void_p]
+    lib.stripe_flash_attention_launch.restype = ctypes.c_int
+    lib.stripe_flash_attention_smem.argtypes = [ctypes.c_int, ctypes.c_int]
+    lib.stripe_flash_attention_smem.restype = ctypes.c_int
+    lib.stripe_flash_attention_layout.argtypes = [ctypes.c_void_p]
+    lib.stripe_flash_attention_layout.restype = None
+    _build.check_layout(lib.stripe_flash_attention_layout,
+                        (ctypes.sizeof(_FaParams), _FaParams.sq.offset, _FaParams.causal.offset,
+                         _FaParams.dt.offset, _FaParams.sm_scale.offset))
+    for d in (32, 64, 128, 256):
+        for r in (1, 2, 4, 8, 16):
+            if r > _max_rows(d):
+                continue
+            got = lib.stripe_flash_attention_smem(_dpl(d), r)
+            if got != smem_bytes(WARPS * r, d):
+                raise _build.KernelBuildError(
+                    f"flash_attention shared memory: C {got} B, Python {smem_bytes(WARPS * r, d)} B "
+                    f"(head dim {d}, {r} rows a warp)")
+
+
+def load_library() -> ctypes.CDLL:
+    return _build.load("flash_attention", _bind)
+
+
+def _launch(q, k, v, causal: bool, sm_scale: float, block_q: int, block_k: int) -> torch.Tensor:
+    global launches
+    device = q.device
+    for name, t in (("k", k), ("v", v)):
+        if not t.is_cuda or t.device != device:
+            raise ValueError(f"flash_attention: {name} is on {t.device}, q on {device}")
+        if t.dtype != q.dtype:
+            raise TypeError(f"flash_attention: {name} is {t.dtype}, q is {q.dtype}")
+    if q.dtype not in _TYPES:
+        raise TypeError(f"flash_attention: the kernel takes {_TYPES}, not {q.dtype}")
+    b, hq, sq, d = q.shape
+    hkv, sk = k.shape[1], k.shape[2]
+    if d > MAX_HEAD_DIM:
+        raise ValueError(f"flash_attention: head dim {d} > {MAX_HEAD_DIM}, the kernel's limit")
+    if block_q > max_block_q(d):
+        raise ValueError(f"flash_attention: block_q {block_q} > {max_block_q(d)}, the rows "
+                         f"one CTA of the kernel holds at head dim {d}")
+    if b * hq > 65535:
+        raise ValueError(f"flash_attention: B*Hq = {b * hq} exceeds the grid's y limit")
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    out = torch.empty_like(q)
+    if out.numel() == 0:
+        return out
+    lib = load_library()
+    p = _FaParams(q=q.data_ptr(), k=k.data_ptr(), v=v.data_ptr(), o=out.data_ptr(),
+                  sq=sq, sk=sk, d=d, hq=hq, hkv=hkv, group=hq // hkv,
+                  block_q=block_q, block_k=block_k, n_q=sq // block_q,
+                  causal=int(bool(causal)), dt=_build.dtype_code(q.dtype), sm_scale=sm_scale)
+    rc = lib.stripe_flash_attention_launch(ctypes.addressof(p), _dpl(d), rows_per_warp(block_q),
+                                           b * hq, _build.stream_of(device))
+    _build.launch_rc(rc, "flash_attention")
+    launches += 1
+    return out
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    causal: bool = True, sm_scale: Optional[float] = None,
+                    block_q: Optional[int] = None,
+                    block_k: Optional[int] = None) -> torch.Tensor:
+    """q: (B, Hq, Sq, D); k/v: (B, Hkv, Sk, D), Hq a multiple of Hkv (GQA:
+    q head h reads kv head h // (Hq / Hkv)).  Returns (B, Hq, Sq, D) in
+    ``q.dtype``.  The kernel for CUDA tensors, the plain version for CPU
+    tensors."""
+    sm_scale, block_q, block_k = _resolve(q, k, v, sm_scale, block_q, block_k)
+    if q.is_cuda:
+        return _launch(q, k, v, causal, sm_scale, block_q, block_k)
+    if k.is_cuda or v.is_cuda:
+        raise ValueError("flash_attention: q on the CPU, k or v on the card")
+    return flash_attention_plain(q, k, v, causal, sm_scale, block_q, block_k)

@@ -1,0 +1,282 @@
+"""The port's attention and recurrence kernels (flash attention, chunked
+GLA, mLSTM, SSD) against the JAX package's, on the CPU.
+
+Each test makes its inputs with numpy from a seed and runs them through
+the JAX function (its Pallas kernel in interpret mode, as
+tests/test_kernels.py runs it) and through the port, whose wrappers take
+their plain PyTorch versions for CPU tensors; the tolerances are the
+reference's own (flash 2e-5 in float32 and 5e-2 in bf16; GLA, mLSTM and
+SSD 1e-4).  tests/test_torch_cuda.py and chip_smoke.py hold the CUDA
+kernels against the same plain versions on the card.
+
+    PYTHONPATH=src python -m pytest -q tests/test_torch_attention_kernels.py
+"""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax.numpy as jnp  # noqa: E402
+
+from repro.core.hwconfig import get_config as j_get_config  # noqa: E402
+from repro.kernels.flash_attention import kernel as j_fa  # noqa: E402
+from repro.kernels.flash_attention.ref import attention_ref as j_attention_ref  # noqa: E402
+from repro.kernels.mlstm_chunk import kernel as j_gla  # noqa: E402
+from repro.kernels.mlstm_chunk.ref import gla_ref as j_gla_ref  # noqa: E402
+from repro.kernels.mlstm_chunk.ref import mlstm_ref as j_mlstm_ref  # noqa: E402
+from repro.kernels.ssd_chunk.kernel import ssd_chunk as j_ssd_chunk  # noqa: E402
+from repro.kernels.ssd_chunk.ref import ssd_ref as j_ssd_ref  # noqa: E402
+from repro.nn.scan_ops import chunked_gla_jnp  # noqa: E402
+
+from repro_torch import api  # noqa: E402
+from repro_torch.core.hwconfig import get_config  # noqa: E402
+from repro_torch.kernels.flash_attention import kernel as FA  # noqa: E402
+from repro_torch.kernels.flash_attention import attention_ref, choose_block_sizes, flash_attention  # noqa: E402
+from repro_torch.kernels.mlstm_chunk import kernel as GLA  # noqa: E402
+from repro_torch.kernels.mlstm_chunk import choose_chunk, chunked_gla, gla_ref, mlstm_chunk, mlstm_ref  # noqa: E402
+from repro_torch.kernels.ssd_chunk import ssd_chunk, ssd_ref  # noqa: E402
+from repro_torch.nn.scan_ops import chunked_gla_torch  # noqa: E402
+
+
+def _pair(a: np.ndarray, dtype: str = "float32"):
+    """The same array for both packages, in ``dtype``."""
+    a = a.astype(np.float32)
+    return jnp.asarray(a, dtype), torch.from_numpy(a).to(getattr(torch, dtype))
+
+
+def _close(got: torch.Tensor, want, tol: float) -> None:
+    np.testing.assert_allclose(got.float().numpy(), np.asarray(want, np.float32),
+                               rtol=tol, atol=tol)
+
+
+def _qkv(rng, b, hq, hkv, sq, sk, d, dtype="float32"):
+    q = _pair(rng.randn(b, hq, sq, d) * 0.5, dtype)
+    k = _pair(rng.randn(b, hkv, sk, d) * 0.5, dtype)
+    v = _pair(rng.randn(b, hkv, sk, d) * 0.5, dtype)
+    return q, k, v
+
+
+# --------------------------------------------------------- flash attention
+@pytest.mark.parametrize("s,d,bq,bk", [(128, 64, 64, 64), (256, 64, 128, 64), (256, 128, 64, 128)])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_shapes(s, d, bq, bk, causal):
+    (jq, tq), (jk, tk), (jv, tv) = _qkv(np.random.RandomState(s + d), 2, 4, 4, s, s, d)
+    want = j_fa.flash_attention(jq, jk, jv, causal=causal, block_q=bq, block_k=bk, interpret=True)
+    before = FA.launches
+    got = flash_attention(tq, tk, tv, causal=causal, block_q=bq, block_k=bk)
+    assert FA.launches == before, "a CPU tensor never reaches the kernel"
+    assert got.dtype == torch.float32 and tuple(got.shape) == (2, 4, s, d)
+    _close(got, want, 2e-5)
+    _close(attention_ref(tq, tk, tv, causal=causal), j_attention_ref(jq, jk, jv, causal=causal),
+           2e-5)
+
+
+def test_flash_attention_gqa():
+    (jq, tq), (jk, tk), (jv, tv) = _qkv(np.random.RandomState(3), 2, 8, 2, 128, 128, 64)
+    want = j_fa.flash_attention(jq, jk, jv, causal=True, block_q=64, block_k=64, interpret=True)
+    _close(flash_attention(tq, tk, tv, causal=True, block_q=64, block_k=64), want, 2e-5)
+    _close(attention_ref(tq, tk, tv, causal=True), want, 2e-5)
+
+
+def test_flash_attention_bf16():
+    (jq, tq), (jk, tk), (jv, tv) = _qkv(np.random.RandomState(4), 1, 2, 2, 128, 128, 64,
+                                        "bfloat16")
+    want = j_fa.flash_attention(jq, jk, jv, causal=True, block_q=64, block_k=64, interpret=True)
+    got = flash_attention(tq, tk, tv, causal=True, block_q=64, block_k=64)
+    assert got.dtype == torch.bfloat16
+    _close(got, want, 5e-2)
+
+
+@pytest.mark.parametrize("sq,sk,bq,bk", [(64, 256, 32, 64), (256, 64, 64, 32), (96, 192, 32, 64)])
+def test_flash_attention_causal_top_left_when_sq_differs(sq, sk, bq, bk):
+    """Causal with Sq != Sk: the mask is qpos >= kpos from 0 (top-left), and
+    the kv loop stops at the block holding the tile's last query."""
+    (jq, tq), (jk, tk), (jv, tv) = _qkv(np.random.RandomState(sq + sk), 2, 4, 2, sq, sk, 32)
+    want = j_fa.flash_attention(jq, jk, jv, causal=True, block_q=bq, block_k=bk, interpret=True)
+    _close(flash_attention(tq, tk, tv, causal=True, block_q=bq, block_k=bk), want, 2e-5)
+
+
+def test_flash_attention_default_blocks_and_scale():
+    """No blocks given: both packages choose their own; the result is the
+    same function (sm_scale 1/sqrt(D) by default, here also explicit)."""
+    (jq, tq), (jk, tk), (jv, tv) = _qkv(np.random.RandomState(6), 1, 2, 1, 128, 128, 32)
+    want = j_fa.flash_attention(jq, jk, jv, causal=True, sm_scale=0.3, interpret=True)
+    _close(flash_attention(tq, tk, tv, causal=True, sm_scale=0.3), want, 2e-5)
+    want = j_fa.flash_attention(jq, jk, jv, causal=False, interpret=True)
+    _close(flash_attention(tq, tk, tv, causal=False), want, 2e-5)
+
+
+def test_flash_attention_refuses_what_the_reference_asserts():
+    _, (_, tk), (_, tv) = _qkv(np.random.RandomState(7), 1, 2, 2, 64, 64, 16)
+    tq = torch.zeros(1, 2, 64, 16)
+    with pytest.raises(ValueError, match="do not divide"):
+        flash_attention(tq, tk, tv, block_q=48, block_k=64)
+    with pytest.raises(ValueError):
+        flash_attention(torch.zeros(1, 3, 64, 16), tk, tv, block_q=64, block_k=64)
+
+
+@pytest.mark.parametrize("sq,sk,d", [(4096, 4096, 128), (2048, 2048, 128), (512, 2048, 128),
+                                     (256, 256, 64), (128, 128, 64)])
+def test_flash_block_search_under_tpu_v5e_is_the_reference(sq, sk, d):
+    assert FA.search_params(get_config("tpu_v5e")) == {
+        "cost": "roofline", "search": "pow2", "mem_cap_frac": 0.2, "count_untiled": True}
+    assert FA.search_block_sizes(sq, sk, d, get_config("tpu_v5e")) == \
+        j_fa.choose_block_sizes(sq, sk, d)
+
+
+def test_flash_blocks_under_h100_fit_one_cta():
+    hw = get_config("h100")
+    smem = hw.mem("SMEM").size_bytes
+    assert smem == 232_448
+    assert FA.search_params(hw)["mem_cap_frac"] * hw.inner_mem().size_bytes == \
+        pytest.approx(smem)
+    # the reference's choice at this shape would hold a 4096-row tile
+    assert j_fa.choose_block_sizes(4096, 4096, 128)[0] > FA.max_block_q(128)
+    bq, bk = choose_block_sizes(4096, 4096, 128)
+    assert 4096 % bq == 0 and 4096 % bk == 0
+    assert bq <= FA.max_block_q(128) and FA.smem_bytes(bq, 128) <= smem
+    assert bq >= 128 and bk >= 128  # as tests/test_kernels.py asks of the reference
+    for sq, sk, d in ((2048, 2048, 128), (512, 2048, 128), (256, 256, 256)):
+        bq, bk = choose_block_sizes(sq, sk, d)
+        assert sq % bq == 0 and sk % bk == 0 and FA.smem_bytes(bq, d) <= smem
+
+
+@pytest.mark.parametrize("block_q,d", [(128, 128), (64, 256), (8, 64), (100, 96)])
+def test_flash_smem_and_rows(block_q, d):
+    """The Python mirror of the kernel's geometry (the binding checks it
+    against the compiled library on the card)."""
+    r = FA.rows_per_warp(block_q)
+    assert r & (r - 1) == 0 and FA.WARPS * r >= block_q
+    assert FA.smem_bytes(block_q, d) <= 232_448
+    assert block_q <= FA.max_block_q(d)
+
+
+# -------------------------------------------------------------- mlstm / GLA
+def _gla_inputs(rng, B, H, S, Dk, Dv):
+    q = _pair(rng.randn(B, H, S, Dk) * 0.5)
+    k = _pair(rng.randn(B, H, S, Dk) * 0.5)
+    v = _pair(rng.randn(B, H, S, Dv) * 0.5)
+    return q, k, v
+
+
+@pytest.mark.parametrize("s,chunk", [(64, 16), (128, 32), (128, 128)])
+def test_mlstm_chunk_matches_the_jax_kernel(s, chunk):
+    rng = np.random.RandomState(s + chunk)
+    B, H, Dk, Dv = 2, 2, 32, 32
+    (jq, tq), (jk, tk), (jv, tv) = _gla_inputs(rng, B, H, s, Dk, Dv)
+    ji, ti = _pair(rng.randn(B, H, s) * 0.5)
+    jf, tf = _pair(rng.randn(B, H, s) * 0.5 + 2.0)
+    want = j_gla.mlstm_chunk(jq, jk, jv, ji, jf, chunk=chunk, interpret=True)
+    before = GLA.launches
+    got = mlstm_chunk(tq, tk, tv, ti, tf, chunk=chunk)
+    assert GLA.launches == before, "a CPU tensor never reaches the kernel"
+    _close(got, want, 1e-4)
+    _close(mlstm_ref(tq, tk, tv, ti, tf), j_mlstm_ref(jq, jk, jv, ji, jf), 1e-4)
+
+
+@pytest.mark.parametrize("normalize", [True, False])
+def test_gla_generic_matches_the_jax_kernel(normalize):
+    rng = np.random.RandomState(11)
+    B, H, S, Dk, Dv = 1, 2, 64, 16, 24
+    (jq, tq), (jk, tk), (jv, tv) = _gla_inputs(rng, B, H, S, Dk, Dv)
+    jld, tld = _pair(-np.abs(rng.randn(B, H, S)) * 0.2)
+    jg, tg = _pair(np.abs(rng.randn(B, H, S)) * 0.5)
+    want = j_gla.chunked_gla(jq, jk, jv, jld, jg, chunk=16, normalize=normalize, interpret=True)
+    _close(chunked_gla(tq, tk, tv, tld, tg, chunk=16, normalize=normalize), want, 1e-4)
+    _close(gla_ref(tq, tk, tv, tld, tg, normalize=normalize),
+           j_gla_ref(jq, jk, jv, jld, jg, normalize=normalize), 1e-4)
+
+
+@pytest.mark.parametrize("s,chunk,normalize", [(64, 16, True), (96, 64, False), (128, 256, True)])
+def test_chunked_gla_torch_matches_chunked_gla_jnp(s, chunk, normalize):
+    """The plain version against its JAX twin, including the chunk that is
+    halved until it divides S (96 at 64 -> 32) and one larger than S."""
+    rng = np.random.RandomState(s + chunk)
+    B, H, Dk, Dv = 2, 3, 16, 8
+    (jq, tq), (jk, tk), (jv, tv) = _gla_inputs(rng, B, H, s, Dk, Dv)
+    jld, tld = _pair(-np.abs(rng.randn(B, H, s)) * 0.3)
+    jg, tg = _pair(np.abs(rng.randn(B, H, s)) * 0.5)
+    want = chunked_gla_jnp(jq, jk, jv, jld, jg, chunk=chunk, normalize=normalize, scale=0.7)
+    got = chunked_gla_torch(tq, tk, tv, tld, tg, chunk=chunk, normalize=normalize, scale=0.7)
+    _close(got, want, 1e-4)
+
+
+def test_chunked_gla_refuses_a_chunk_that_does_not_divide():
+    rng = np.random.RandomState(12)
+    (_, tq), (_, tk), (_, tv) = _gla_inputs(rng, 1, 1, 96, 8, 8)
+    ld, g = -torch.ones(1, 1, 96) * 0.1, torch.ones(1, 1, 96)
+    with pytest.raises(ValueError, match="does not divide"):
+        chunked_gla(tq, tk, tv, ld, g, chunk=64)
+
+
+@pytest.mark.parametrize("seq,dk,dv", [(2048, 384, 384), (4096, 64, 64), (128, 32, 32),
+                                       (96, 16, 24)])
+def test_chunk_search_under_tpu_v5e_is_the_reference(seq, dk, dv):
+    assert GLA.search_chunk(seq, dk, dv, get_config("tpu_v5e")) == \
+        j_gla.choose_chunk(seq, dk, dv)
+
+
+def test_chunk_under_h100_at_the_target_widths():
+    """xlstm-125m (S 2048, Dk = Dv = 384) and zamba2-2.7b's Mamba2 layers
+    (S 4096, N = P = 64): the search gives 512 and 1024 rows, the
+    reference's clamp 256; the kernel's shared memory holds both."""
+    for seq, dk, dv in ((2048, 384, 384), (4096, 64, 64)):
+        c = choose_chunk(seq, dk, dv)
+        assert c == 256 and seq % c == 0
+        assert GLA.smem_bytes(dk, c) <= get_config("h100").mem("SMEM").size_bytes
+
+
+# --------------------------------------------------------------- ssd_chunk
+@pytest.mark.parametrize("s,p,n", [(64, 16, 8), (128, 32, 16)])
+def test_ssd_chunk_matches_the_jax_kernel(s, p, n):
+    rng = np.random.RandomState(s)
+    B, H = 2, 2
+    jx, tx = _pair(rng.randn(B, H, s, p) * 0.5)
+    jdt, tdt = _pair(np.abs(rng.randn(B, H, s)) * 0.3)
+    jA, tA = _pair(-np.abs(rng.randn(H)))
+    jB, tB = _pair(rng.randn(B, H, s, n) * 0.5)
+    jC, tC = _pair(rng.randn(B, H, s, n) * 0.5)
+    jD, tD = _pair(rng.randn(H))
+    want = j_ssd_chunk(jx, jdt, jA, jB, jC, jD, chunk=32, interpret=True)
+    _close(ssd_chunk(tx, tdt, tA, tB, tC, tD, chunk=32), want, 1e-4)
+    _close(ssd_ref(tx, tdt, tA, tB, tC, tD), j_ssd_ref(jx, jdt, jA, jB, jC, jD), 1e-4)
+
+
+def test_ssd_no_skip_connection():
+    rng = np.random.RandomState(13)
+    B, H, S, P, N = 1, 2, 64, 16, 8
+    jx, tx = _pair(rng.randn(B, H, S, P) * 0.5)
+    jdt, tdt = _pair(np.abs(rng.randn(B, H, S)) * 0.3)
+    jA, tA = _pair(-np.abs(rng.randn(H)))
+    jB, tB = _pair(rng.randn(B, H, S, N) * 0.5)
+    jC, tC = _pair(rng.randn(B, H, S, N) * 0.5)
+    want = j_ssd_chunk(jx, jdt, jA, jB, jC, None, chunk=16, interpret=True)
+    _close(ssd_chunk(tx, tdt, tA, tB, tC, None, chunk=16), want, 1e-4)
+
+
+# ----------------------------------------------------------------- facade
+def test_params_from_jax_defaults_to_the_card():
+    tree = {"w": np.ones((2, 3), np.float32), "blk": {"b": np.zeros(3, np.float32)}}
+    if torch.cuda.is_available():
+        assert api.params_from_jax(tree)["w"].is_cuda
+    else:
+        with pytest.raises(RuntimeError, match="cuda"):
+            api.params_from_jax(tree)
+    got = api.params_from_jax(tree, "cpu")
+    assert got["blk"]["b"].device.type == "cpu" and got["w"].shape == (2, 3)
+
+
+def test_api_exports_the_reference_kernel_names():
+    import repro.api as j_api
+
+    for name in ("choose_block_sizes", "matmul", "matmul_ref"):
+        assert name in api.__all__ and name in j_api.__all__
+    assert api.choose_block_sizes is choose_block_sizes
+    x, w = torch.randn(64, 32), torch.randn(32, 16)
+    torch.testing.assert_close(api.matmul(x, w), api.matmul_ref(x, w), rtol=1e-4, atol=1e-4)
+
+
+def test_hardware_configs_agree_on_the_search_inputs():
+    """The port's tpu_v5e is the reference's, so the two searches above
+    price the same machine."""
+    assert get_config("tpu_v5e").fingerprint() == j_get_config("tpu_v5e").fingerprint()

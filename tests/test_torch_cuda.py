@@ -1,5 +1,6 @@
 """Tests that need an NVIDIA card: the CUDA kernels (contraction,
-elementwise, windowed) against their plain PyTorch versions.  They skip
+elementwise, windowed, flash attention, chunked GLA) against their plain
+PyTorch versions.  They skip
 without a card.  On a machine with one (and no JAX), run them alone,
 without the JAX package's conftest:
 
@@ -178,3 +179,110 @@ def test_elementwise_broadcasts_and_rounds_on_the_card():
     x, b, sc = env["X"].float(), env["b"], env["s"]
     want = (torch.nn.functional.silu(x + b) * sc).to(torch.bfloat16)
     _assert_kernel_close(c(env)["O"], want, "silu(X + b) * s")
+
+
+# ------------------------------------------- flash attention and chunked GLA
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,hq,hkv,sq,sk,d,bq,bk,causal", [
+    (2, 4, 4, 128, 128, 64, 64, 64, True),
+    (2, 4, 4, 256, 256, 128, 64, 128, False),
+    (1, 8, 2, 256, 256, 64, 128, 64, True),     # GQA, 16 rows a warp
+    (1, 4, 2, 64, 256, 32, 32, 64, True),       # Sq < Sk: top-left mask
+    (1, 4, 1, 256, 64, 96, 64, 32, True),       # Sq > Sk, head dim padded to 128
+    (1, 2, 2, 96, 96, 256, 48, 32, False),      # head dim 256: 8 rows a warp at most
+    (1, 2, 2, 200, 200, 64, 100, 40, True),     # a warp with 4 of its 16 rows; 40-key blocks
+])
+def test_flash_attention_kernel_matches_plain_on_the_card(b, hq, hkv, sq, sk, d, bq, bk,
+                                                           causal, dtype):
+    from repro_torch.kernels.flash_attention import kernel as FA
+
+    _card()
+    gen = torch.Generator(device="cuda").manual_seed(sq + sk + d)
+    dt = getattr(torch, dtype)
+    q = torch.randn(b, hq, sq, d, generator=gen, device="cuda").to(dt)
+    k = torch.randn(b, hkv, sk, d, generator=gen, device="cuda").to(dt)
+    v = torch.randn(b, hkv, sk, d, generator=gen, device="cuda").to(dt)
+    before = FA.launches
+    got = FA.flash_attention(q, k, v, causal=causal, block_q=bq, block_k=bk)
+    torch.cuda.synchronize()
+    assert FA.launches == before + 1
+    want = FA.flash_attention_plain(q, k, v, causal=causal, block_q=bq, block_k=bk)
+    _assert_kernel_close(got, want, "flash_attention")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("normalize", [True, False])
+@pytest.mark.parametrize("b,h,s,dk,dv,chunk,dtype", [
+    (1, 2, 64, 16, 24, 16, "float32"),
+    (2, 2, 128, 32, 32, 32, "float32"),
+    (1, 3, 256, 40, 96, 128, "float32"),   # two Dv tiles, Dk not a multiple of 32
+    (2, 2, 512, 64, 64, 256, "bfloat16"),  # two row tiles under the diagonal
+])
+def test_gla_kernel_matches_plain_on_the_card(b, h, s, dk, dv, chunk, dtype, normalize):
+    from repro_torch.kernels.mlstm_chunk import kernel as GLA
+    from repro_torch.nn.scan_ops import chunked_gla_torch
+
+    _card()
+    gen = torch.Generator(device="cuda").manual_seed(s + dk + dv)
+    dt = getattr(torch, dtype)
+    q = (0.5 * torch.randn(b, h, s, dk, generator=gen, device="cuda")).to(dt)
+    k = (0.5 * torch.randn(b, h, s, dk, generator=gen, device="cuda")).to(dt)
+    v = (0.5 * torch.randn(b, h, s, dv, generator=gen, device="cuda")).to(dt)
+    ld = -0.2 * torch.randn(b, h, s, generator=gen, device="cuda").abs()
+    g = 0.5 * torch.randn(b, h, s, generator=gen, device="cuda").abs()
+    before = GLA.launches
+    got = GLA.chunked_gla(q, k, v, ld, g, chunk=chunk, normalize=normalize, scale=0.5)
+    torch.cuda.synchronize()
+    assert GLA.launches == before + 1
+    want = chunked_gla_torch(q, k, v, ld, g, chunk=chunk, normalize=normalize, scale=0.5)
+    _assert_kernel_close(got, want, "chunked_gla")
+
+
+@pytest.mark.cuda
+def test_mlstm_and_ssd_wrappers_launch_the_gla_kernel():
+    from repro_torch.kernels.mlstm_chunk import kernel as GLA
+    from repro_torch.kernels.mlstm_chunk import mlstm_ref
+    from repro_torch.kernels.ssd_chunk import ssd_chunk, ssd_ref
+
+    _card()
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    B, H, S = 2, 2, 128
+
+    def rnd(*shape):
+        return 0.5 * torch.randn(*shape, generator=gen, device="cuda")
+
+    before = GLA.launches
+    q, k, v = rnd(B, H, S, 32), rnd(B, H, S, 32), rnd(B, H, S, 32)
+    ig, fg = rnd(B, H, S), rnd(B, H, S) + 2.0
+    got = GLA.mlstm_chunk(q, k, v, ig, fg, chunk=32)
+    _assert_kernel_close(got, mlstm_ref(q, k, v, ig, fg), "mlstm_chunk vs recurrence")
+    x, dt = rnd(B, H, S, 16), rnd(B, H, S).abs() * 0.6
+    A, Bm, Cm, D = -rnd(H).abs() * 2, rnd(B, H, S, 8), rnd(B, H, S, 8), rnd(H)
+    _assert_kernel_close(ssd_chunk(x, dt, A, Bm, Cm, D, chunk=32),
+                         ssd_ref(x, dt, A, Bm, Cm, D), "ssd_chunk vs recurrence")
+    torch.cuda.synchronize()
+    assert GLA.launches == before + 2
+
+
+@pytest.mark.cuda
+def test_a_broken_kernel_source_raises_kernel_build_error(tmp_path, monkeypatch):
+    """A source that does not compile surfaces as KernelBuildError from the
+    launch; nothing falls back to the plain version."""
+    import shutil
+
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.flash_attention import kernel as FA
+
+    _card()
+    for f in _build.CSRC.iterdir():
+        shutil.copy(f, tmp_path / f.name)
+    (tmp_path / "flash_attention.cu").write_text(
+        (tmp_path / "flash_attention.cu").read_text() + "\nthis is not C++;\n")
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    monkeypatch.setattr(_build, "_LIBS", {})
+    q = torch.zeros(1, 1, 64, 32, device="cuda")
+    before = FA.launches
+    with pytest.raises(_build.KernelBuildError, match="flash_attention.cu"):
+        FA.flash_attention(q, q, q, block_q=64, block_k=64)
+    assert FA.launches == before
