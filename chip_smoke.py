@@ -19,14 +19,18 @@ and prints no result):
    results must agree within ``max|kernel - plain| <= RTOL * (1 + max|plain|)``
    over each unit's output (float32 sums of up to 14336 terms, taken in
    another order: the error grows with the sum's scale, not the element's).
-   Each unit is timed with CUDA events (median, L2 flushed before every
-   launch), beside its plain version, one ``torch.einsum`` of the same
-   contraction (a yardstick the port never calls) and its bound.
+   Each unit must take the GEMM view's path (``launches_by_path`` read
+   around its launch): ``skinny`` at decode, ``tiled`` at prefill.  Each
+   is timed with CUDA events (median, L2 flushed before every launch), in
+   turns with the general loop on the same unit (``general_ms``: the
+   kernel's design before the GEMM view), beside its plain version, one
+   ``torch.einsum`` of the same contraction (a yardstick the port never
+   calls) and its bound.
 3. **stripe_matmul** — the Stripe-compiled matmul (one launch of the same
    kernel) on the cases of tests/test_kernels.py, against its plain
    version and the plain matmul oracle.
-   Then the card's time of one 256x512 @ 512x384 product beside
-   ``torch.matmul``.
+   Then the card's time of one 256x512 @ 512x384 product (``tiled``), in
+   turns with the general loop, beside ``torch.matmul``.
 4. **corpus units** — every unit of the exploration corpus (``default``
    plus ``conv_mlp`` and ``fig5_conv_f32``) compiled under ``h100`` and
    under ``h100`` without the fusion pass (whose unfused activation, bias
@@ -40,8 +44,9 @@ and prints no result):
    bf16 within ``BF16_RTOL`` (kernel and plain round the same float32
    sum to bf16 once each, in different summation orders, which moves the
    result by at most one rounding step, 2**-8 = 3.9e-3 of the element).
-   Each unit is timed as in phase 2, beside one library call of the
-   same function where PyTorch has one (``torch.einsum``, ``torch._int_mm``,
+   The cubes must run ``tiled`` on ``wgmma``.  Each unit is timed as in
+   phase 2 (a contraction unit with ``general_ms``), beside one library
+   call of the same function where PyTorch has one (``torch.einsum``, ``torch._int_mm``,
    cuDNN's ``conv2d``; none for an elementwise DAG or an int8 conv).
 5. **serve** — llama3-8b at full width and at its configured dtype
    (``--layers`` deep; random bfloat16 weights from a seeded
@@ -92,7 +97,10 @@ and prints no result):
 
 Launch counts are read per path: every count is set to 0 just before the
 serve phase (path 1), before the sweep (path 2) and before phase 8's
-calls of the entry points (path 3), and read just after each.  The last lines are the kernel summary (JSON), the card's name and
+calls of the entry points (path 3), and read just after each; the
+contraction kernel's ``launches_by_path`` (skinny, tiled, general) is read
+the same way for the serve and sweep paths, and the serve path may launch
+no general loop.  The last lines are the kernel summary (JSON), the card's name and
 power limit as ``nvidia-smi`` reports them, and the result line
 ``{"ok": true, "device": {...}}``.  TF32 is off wherever the plain
 version and the yardstick run.
@@ -195,6 +203,27 @@ class _Timer:
             times.append(a.elapsed_time(b))
         return statistics.median(times)
 
+    def turns(self, fa, fb) -> tuple:
+        """Median times of two callables measured in turns (a b, b a, ...),
+        each launch after its own flush: the view's path and the general
+        loop on the same unit in the same call."""
+        torch = self.torch
+        fa()
+        fb()
+        times = ([], [])
+        for i in range(self.reps):
+            for j in ((0, 1) if i % 2 == 0 else (1, 0)):
+                self.flush.zero_()
+                torch.cuda._sleep(2_000_000)
+                a = torch.cuda.Event(enable_timing=True)
+                b = torch.cuda.Event(enable_timing=True)
+                a.record()
+                (fa, fb)[j]()
+                b.record()
+                b.synchronize()
+                times[j].append(a.elapsed_time(b))
+        return statistics.median(times[0]), statistics.median(times[1])
+
 
 def check_units(torch, api, K, cfg, reps: int):
     """Phase 2: every unit of the full-width serving programs, kernel
@@ -209,6 +238,7 @@ def check_units(torch, api, K, cfg, reps: int):
     timer = _Timer(torch, reps)
     rows = []
     for phase, m, window in (("decode", SLOTS, MAX_LEN), ("prefill", BUCKET, None)):
+        want_path = "skinny" if phase == "decode" else "tiled"
         progs = sd.build_programs(cfg, m, jc, kv_window=window)
         for pname in ("qkv", "attn_out", "mlp", "scores", "values"):
             prog = getattr(progs, pname)
@@ -227,7 +257,12 @@ def check_units(torch, api, K, cfg, reps: int):
                 for fn in fns:
                     # every unit reads its inputs from env; group outputs that
                     # feed a later unit are filled by running the units in order
+                    before = dict(K.launches_by_path)
                     got = fn(env)
+                    ran = _path_ran(K, before)
+                    if ran != want_path:
+                        raise AssertionError(f"{phase}/{pname}/{_unit.name} ran {ran}, not "
+                                             f"{want_path} ({K.refusal(fn.plan)})")
                     want = fn.plain(env)
                     torch.cuda.synchronize()
                     err = (got - want).abs().max().item()
@@ -244,11 +279,14 @@ def check_units(torch, api, K, cfg, reps: int):
                     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
                     t_ops = flops / F32_FLOPS_PER_S * 1e3
                     lib = _library_call(torch, prog.program.source, _unit.members, env)
+                    ms, general_ms = timer.turns(lambda: fn(env),
+                                                 lambda: _general(K, fn, env))
                     rows.append({
-                        "unit": f"{phase}/{pname}/{_unit.name}", "m": m,
+                        "unit": f"{phase}/{pname}/{_unit.name}", "m": m, "path": ran,
+                        "view": _view_desc(K, fn.plan),
                         "max_abs_err": err, "max_abs_out": scale,
                         "max_rel_err": err / max(scale, 1e-30),
-                        "ms": timer(lambda: fn(env)),
+                        "ms": ms, "general_ms": general_ms,
                         "plain_ms": timer(lambda: fn.plain(env)),
                         "library_ms": timer(lib),
                         "bound_ms": max(t_bytes, t_ops),
@@ -257,6 +295,34 @@ def check_units(torch, api, K, cfg, reps: int):
                         "t_ops_ms": t_ops,
                     })
     return rows
+
+
+def _path_ran(K, before) -> str:
+    """The one path a single launch took, from ``launches_by_path``."""
+    ran = [p for p, n in K.launches_by_path.items() if n != before[p]]
+    if len(ran) != 1 or K.launches_by_path[ran[0]] != before[ran[0]] + 1:
+        raise AssertionError(f"one launch moved launches_by_path from {before} to "
+                             f"{K.launches_by_path}")
+    return ran[0]
+
+
+def _general(K, fn, env):
+    """The same unit through the general loop (the design before the GEMM
+    view), for timing beside the view's path."""
+    plan = fn.plan
+    return K.contraction(plan, [env[s.buf] for s in plan.slots],
+                         [env[s.buf] for s in plan.eslots],
+                         getattr(fn, "out_clip", fn.out_shape), path="general")
+
+
+def _view_desc(K, plan) -> dict:
+    view = K.gemm_view(plan)
+    if view is None:
+        return {"path": "general", "reason": K.refusal(plan)}
+    return {"path": view.path, "mma": view.mma, "M": view.M, "N": view.N, "K": view.K,
+            "batch": list(view.batch_ext), "tile": list(view.tile), "stages": view.stages,
+            "splits": view.splits, "deferred": view.deferred,
+            "loads": [view.a.load, view.b.load]}
 
 
 def check_matmul(torch, K) -> float:
@@ -289,7 +355,7 @@ def check_matmul(torch, K) -> float:
     return worst
 
 
-def time_matmul(torch, timer) -> dict:
+def time_matmul(torch, K, timer) -> dict:
     """The card's time of one stripe_matmul launch (256x512 @ 512x384,
     float32) beside its plain version and ``torch.matmul``."""
     from repro_torch.kernels.stripe_matmul import matmul
@@ -299,11 +365,19 @@ def time_matmul(torch, timer) -> dict:
     gen = torch.Generator(device="cuda").manual_seed(3)
     x = torch.randn(m, k, generator=gen, device="cuda")
     w = torch.randn(k, n, generator=gen, device="cuda")
-    plain = build_matmul_kernel(m, k, n, None, False).kernel.plain
+    kernel = build_matmul_kernel(m, k, n, None, False).kernel
+    plain = kernel.plain
     t_bytes = 4 * (m * k + k * n + m * n) / HBM_BYTES_PER_S * 1e3
     t_ops = 2 * m * k * n / F32_FLOPS_PER_S * 1e3
-    return {"unit": f"stripe_matmul {m}x{k}x{n} float32",
-            "ms": timer(lambda: matmul(x, w)),
+    before = dict(K.launches_by_path)
+    matmul(x, w)
+    ran = _path_ran(K, before)
+    if ran != "tiled":
+        raise AssertionError(f"stripe_matmul {m}x{k}x{n} ran {ran}")
+    ms, general_ms = timer.turns(lambda: matmul(x, w),
+                                 lambda: _general(K, kernel, {"X": x, "W": w}))
+    return {"unit": f"stripe_matmul {m}x{k}x{n} float32", "path": ran,
+            "view": _view_desc(K, kernel.plan), "ms": ms, "general_ms": general_ms,
             "plain_ms": timer(lambda: plain({"X": x, "W": w})),
             "library_ms": timer(lambda: torch.matmul(x, w)),
             "bound_ms": max(t_bytes, t_ops),
@@ -447,10 +521,12 @@ def _time_library(timer, lib, what):
         return None
 
 
-def unit_rows(torch, LC, timer, label, compiled, env) -> list:
+def unit_rows(torch, K, LC, timer, label, compiled, env) -> list:
     """Phase 4 for one compiled program: each unit's kernels against their
     plain versions (the unit's output buffer compared whole), timed; the
-    kernel's result feeds the units after it.  One row per unit."""
+    kernel's result feeds the units after it.  One row per unit; a
+    contraction unit's row names the path its launch took and times the
+    general loop beside it."""
     buffers = compiled.program.buffers
     semantic = compiled.program.source
     rows = []
@@ -460,8 +536,12 @@ def unit_rows(torch, LC, timer, label, compiled, env) -> list:
         outs = {fn.out_buf for fn in fns}
         got_env = {k: v for k, v in env.items() if k not in outs}
         want_env = dict(got_env)
+        paths = []
         for fn in fns:
+            before = dict(K.launches_by_path)
             got_env[fn.out_buf] = LC._place(got_env, buffers[fn.out_buf], fn, fn(env))
+            if fn.kernel == "contraction" and DEVICE == "cuda":
+                paths.append(_path_ran(K, before))
             want_env[fn.out_buf] = LC._place(want_env, buffers[fn.out_buf], fn, fn.plain(env))
         if DEVICE == "cuda":
             torch.cuda.synchronize()
@@ -482,14 +562,25 @@ def unit_rows(torch, LC, timer, label, compiled, env) -> list:
 
         def run(which, fns=fns):
             for fn in fns:
-                fn(env) if which == "kernel" else fn.plain(env)
+                if which == "plain":
+                    fn.plain(env)
+                elif which == "general" and fn.kernel == "contraction":
+                    _general(K, fn, env)
+                else:
+                    fn(env)
 
         env[out] = got_env[out]
+        if paths:
+            ms, general_ms = timer.turns(lambda: run("kernel"), lambda: run("general"))
+        else:
+            ms, general_ms = timer(lambda: run("kernel")), None
         rows.append({
             "unit": what, "kernel": sorted({fn.kernel for fn in fns}),
             "launches": len(fns), "dtype": str(got_env[out].dtype).replace("torch.", ""),
+            "paths": paths, "views": [_view_desc(K, fn.plan) for fn in fns
+                                      if fn.kernel == "contraction"],
             "max_abs_err": err, "max_abs_out": got_env[out].double().abs().max().item(),
-            "ms": timer(lambda: run("kernel")), "plain_ms": timer(lambda: run("plain")),
+            "ms": ms, "general_ms": general_ms, "plain_ms": timer(lambda: run("plain")),
             "library_ms": _time_library(timer, lib, what),
             "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
@@ -507,9 +598,10 @@ def _matmul_program(api, dtype: str, n: int = 1024):
     return tp.build()
 
 
-def check_new_units(torch, api, LC, timer) -> list:
+def check_new_units(torch, api, K, LC, timer) -> list:
     """Phase 4: the corpus under h100 with and without fusion, the bf16 and
-    int8 matmuls, and the ResNet-50 conv in three types."""
+    int8 matmuls (asserted tiled, on wgmma), and the ResNet-50 conv in three
+    types."""
     from repro_torch.core import cache as stripe_cache
     from repro_torch.explore.runner import _random_arrays
     from repro_torch.explore.workloads import get_workloads, resnet50_conv2_3x3
@@ -530,8 +622,14 @@ def check_new_units(torch, api, LC, timer) -> list:
                     use_disk=False)
         if set(c.record.block_backends.values()) != {"cuda"}:
             raise AssertionError(f"{label}: {c.record.fallback_reasons()}")
-        rows += unit_rows(torch, LC, timer, label, c,
-                          _random_arrays(c.program.source, seed=SEED, device=DEVICE))
+        got = unit_rows(torch, K, LC, timer, label, c,
+                        _random_arrays(c.program.source, seed=SEED, device=DEVICE))
+        if label.startswith("h100/mm_") and DEVICE == "cuda":
+            for r in got:
+                if r["paths"] != ["tiled"] or [v.get("mma") for v in r["views"]] != ["wgmma"]:
+                    raise AssertionError(f"{r['unit']} ran {r['paths']} {r['views']}, "
+                                         "not tiled on wgmma")
+        rows += got
     return rows
 
 
@@ -584,6 +682,8 @@ def serve(torch, api, K, cfg, params, backend: str, new_tokens: int):
     mods = _kernel_modules()
     for mod in mods.values():
         mod.launches = 0
+    for p in K.launches_by_path:
+        K.launches_by_path[p] = 0
     t0 = time.perf_counter()
     try:
         done = engine.run(params)
@@ -592,6 +692,7 @@ def serve(torch, api, K, cfg, params, backend: str, new_tokens: int):
         lm._logits = head
     wall = time.perf_counter() - t0
     counts = {name: mod.launches for name, mod in mods.items()}
+    by_path = dict(K.launches_by_path)
     launched = counts["contraction"]
     engine.close()
     if sorted(r.uid for r in done) != list(range(len(PROMPT_LENS))):
@@ -607,8 +708,13 @@ def serve(torch, api, K, cfg, params, backend: str, new_tokens: int):
              "tok_per_s": met["tokens_out"] / wall,
              "decode_steps": met["decode_steps"],
              "decode_step_ms_median": statistics.median(step_ms),
-             "launches": launched, "launches_by_kernel": counts}
+             "launches": launched, "launches_by_kernel": counts,
+             "launches_by_path": by_path}
     if backend == "cuda":
+        # decode units run skinny, prefill units skinny or tiled by their
+        # bucket's rows: none may fall to the general loop
+        if by_path["general"] or by_path["skinny"] == 0 or by_path["tiled"] == 0:
+            raise AssertionError(f"serve launches by path: {by_path}")
         for name, rec in engine.compile_records().items():
             if (rec.backend != "cuda" or rec.fallback_reasons()
                     or any(b != "cuda" for b in rec.block_backends.values())):
@@ -649,12 +755,14 @@ def compare(runs, exact: bool) -> dict:
     return out
 
 
-def sweep(torch, api) -> dict:
+def sweep(torch, api, K) -> dict:
     """Phase 7, the exploration path.  Returns the launch counts of the
-    sweep's run and its validation."""
+    sweep's run (and the contraction kernel's by path) and its validation."""
     mods = _kernel_modules()
     for mod in mods.values():
         mod.launches = 0
+    for p in K.launches_by_path:
+        K.launches_by_path[p] = 0
     t0 = time.perf_counter()
     sw = api.run_sweep(api.get_space(SWEEP["space"]), SWEEP["workloads"],
                        budget=SWEEP["budget"], measure_top_k=SWEEP["measure_top_k"],
@@ -663,6 +771,7 @@ def sweep(torch, api) -> dict:
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = {name: mod.launches for name, mod in mods.items()}
+    by_path = dict(K.launches_by_path)
     v = sw.validation
     for e in v["entries"]:
         if e["error"]:
@@ -691,7 +800,7 @@ def sweep(torch, api) -> dict:
         for name in got.program.outputs:
             held = max(held, _close(torch, out[name], want[name], f"sweep {best.config_name}/"
                                     f"{w.name}/{name} against torch"))
-    return {"wall_s": wall, "launches": counts, "validation": v,
+    return {"wall_s": wall, "launches": counts, "launches_by_path": by_path, "validation": v,
             "points": [(p.index, p.config_name, p.latency_s, p.n_kernels, p.dedup_of)
                        for p in sw.points],
             "best": best.config_name, "max_abs_err_vs_torch": held}
@@ -894,12 +1003,12 @@ def main() -> None:
 
     timer = _Timer(torch, args.reps)
     mm_err = check_matmul(torch, K)
-    mm_row = time_matmul(torch, timer)
+    mm_row = time_matmul(torch, K, timer)
     print(f"stripe_matmul: 9 cases on the card, max abs error {mm_err:.3e}", flush=True)
     print("  unit " + json.dumps(mm_row), flush=True)
 
     t0 = time.perf_counter()
-    new_rows = check_new_units(torch, api, LC, timer)
+    new_rows = check_new_units(torch, api, K, LC, timer)
     print(f"corpus and ResNet units, kernel vs plain: {len(new_rows)} units in "
           f"{time.perf_counter() - t0:.1f} s; tolerance: integers exact, float32 "
           f"{RTOL}*(1+max|p|), bf16 {BF16_RTOL}*(1+max|p|)", flush=True)
@@ -934,10 +1043,10 @@ def main() -> None:
     print("cuda vs torch, float32: " + json.dumps(compare(runs32, exact=True)), flush=True)
     print(f"tokens identical across backends (float32): {runs32['cuda'][0]}")
 
-    sw = sweep(torch, api)
+    sw = sweep(torch, api, K)
     v = sw["validation"]
-    print(f"sweep: {SWEEP} in {sw['wall_s']:.1f} s; launches {json.dumps(sw['launches'])}",
-          flush=True)
+    print(f"sweep: {SWEEP} in {sw['wall_s']:.1f} s; launches {json.dumps(sw['launches'])}; "
+          f"contraction by path {json.dumps(sw['launches_by_path'])}", flush=True)
     for p in sw["points"]:
         print(f"  point {json.dumps(p)}")
     for e in v["entries"]:
@@ -966,13 +1075,16 @@ def main() -> None:
     # MAX_LEN); elementwise: every unfused elementwise unit of the corpus;
     # windowed: the float32 ResNet-50 conv.  launches: serve + sweep (for
     # the three compiler kernels).
+    contraction = _kernel_entry(
+        "contraction", "src/repro_torch/csrc/contraction.cu", "src/repro/core/lower_pallas.py:979",
+        serve_launches + sw["launches"]["contraction"], decode,
+        max([r["max_abs_err"] for r in rows]
+            + [r["max_abs_err"] for r in new_rows if r["kernel"] == ["contraction"]] + [mm_err]))
+    contraction["general_ms"] = sum(r["general_ms"] for r in decode)
+    contraction["launches_by_path"] = {"serve": runs["cuda"][2]["launches_by_path"],
+                                       "sweep": sw["launches_by_path"]}
     summary = {"kernels": [
-        _kernel_entry("contraction", "src/repro_torch/csrc/contraction.cu",
-                      "src/repro/core/lower_pallas.py:979",
-                      serve_launches + sw["launches"]["contraction"], decode,
-                      max([r["max_abs_err"] for r in rows]
-                          + [r["max_abs_err"] for r in new_rows if r["kernel"] == ["contraction"]]
-                          + [mm_err])),
+        contraction,
         _kernel_entry("elementwise", "src/repro_torch/csrc/elementwise.cu",
                       "src/repro/core/lower_pallas.py:1097", sw["launches"]["elementwise"],
                       ew, max(r["max_abs_err"] for r in ew)),

@@ -1,6 +1,7 @@
-// One Stripe fusion group as one CUDA kernel: prologue DAGs on the operand
-// elements, the contraction, an optional scale, then the epilogue DAG
-// (bias, activations, diamond joins, extra tensor inputs) and the store.
+// One Stripe fusion group as CUDA kernels on Hopper (sm_90a): prologue DAGs
+// on the operand elements, the contraction, an optional scale, then the
+// epilogue DAG (bias, activations, diamond joins, extra tensor inputs) and
+// the store.
 //
 // Replaces: src/repro/core/lower_pallas.py::_emit_contraction (the
 // pl.pallas_call of one fusion group on the TPU).
@@ -16,48 +17,60 @@
 // Semantics are Stripe's: every variable that addresses the output is a
 // parallel variable, including output variables that both operands share
 // (batch dims: the GQA scores/values heads); every other variable is
-// summed.  The sequential ("arbitrary") reduction grid axes of the TPU
-// kernel, its tile-level reduction and its leaf reduction are all one loop
-// inside the thread: CUDA blocks run in no fixed order and share no
-// scratch.  The epilogue runs once, after the whole reduction; the store
-// writes only inside the clip.
+// summed.  Sums run in float32, or in int32 for an integer output (the
+// reference's _acc_dtype); the store rounds once to the output's type.
+// Nothing uses atomics: where a sum is split (over threads, warps or
+// CTAs) the partial sums meet in a fixed order, so every result is
+// deterministic.
 //
-// Types: every operand, epilogue input and the output carries a type code
-// (float32, bf16, f16, int8, int32).  Loads convert to the accumulator's
-// type, which is the reference's (_acc_dtype): int32 when the output is an
-// integer, else float32; the store rounds once to the output's type (see
-// dag.cuh for how that relates to the reference's tile evaluation).  The
-// loop of a group whose two sides are plain loads of one type (float32,
-// bf16, f16, or int8 into int32), or of float32 and bf16 (a float32
-// intermediate times bf16 weights), is specialised on those types; any
-// other group runs the general loop, which evaluates the prologue
-// programs.
+// The binding (kernels/contraction.py::gemm_view) reads a plan whose two
+// sides are plain loads as one batched product C[b, m, n] = sum_k A[b, m,
+// k] B[b, k, n]: batch = the output variables both operands read, M (N) =
+// the one only A (B) reads, K = the reduction variable both read.  Such a
+// plan takes one of three paths; every other plan (a prologue program,
+// several M, N or K variables, a variable only one side reads, operand
+// types no path takes) runs the general loop, with the reason on record.
 //
-// Launch: one output element per threadIdx.x, and blockDim.y threads that
-// split its reduction (each takes every blockDim.y-th step of reduction
-// variable 0; the partial sums meet in shared memory in a fixed order, so
-// results are deterministic).  The split keeps enough loads in flight when
-// there are few outputs and long reductions (decode).  threadIdx.x walks a
-// chunk of the output variable with the smallest output stride (coalesced
-// stores, and coalesced weight loads for a projection); blockIdx.x
-// enumerates the other output variables first (the ones the largest
-// operand does not depend on lead, so blocks that read the same weight
-// columns run side by side and share them through L2) and the chunk index
-// last.  The binding merges variables that a tile split apart (an outer
-// and an inner variable whose strides compose in every tensor) before the
-// launch, so the plan's tile never narrows the thread layout.
+// skinny (M <= 16: decode).  Bound by bytes: each weight (B) element is
+//   used M times, so the card's 3.35 TB/s caps it.  A CTA owns a slab of
+//   128 columns of N (32 where B is unit-stride along K) for all M rows.
+//   The B tile streams through a 4-stage shared-memory ring of 16-byte
+//   cp.async copies (zero-filled past the edges), so each weight byte is
+//   read from HBM once and many copies are in flight; the CTA's slice of
+//   A sits in shared memory as float32 (int32) for all its K, and every
+//   weight element feeds all M rows from registers.  K is split over the
+//   8 warps of the CTA, and over CTAs where N alone would leave the SMs
+//   idle; the CTAs' partial sums go to a scratch buffer and a second pass
+//   adds them in split order and applies the epilogue.
+// tiled, float32 (or a float32 lhs and a bf16 rhs: prefill, stripe_matmul,
+//   an unfused intermediate times bf16 weights).  Bound by operations on the CUDA cores (67 TFLOP/s;
+//   no TF32, the reference's float32 semantics).  128 x 128 output tiles,
+//   K in steps of 16 through a 3-stage ring filled by cp.async (16-byte
+//   copies along a unit-stride M/N, 4-byte copies otherwise: that also
+//   transposes a K-major operand into the [k][m] layout), and 8 x 8
+//   outputs per thread: 16 shared-memory loads for 64 FMAs.  K is split
+//   over CTAs as on the skinny path where the tiles alone fill too few SMs
+//   (prefill at m = 128 has 8-112 of them).
+// tiled, bf16 / f16 -> float32 and int8 -> int32.  Bound by operations on
+//   the tensor cores (989 / 1979 TFLOP/s).  wgmma m64n128k16 (k32 for
+//   int8): two consumer warpgroups of 64 rows each over a 128 x 128 tile,
+//   one producer warp that keeps a 4-stage ring of 128-byte-wide K slabs
+//   full with TMA (128-byte swizzle, as wgmma reads it; mbarriers for
+//   full and empty slots); each consumer keeps one stage of products in
+//   flight.  TMA reads an operand in place when it is K-major with rows
+//   at 16-byte steps, and a 16-bit B also when it is N-major (a weight
+//   W[k, n]: wgmma reads it transposed).  Any other operand (an MN-major
+//   A, an MN-major int8 B: wgmma reads 8-bit types K-major only; rows not
+//   at 16-byte steps; batch dims) is first copied K-major into scratch by
+//   a transposing pack pass, one read and one write of it.  No split of K.
 //
-// What bounds it: at decode (m = 8 rows) every weight is read once per
-// step, 4-byte float32 each: one llama3-8b decode step reads ~218 M weight
-// elements per layer (872 MB, 27.9 GB over 32 layers), ~8.3 ms at the
-// H100 SXM data sheet's 3.35 TB/s.  The kernel is memory-bound there.
-//
-// What this simple design leaves on the table: no shared-memory staging of
-// the operand tiles (a row block of the weights is re-read by each output
-// row from L2, and from HBM when the rows run far apart, as in prefill);
-// no register tiling (one output per thread, two loads per multiply-add);
-// no tensor cores (wgmma) and no TMA; the serving path still hands bf16
-// weights over as float32.  Those are later work.
+// The three paths share the epilogue (scale, then the postfix epilogue
+// program at the element's output coordinates, extra inputs included),
+// the store masks of the ragged edges and the clip, and the one rounding
+// to the output's type (emit / finish below).
+
+#include <cuda.h>  // CUtensorMap; the encoder comes from cudaGetDriverEntryPoint
+#include <type_traits>
 
 #include "dag.cuh"
 
@@ -65,6 +78,12 @@
 #define MAXS 6     // operand slots (distinct leaf loads)
 #define MAXE 6     // extra epilogue inputs
 #define MAXD 8     // output rank
+
+// Params.path; must match repro_torch/kernels/contraction.py
+#define PATH_GENERAL 0
+#define PATH_SKINNY 1
+#define PATH_FFMA 2
+#define PATH_WGMMA 3
 
 struct Params {
     void* out;
@@ -92,18 +111,56 @@ struct Params {
     int n_red;
     int n_slot;
     int n_eslot;
-    int block_x;  // blockDim.x: outputs per block
-    int block_k;  // blockDim.y: threads splitting one output's reduction
+    int block_x;  // general: blockDim.x, outputs per block
+    int block_k;  // general: blockDim.y, threads splitting one output's reduction
     int fast;     // lhs is exactly "load slot 0" and rhs "load slot 1"
     Prog lhs;
     Prog rhs;
     Prog epi;
+    // ---- the GEMM view (path != PATH_GENERAL); index [0] is A, [1] is B
+    void* work;                    // scratch: split partials, packed operands
+    long long work_part;           // byte offsets into work (-1: none)
+    long long work_pack[2];
+    long long g_base[2];           // element offset of A, B
+    long long g_smn[2];            // A's stride along M, B's along N
+    long long g_sk[2];             // their strides along K
+    long long g_bstr[MAXV][2];     // per batch variable: A's, B's stride
+    long long g_bout[MAXV];        //   the output's
+    long long g_bepi[MAXV][MAXE];  //   each epilogue input's
+    long long g_omn[2];            // the output's stride along M, N
+    long long g_emn[MAXE][2];      // each epilogue input's along M, N
+    long long g_nbatch;
+    int g_bext[MAXV];              // batch extents, and their output coordinate
+    int g_bdim[MAXV];
+    int g_bcoef[MAXV];
+    int g_mdim[2];                 // output dim of M, N (-1: absent)
+    int g_mcoef[2];
+    int g_M, g_N, g_K;
+    int g_nb;
+    int g_a;                       // the slot of A; B is slot 1 - g_a
+    int path;
+    int splits;                    // K split over CTAs
+    int k_split;                   // K per split
+    int vec[2];                    // 16-byte cp.async copies of A, B
+    int tma_direct[2];             // wgmma: TMA reads the operand in place, K-major
+                                   // (1) or, B only, MN-major (2); 0: packed
+    int kp[2];                     // wgmma: packed row length (elements)
+    int mt;                        // skinny: row tile
+    int kv;                        // skinny: B is unit-stride along K
+    int defer;                     // sums to scratch, the epilogue in the second pass
 };
 
 __device__ __forceinline__ float mac(float a, float b, float acc) { return fmaf(a, b, acc); }
 __device__ __forceinline__ int mac(int a, int b, int acc) { return a * b + acc; }
 
-// T: accumulator type; FAST: both sides are plain loads of types SA, SB
+// ============================================================ general path
+// One output element per threadIdx.x, and blockDim.y threads that split
+// its reduction (each takes every blockDim.y-th step of reduction variable
+// 0; the partial sums meet in shared memory in a fixed order).
+// threadIdx.x walks a chunk of the output variable with the smallest
+// output stride; blockIdx.x enumerates the other output variables first
+// and the chunk index last.  T: accumulator type; FAST: both sides are
+// plain loads of types SA, SB (otherwise the prologue programs run).
 template <typename T, typename SA, typename SB, bool FAST>
 __global__ void contraction_kernel(const __grid_constant__ Params p) {
     __shared__ T part[1024];
@@ -198,39 +255,842 @@ __global__ void contraction_kernel(const __grid_constant__ Params p) {
     store_as(p.out, p.out_dt, oo, val);
 }
 
+// ============================================= what the GEMM paths share
+// The offsets of one batch entry, and how many of its M rows and N columns
+// lie inside the clip.
+struct Ctx {
+    long long off[2];   // A, B
+    long long oo;       // output
+    long long eo[MAXE]; // epilogue inputs
+    int lim[2];
+};
+
+__device__ __forceinline__ Ctx batch_ctx(const Params& p, long long bi) {
+    Ctx c;
+    c.off[0] = p.g_base[0];
+    c.off[1] = p.g_base[1];
+    c.oo = 0;
+    for (int s = 0; s < p.n_eslot; ++s) c.eo[s] = p.eslot_base[s];
+    int coord[MAXD];
+    for (int d = 0; d < p.out_rank; ++d) coord[d] = 0;
+    for (int i = 0; i < p.g_nb; ++i) {
+        const int v = (int)(bi % p.g_bext[i]);
+        bi /= p.g_bext[i];
+        c.off[0] += p.g_bstr[i][0] * v;
+        c.off[1] += p.g_bstr[i][1] * v;
+        c.oo += p.g_bout[i] * v;
+        for (int s = 0; s < p.n_eslot; ++s) c.eo[s] += p.g_bepi[i][s] * v;
+        coord[p.g_bdim[i]] += p.g_bcoef[i] * v;
+    }
+    bool live = true;
+    for (int d = 0; d < p.out_rank; ++d)
+        if (d != p.g_mdim[0] && d != p.g_mdim[1] && coord[d] >= p.out_clip[d]) live = false;
+    for (int j = 0; j < 2; ++j) {
+        int lim = j == 0 ? p.g_M : p.g_N;
+        if (p.g_mdim[j] >= 0) {
+            const int room = p.out_clip[p.g_mdim[j]] - coord[p.g_mdim[j]];
+            lim = min(lim, room <= 0 ? 0 : (room + p.g_mcoef[j] - 1) / p.g_mcoef[j]);
+        }
+        c.lim[j] = live ? lim : 0;
+    }
+    return c;
+}
+
+// The scale, the epilogue program at (m, n) and the one rounding store.
+// Out of line: the tiled paths reach it from 64 unrolled accumulators, and
+// an inlined postfix evaluator at each of them multiplies the build time.
+template <typename T>
+__device__ __noinline__ void finish(const Params& p, const Ctx& c, int m, int n, T acc) {
+    T val = p.scale != 1.0 ? acc * (T)p.scale : acc;
+    if (p.epi.n > 0) {
+        long long eo[MAXE];
+        for (int s = 0; s < p.n_eslot; ++s)
+            eo[s] = c.eo[s] + p.g_emn[s][0] * m + p.g_emn[s][1] * n;
+        val = eval_prog<T>(p.epi, p.eslot, p.eslot_dt, eo, ~0u, val, p.consts);
+    }
+    store_as(p.out, p.out_dt, c.oo + p.g_omn[0] * m + p.g_omn[1] * n, val);
+}
+
+// One finished sum of output (bi, m, n) from K split ``split``: stored
+// through the epilogue, or kept as a partial for the finishing pass (a
+// split K, or a tiled plan with an epilogue program: there each thread
+// would evaluate the program for 64 outputs in a row, one dependent load
+// after another, while the finishing pass gives each output a thread).
+template <typename T>
+__device__ __forceinline__ void emit(const Params& p, const Ctx& c, long long bi, int split,
+                                     int m, int n, T acc) {
+    if (m >= c.lim[0] || n >= c.lim[1]) return;
+    if (p.splits > 1 || p.defer) {
+        T* part = (T*)((char*)p.work + p.work_part);
+        part[(((long long)split * p.g_nbatch + bi) * p.g_M + m) * p.g_N + n] = acc;
+    } else if (p.epi.n == 0) {  // no program: the scale and the store, inline
+        store_as(p.out, p.out_dt, c.oo + p.g_omn[0] * m + p.g_omn[1] * n,
+                 p.scale != 1.0 ? acc * (T)p.scale : acc);
+    } else {
+        finish(p, c, m, n, acc);
+    }
+}
+
+// The second pass of a split K: the partials of each output added in split
+// order, then the epilogue.
+template <typename T>
+__global__ void __launch_bounds__(256) finish_kernel(const __grid_constant__ Params p) {
+    const long long plane = p.g_nbatch * p.g_M * p.g_N;
+    const T* part = (const T*)((const char*)p.work + p.work_part);
+    for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x; i < plane;
+         i += (long long)gridDim.x * blockDim.x) {
+        const int n = (int)(i % p.g_N);
+        const long long r = i / p.g_N;
+        const int m = (int)(r % p.g_M);
+        const Ctx c = batch_ctx(p, r / p.g_M);
+        if (m >= c.lim[0] || n >= c.lim[1]) continue;
+        T acc = part[i];
+        for (int s = 1; s < p.splits; ++s) acc += part[s * plane + i];
+        finish(p, c, m, n, acc);
+    }
+}
+
+template <int BYTES> struct Raw;
+template <> struct Raw<1> { typedef uint8_t t; typedef unsigned v4; };
+template <> struct Raw<2> { typedef uint16_t t; typedef uint2 v4; };
+template <> struct Raw<4> { typedef uint32_t t; typedef uint4 v4; };
+
+// four consecutive elements of type S from shared memory, as T
+template <typename T, typename S>
+__device__ __forceinline__ void ld4(const unsigned char* src, T* o) {
+    const typename Raw<sizeof(S)>::v4 v = *(const typename Raw<sizeof(S)>::v4*)src;
+    const S* e = (const S*)&v;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) o[i] = as_t<T>(e[i]);
+}
+
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+    return (unsigned)__cvta_generic_to_shared(p);
+}
+
+// cp.async of ``bytes`` (0..16) bytes, the rest of the 16 zero-filled
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, int bytes) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+                 :: "r"(smem_u32(dst)), "l"(src), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, int bytes) {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+                 :: "r"(smem_u32(dst)), "l"(src), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void cp_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+
+template <int N>
+__device__ __forceinline__ void cp_wait() { asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory"); }
+
+// ============================================================ skinny path
+#define SK_THREADS 256
+#define SK_STAGES 4
+
+template <typename S, bool KV>
+struct SkinnyShape {
+    static constexpr int BN = KV ? 32 : 128;  // columns of N per CTA
+    static constexpr int BK = KV ? 64 : 32;   // K per stage
+    // bytes of one shared-memory row: a K row of the tile (BN columns), or
+    // with KV an N row (BK elements, padded by 16 bytes against conflicts)
+    static constexpr int ROW = KV ? BK * (int)sizeof(S) + 16 : BN * (int)sizeof(S);
+    static constexpr int TILE = (KV ? BN : BK) * ROW;
+};
+
+// T: accumulator; S: both operands' type; MT: row tile (>= M); KV: B is
+// unit-stride along K (lanes own N rows of the tile; otherwise lanes own 4
+// neighbouring N columns and the warps take every 8th K row)
+template <typename T, typename S, int MT, bool KV>
+__global__ void __launch_bounds__(SK_THREADS) skinny_kernel(const __grid_constant__ Params p) {
+    typedef SkinnyShape<S, KV> Sh;
+    typedef typename Raw<sizeof(S)>::t R;
+    constexpr int ROWS = KV ? Sh::BN : Sh::BK;    // shared rows of a stage
+    constexpr int COLS = KV ? Sh::BK : Sh::BN;    // elements per row
+    constexpr int VEC = 16 / (int)sizeof(S);      // elements per 16-byte copy
+    constexpr int NPT = KV ? 1 : 4;               // N columns per thread
+    extern __shared__ __align__(16) unsigned char smem[];
+    T* xs = (T*)(smem + SK_STAGES * Sh::TILE);
+
+    const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+    const int n_tiles = (p.g_N + Sh::BN - 1) / Sh::BN;
+    long long bid = blockIdx.x;
+    const int nt = (int)(bid % n_tiles);
+    bid /= n_tiles;
+    const int split = (int)(bid % p.splits);
+    const long long bi = bid / p.splits;
+    const Ctx c = batch_ctx(p, bi);
+    const int n0 = nt * Sh::BN;
+    const int k0 = split * p.k_split;
+    const int kend = min(p.g_K, k0 + p.k_split);
+    const int klen = max(kend - k0, 0);
+    const int nk = (klen + Sh::BK - 1) / Sh::BK;
+    const int kpad = nk * Sh::BK;
+    const S* A = (const S*)p.slot[p.g_a] + c.off[0];
+    const S* B = (const S*)p.slot[1 - p.g_a] + c.off[1];
+    const long long sam = p.g_smn[0], sak = p.g_sk[0], sbn = p.g_smn[1], sbk = p.g_sk[1];
+    const bool vec = p.vec[1];
+
+    // stage t of this split's B tile into ring slot t % SK_STAGES
+    auto load = [&](int t) {
+        unsigned char* dst = smem + (t % SK_STAGES) * Sh::TILE;
+        const int kt = k0 + t * Sh::BK;
+        if (vec) {
+            constexpr int CPR = COLS / VEC;
+            for (int ch = tid; ch < ROWS * CPR; ch += SK_THREADS) {
+                const int r = ch / CPR, q = ch % CPR;
+                const int k = KV ? kt + q * VEC : kt + r;
+                const int n = KV ? n0 + r : n0 + q * VEC;
+                const int left = KV ? (n < p.g_N ? kend - k : 0) : (k < kend ? p.g_N - n : 0);
+                const int bytes = left <= 0 ? 0 : min(left, VEC) * (int)sizeof(S);
+                const S* src = bytes ? B + (long long)k * sbk + (long long)n * sbn : B;
+                cp_async16(dst + r * Sh::ROW + q * 16, src, bytes);
+            }
+        } else {
+            for (int e = tid; e < ROWS * COLS; e += SK_THREADS) {
+                const int r = e / COLS, q = e % COLS;
+                const int k = KV ? kt + q : kt + r;
+                const int n = KV ? n0 + r : n0 + q;
+                R v = 0;
+                if (k < kend && n < p.g_N) v = ((const R*)B)[(long long)k * sbk + (long long)n * sbn];
+                ((R*)(dst + r * Sh::ROW))[q] = v;
+            }
+        }
+        cp_commit();
+    };
+
+    for (int t = 0; t < SK_STAGES - 1; ++t) {
+        if (t < nk) load(t);
+        else cp_commit();
+    }
+    // this split's A rows, as T, while the first B stages are in flight
+    for (int e = tid; e < MT * kpad; e += SK_THREADS) {
+        const int m = e / kpad, kk = e % kpad;
+        T v = (T)0;
+        if (m < p.g_M && kk < klen) v = as_t<T>(A[(long long)m * sam + (long long)(k0 + kk) * sak]);
+        xs[e] = v;
+    }
+
+    T acc[MT][NPT];
+#pragma unroll
+    for (int m = 0; m < MT; ++m)
+#pragma unroll
+        for (int j = 0; j < NPT; ++j) acc[m][j] = (T)0;
+
+    for (int t = 0; t < nk; ++t) {
+        cp_wait<SK_STAGES - 2>();
+        __syncthreads();
+        if (t + SK_STAGES - 1 < nk) load(t + SK_STAGES - 1);
+        else cp_commit();
+        const unsigned char* tile = smem + (t % SK_STAGES) * Sh::TILE;
+        const T* x = xs + t * Sh::BK;
+        if constexpr (KV) {
+            T w[8];
+            const unsigned char* row = tile + lane * Sh::ROW + warp * 8 * (int)sizeof(S);
+            ld4<T, S>(row, w);
+            ld4<T, S>(row + 4 * sizeof(S), w + 4);
+#pragma unroll
+            for (int m = 0; m < MT; ++m)
+#pragma unroll
+                for (int j = 0; j < 8; ++j) acc[m][0] = mac(x[m * kpad + warp * 8 + j], w[j], acc[m][0]);
+        } else {
+#pragma unroll
+            for (int i = 0; i < Sh::BK / 8; ++i) {
+                const int r = warp + 8 * i;
+                T w[4];
+                ld4<T, S>(tile + r * Sh::ROW + lane * 4 * (int)sizeof(S), w);
+#pragma unroll
+                for (int m = 0; m < MT; ++m) {
+                    const T xv = x[m * kpad + r];
+#pragma unroll
+                    for (int j = 0; j < 4; ++j) acc[m][j] = mac(xv, w[j], acc[m][j]);
+                }
+            }
+        }
+    }
+
+    // the 8 warps' sums of each output meet in warp order
+    cp_wait<0>();
+    __syncthreads();
+    T* red = (T*)smem;
+#pragma unroll
+    for (int m = 0; m < MT; ++m)
+#pragma unroll
+        for (int j = 0; j < NPT; ++j) red[(warp * MT + m) * Sh::BN + lane * NPT + j] = acc[m][j];
+    __syncthreads();
+    for (int e = tid; e < MT * Sh::BN; e += SK_THREADS) {
+        const int m = e / Sh::BN, nl = e % Sh::BN;
+        T s = red[e];
+        for (int w = 1; w < 8; ++w) s += red[w * MT * Sh::BN + e];
+        if (m < p.g_M) emit(p, c, bi, split, m, n0 + nl, s);
+    }
+}
+
+// ================================================ tiled path, CUDA cores
+#define FF_BM 128
+#define FF_BK 16
+#define FF_LD (FF_BM + 4)  // floats per shared row: [k][m], padded
+#define FF_STAGES 3
+
+// One operand's tile (rows [mn0, mn0 + 128) of M or N, K [kt, kt + 16))
+// into dst[k][mn] as float32: 16-byte cp.async copies where the operand is
+// unit-stride along M/N (``vec``), 4-byte ones otherwise (consecutive
+// threads walk K where it is the unit stride); a 16-bit operand by loads
+// and converting stores.
+template <typename S>
+__device__ __forceinline__ void ff_load(float* dst, const S* src, long long s_mn, long long s_k,
+                                        int mn0, int ext, int kt, int kend, bool vec, int tid) {
+    if constexpr (std::is_same<S, float>::value) {
+        if (vec) {
+            for (int ch = tid; ch < FF_BK * (FF_BM / 4); ch += 256) {
+                const int r = ch / (FF_BM / 4), q = ch % (FF_BM / 4);
+                const int k = kt + r, mn = mn0 + q * 4;
+                const int left = k < kend ? ext - mn : 0;
+                const int bytes = left <= 0 ? 0 : min(left, 4) * 4;
+                cp_async16(dst + r * FF_LD + q * 4, bytes ? src + (long long)k * s_k + mn : src, bytes);
+            }
+            return;
+        }
+    }
+    const bool kfast = s_k == 1;
+    for (int e = tid; e < FF_BK * FF_BM; e += 256) {
+        const int r = kfast ? e % FF_BK : e / FF_BM;
+        const int i = kfast ? e / FF_BK : e % FF_BM;
+        const int k = kt + r, mn = mn0 + i;
+        const bool ok = k < kend && mn < ext;
+        const S* at = src + (long long)k * s_k + (long long)mn * s_mn;
+        if constexpr (std::is_same<S, float>::value)
+            cp_async4(dst + r * FF_LD + i, ok ? at : src, ok ? 4 : 0);
+        else
+            dst[r * FF_LD + i] = ok ? as_t<float>(*at) : 0.0f;
+    }
+}
+
+// A is float32; SB: B's type (float32 or bf16)
+template <typename SB>
+__global__ void __launch_bounds__(256) ffma_kernel(const __grid_constant__ Params p) {
+    extern __shared__ __align__(16) unsigned char smem[];
+    float* As = (float*)smem;
+    float* Bs = As + FF_STAGES * FF_BK * FF_LD;
+    const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
+    const int n_tiles = (p.g_N + FF_BM - 1) / FF_BM, m_tiles = (p.g_M + FF_BM - 1) / FF_BM;
+    long long bid = blockIdx.x;
+    const int nt = (int)(bid % n_tiles);
+    bid /= n_tiles;
+    const int mt = (int)(bid % m_tiles);
+    bid /= m_tiles;
+    const int split = (int)(bid % p.splits);
+    const long long bi = bid / p.splits;
+    const int m0 = mt * FF_BM, n0 = nt * FF_BM;
+    const int k0 = split * p.k_split, kend = min(p.g_K, k0 + p.k_split);
+    const int nk = (max(kend - k0, 0) + FF_BK - 1) / FF_BK;
+    const float* A;
+    const SB* B;
+    {
+        const Ctx c = batch_ctx(p, bi);
+        A = (const float*)p.slot[p.g_a] + c.off[0];
+        B = (const SB*)p.slot[1 - p.g_a] + c.off[1];
+    }
+    auto load = [&](int t) {
+        const int s = t % FF_STAGES, kt = k0 + t * FF_BK;
+        ff_load<float>(As + s * FF_BK * FF_LD, A, p.g_smn[0], p.g_sk[0], m0, p.g_M, kt, kend, p.vec[0], tid);
+        ff_load<SB>(Bs + s * FF_BK * FF_LD, B, p.g_smn[1], p.g_sk[1], n0, p.g_N, kt, kend, p.vec[1], tid);
+        cp_commit();
+    };
+
+    float acc[8][8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) acc[i][j] = 0.0f;
+    for (int t = 0; t < FF_STAGES - 1; ++t) {
+        if (t < nk) load(t);
+        else cp_commit();
+    }
+    for (int t = 0; t < nk; ++t) {
+        cp_wait<FF_STAGES - 2>();
+        __syncthreads();
+        if (t + FF_STAGES - 1 < nk) load(t + FF_STAGES - 1);
+        else cp_commit();
+        const float* a = As + (t % FF_STAGES) * FF_BK * FF_LD;
+        const float* b = Bs + (t % FF_STAGES) * FF_BK * FF_LD;
+#pragma unroll
+        for (int k = 0; k < FF_BK; ++k) {
+            const float4 a0 = *(const float4*)(a + k * FF_LD + ty * 4);
+            const float4 a1 = *(const float4*)(a + k * FF_LD + 64 + ty * 4);
+            const float4 b0 = *(const float4*)(b + k * FF_LD + tx * 4);
+            const float4 b1 = *(const float4*)(b + k * FF_LD + 64 + tx * 4);
+            const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+            const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+            for (int i = 0; i < 8; ++i)
+#pragma unroll
+                for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+        }
+    }
+    cp_wait<0>();
+    const Ctx c = batch_ctx(p, bi);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+        const int m = m0 + (i >> 2) * 64 + ty * 4 + (i & 3);
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+            emit(p, c, bi, split, m, n0 + (j >> 2) * 64 + tx * 4 + (j & 3), acc[i][j]);
+    }
+}
+
+// ============================================== tiled path, tensor cores
+#define WG_BM 128
+#define WG_BN 128
+#define WG_STAGES 4
+#define WG_ROW 128                  // bytes of K per stage (the swizzle span)
+#define WG_TILE (128 * WG_ROW)      // bytes of one operand's stage
+#define WG_THREADS 288              // two consumer warpgroups, one producer warp
+
+__device__ __forceinline__ void mbar_init(uint64_t* b, int count) {
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" :: "r"(smem_u32(b)), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* b, int bytes) {
+    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+                 :: "r"(smem_u32(b)), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* b) {
+    asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" :: "r"(smem_u32(b)) : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t* b, int parity) {
+    unsigned done = 0;
+    while (!done) {
+        asm volatile("{\n.reg .pred P1;\n"
+                     "mbarrier.try_wait.parity.shared::cta.b64 P1, [%1], %2;\n"
+                     "selp.u32 %0, 1, 0, P1;\n}\n"
+                     : "=r"(done) : "r"(smem_u32(b)), "r"(parity) : "memory");
+    }
+}
+
+__device__ __forceinline__ void tma_load3(const CUtensorMap* map, void* dst, uint64_t* bar,
+                                          int c0, int c1, int c2) {
+    asm volatile("cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
+                 " [%0], [%1, {%3, %4, %5}], [%2];\n"
+                 :: "r"(smem_u32(dst)), "l"((unsigned long long)map), "r"(smem_u32(bar)),
+                    "r"(c0), "r"(c1), "r"(c2)
+                 : "memory");
+}
+
+// wgmma's descriptor of a K-major tile in the 128-byte swizzle: rows of 128
+// bytes, 8-row groups 1024 bytes apart (SBO), the leading offset unused
+__device__ __forceinline__ uint64_t sw128_desc(const void* p) {
+    const uint64_t a = smem_u32(p);
+    return ((a & 0x3FFFF) >> 4) | (1ull << 16) | (64ull << 32) | (1ull << 62);
+}
+
+// ... of an MN-major tile in the 128-byte swizzle: a K row holds 64
+// elements of N in 128 bytes, 8-row groups of K lie 1024 bytes apart (SBO),
+// and the next 64 of N (the second TMA box) 8192 bytes on (LBO)
+__device__ __forceinline__ uint64_t sw128_mn_desc(const void* p) {
+    const uint64_t a = smem_u32(p);
+    return ((a & 0x3FFFF) >> 4) | (512ull << 16) | (64ull << 32) | (1ull << 62);
+}
+
+#define WG_REGS                                                                              \
+    "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "                 \
+    "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "        \
+    "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "        \
+    "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}"
+#define WG_8(c, i) c(d[i]), c(d[i + 1]), c(d[i + 2]), c(d[i + 3]), \
+                   c(d[i + 4]), c(d[i + 5]), c(d[i + 6]), c(d[i + 7])
+#define WG_64(c) WG_8(c, 0), WG_8(c, 8), WG_8(c, 16), WG_8(c, 24), \
+                 WG_8(c, 32), WG_8(c, 40), WG_8(c, 48), WG_8(c, 56)
+
+// d += A (64 x K-step, shared) * B (128 x K-step, shared), one K step of
+// 32 bytes: k16 for 16-bit types, k32 for int8.  TB: B is MN-major (the
+// transposed read wgmma offers for 16-bit types only)
+template <typename S> struct Wgmma;
+template <> struct Wgmma<__nv_bfloat16> {
+    template <int TB>
+    static __device__ __forceinline__ void mma(float* d, uint64_t da, uint64_t db) {
+        asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+                     "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " WG_REGS
+                     ", %64, %65, p, 1, 1, 0, %67;\n}\n"
+                     : WG_64("+f") : "l"(da), "l"(db), "r"(1), "n"(TB));
+    }
+};
+template <> struct Wgmma<__half> {
+    template <int TB>
+    static __device__ __forceinline__ void mma(float* d, uint64_t da, uint64_t db) {
+        asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+                     "wgmma.mma_async.sync.aligned.m64n128k16.f32.f16.f16 " WG_REGS
+                     ", %64, %65, p, 1, 1, 0, %67;\n}\n"
+                     : WG_64("+f") : "l"(da), "l"(db), "r"(1), "n"(TB));
+    }
+};
+template <> struct Wgmma<int8_t> {
+    template <int TB>
+    static __device__ __forceinline__ void mma(int* d, uint64_t da, uint64_t db) {
+        static_assert(TB == 0, "wgmma reads 8-bit operands K-major only");
+        asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+                     "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 " WG_REGS
+                     ", %64, %65, p;\n}\n"
+                     : WG_64("+r") : "l"(da), "l"(db), "r"(1));
+    }
+};
+
+// keep the accumulators in place across the asynchronous products
+__device__ __forceinline__ void fence_regs(float* d) {
+#pragma unroll
+    for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
+}
+__device__ __forceinline__ void fence_regs(int* d) {
+#pragma unroll
+    for (int i = 0; i < 64; ++i) asm volatile("" : "+r"(d[i]) :: "memory");
+}
+
+// Accumulator i of thread t of a warpgroup (m64nN, 32-bit accumulators):
+// its row in the warpgroup's 64 and its column.  The epilogue's loads and
+// the store both go through this one mapping.
+__device__ __forceinline__ void frag_mn(int i, int t, int& row, int& col) {
+    row = (t >> 5) * 16 + ((t & 31) >> 2) + 8 * ((i >> 1) & 1);
+    col = (i >> 2) * 8 + (t & 3) * 2 + (i & 1);
+}
+
+// S: both operands' type; T: accumulator (float, or int for int8); BMN: B
+// arrives MN-major (two 64-wide TMA boxes of N a stage), else K-major
+template <typename S, typename T, bool BMN>
+__global__ void __launch_bounds__(WG_THREADS) wgmma_kernel(
+        const __grid_constant__ Params p, const __grid_constant__ CUtensorMap ta,
+        const __grid_constant__ CUtensorMap tb) {
+    constexpr int BK = WG_ROW / (int)sizeof(S);  // K elements per stage
+    extern __shared__ __align__(16) unsigned char smem_raw[];
+    unsigned char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+    unsigned char* sa = smem;
+    unsigned char* sb = smem + WG_STAGES * WG_TILE;
+    uint64_t* full = (uint64_t*)(smem + 2 * WG_STAGES * WG_TILE);
+    uint64_t* empty = full + WG_STAGES;
+
+    const int n_tiles = (p.g_N + WG_BN - 1) / WG_BN, m_tiles = (p.g_M + WG_BM - 1) / WG_BM;
+    long long bid = blockIdx.x;
+    const int nt = (int)(bid % n_tiles);
+    bid /= n_tiles;
+    const int mt = (int)(bid % m_tiles);
+    const long long bi = bid / m_tiles;
+    const int m0 = mt * WG_BM, n0 = nt * WG_BN;
+    const int nk = (p.g_K + BK - 1) / BK;
+
+    if (threadIdx.x == 0) {
+        for (int s = 0; s < WG_STAGES; ++s) {
+            mbar_init(&full[s], 1);
+            mbar_init(&empty[s], 2);
+        }
+        asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    }
+    __syncthreads();
+
+    if (threadIdx.x >= 256) {  // the producer warp: one lane issues the copies
+        if (threadIdx.x == 256) {
+            for (int kt = 0; kt < nk; ++kt) {
+                const int s = kt % WG_STAGES;
+                if (kt >= WG_STAGES) mbar_wait(&empty[s], ((kt / WG_STAGES) - 1) & 1);
+                mbar_expect_tx(&full[s], 2 * WG_TILE);
+                tma_load3(&ta, sa + s * WG_TILE, &full[s], kt * BK, m0, (int)bi);
+                if (BMN) {
+                    tma_load3(&tb, sb + s * WG_TILE, &full[s], n0, kt * BK, (int)bi);
+                    tma_load3(&tb, sb + s * WG_TILE + WG_TILE / 2, &full[s], n0 + 64, kt * BK,
+                              (int)bi);
+                } else {
+                    tma_load3(&tb, sb + s * WG_TILE, &full[s], kt * BK, n0, (int)bi);
+                }
+            }
+        }
+        return;
+    }
+    const int wg = threadIdx.x >> 7, t = threadIdx.x & 127;
+    T d[64];
+#pragma unroll
+    for (int i = 0; i < 64; ++i) d[i] = (T)0;
+    for (int kt = 0; kt < nk; ++kt) {
+        const int s = kt % WG_STAGES;
+        mbar_wait(&full[s], (kt / WG_STAGES) & 1);
+        const unsigned char* a = sa + s * WG_TILE + wg * 64 * WG_ROW;
+        const unsigned char* b = sb + s * WG_TILE;
+        fence_regs(d);
+        asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+#pragma unroll
+        for (int kk = 0; kk < WG_ROW / 32; ++kk)  // 32 bytes of K: 16 rows of an MN-major B
+            Wgmma<S>::template mma<BMN>(d, sw128_desc(a + kk * 32),
+                                        BMN ? sw128_mn_desc(b + kk * 16 * WG_ROW)
+                                            : sw128_desc(b + kk * 32));
+        asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+        // this stage's products stay in flight; the previous stage's are
+        // done, and its slot goes back to the producer
+        asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
+        fence_regs(d);
+        if (kt > 0 && t == 0) mbar_arrive(&empty[(kt - 1) % WG_STAGES]);
+    }
+    asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+    fence_regs(d);
+    const Ctx c = batch_ctx(p, bi);
+#pragma unroll
+    for (int i = 0; i < 64; ++i) {
+        int row, col;
+        frag_mn(i, t, row, col);
+        emit(p, c, bi, 0, m0 + wg * 64 + row, n0 + col, d[i]);
+    }
+}
+
+// The pack pass: operand j (0: A, 1: B) copied K-major into scratch,
+// [batch][rows][kp] with zeros past K, through 32 x 32 shared tiles (reads
+// walk the operand's unit-stride dim, writes walk K).  R: its raw type.
+template <typename R>
+__global__ void __launch_bounds__(256) pack_kernel(const __grid_constant__ Params p, int j) {
+    __shared__ R tile[32][33];  // [k][row]
+    const int rows = j == 0 ? p.g_M : p.g_N, kp = p.kp[j];
+    const int kt_n = (kp + 31) / 32, rt_n = (rows + 31) / 32;
+    long long bid = blockIdx.x;
+    const int kt = (int)(bid % kt_n);
+    bid /= kt_n;
+    const int rt = (int)(bid % rt_n);
+    long long bi = bid / rt_n;
+    const long long b_flat = bi;
+    long long base = p.g_base[j];
+    for (int i = 0; i < p.g_nb; ++i) {
+        base += p.g_bstr[i][j] * (bi % p.g_bext[i]);
+        bi /= p.g_bext[i];
+    }
+    const R* src = (const R*)p.slot[j == 0 ? p.g_a : 1 - p.g_a] + base;
+    R* dst = (R*)((char*)p.work + p.work_pack[j]) + b_flat * rows * (long long)kp;
+    const long long smn = p.g_smn[j], sk = p.g_sk[j];
+    const bool rows_fast = sk != 1;
+    const int tx = threadIdx.x & 31, ty = threadIdx.x >> 5;
+    for (int i = ty; i < 32; i += 8) {
+        const int r = rt * 32 + (rows_fast ? tx : i), k = kt * 32 + (rows_fast ? i : tx);
+        R v = 0;
+        if (r < rows && k < p.g_K) v = src[(long long)r * smn + (long long)k * sk];
+        if (rows_fast) tile[i][tx] = v;
+        else tile[tx][i] = v;
+    }
+    __syncthreads();
+    for (int i = ty; i < 32; i += 8) {
+        const int r = rt * 32 + i, k = kt * 32 + tx;
+        if (r < rows && k < kp) dst[(long long)r * kp + k] = tile[tx][i];
+    }
+}
+
+// ================================================================ host
+template <typename K>
+static void smem_limit(K kernel, size_t bytes) {
+    if (bytes > 48 * 1024)
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+}
+
 template <typename T, typename SA, typename SB, bool FAST>
-static void launch(const Params* p, long long n_blocks, cudaStream_t st) {
-    const dim3 block(p->block_x, p->block_k);
-    contraction_kernel<T, SA, SB, FAST><<<(unsigned int)n_blocks, block, 0, st>>>(*p);
+static void launch_general(const Params& p, long long n_blocks, cudaStream_t st) {
+    const dim3 block(p.block_x, p.block_k);
+    contraction_kernel<T, SA, SB, FAST><<<(unsigned int)n_blocks, block, 0, st>>>(p);
+}
+
+static void general(const Params& p, long long n_blocks, cudaStream_t st) {
+    const int a = p.slot_dt[0], b = p.slot_dt[1];
+    if (p.fast && !p.acc_int && a == DT_F32 && b == DT_F32)
+        launch_general<float, float, float, true>(p, n_blocks, st);
+    else if (p.fast && !p.acc_int && a == DT_BF16 && b == DT_BF16)
+        launch_general<float, __nv_bfloat16, __nv_bfloat16, true>(p, n_blocks, st);
+    else if (p.fast && !p.acc_int && a == DT_F16 && b == DT_F16)
+        launch_general<float, __half, __half, true>(p, n_blocks, st);
+    else if (p.fast && !p.acc_int && a == DT_F32 && b == DT_BF16)
+        launch_general<float, float, __nv_bfloat16, true>(p, n_blocks, st);
+    else if (p.fast && !p.acc_int && a == DT_BF16 && b == DT_F32)
+        launch_general<float, __nv_bfloat16, float, true>(p, n_blocks, st);
+    else if (p.fast && p.acc_int && a == DT_I8 && b == DT_I8)
+        launch_general<int, int8_t, int8_t, true>(p, n_blocks, st);
+    else if (p.acc_int)
+        launch_general<int, int, int, false>(p, n_blocks, st);
+    else
+        launch_general<float, float, float, false>(p, n_blocks, st);
+}
+
+template <typename T, typename S, int MT, bool KV>
+static void launch_skinny(const Params& p, long long n_blocks, cudaStream_t st) {
+    typedef SkinnyShape<S, KV> Sh;
+    const size_t ring = SK_STAGES * Sh::TILE + (size_t)MT * p.k_split * sizeof(T);
+    const size_t red = (size_t)8 * MT * Sh::BN * sizeof(T);
+    const size_t bytes = ring > red ? ring : red;
+    smem_limit(skinny_kernel<T, S, MT, KV>, bytes);
+    skinny_kernel<T, S, MT, KV><<<(unsigned int)n_blocks, SK_THREADS, bytes, st>>>(p);
+}
+
+template <typename T, typename S, int MT>
+static void skinny_layout(const Params& p, long long n_blocks, cudaStream_t st) {
+    if (p.kv) launch_skinny<T, S, MT, true>(p, n_blocks, st);
+    else launch_skinny<T, S, MT, false>(p, n_blocks, st);
+}
+
+template <typename T, typename S>
+static void skinny_rows(const Params& p, long long n_blocks, cudaStream_t st) {
+    if (p.mt <= 4) skinny_layout<T, S, 4>(p, n_blocks, st);
+    else skinny_layout<T, S, 16>(p, n_blocks, st);
+}
+
+static int skinny(const Params& p, long long n_blocks, cudaStream_t st) {
+    switch (p.slot_dt[p.g_a]) {
+        case DT_F32: skinny_rows<float, float>(p, n_blocks, st); return 0;
+        case DT_BF16: skinny_rows<float, __nv_bfloat16>(p, n_blocks, st); return 0;
+        case DT_F16: skinny_rows<float, __half>(p, n_blocks, st); return 0;
+        case DT_I8: skinny_rows<int, int8_t>(p, n_blocks, st); return 0;
+        default: return (int)cudaErrorInvalidValue;
+    }
+}
+
+template <typename SB>
+static void launch_ffma(const Params& p, long long n_blocks, cudaStream_t st) {
+    const size_t bytes = (size_t)2 * FF_STAGES * FF_BK * FF_LD * sizeof(float);
+    smem_limit(ffma_kernel<SB>, bytes);
+    ffma_kernel<SB><<<(unsigned int)n_blocks, 256, bytes, st>>>(p);
+}
+
+static int ffma(const Params& p, long long n_blocks, cudaStream_t st) {
+    const int a = p.slot_dt[p.g_a], b = p.slot_dt[1 - p.g_a];
+    if (a == DT_F32 && b == DT_F32) launch_ffma<float>(p, n_blocks, st);
+    else if (a == DT_F32 && b == DT_BF16) launch_ffma<__nv_bfloat16>(p, n_blocks, st);
+    else return (int)cudaErrorInvalidValue;
+    return 0;
+}
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+static EncodeTiled encoder() {
+    static EncodeTiled fn = nullptr;
+    if (!fn) {
+        void* f = nullptr;
+        cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+        const cudaError_t e = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &f, 12000,
+                                                               cudaEnableDefault, &q);
+#else
+        const cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &f,
+                                                      cudaEnableDefault, &q);
+#endif
+        if (e == cudaSuccess && q == cudaDriverEntryPointSuccess) fn = (EncodeTiled)f;
+    }
+    return fn;
+}
+
+// Error codes of the launch beyond CUDA's own
+#define ERR_NO_ENCODER 9001  // the CUDA driver offers no cuTensorMapEncodeTiled
+#define ERR_ENCODE 9100      // + CUresult: the CUDA driver refused a tensor map
+
+// The TMA map of operand j: a K-major tile of 128 rows by 128 bytes of K,
+// coordinates (k, row, batch); or (tma_direct 2) an MN-major box of 64 K
+// rows by 128 bytes of N, coordinates (n, k, batch).  128-byte swizzle,
+// zeros outside.
+static int tensor_map(CUtensorMap* map, const Params& p, int j) {
+    const EncodeTiled enc = encoder();
+    if (!enc) return ERR_NO_ENCODER;
+    const int dt = p.slot_dt[j == 0 ? p.g_a : 1 - p.g_a];
+    const int size = dt == DT_I8 ? 1 : 2;
+    const uint64_t rows = j == 0 ? p.g_M : p.g_N;
+    void* ptr;
+    uint64_t k_ext, row_bytes, nbatch;
+    if (p.tma_direct[j]) {
+        ptr = (char*)p.slot[j == 0 ? p.g_a : 1 - p.g_a] + p.g_base[j] * size;
+        k_ext = p.g_K;
+        row_bytes = p.g_smn[j] * size;
+        nbatch = 1;
+    } else {
+        ptr = (char*)p.work + p.work_pack[j];
+        k_ext = p.kp[j];
+        row_bytes = (uint64_t)p.kp[j] * size;
+        nbatch = p.g_nbatch;
+    }
+    cuuint64_t dims[3] = {k_ext, rows, nbatch};
+    cuuint64_t strides[2] = {row_bytes, row_bytes * rows};
+    cuuint32_t box[3] = {(cuuint32_t)(WG_ROW / size), 128, 1};
+    if (p.tma_direct[j] == 2) {
+        dims[0] = rows;
+        dims[1] = p.g_K;
+        strides[0] = p.g_sk[j] * size;
+        strides[1] = strides[0] * p.g_K;
+        box[1] = WG_ROW / size;
+    }
+    const cuuint32_t elem[3] = {1, 1, 1};
+    const CUtensorMapDataType type = dt == DT_BF16 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+                                     : dt == DT_F16 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
+                                                    : CU_TENSOR_MAP_DATA_TYPE_UINT8;
+    const CUresult r = enc(map, type, 3, ptr, dims, strides, box, elem,
+                           CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                           CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+    return r == CUDA_SUCCESS ? 0 : ERR_ENCODE + (int)r;
+}
+
+template <typename R>
+static void pack(const Params& p, int j, cudaStream_t st) {
+    const long long rows = j == 0 ? p.g_M : p.g_N;
+    const long long blocks = ((p.kp[j] + 31) / 32) * ((rows + 31) / 32) * p.g_nbatch;
+    pack_kernel<R><<<(unsigned int)blocks, 256, 0, st>>>(p, j);
+}
+
+template <typename S, typename T, bool BMN>
+static int launch_wgmma(const Params& p, long long n_blocks, cudaStream_t st) {
+    typedef typename Raw<sizeof(S)>::t R;
+    for (int j = 0; j < 2; ++j)
+        if (!p.tma_direct[j]) pack<R>(p, j, st);
+    alignas(64) CUtensorMap ta, tb;
+    int rc = tensor_map(&ta, p, 0);
+    if (!rc) rc = tensor_map(&tb, p, 1);
+    if (rc) return rc;
+    const size_t bytes = 2 * WG_STAGES * WG_TILE + 2 * WG_STAGES * sizeof(uint64_t) + 1024;
+    smem_limit(wgmma_kernel<S, T, BMN>, bytes);
+    wgmma_kernel<S, T, BMN><<<(unsigned int)n_blocks, WG_THREADS, bytes, st>>>(p, ta, tb);
+    return 0;
+}
+
+static int wgmma(const Params& p, long long n_blocks, cudaStream_t st) {
+    const bool bmn = p.tma_direct[1] == 2;
+    switch (p.slot_dt[p.g_a]) {
+        case DT_BF16:
+            return bmn ? launch_wgmma<__nv_bfloat16, float, true>(p, n_blocks, st)
+                       : launch_wgmma<__nv_bfloat16, float, false>(p, n_blocks, st);
+        case DT_F16:
+            return bmn ? launch_wgmma<__half, float, true>(p, n_blocks, st)
+                       : launch_wgmma<__half, float, false>(p, n_blocks, st);
+        case DT_I8: return launch_wgmma<int8_t, int, false>(p, n_blocks, st);
+        default: return (int)cudaErrorInvalidValue;
+    }
 }
 
 extern "C" {
 
-// Launches one fusion group on ``stream``; returns cudaGetLastError().
-int stripe_contraction_launch(const Params* p, long long n_blocks, void* stream) {
+// Launches one fusion group on ``stream`` (its pack passes, the kernel of
+// its path and, for a split K or a deferred epilogue, the finishing pass);
+// returns 0, or
+// cudaGetLastError() / one of the codes above.
+int stripe_contraction_launch(const Params* pp, long long n_blocks, void* stream) {
     const cudaStream_t st = (cudaStream_t)stream;
-    const int a = p->slot_dt[0], b = p->slot_dt[1];
-    if (p->fast && !p->acc_int && a == DT_F32 && b == DT_F32)
-        launch<float, float, float, true>(p, n_blocks, st);
-    else if (p->fast && !p->acc_int && a == DT_BF16 && b == DT_BF16)
-        launch<float, __nv_bfloat16, __nv_bfloat16, true>(p, n_blocks, st);
-    else if (p->fast && !p->acc_int && a == DT_F16 && b == DT_F16)
-        launch<float, __half, __half, true>(p, n_blocks, st);
-    else if (p->fast && !p->acc_int && a == DT_F32 && b == DT_BF16)
-        launch<float, float, __nv_bfloat16, true>(p, n_blocks, st);
-    else if (p->fast && !p->acc_int && a == DT_BF16 && b == DT_F32)
-        launch<float, __nv_bfloat16, float, true>(p, n_blocks, st);
-    else if (p->fast && p->acc_int && a == DT_I8 && b == DT_I8)
-        launch<int, int8_t, int8_t, true>(p, n_blocks, st);
-    else if (p->acc_int)
-        launch<int, int, int, false>(p, n_blocks, st);
-    else
-        launch<float, float, float, false>(p, n_blocks, st);
+    const Params& p = *pp;
+    int rc = 0;
+    switch (p.path) {
+        case PATH_SKINNY: rc = skinny(p, n_blocks, st); break;
+        case PATH_FFMA: rc = ffma(p, n_blocks, st); break;
+        case PATH_WGMMA: rc = wgmma(p, n_blocks, st); break;
+        default: general(p, n_blocks, st);
+    }
+    if (rc) return rc;
+    rc = (int)cudaGetLastError();
+    if (rc || p.path == PATH_GENERAL || (p.splits <= 1 && !p.defer)) return rc;
+    const long long plane = p.g_nbatch * p.g_M * p.g_N;
+    long long blocks = (plane + 255) / 256;
+    if (blocks > 132 * 16) blocks = 132 * 16;
+    if (p.acc_int) finish_kernel<int><<<(unsigned int)blocks, 256, 0, st>>>(p);
+    else finish_kernel<float><<<(unsigned int)blocks, 256, 0, st>>>(p);
     return (int)cudaGetLastError();
 }
 
 // Layout of Params as this compiler laid it out, for the binding's check:
-// out[0] = sizeof, then the offsets of a few fields spread over the struct.
+// out[0] = sizeof, then the offsets of fields spread over the struct.
 void stripe_contraction_layout(long long* out) {
     out[0] = (long long)sizeof(Params);
     out[1] = (long long)offsetof(Params, slot_base);
@@ -238,6 +1098,12 @@ void stripe_contraction_layout(long long* out) {
     out[3] = (long long)offsetof(Params, scale);
     out[4] = (long long)offsetof(Params, lhs);
     out[5] = (long long)offsetof(Params, epi);
+    out[6] = (long long)offsetof(Params, work);
+    out[7] = (long long)offsetof(Params, g_bepi);
+    out[8] = (long long)offsetof(Params, g_nbatch);
+    out[9] = (long long)offsetof(Params, g_M);
+    out[10] = (long long)offsetof(Params, kv);
+    out[11] = (long long)offsetof(Params, defer);
 }
 
 }  // extern "C"

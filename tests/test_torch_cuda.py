@@ -286,3 +286,149 @@ def test_a_broken_kernel_source_raises_kernel_build_error(tmp_path, monkeypatch)
     with pytest.raises(_build.KernelBuildError, match="flash_attention.cu"):
         FA.flash_attention(q, q, q, block_q=64, block_k=64)
     assert FA.launches == before
+
+
+# ------------------------------------------ the contraction kernel's paths
+def _gemm_program(m, n, k, dtype, out=None, epilogue=False, transposed=False):
+    """O[i, j] = A[i, c] * B[c, j] at (m, n, k) in ``dtype`` (``out``:
+    the output type); ``epilogue``: a scale, a bias and a residual input;
+    ``transposed``: A stored [c, i] and B [j, c]."""
+    out = out or ("int32" if dtype == "int8" else dtype)
+    tp = TileProgram(f"mm_{m}x{n}x{k}_{dtype}")
+    a_ref, b_ref = ("A[c, i]", "B[j, c]") if transposed else ("A[i, c]", "B[c, j]")
+    tp.input("A", (k, m) if transposed else (m, k), dtype)
+    tp.input("B", (n, k) if transposed else (k, n), dtype)
+    if epilogue:
+        tp.input("b", (n,)); tp.input("R", (m, n))
+        tp.temp("T", (m, n)); tp.output("O", (m, n), out)
+        tp.op(f"T[i, j] += 0.5 * {a_ref} * {b_ref}", name="mm")
+        tp.op("O[i, j] = gelu(T[i, j] + b[j]) + R[i, j]", name="epi")
+    else:
+        tp.output("O", (m, n), out)
+        tp.op(f"O[i, j] += {a_ref} * {b_ref}", name="mm")
+    return tp.build()
+
+
+def _gqa_program(name, b, kv, g, t, d, dtype="float32"):
+    tp = TileProgram(name)
+    if name == "scores":
+        tp.input("Q", (b, kv, g, d), dtype); tp.input("K", (b, t, kv, d), dtype)
+        tp.output("S", (b, kv, g, t), dtype)
+        tp.op("S[b, k, g, t] += Q[b, k, g, d] * K[b, t, k, d]", name="scores")
+    else:
+        tp.input("P", (b, kv, g, t), dtype); tp.input("V", (b, t, kv, d), dtype)
+        tp.output("O", (b, kv, g, d), dtype)
+        tp.op("O[b, k, g, d] += P[b, k, g, t] * V[b, t, k, d]", name="values")
+    return tp.build()
+
+
+def _operands(fn, env):
+    plan = fn.plan
+    return [env[s.buf] for s in plan.slots], [env[s.buf] for s in plan.eslots]
+
+
+def _paths_against_plain(prog, expect):
+    """Every contraction unit of ``prog`` under h100: the view's path (must
+    be ``expect``) twice, bit-identical, and the general loop, each against
+    the plain version; ``launches_by_path`` counts each launch once."""
+    c = stripe_jit(prog, get_config("h100"), "cuda",
+                   cache=t_cache.CompilationCache(use_disk=False), use_disk=False)
+    assert c.record.backend == "cuda", c.record.fallback_reasons()
+    env = _random_arrays(c.program.source, seed=5)
+    views = []
+    for unit, kind, fns in c._fn.steps:
+        assert kind == "cuda", unit.name
+        for fn in fns:
+            if fn.kernel != "contraction":
+                env[fn.out_buf] = LC._place(env, prog.buffers[fn.out_buf], fn, fn(env))
+                continue
+            path = K.plan_path(fn.plan)
+            assert path == expect, (unit.name, K.refusal(fn.plan))
+            before = dict(K.launches_by_path)
+            got, again, want = fn(env), fn(env), fn.plain(env)
+            clip = getattr(fn, "out_clip", fn.out_shape)
+            general = K.contraction(fn.plan, *_operands(fn, env), clip, path="general")
+            torch.cuda.synchronize()
+            after = dict(before)
+            after[path] += 2
+            after["general"] += 1
+            assert K.launches_by_path == after
+            assert torch.equal(got, again), f"{unit.name}: two launches differ"
+            _assert_kernel_close(got, want, f"{unit.name} ({path})")
+            _assert_kernel_close(general, want, f"{unit.name} (general)")
+            env[fn.out_buf] = LC._place(env, prog.buffers[fn.out_buf], fn, got)
+            views.append(K.gemm_view(fn.plan))
+    assert views
+    return views
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16", "int8"])
+@pytest.mark.parametrize("m", [1, 4, 16, 17, 128])
+def test_contraction_paths_match_plain_on_the_card(m, dtype):
+    """N and K that are not multiples of any tile; m <= 16 skinny, else
+    tiled (wgmma for bf16/f16/int8, the CUDA cores for float32); int8
+    bit-exact."""
+    _card()
+    views = _paths_against_plain(_gemm_program(m, 200, 300, dtype),
+                                 "skinny" if m <= 16 else "tiled")
+    if m > 16:
+        assert views[0].mma == ("ffma" if dtype == "float32" else "wgmma")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("m", [4, 192])
+def test_contraction_paths_scale_and_epilogue_on_the_card(m, dtype):
+    """The scale and an epilogue with extra inputs (bias, residual) at the
+    element's output coordinates, on each path."""
+    _card()
+    _paths_against_plain(_gemm_program(m, 136, 200, dtype, epilogue=True),
+                         "skinny" if m <= 16 else "tiled")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int8"])
+@pytest.mark.parametrize("m", [4, 130])
+def test_contraction_paths_transposed_operands_on_the_card(m, dtype):
+    """A stored [k, m] and B [n, k]: unit strides along M and K, so the
+    16-bit and int8 tiles of A go through the pack pass and B's through TMA
+    in place; the skinny path reads B along K."""
+    _card()
+    views = _paths_against_plain(_gemm_program(m, 136, 256, dtype, transposed=True),
+                                 "skinny" if m <= 16 else "tiled")
+    if m > 16 and dtype != "float32":
+        assert (views[0].a.load, views[0].b.load) == ("pack+tma", "tma")
+    if m <= 16:
+        assert views[0].kv
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("g", [4, 24])
+@pytest.mark.parametrize("name", ["scores", "values"])
+def test_contraction_paths_gqa_batch_dims_on_the_card(name, g, dtype):
+    """The GQA scores/values programs: b and k are batch dims of every
+    path (g = 4 rows: skinny; g = 24: tiled)."""
+    _card()
+    views = _paths_against_plain(_gqa_program(name, 2, 4, g, 72, 40, dtype),
+                                 "skinny" if g <= 16 else "tiled")
+    assert views[0].batch_ext == (2, 4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [4, 128])
+def test_bf16_output_is_rounded_once_on_the_card(m):
+    """A bf16 output is the float32 sum rounded once: the same product with
+    a float32 output, rounded to bf16, equals it bit for bit (same path,
+    same summation order)."""
+    _card()
+    c16 = stripe_jit(_gemm_program(m, 200, 300, "bfloat16"), get_config("h100"), "cuda",
+                     cache=t_cache.CompilationCache(use_disk=False), use_disk=False)
+    c32 = stripe_jit(_gemm_program(m, 200, 300, "bfloat16", out="float32"),
+                     get_config("h100"), "cuda",
+                     cache=t_cache.CompilationCache(use_disk=False), use_disk=False)
+    env = _random_arrays(c16.program.source, seed=6)
+    got16, got32 = c16(env)["O"], c32(env)["O"]
+    assert got16.dtype == torch.bfloat16 and got32.dtype == torch.float32
+    assert torch.equal(got16, got32.to(torch.bfloat16))
