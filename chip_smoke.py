@@ -44,10 +44,17 @@ and prints no result):
    bf16 within ``BF16_RTOL`` (kernel and plain round the same float32
    sum to bf16 once each, in different summation orders, which moves the
    result by at most one rounding step, 2**-8 = 3.9e-3 of the element).
-   The cubes must run ``tiled`` on ``wgmma``.  Each unit is timed as in
-   phase 2 (a contraction unit with ``general_ms``), beside one library
+   The cubes must run ``tiled`` on ``wgmma``; the 4 ResNet units must run
+   the windowed kernel's ``igemm`` path in each type (its
+   ``launches_by_path`` read around each launch), and every corpus conv
+   prints its windowed path and, where the conv view refuses it, why.
+   Each unit is timed as in phase 2 (a contraction or windowed unit with
+   ``general_ms``, its general loop timed in turns), beside one library
    call of the same function where PyTorch has one (``torch.einsum``, ``torch._int_mm``,
    cuDNN's ``conv2d``; none for an elementwise DAG or an int8 conv).
+   Then path 4: the same ResNet layer in the three types through the
+   compiled programs' entry point, every launch on ``igemm``, the layer
+   held against ``conv2d`` in float64 (int8 exactly).
 5. **serve** — llama3-8b at full width and at its configured dtype
    (``--layers`` deep; random bfloat16 weights from a seeded
    ``torch.Generator``, ~16 GB; bfloat16 activations and KV pages) serves
@@ -93,15 +100,24 @@ and prints no result):
    output, and the float32 cases hold the same code tightly at these
    shapes) and timed as in phase 2, beside its bound and, for flash,
    ``scaled_dot_product_attention`` (the yardstick; GLA has no single
-   PyTorch call).
+   PyTorch call).  The bf16 flash call must run the ``wgmma`` kernel and
+   the float32 ones ``cuda_cores`` (``launches_by_path`` read around each
+   call); the wgmma output is also held element by element to
+   ``kernel.wgmma_bound`` (one bf16 step plus what rounding P to bf16 can
+   move it, about a tenth of the median output here: ``wgmma_excess``,
+   the largest error over its bound, must not exceed 1); the CUDA-core
+   design is timed on the bf16 case's inputs beside it (``cuda_cores_ms``).
 
 Launch counts are read per path: every count is set to 0 just before the
-serve phase (path 1), before the sweep (path 2) and before phase 8's
-calls of the entry points (path 3), and read just after each; the
-contraction kernel's ``launches_by_path`` (skinny, tiled, general) is read
-the same way for the serve and sweep paths, and the serve path may launch
-no general loop.  The last lines are the kernel summary (JSON), the card's name and
-power limit as ``nvidia-smi`` reports them, and the result line
+serve phase (path 1), before the sweep (path 2), before phase 8's calls
+of the entry points (path 3) and before the ResNet layer (path 4), and
+read just after each; the contraction kernel's ``launches_by_path``
+(skinny, tiled, general) is read the same way for the serve and sweep
+paths, and the serve path may launch no general loop; the windowed
+kernel's (igemm, general) for the sweep and ResNet paths, flash
+attention's (wgmma, cuda_cores) for path 3, all in the summary.  The
+last lines are the kernel summary (JSON), the card's name and power
+limit as ``nvidia-smi`` reports them, and the result line
 ``{"ok": true, "device": {...}}``.  TF32 is off wherever the plain
 version and the yardstick run.
 """
@@ -298,7 +314,8 @@ def check_units(torch, api, K, cfg, reps: int):
 
 
 def _path_ran(K, before) -> str:
-    """The one path a single launch took, from ``launches_by_path``."""
+    """The one path a single launch took, from the ``launches_by_path`` of
+    kernel module ``K``."""
     ran = [p for p, n in K.launches_by_path.items() if n != before[p]]
     if len(ran) != 1 or K.launches_by_path[ran[0]] != before[ran[0]] + 1:
         raise AssertionError(f"one launch moved launches_by_path from {before} to "
@@ -307,12 +324,26 @@ def _path_ran(K, before) -> str:
 
 
 def _general(K, fn, env):
-    """The same unit through the general loop (the design before the GEMM
-    view), for timing beside the view's path."""
+    """The same unit through the general loop (the contraction's design
+    before its GEMM view, the windowed kernel's before its implicit GEMM),
+    for timing beside the view's path."""
     plan = fn.plan
+    if fn.kernel == "windowed":
+        return _kernel_modules()["windowed"].windowed(
+            plan, [env[i.buf] for i in plan.ins], fn.out_clip, path="general")
     return K.contraction(plan, [env[s.buf] for s in plan.slots],
                          [env[s.buf] for s in plan.eslots],
                          getattr(fn, "out_clip", fn.out_shape), path="general")
+
+
+def _conv_desc(WK, plan, ins) -> dict:
+    aligned = WK.input_alignment(ins)
+    view = WK.conv_view(plan, aligned)
+    if view is None:
+        return {"path": "general", "reason": WK.refusal(plan, aligned)}
+    return {"path": "igemm", "mma": view.mma, "M": view.M, "N": view.N, "K": view.K,
+            "kc": view.kc, "tile": list(view.tile), "stages": view.stages,
+            "b_load": view.b_load}
 
 
 def _view_desc(K, plan) -> dict:
@@ -525,8 +556,9 @@ def unit_rows(torch, K, LC, timer, label, compiled, env) -> list:
     """Phase 4 for one compiled program: each unit's kernels against their
     plain versions (the unit's output buffer compared whole), timed; the
     kernel's result feeds the units after it.  One row per unit; a
-    contraction unit's row names the path its launch took and times the
-    general loop beside it."""
+    contraction or windowed unit's row names the path its launch took and
+    times the general loop beside it."""
+    mods = _kernel_modules()
     buffers = compiled.program.buffers
     semantic = compiled.program.source
     rows = []
@@ -538,10 +570,11 @@ def unit_rows(torch, K, LC, timer, label, compiled, env) -> list:
         want_env = dict(got_env)
         paths = []
         for fn in fns:
-            before = dict(K.launches_by_path)
+            viewed = fn.kernel in ("contraction", "windowed")
+            before = dict(mods[fn.kernel].launches_by_path) if viewed else None
             got_env[fn.out_buf] = LC._place(got_env, buffers[fn.out_buf], fn, fn(env))
-            if fn.kernel == "contraction" and DEVICE == "cuda":
-                paths.append(_path_ran(K, before))
+            if viewed and DEVICE == "cuda":
+                paths.append(_path_ran(mods[fn.kernel], before))
             want_env[fn.out_buf] = LC._place(want_env, buffers[fn.out_buf], fn, fn.plain(env))
         if DEVICE == "cuda":
             torch.cuda.synchronize()
@@ -564,21 +597,23 @@ def unit_rows(torch, K, LC, timer, label, compiled, env) -> list:
             for fn in fns:
                 if which == "plain":
                     fn.plain(env)
-                elif which == "general" and fn.kernel == "contraction":
+                elif which == "general" and fn.kernel in ("contraction", "windowed"):
                     _general(K, fn, env)
                 else:
                     fn(env)
 
         env[out] = got_env[out]
-        if paths:
+        if any(fn.kernel in ("contraction", "windowed") for fn in fns) and DEVICE == "cuda":
             ms, general_ms = timer.turns(lambda: run("kernel"), lambda: run("general"))
         else:
             ms, general_ms = timer(lambda: run("kernel")), None
+        views = [_view_desc(K, fn.plan) if fn.kernel == "contraction"
+                 else _conv_desc(mods["windowed"], fn.plan, [env[i.buf] for i in fn.plan.ins])
+                 for fn in fns if fn.kernel in ("contraction", "windowed")]
         rows.append({
             "unit": what, "kernel": sorted({fn.kernel for fn in fns}),
             "launches": len(fns), "dtype": str(got_env[out].dtype).replace("torch.", ""),
-            "paths": paths, "views": [_view_desc(K, fn.plan) for fn in fns
-                                      if fn.kernel == "contraction"],
+            "paths": paths, "views": views,
             "max_abs_err": err, "max_abs_out": got_env[out].double().abs().max().item(),
             "ms": ms, "general_ms": general_ms, "plain_ms": timer(lambda: run("plain")),
             "library_ms": _time_library(timer, lib, what),
@@ -629,8 +664,50 @@ def check_new_units(torch, api, K, LC, timer) -> list:
                 if r["paths"] != ["tiled"] or [v.get("mma") for v in r["views"]] != ["wgmma"]:
                     raise AssertionError(f"{r['unit']} ran {r['paths']} {r['views']}, "
                                          "not tiled on wgmma")
+        if "/resnet50_" in label:
+            ran = [p for r in got for p in r["paths"]]
+            if DEVICE == "cuda" and ran != ["igemm"] * 4:
+                raise AssertionError(f"{label}: the windowed units ran {ran}, not igemm x 4")
+        for r in got:
+            if r["kernel"] == ["windowed"] and "/resnet50_" not in label:
+                print(f"  windowed path of {r['unit']}: {json.dumps(r['views'])}", flush=True)
         rows += got
     return rows
+
+
+def resnet_path(torch, api) -> dict:
+    """Path 4: ResNet-50's conv2_x layer through ``stripe_jit``'s compiled
+    entry point, in float32, bf16 and int8, with the windowed kernel's
+    counts set to 0 just before and read just after.  Every unit must run
+    the igemm path; the layer is held against cuDNN's ``conv2d`` in
+    float64 (int8 exactly)."""
+    from repro_torch.core import cache as stripe_cache
+    from repro_torch.explore.runner import _random_arrays
+    from repro_torch.explore.workloads import resnet50_conv2_3x3
+
+    WK = _kernel_modules()["windowed"]
+    progs = {dt: api.jit(resnet50_conv2_3x3(RESNET_BATCH, dt), api.get_config("h100"), "cuda",
+                         cache=stripe_cache.CompilationCache(use_disk=False), use_disk=False)
+             for dt in ("float32", "bfloat16", "int8")}
+    envs = {dt: _random_arrays(c.program.source, seed=SEED + 1, device=DEVICE)
+            for dt, c in progs.items()}
+    WK.launches = 0
+    for p in WK.launches_by_path:
+        WK.launches_by_path[p] = 0
+    outs = {dt: c(envs[dt])["O"] for dt, c in progs.items()}
+    if DEVICE == "cuda":
+        torch.cuda.synchronize()
+    counts = {"launches": WK.launches, "launches_by_path": dict(WK.launches_by_path)}
+    if DEVICE == "cuda" and counts["launches_by_path"] != {"igemm": 12, "general": 0}:
+        raise AssertionError(f"ResNet path: windowed launches by path {counts}")
+    err = {}
+    for dt, got in outs.items():
+        x = envs[dt]["I"].permute(0, 3, 1, 2).double()
+        w = envs[dt]["F"].permute(3, 2, 0, 1).double()
+        want = torch.nn.functional.conv2d(x, w, padding=1).permute(0, 2, 3, 1)
+        err[dt] = _close(torch, got, want.to(got.dtype), f"ResNet conv2_x {dt} against conv2d")
+    counts["max_abs_err_vs_conv2d"] = err
+    return counts
 
 
 def serve(torch, api, K, cfg, params, backend: str, new_tokens: int):
@@ -761,8 +838,9 @@ def sweep(torch, api, K) -> dict:
     mods = _kernel_modules()
     for mod in mods.values():
         mod.launches = 0
-    for p in K.launches_by_path:
-        K.launches_by_path[p] = 0
+    for m in (K, mods["windowed"]):
+        for p in m.launches_by_path:
+            m.launches_by_path[p] = 0
     t0 = time.perf_counter()
     sw = api.run_sweep(api.get_space(SWEEP["space"]), SWEEP["workloads"],
                        budget=SWEEP["budget"], measure_top_k=SWEEP["measure_top_k"],
@@ -772,6 +850,7 @@ def sweep(torch, api, K) -> dict:
     wall = time.perf_counter() - t0
     counts = {name: mod.launches for name, mod in mods.items()}
     by_path = dict(K.launches_by_path)
+    windowed_by_path = dict(mods["windowed"].launches_by_path)
     v = sw.validation
     for e in v["entries"]:
         if e["error"]:
@@ -800,7 +879,8 @@ def sweep(torch, api, K) -> dict:
         for name in got.program.outputs:
             held = max(held, _close(torch, out[name], want[name], f"sweep {best.config_name}/"
                                     f"{w.name}/{name} against torch"))
-    return {"wall_s": wall, "launches": counts, "launches_by_path": by_path, "validation": v,
+    return {"wall_s": wall, "launches": counts, "launches_by_path": by_path,
+            "windowed_launches_by_path": windowed_by_path, "validation": v,
             "points": [(p.index, p.config_name, p.latency_s, p.n_kernels, p.dedup_of)
                        for p in sw.points],
             "best": best.config_name, "max_abs_err_vs_torch": held}
@@ -831,6 +911,21 @@ def _attention_bound(torch, ins, out, pairs_macs: int) -> dict:
     t_ops = ops / _op_rate([ins[0].dtype]) * 1e3
     return {"bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "bytes": nbytes, "ops": ops, "t_bytes_ms": t_bytes, "t_ops_ms": t_ops}
+
+
+def _wgmma_check(torch, FA, what, got, want, q, k, v, causal) -> dict:
+    """The wgmma flash kernel held element by element to
+    ``kernel.wgmma_bound`` (one bf16 step of each output plus 2**-8 of the
+    attention of |v|, the most that rounding P to bf16 can move it): the
+    largest ratio of error to bound must not exceed 1.  Also the error's
+    norm relative to the output's."""
+    g, w = got.float(), want.float()
+    err = (g - w).abs()
+    excess = (err / FA.wgmma_bound(q, k, v, want, causal)).max().item()
+    if not excess <= 1.0:
+        raise AssertionError(f"{what}: wgmma kernel off its elementwise bound "
+                             f"(largest error / bound {excess:.3f})")
+    return {"wgmma_excess": excess, "norm_rel_err": ((g - w).norm() / w.norm()).item()}
 
 
 def _gla_macs(b, h, s, dk, dv, chunk) -> int:
@@ -876,18 +971,28 @@ def check_attention_kernels(torch, timer) -> dict:
     mods = _kernel_modules()
     for mod in mods.values():
         mod.launches = 0
+    for p in FA.launches_by_path:
+        FA.launches_by_path[p] = 0
     t0 = time.perf_counter()
-    flash_out = [FA.flash_attention(q, k, v, causal=c)
-                 for (q, k, v), (_sq, _sk, c, _dt) in zip(flash_in, FLASH_CASES)]
+    flash_out, flash_paths = [], []
+    for (q, k, v), (_sq, _sk, c, _dt) in zip(flash_in, FLASH_CASES):
+        before = dict(FA.launches_by_path)
+        flash_out.append(FA.flash_attention(q, k, v, causal=c))
+        if DEVICE == "cuda":
+            flash_paths.append(_path_ran(FA, before))
     m_out = {ty: mlstm_chunk(*ins) for ty, ins in mlstm_in.items()}
     s_out = {ty: ssd_chunk(x, dt, s_A, B, C, s_D) for ty, (x, dt, B, C) in ssd_in.items()}
     if DEVICE == "cuda":
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = {name: mod.launches for name, mod in mods.items()}
+    flash_by_path = dict(FA.launches_by_path)
     for name in ("flash_attention", "gla"):
         if counts[name] == 0:
             raise AssertionError(f"phase 8 launched no {name} kernel: {counts}")
+    want_paths = ["wgmma" if dt == "bfloat16" else "cuda_cores" for *_x, dt in FLASH_CASES]
+    if DEVICE == "cuda" and flash_paths != want_paths:
+        raise AssertionError(f"flash paths {flash_paths}, want {want_paths}")
 
     rows, worst = [], {"flash_attention": 0.0, "gla": 0.0}
 
@@ -906,13 +1011,22 @@ def check_attention_kernels(torch, timer) -> dict:
         what = f"flash llama3-8b B{b} Hq{hq} Hkv{hkv} Sq{sq} Sk{sk} D{d} {dt} " + \
             ("causal" if causal else "full")
         row = {"unit": what, "kernel": "flash_attention", "blocks": [bq, bk]}
-        row.update(hold(what, "flash_attention", got,
-                        FA.flash_attention_plain(q, k, v, causal=causal), dt))
+        want = FA.flash_attention_plain(q, k, v, causal=causal)
+        row.update(hold(what, "flash_attention", got, want, dt))
+        row["path"] = FA.path_of(q.dtype, d)
+        if row["path"] == "wgmma":
+            row.update(_wgmma_check(torch, FA, what, got, want, q, k, v, causal))
         pairs = sum(min(i + 1, sk) for i in range(sq)) if causal else sq * sk
         row.update(_attention_bound(torch, (q, k, v), got, 2 * b * hq * pairs * d))
         lib, backend = _sdpa(torch, q, k, v, causal)
-        row.update({"ms": timer(lambda: FA.flash_attention(q, k, v, causal=causal)),
-                    "plain_ms": timer(lambda: FA.flash_attention_plain(q, k, v, causal=causal)),
+        if row["path"] == "wgmma" and DEVICE == "cuda":
+            # the CUDA-core design on the same inputs, timed in turns
+            row["ms"], row["cuda_cores_ms"] = timer.turns(
+                lambda: FA.flash_attention(q, k, v, causal=causal),
+                lambda: FA.flash_attention(q, k, v, causal=causal, path="cuda_cores"))
+        else:
+            row["ms"] = timer(lambda: FA.flash_attention(q, k, v, causal=causal))
+        row.update({"plain_ms": timer(lambda: FA.flash_attention_plain(q, k, v, causal=causal)),
                     "library_ms": _time_library(timer, lib, what), "library": backend})
         rows.append(row)
 
@@ -940,7 +1054,8 @@ def check_attention_kernels(torch, timer) -> dict:
                         "plain_ms": timer(lambda: chunked_gla_torch(*ins, chunk=chunk, **kw)),
                         "library_ms": None, "library": None})
             rows.append(row)
-    return {"wall_s": wall, "launches": counts, "rows": rows, "max_abs_err": worst}
+    return {"wall_s": wall, "launches": counts, "flash_launches_by_path": flash_by_path,
+            "rows": rows, "max_abs_err": worst}
 
 
 def _pick(rows, prefix):
@@ -1014,6 +1129,9 @@ def main() -> None:
           f"{RTOL}*(1+max|p|), bf16 {BF16_RTOL}*(1+max|p|)", flush=True)
     for r in new_rows:
         print("  unit " + json.dumps(r), flush=True)
+    rn = resnet_path(torch, api)
+    print(f"ResNet-50 conv2_x b{RESNET_BATCH} through stripe_jit (f32, bf16, int8): "
+          + json.dumps(rn), flush=True)
 
     import dataclasses
     cfg = dataclasses.replace(full, n_layers=args.layers)
@@ -1073,8 +1191,9 @@ def main() -> None:
     conv = _pick(new_rows, f"h100/resnet50_conv2_3x3_b{RESNET_BATCH}_float32")
     # contraction: one decode layer (the 9 units at SLOTS rows, KV window
     # MAX_LEN); elementwise: every unfused elementwise unit of the corpus;
-    # windowed: the float32 ResNet-50 conv.  launches: serve + sweep (for
-    # the three compiler kernels).
+    # windowed: the float32 ResNet-50 conv, the general loop's time beside
+    # it.  launches: serve + sweep (for the three compiler kernels), and
+    # the ResNet path for the windowed kernel.
     contraction = _kernel_entry(
         "contraction", "src/repro_torch/csrc/contraction.cu", "src/repro/core/lower_pallas.py:979",
         serve_launches + sw["launches"]["contraction"], decode,
@@ -1083,21 +1202,29 @@ def main() -> None:
     contraction["general_ms"] = sum(r["general_ms"] for r in decode)
     contraction["launches_by_path"] = {"serve": runs["cuda"][2]["launches_by_path"],
                                        "sweep": sw["launches_by_path"]}
+    windowed = _kernel_entry(
+        "windowed", "src/repro_torch/csrc/windowed.cu", "src/repro/core/lower_pallas.py:812",
+        sw["launches"]["windowed"] + rn["launches"], conv,
+        max(r["max_abs_err"] for r in new_rows if r["kernel"] == ["windowed"]))
+    windowed["general_ms"] = sum(r["general_ms"] for r in conv)
+    windowed["launches_by_path"] = {"sweep": sw["windowed_launches_by_path"],
+                                    "resnet": rn["launches_by_path"]}
+    # flash: llama3-8b's bf16 prefill attention at S 4096 (wgmma), the
+    # CUDA-core design's time beside it; launches: phase 8's path
+    flash = _kernel_entry("flash_attention", "src/repro_torch/csrc/flash_attention.cu",
+                          "src/repro/kernels/flash_attention/kernel.py:108",
+                          attn["launches"]["flash_attention"], attn["rows"][:1],
+                          attn["max_abs_err"]["flash_attention"])
+    flash["cuda_cores_ms"] = attn["rows"][0].get("cuda_cores_ms")
+    flash["wgmma_excess"] = attn["rows"][0].get("wgmma_excess")
+    flash["launches_by_path"] = attn["flash_launches_by_path"]
     summary = {"kernels": [
         contraction,
         _kernel_entry("elementwise", "src/repro_torch/csrc/elementwise.cu",
                       "src/repro/core/lower_pallas.py:1097", sw["launches"]["elementwise"],
                       ew, max(r["max_abs_err"] for r in ew)),
-        _kernel_entry("windowed", "src/repro_torch/csrc/windowed.cu",
-                      "src/repro/core/lower_pallas.py:812", sw["launches"]["windowed"],
-                      conv, max(r["max_abs_err"] for r in new_rows
-                                if r["kernel"] == ["windowed"])),
-        # flash: llama3-8b's bf16 prefill attention at S 4096; gla: the
-        # bf16 mLSTM and SSD calls together.  launches: phase 8's path.
-        _kernel_entry("flash_attention", "src/repro_torch/csrc/flash_attention.cu",
-                      "src/repro/kernels/flash_attention/kernel.py:108",
-                      attn["launches"]["flash_attention"], attn["rows"][:1],
-                      attn["max_abs_err"]["flash_attention"]),
+        windowed,
+        flash,
         _kernel_entry("chunked_gla", "src/repro_torch/csrc/gla.cu",
                       "src/repro/kernels/mlstm_chunk/kernel.py:115", attn["launches"]["gla"],
                       [r for r in attn["rows"]

@@ -20,17 +20,17 @@ of 15, L2 flushed before every launch):
 and, for the cubes, the same product with B stored [n, k], which TMA reads
 in place in both types, against B stored [k, n] (read in place and
 transposed by wgmma in bf16, packed K-major in int8).  Every case is held
-against the plain version first.  Exits non-zero without a card.
+against the plain version first, with ``chip_smoke.py``'s tolerances; the
+timer is ``chip_smoke.py``'s.  Exits non-zero without a card.
 """
 from __future__ import annotations
 
 import json
-import statistics
-import subprocess
 import sys
 from pathlib import Path
 
-sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "src"))
+ROOT = Path(__file__).resolve().parents[1]
+sys.path[:0] = [str(ROOT / "src"), str(ROOT)]
 
 # (rows, N, K) of float32 products: llama3-8b decode and prefill
 # projections (q/o, k/v, gate/up, down), stripe_matmul's timed case and
@@ -68,23 +68,10 @@ def main() -> None:
     from repro_torch.core.hwconfig import get_config
     from repro_torch.kernels import contraction as K
 
-    flush = torch.empty(64 * 2**20, dtype=torch.float32, device="cuda")
-    gen = torch.Generator(device="cuda").manual_seed(0)
+    import chip_smoke
 
-    def timeit(fn):
-        fn()
-        times = []
-        for _ in range(REPS):
-            flush.zero_()
-            torch.cuda._sleep(1_000_000)
-            a = torch.cuda.Event(enable_timing=True)
-            b = torch.cuda.Event(enable_timing=True)
-            a.record()
-            fn()
-            b.record()
-            b.synchronize()
-            times.append(a.elapsed_time(b))
-        return statistics.median(times)
+    timeit = chip_smoke._Timer(torch, REPS)
+    gen = torch.Generator(device="cuda").manual_seed(0)
 
     def unit(m, n, k, dtype="float32", b_kmajor=False):
         tp = TileProgram(f"mm_{m}x{n}x{k}")
@@ -105,18 +92,9 @@ def main() -> None:
         return fn, env
 
     def held(fn, env, what):
-        got, want = fn(env), fn.plain(env)
-        err = (got.double() - want.double()).abs().max().item()
-        tol = 0 if not got.dtype.is_floating_point else (
-            1e-4 if got.dtype == torch.float32 else 2e-2) * (1 + want.double().abs().max().item())
-        if not err <= tol:
-            raise AssertionError(f"{what}: kernel and plain differ by {err:.3e}")
-        return err
+        return chip_smoke._close(torch, fn(env), fn.plain(env), what)
 
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                           "--format=csv,noheader"], capture_output=True, text=True,
-                          check=True).stdout.strip()
-    print(f"card: {card}", flush=True)
+    print(f"card: {chip_smoke._card_line()}", flush=True)
     chosen = K._splits
     for m, n, k in UNITS:
         fn, env = unit(m, n, k)

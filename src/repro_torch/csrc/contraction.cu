@@ -69,10 +69,10 @@
 // the store masks of the ragged edges and the clip, and the one rounding
 // to the output's type (emit / finish below).
 
-#include <cuda.h>  // CUtensorMap; the encoder comes from cudaGetDriverEntryPoint
 #include <type_traits>
 
 #include "dag.cuh"
+#include "hopper.cuh"
 
 #define MAXV 8     // output variables, and reduction variables
 #define MAXS 6     // operand slots (distinct leaf loads)
@@ -364,26 +364,6 @@ __device__ __forceinline__ void ld4(const unsigned char* src, T* o) {
     for (int i = 0; i < 4; ++i) o[i] = as_t<T>(e[i]);
 }
 
-__device__ __forceinline__ unsigned smem_u32(const void* p) {
-    return (unsigned)__cvta_generic_to_shared(p);
-}
-
-// cp.async of ``bytes`` (0..16) bytes, the rest of the 16 zero-filled
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, int bytes) {
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-                 :: "r"(smem_u32(dst)), "l"(src), "r"(bytes) : "memory");
-}
-
-__device__ __forceinline__ void cp_async4(void* dst, const void* src, int bytes) {
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
-                 :: "r"(smem_u32(dst)), "l"(src), "r"(bytes) : "memory");
-}
-
-__device__ __forceinline__ void cp_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
-
-template <int N>
-__device__ __forceinline__ void cp_wait() { asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory"); }
-
 // ============================================================ skinny path
 #define SK_THREADS 256
 #define SK_STAGES 4
@@ -647,114 +627,6 @@ __global__ void __launch_bounds__(256) ffma_kernel(const __grid_constant__ Param
 #define WG_TILE (128 * WG_ROW)      // bytes of one operand's stage
 #define WG_THREADS 288              // two consumer warpgroups, one producer warp
 
-__device__ __forceinline__ void mbar_init(uint64_t* b, int count) {
-    asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" :: "r"(smem_u32(b)), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* b, int bytes) {
-    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
-                 :: "r"(smem_u32(b)), "r"(bytes) : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* b) {
-    asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" :: "r"(smem_u32(b)) : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(uint64_t* b, int parity) {
-    unsigned done = 0;
-    while (!done) {
-        asm volatile("{\n.reg .pred P1;\n"
-                     "mbarrier.try_wait.parity.shared::cta.b64 P1, [%1], %2;\n"
-                     "selp.u32 %0, 1, 0, P1;\n}\n"
-                     : "=r"(done) : "r"(smem_u32(b)), "r"(parity) : "memory");
-    }
-}
-
-__device__ __forceinline__ void tma_load3(const CUtensorMap* map, void* dst, uint64_t* bar,
-                                          int c0, int c1, int c2) {
-    asm volatile("cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
-                 " [%0], [%1, {%3, %4, %5}], [%2];\n"
-                 :: "r"(smem_u32(dst)), "l"((unsigned long long)map), "r"(smem_u32(bar)),
-                    "r"(c0), "r"(c1), "r"(c2)
-                 : "memory");
-}
-
-// wgmma's descriptor of a K-major tile in the 128-byte swizzle: rows of 128
-// bytes, 8-row groups 1024 bytes apart (SBO), the leading offset unused
-__device__ __forceinline__ uint64_t sw128_desc(const void* p) {
-    const uint64_t a = smem_u32(p);
-    return ((a & 0x3FFFF) >> 4) | (1ull << 16) | (64ull << 32) | (1ull << 62);
-}
-
-// ... of an MN-major tile in the 128-byte swizzle: a K row holds 64
-// elements of N in 128 bytes, 8-row groups of K lie 1024 bytes apart (SBO),
-// and the next 64 of N (the second TMA box) 8192 bytes on (LBO)
-__device__ __forceinline__ uint64_t sw128_mn_desc(const void* p) {
-    const uint64_t a = smem_u32(p);
-    return ((a & 0x3FFFF) >> 4) | (512ull << 16) | (64ull << 32) | (1ull << 62);
-}
-
-#define WG_REGS                                                                              \
-    "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "                 \
-    "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "        \
-    "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "        \
-    "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}"
-#define WG_8(c, i) c(d[i]), c(d[i + 1]), c(d[i + 2]), c(d[i + 3]), \
-                   c(d[i + 4]), c(d[i + 5]), c(d[i + 6]), c(d[i + 7])
-#define WG_64(c) WG_8(c, 0), WG_8(c, 8), WG_8(c, 16), WG_8(c, 24), \
-                 WG_8(c, 32), WG_8(c, 40), WG_8(c, 48), WG_8(c, 56)
-
-// d += A (64 x K-step, shared) * B (128 x K-step, shared), one K step of
-// 32 bytes: k16 for 16-bit types, k32 for int8.  TB: B is MN-major (the
-// transposed read wgmma offers for 16-bit types only)
-template <typename S> struct Wgmma;
-template <> struct Wgmma<__nv_bfloat16> {
-    template <int TB>
-    static __device__ __forceinline__ void mma(float* d, uint64_t da, uint64_t db) {
-        asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-                     "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " WG_REGS
-                     ", %64, %65, p, 1, 1, 0, %67;\n}\n"
-                     : WG_64("+f") : "l"(da), "l"(db), "r"(1), "n"(TB));
-    }
-};
-template <> struct Wgmma<__half> {
-    template <int TB>
-    static __device__ __forceinline__ void mma(float* d, uint64_t da, uint64_t db) {
-        asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-                     "wgmma.mma_async.sync.aligned.m64n128k16.f32.f16.f16 " WG_REGS
-                     ", %64, %65, p, 1, 1, 0, %67;\n}\n"
-                     : WG_64("+f") : "l"(da), "l"(db), "r"(1), "n"(TB));
-    }
-};
-template <> struct Wgmma<int8_t> {
-    template <int TB>
-    static __device__ __forceinline__ void mma(int* d, uint64_t da, uint64_t db) {
-        static_assert(TB == 0, "wgmma reads 8-bit operands K-major only");
-        asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-                     "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 " WG_REGS
-                     ", %64, %65, p;\n}\n"
-                     : WG_64("+r") : "l"(da), "l"(db), "r"(1));
-    }
-};
-
-// keep the accumulators in place across the asynchronous products
-__device__ __forceinline__ void fence_regs(float* d) {
-#pragma unroll
-    for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
-}
-__device__ __forceinline__ void fence_regs(int* d) {
-#pragma unroll
-    for (int i = 0; i < 64; ++i) asm volatile("" : "+r"(d[i]) :: "memory");
-}
-
-// Accumulator i of thread t of a warpgroup (m64nN, 32-bit accumulators):
-// its row in the warpgroup's 64 and its column.  The epilogue's loads and
-// the store both go through this one mapping.
-__device__ __forceinline__ void frag_mn(int i, int t, int& row, int& col) {
-    row = (t >> 5) * 16 + ((t & 31) >> 2) + 8 * ((i >> 1) & 1);
-    col = (i >> 2) * 8 + (t & 3) * 2 + (i & 1);
-}
-
 // S: both operands' type; T: accumulator (float, or int for int8); BMN: B
 // arrives MN-major (two 64-wide TMA boxes of N a stage), else K-major
 template <typename S, typename T, bool BMN>
@@ -878,12 +750,6 @@ __global__ void __launch_bounds__(256) pack_kernel(const __grid_constant__ Param
 }
 
 // ================================================================ host
-template <typename K>
-static void smem_limit(K kernel, size_t bytes) {
-    if (bytes > 48 * 1024)
-        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-}
-
 template <typename T, typename SA, typename SB, bool FAST>
 static void launch_general(const Params& p, long long n_blocks, cudaStream_t st) {
     const dim3 block(p.block_x, p.block_k);
@@ -956,32 +822,6 @@ static int ffma(const Params& p, long long n_blocks, cudaStream_t st) {
     else return (int)cudaErrorInvalidValue;
     return 0;
 }
-
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-static EncodeTiled encoder() {
-    static EncodeTiled fn = nullptr;
-    if (!fn) {
-        void* f = nullptr;
-        cudaDriverEntryPointQueryResult q;
-#if CUDART_VERSION >= 12050
-        const cudaError_t e = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &f, 12000,
-                                                               cudaEnableDefault, &q);
-#else
-        const cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &f,
-                                                      cudaEnableDefault, &q);
-#endif
-        if (e == cudaSuccess && q == cudaDriverEntryPointSuccess) fn = (EncodeTiled)f;
-    }
-    return fn;
-}
-
-// Error codes of the launch beyond CUDA's own
-#define ERR_NO_ENCODER 9001  // the CUDA driver offers no cuTensorMapEncodeTiled
-#define ERR_ENCODE 9100      // + CUresult: the CUDA driver refused a tensor map
 
 // The TMA map of operand j: a K-major tile of 128 rows by 128 bytes of K,
 // coordinates (k, row, batch); or (tma_direct 2) an MN-major box of 64 K

@@ -1,48 +1,68 @@
-// Flash attention forward, GQA, causal or full, as one CUDA kernel.
+// Flash attention forward, GQA, causal or full: two CUDA kernels, one on
+// the tensor cores for bf16 and one on the CUDA cores for everything else.
 //
 // Replaces: src/repro/kernels/flash_attention/kernel.py::flash_attention
 // (the pl.pallas_call at :137, body _fa_kernel at :63).  On the TPU the
 // grid is (B*Hq, q blocks, kv blocks) with the kv axis "arbitrary": the
 // running (m, l, acc) of a q block sits in VMEM scratch from one kv step
 // to the next.  CUDA blocks run in no order, so here one CTA owns one
-// (b*Hq head, q tile of block_q rows) and loops over the kv tiles itself.
+// (b*Hq head, q tile) and loops over the kv tiles itself.
 //
 // What it computes, as the reference does: s = (q . k) * sm_scale in
 // float32; under ``causal`` the mask qpos >= kpos with both counted from 0
 // (top-left aligned when Sq != Sk), masked scores -1e30 (not -inf: exp
 // gives 0, never NaN); the online softmax m, l, acc in float32; a row
 // whose l is 0 writes 0; the output is rounded once to the type of q.  The
-// kv head of q head h is h / (Hq / Hkv).  For ``causal`` the kv loop ends
-// after the last kv tile of block_k keys that starts at or before the
-// tile's last query (the reference's block skip, kernel.py:76-78).
-//
-// Layout of the work.  8 warps; warp w owns R consecutive rows of the q
-// tile (R = block_q / 8 rounded up to a power of two, a template
-// parameter, so each thread keeps R rows of state in registers).  The Q
-// tile lives in shared memory as float32 for the whole kv loop.  K and V
-// come through shared memory 32 keys at a time, one key per lane: for its
-// key a lane forms the R scores (float4 reads, the Q rows broadcast), the
-// warp reduces max and sum with shuffles, and the probabilities go
-// through a per-warp shared buffer for P @ V, where each lane owns the
-// head-dim columns lane, lane + 32, ... (DPL of them).  A warp whose rows
-// all lie above a 32-key slab skips it: every score there is masked and
-// would add exactly 0.  Operands load as their type (f32 or bf16: a
-// template parameter) and convert to float32 once, on the way into shared
-// memory.
+// kv head of q head h is h / (Hq / Hkv).  Under ``causal`` a CTA's kv loop
+// ends after the last key its last query sees: every tile past that is
+// masked for all its rows and adds exactly 0 (its probabilities are 0 and
+// the running max does not move), which is why the reference's block skip
+// (kernel.py:76-78) may stop later without changing the result.
 //
 // What bounds it: operations.  At Sq = Sk = 4096, D = 128 a q tile of 128
 // rows does 2 * 128 * 4096 * 128 * 2 flops (half of them under causal)
-// per 2 * 4096 * 128 operand elements: far above the H100's ridge.  This
-// first version runs them on the CUDA cores in float32 (67 TFLOP/s on the
-// data sheet) where the card's bf16 tensor cores give 989: the product of
-// a later PR is mma / wgmma on bf16 tiles fed by TMA, which this design
-// leaves out.  Its shared-memory traffic (one float4 read of K plus R
-// broadcast float4 reads of Q per 4R multiply-adds) caps the score loop
-// near 80% of the float32 rate at R = 16.  The loads into shared memory
-// run at compile-time trip counts, eight in flight per thread, so a tile
-// costs about one round trip to L2 rather than one per element.
+// per 2 * 4096 * 128 operand elements: far above the H100's ridge.
+//
+// wgmma (bf16, D 64 or 128): the card's bf16 tensor cores (989 TFLOP/s
+//   on the data sheet, against 67 for float32 on the CUDA cores).  A CTA
+//   owns 128 q rows: two consumer warpgroups of 64 rows each and one
+//   producer warp.  The producer loads Q once by TMA (a 3-D map over
+//   (B*Hq, Sq, D)) and keeps a 3-stage ring of 64-key K and V tiles full
+//   (3-D maps over (B*Hkv, Sk, D): rows past Sk read zeros, never the next
+//   head's), with mbarriers for full and empty slots.  Each consumer forms
+//   S = Q K^T by wgmma m64n64k16 (both operands K-major in shared memory,
+//   the head dim as K), scales and masks it in registers (keys past Sk
+//   -inf), keeps m, l and the rescale factor per row in float32 with the
+//   quad shuffles of the accumulator layout, and adds P V by wgmma
+//   m64nDk16 with P rounded to bf16 in registers as the A operand (the
+//   accumulator's layout is the register operand's) and V MN-major in
+//   shared memory, read transposed.  l sums the float32 P.  The tiles
+//   are its own: block_q and block_k do not change its result.  Numerics:
+//   the reference keeps P in float32 (kernel.py:88-97); rounding P to
+//   bf16 moves each term of P V by at most 2^-8 of itself, so an output
+//   moves by at most 2^-8 of the attention of |v|, and the output's own
+//   rounding adds one bf16 step (kernel.wgmma_bound, which the tests and
+//   chip_smoke.py hold it to element by element).
+// cuda_cores (float32, other head dims): 8 warps; warp w owns R
+//   consecutive rows of the q tile (R = block_q / 8 rounded up to a power
+//   of two, a template parameter, so each thread keeps R rows of state in
+//   registers).  The Q tile lives in
+//   shared memory as float32 for the whole kv loop.  K and V come through
+//   shared memory 32 keys at a time, one key per lane: for its key a lane
+//   forms the R scores (float4 reads, the Q rows broadcast), the warp
+//   reduces max and sum with shuffles, and the probabilities go through a
+//   per-warp shared buffer for P @ V, where each lane owns the head-dim
+//   columns lane, lane + 32, ... (DPL of them).  A warp whose rows all lie
+//   above a 32-key slab skips it.  Operands load as their type (f32 or
+//   bf16: a template parameter) and convert to float32 once, on the way
+//   into shared memory.  Its shared-memory traffic (one float4 read of K
+//   plus R broadcast float4 reads of Q per 4R multiply-adds) caps the
+//   score loop near 80% of the float32 rate at R = 16.  For float32 it
+//   beats SDPA's math backend; TF32 tensor cores would break the
+//   reference's float32 semantics.
 
 #include "dag.cuh"
+#include "hopper.cuh"
 
 #define FA_WARPS 8
 #define FA_NEG -1e30f  // the reference's NEG_INF
@@ -236,6 +256,194 @@ __global__ void __launch_bounds__(FA_WARPS * 32, 1) flash_fwd_kernel(const __gri
     }
 }
 
+
+// ============================================================ wgmma path
+#define FW_BM 128        // q rows a CTA: two consumer warpgroups of 64
+#define FW_BN 64         // keys a kv tile
+#define FW_THREADS 288   // two consumer warpgroups, one producer warp
+#define FW_STAGES 3      // kv ring
+
+template <int D>
+__host__ __device__ constexpr int fw_smem_bytes() {
+    return (FW_BM + 2 * FW_STAGES * FW_BN) * D * 2 + (2 * FW_STAGES + 1) * 8 + 1024;
+}
+
+__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
+    const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+    return *(const unsigned*)&v;
+}
+
+// D: the head dim (64 or 128), in 64-wide boxes of 128 bytes
+template <int D>
+__global__ void __launch_bounds__(FW_THREADS, 1) flash_wgmma_kernel(
+        const __grid_constant__ FaParams p, const __grid_constant__ CUtensorMap tq,
+        const __grid_constant__ CUtensorMap tk, const __grid_constant__ CUtensorMap tv) {
+    constexpr int NB = D / 64;           // boxes along the head dim
+    constexpr int QBOX = FW_BM * 128;    // bytes of a Q box: 128 rows x 64 of D
+    constexpr int KBOX = FW_BN * 128;    // ... of a K or V box: 64 keys x 64 of D
+    extern __shared__ __align__(16) unsigned char fw_raw[];
+    unsigned char* smem = fw_raw + ((1024 - (smem_u32(fw_raw) & 1023)) & 1023);
+    unsigned char* sq = smem;                           // [box]
+    unsigned char* sk = sq + NB * QBOX;                 // [stage][box]
+    unsigned char* sv = sk + FW_STAGES * NB * KBOX;     // [stage][box]
+    uint64_t* full = (uint64_t*)(sv + FW_STAGES * NB * KBOX);
+    uint64_t* empty = full + FW_STAGES;
+    uint64_t* qbar = empty + FW_STAGES;
+
+    const int bh = blockIdx.x;
+    const int q0 = ((int)gridDim.y - 1 - (int)blockIdx.y) * FW_BM;  // the longest causal tiles first
+    const int kvh = (bh / p.hq) * p.hkv + (bh % p.hq) / p.group;
+    const int last_q = min(q0 + FW_BM, p.sq) - 1;
+    const int kv_end = p.causal ? min(p.sk, last_q + 1) : p.sk;
+    const int n_kv = (kv_end + FW_BN - 1) / FW_BN;
+
+    if (threadIdx.x == 0) {
+        for (int s = 0; s < FW_STAGES; ++s) {
+            mbar_init(&full[s], 1);
+            mbar_init(&empty[s], 2);
+        }
+        mbar_init(qbar, 1);
+        asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    }
+    __syncthreads();
+
+    if (threadIdx.x >= 256) {  // the producer warp: one lane issues the copies
+        if (threadIdx.x == 256) {
+            mbar_expect_tx(qbar, NB * QBOX);
+            for (int c = 0; c < NB; ++c) tma_load3(&tq, sq + c * QBOX, qbar, c * 64, q0, bh);
+            for (int j = 0; j < n_kv; ++j) {
+                const int s = j % FW_STAGES;
+                if (j >= FW_STAGES) mbar_wait(&empty[s], ((j / FW_STAGES) - 1) & 1);
+                mbar_expect_tx(&full[s], 2 * NB * KBOX);
+                for (int c = 0; c < NB; ++c) {
+                    tma_load3(&tk, sk + (s * NB + c) * KBOX, &full[s], c * 64, j * FW_BN, kvh);
+                    tma_load3(&tv, sv + (s * NB + c) * KBOX, &full[s], c * 64, j * FW_BN, kvh);
+                }
+            }
+        }
+        return;
+    }
+
+    const int wg = threadIdx.x >> 7, t = threadIdx.x & 127;
+    const int r0 = q0 + wg * 64 + (t >> 5) * 16 + ((t & 31) >> 2);  // rows r0 and r0 + 8
+    const float sl2 = p.sm_scale * 1.4426950408889634f;  // scores in log2 units: exp2
+    float o[D / 2], m[2] = {FA_NEG, FA_NEG}, l[2] = {0.0f, 0.0f};
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) o[i] = 0.0f;
+    mbar_wait(qbar, 0);
+    for (int j = 0; j < n_kv; ++j) {
+        const int s = j % FW_STAGES;
+        mbar_wait(&full[s], (j / FW_STAGES) & 1);
+        float sc[32];
+#pragma unroll
+        for (int i = 0; i < 32; ++i) sc[i] = 0.0f;
+        fence_regs<32>(sc);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk) {  // 16 of D a step: box kk / 4, 32 bytes on
+            const int c = kk >> 2, off = (kk & 3) * 32;
+            Wgmma<__nv_bfloat16, 64>::template mma<0>(
+                sc, sw128_desc(sq + c * QBOX + wg * 64 * 128 + off),
+                sw128_desc(sk + (s * NB + c) * KBOX + off));
+        }
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs<32>(sc);
+
+        // scale, mask, and the online softmax over this tile's 64 keys
+        const int kv0 = j * FW_BN;
+        float mx[2] = {m[0], m[1]};
+#pragma unroll
+        for (int i = 0; i < 32; ++i) {
+            const int r = (i >> 1) & 1, key = kv0 + (i >> 2) * 8 + (t & 3) * 2 + (i & 1);
+            float x = sc[i] * sl2;
+            if (key >= p.sk) x = -INFINITY;  // past the keys: the TMA box's zero rows
+            else if (p.causal && r0 + 8 * r < key) x = FA_NEG;
+            sc[i] = x;
+            mx[r] = fmaxf(mx[r], x);
+        }
+        float alpha[2], ps[2] = {0.0f, 0.0f};
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+            mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+            mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+            alpha[r] = exp2f(m[r] - mx[r]);
+            m[r] = mx[r];
+        }
+#pragma unroll
+        for (int i = 0; i < 32; ++i) {
+            const int r = (i >> 1) & 1;
+            sc[i] = exp2f(sc[i] - m[r]);
+            ps[r] += sc[i];
+        }
+        // l is this thread's share of the row sum (its 16 keys of each
+        // tile); the quad's four shares meet once, after the loop
+        l[0] = l[0] * alpha[0] + ps[0];
+        l[1] = l[1] * alpha[1] + ps[1];
+#pragma unroll
+        for (int i = 0; i < D / 2; ++i) o[i] *= alpha[(i >> 1) & 1];
+
+        // O += P V: P as bf16 register fragments, 16 keys a step
+        unsigned a[FW_BN / 16][4];
+#pragma unroll
+        for (int kk = 0; kk < FW_BN / 16; ++kk)
+#pragma unroll
+            for (int u = 0; u < 4; ++u)
+                a[kk][u] = pack_bf16(sc[kk * 8 + 2 * u], sc[kk * 8 + 2 * u + 1]);
+        fence_regs<D / 2>(o);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < FW_BN / 16; ++kk)
+            Wgmma<__nv_bfloat16, D>::template mma_rs<1>(
+                o, a[kk], sw128_mn_desc(sv + s * NB * KBOX + kk * 16 * 128));
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs<D / 2>(o);
+        if (t == 0) mbar_arrive(&empty[s]);  // this warpgroup is done with the slot
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+        l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+        l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+        l[r] = l[r] == 0.0f ? 1.0f : l[r];
+    }
+    __nv_bfloat16* out = (__nv_bfloat16*)p.o;
+#pragma unroll
+    for (int i = 0; i < D / 2; i += 2) {
+        int row, col;
+        frag_mn(i, t, row, col);
+        const int q = q0 + wg * 64 + row, r = (i >> 1) & 1;
+        if (q < p.sq)
+            *(__nv_bfloat162*)(out + ((long long)bh * p.sq + q) * D + col) =
+                __floats2bfloat162_rn(o[i] / l[r], o[i + 1] / l[r]);
+    }
+}
+
+// The TMA map of q, k or v: (D, rows, heads), boxes of 64 of D by ``box``
+// rows; rows past ``rows`` read zeros.
+static int fw_map(CUtensorMap* map, const void* ptr, int d, int rows, int heads, int box) {
+    const cuuint64_t dims[3] = {(cuuint64_t)d, (cuuint64_t)rows, (cuuint64_t)heads};
+    const cuuint64_t strides[2] = {(cuuint64_t)d * 2, (cuuint64_t)d * 2 * rows};
+    const cuuint32_t b[3] = {64, (cuuint32_t)box, 1};
+    return tensor_map3(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, ptr, dims, strides, b);
+}
+
+template <int D>
+static int launch_fw(const FaParams* p, int n_bh, cudaStream_t st) {
+    alignas(64) CUtensorMap tq, tk, tv;
+    int rc = fw_map(&tq, p->q, D, p->sq, n_bh, FW_BM);
+    if (!rc) rc = fw_map(&tk, p->k, D, p->sk, n_bh / p->group, FW_BN);
+    if (!rc) rc = fw_map(&tv, p->v, D, p->sk, n_bh / p->group, FW_BN);
+    if (rc) return rc;
+    constexpr int bytes = fw_smem_bytes<D>();
+    const cudaError_t e = cudaFuncSetAttribute(
+        flash_wgmma_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (e != cudaSuccess) return (int)e;
+    const dim3 grid(n_bh, (p->sq + FW_BM - 1) / FW_BM);
+    flash_wgmma_kernel<D><<<grid, FW_THREADS, bytes, st>>>(*p, tq, tk, tv);
+    return (int)cudaGetLastError();
+}
+
 // one (T, DPL, R) instantiation: dynamic shared memory above 48 KB is
 // opted into per kernel before its launch
 template <typename T, int DPL, int R>
@@ -299,6 +507,19 @@ int stripe_flash_attention_launch(const FaParams* p, int dpl, int rows, int n_bh
     switch (p->dt) {
         case DT_F32: return fa_by_dpl<float>(p, dpl, rows, n_bh, st);
         case DT_BF16: return fa_by_dpl<__nv_bfloat16>(p, dpl, rows, n_bh, st);
+        default: return -1;
+    }
+}
+
+// Launches the wgmma kernel (bf16, head dim ``d`` 64 or 128) on
+// ``stream``; returns cudaGetLastError(), an error code of hopper.cuh, or
+// -1 for a head dim not built.
+int stripe_flash_attention_wgmma(const FaParams* p, int d, int n_bh, void* stream) {
+    const cudaStream_t st = (cudaStream_t)stream;
+    if (p->dt != DT_BF16) return -1;
+    switch (d) {
+        case 64: return launch_fw<64>(p, n_bh, st);
+        case 128: return launch_fw<128>(p, n_bh, st);
         default: return -1;
     }
 }

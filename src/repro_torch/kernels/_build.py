@@ -4,9 +4,12 @@ Each kernel is one CUDA C++ source under ``csrc/`` with a plain C
 interface (``contraction.cu``, ``elementwise.cu``, ``windowed.cu``,
 ``flash_attention.cu``, ``gla.cu``); all of them include ``csrc/dag.cuh``,
 the shared device code (element types, typed loads and stores, the
-postfix DAG evaluator).  Each source compiles with ``nvcc`` for ``sm_90a``
-into its own shared object under ``build/kernels/<hash>/`` at the
-repository root, the hash covering the source, the header and the flags,
+postfix DAG evaluator), and the tensor-core kernels (contraction,
+windowed, flash_attention) ``csrc/hopper.cuh``, the Hopper building
+blocks (cp.async, mbarriers, TMA and its tensor maps, wgmma).  Each source
+compiles with ``nvcc`` for ``sm_90a`` into its own shared object under
+``build/kernels/<hash>/`` at the repository root, the hash covering the
+source, the headers and the flags,
 and is bound with ``ctypes``.  The first load starts one ``nvcc`` per
 missing library, all at once, and waits for them together, so the five
 builds cost the time of the slowest.
@@ -32,7 +35,7 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = {"contraction": "contraction.cu", "elementwise": "elementwise.cu",
            "windowed": "windowed.cu", "flash_attention": "flash_attention.cu",
            "gla": "gla.cu"}
-HEADERS = ("dag.cuh",)
+HEADERS = ("dag.cuh", "hopper.cuh")
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

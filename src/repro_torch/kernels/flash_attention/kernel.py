@@ -4,13 +4,16 @@ its plain PyTorch version, and the block sizes the autotiler chooses.
 ``csrc/flash_attention.cu`` replaces the TPU kernel
 ``src/repro/kernels/flash_attention/kernel.py::flash_attention``: GQA
 attention, causal or full, with the online softmax (m, l, acc) in float32.
-One CTA owns one (b*Hq head, q tile of ``block_q`` rows) and loops over the
-kv tiles of ``block_k`` keys itself, up to the diagonal under ``causal``;
-the source says how the work is laid out.
+One CTA owns one (b*Hq head, q tile) and loops over the kv tiles itself,
+up to the diagonal under ``causal``; the source says how the work is laid
+out.  Two kernels: ``wgmma`` (bf16 on the tensor cores, P rounded to
+bf16 for P V) and ``cuda_cores`` (float32 arithmetic throughout);
+:func:`path_of` is the rule that picks one before the launch.
 
 :func:`flash_attention` launches the kernel for CUDA tensors (raising on
 any failure) and runs :func:`flash_attention_plain` only for CPU tensors.
-``launches`` counts kernel launches.
+``launches`` counts kernel launches, ``launches_by_path`` the same
+launches by path.
 """
 from __future__ import annotations
 
@@ -24,8 +27,16 @@ from .. import _build
 
 NEG_INF = -1e30
 
-# Kernel launches since import (or since the caller last reset it).
+# Kernel launches since import (or since the caller last reset it), and
+# the same launches by path.
 launches = 0
+PATHS = ("wgmma", "cuda_cores")
+launches_by_path = {p: 0 for p in PATHS}
+
+# The wgmma kernel's head dims (64-wide boxes of 128 bytes) and its CTA's
+# q rows (two warpgroups of 64).
+WGMMA_HEAD_DIMS = (64, 128)
+WGMMA_ROWS = 64
 
 # The kernel's geometry (csrc/flash_attention.cu): 8 warps; each warp owns
 # R rows of the q tile, R a power of two up to 16 (8 where the head dim
@@ -141,6 +152,40 @@ def choose_block_sizes(seq_q: int, seq_k: int, head_dim: int) -> Tuple[int, int]
     return int(bq), int(bk)
 
 
+def path_of(dtype: torch.dtype, head_dim: int, aligned: bool = True) -> str:
+    """The kernel a call takes, decided before the launch: ``wgmma`` for
+    bf16 at head dim 64 or 128 with q, k, v at 16-byte boundaries (TMA
+    reads them); ``cuda_cores`` for anything else: float32, whose
+    semantics the tensor cores would break, and other head dims.  The
+    wgmma kernel runs its own 128 x 64 tiles whatever the blocks; its
+    result does not depend on them (a kv block past a row's diagonal adds
+    exactly 0)."""
+    if dtype == torch.bfloat16 and head_dim in WGMMA_HEAD_DIMS and aligned:
+        return "wgmma"
+    return "cuda_cores"
+
+
+# The wgmma kernel against the plain version (P in float32), element by
+# element.  bf16 keeps 8 significant bits, so one rounding moves a value
+# by at most 2**-8 of itself.  Rounding each P to bf16 for P V moves an
+# output o by at most 2**-8 * sum_j p_j |v_j| / l: 2**-8 of the attention
+# of |v|.  The kernel and the plain version each round o once to bf16,
+# which leaves them at most one bf16 step apart, 2**-7 of |o|.  At
+# llama3-8b's S 4096 with unit-normal inputs this bound is about 3e-3,
+# a tenth of the median |o|.
+BF16_STEP = 2.0 ** -7
+
+
+def wgmma_bound(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, want: torch.Tensor,
+                causal: bool = True, sm_scale: Optional[float] = None) -> torch.Tensor:
+    """The largest difference, element by element, that the wgmma kernel
+    may show against ``want`` = :func:`flash_attention_plain` on the same
+    inputs: ``2**-7 |want| + 2**-8 attention(q, k, |v|)`` in float32."""
+    abs_v = flash_attention_plain(q.float(), k.float(), v.float().abs(), causal, sm_scale,
+                                  block_q=q.shape[2], block_k=math.gcd(k.shape[2], 512))
+    return BF16_STEP * want.float().abs() + BF16_STEP / 2 * abs_v
+
+
 def _resolve(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, sm_scale, block_q,
              block_k) -> Tuple[float, int, int]:
     """The reference's argument handling (``kernel.py:114-126``), its
@@ -230,6 +275,9 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.stripe_flash_attention_launch.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
                                                   ctypes.c_int, ctypes.c_void_p]
     lib.stripe_flash_attention_launch.restype = ctypes.c_int
+    lib.stripe_flash_attention_wgmma.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                                                 ctypes.c_void_p]
+    lib.stripe_flash_attention_wgmma.restype = ctypes.c_int
     lib.stripe_flash_attention_smem.argtypes = [ctypes.c_int, ctypes.c_int]
     lib.stripe_flash_attention_smem.restype = ctypes.c_int
     lib.stripe_flash_attention_layout.argtypes = [ctypes.c_void_p]
@@ -252,7 +300,8 @@ def load_library() -> ctypes.CDLL:
     return _build.load("flash_attention", _bind)
 
 
-def _launch(q, k, v, causal: bool, sm_scale: float, block_q: int, block_k: int) -> torch.Tensor:
+def _launch(q, k, v, causal: bool, sm_scale: float, block_q: int, block_k: int,
+            path: Optional[str]) -> torch.Tensor:
     global launches
     device = q.device
     for name, t in (("k", k), ("v", v)):
@@ -264,14 +313,19 @@ def _launch(q, k, v, causal: bool, sm_scale: float, block_q: int, block_k: int) 
         raise TypeError(f"flash_attention: the kernel takes {_TYPES}, not {q.dtype}")
     b, hq, sq, d = q.shape
     hkv, sk = k.shape[1], k.shape[2]
-    if d > MAX_HEAD_DIM:
-        raise ValueError(f"flash_attention: head dim {d} > {MAX_HEAD_DIM}, the kernel's limit")
-    if block_q > max_block_q(d):
-        raise ValueError(f"flash_attention: block_q {block_q} > {max_block_q(d)}, the rows "
-                         f"one CTA of the kernel holds at head dim {d}")
-    if b * hq > 65535:
-        raise ValueError(f"flash_attention: B*Hq = {b * hq} exceeds the grid's y limit")
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    if path is None:
+        path = path_of(q.dtype, d, all(t.data_ptr() % 16 == 0 for t in (q, k, v)))
+    if path == "cuda_cores":
+        if d > MAX_HEAD_DIM:
+            raise ValueError(f"flash_attention: head dim {d} > {MAX_HEAD_DIM}, the kernel's limit")
+        if block_q > max_block_q(d):
+            raise ValueError(f"flash_attention: block_q {block_q} > {max_block_q(d)}, the rows "
+                             f"one CTA of the kernel holds at head dim {d}")
+        if b * hq > 65535:
+            raise ValueError(f"flash_attention: B*Hq = {b * hq} exceeds the grid's y limit")
+    elif -(-sq // (2 * WGMMA_ROWS)) > 65535:
+        raise ValueError(f"flash_attention: Sq = {sq} exceeds the grid's y limit")
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
@@ -280,24 +334,37 @@ def _launch(q, k, v, causal: bool, sm_scale: float, block_q: int, block_k: int) 
                   sq=sq, sk=sk, d=d, hq=hq, hkv=hkv, group=hq // hkv,
                   block_q=block_q, block_k=block_k, n_q=sq // block_q,
                   causal=int(bool(causal)), dt=_build.dtype_code(q.dtype), sm_scale=sm_scale)
-    rc = lib.stripe_flash_attention_launch(ctypes.addressof(p), _dpl(d), rows_per_warp(block_q),
-                                           b * hq, _build.stream_of(device))
-    _build.launch_rc(rc, "flash_attention")
+    if path == "wgmma":
+        rc = lib.stripe_flash_attention_wgmma(ctypes.addressof(p), d, b * hq,
+                                              _build.stream_of(device))
+    else:
+        rc = lib.stripe_flash_attention_launch(ctypes.addressof(p), _dpl(d),
+                                               rows_per_warp(block_q), b * hq,
+                                               _build.stream_of(device))
+    _build.launch_rc(rc, f"flash_attention ({path})")
     launches += 1
+    launches_by_path[path] += 1
     return out
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = True, sm_scale: Optional[float] = None,
                     block_q: Optional[int] = None,
-                    block_k: Optional[int] = None) -> torch.Tensor:
+                    block_k: Optional[int] = None,
+                    path: Optional[str] = None) -> torch.Tensor:
     """q: (B, Hq, Sq, D); k/v: (B, Hkv, Sk, D), Hq a multiple of Hkv (GQA:
     q head h reads kv head h // (Hq / Hkv)).  Returns (B, Hq, Sq, D) in
     ``q.dtype``.  The kernel for CUDA tensors, the plain version for CPU
-    tensors."""
+    tensors.
+
+    ``path``: None takes :func:`path_of`'s choice; ``"cuda_cores"`` forces
+    the CUDA-core kernel, to time it against the wgmma one on the same
+    inputs."""
+    if path not in (None, "cuda_cores"):
+        raise ValueError(f"path is None (the rule's choice) or 'cuda_cores', not {path!r}")
     sm_scale, block_q, block_k = _resolve(q, k, v, sm_scale, block_q, block_k)
     if q.is_cuda:
-        return _launch(q, k, v, causal, sm_scale, block_q, block_k)
+        return _launch(q, k, v, causal, sm_scale, block_q, block_k, path)
     if k.is_cuda or v.is_cuda:
         raise ValueError("flash_attention: q on the CPU, k or v on the card")
     return flash_attention_plain(q, k, v, causal, sm_scale, block_q, block_k)

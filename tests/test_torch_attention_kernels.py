@@ -151,6 +151,140 @@ def test_flash_smem_and_rows(block_q, d):
     assert block_q <= FA.max_block_q(d)
 
 
+# ------------------------------------ flash attention on the tensor cores
+def wgmma_emulation(q, k, v, causal, sm_scale=None):
+    """The bf16 wgmma kernel's tile algorithm (csrc/flash_attention.cu) on
+    the CPU: 128-row q tiles (two 64-row warpgroups; rows are
+    independent), 64-key kv tiles up to the tile's last query under
+    ``causal`` (keys past Sk zero and masked -inf, as the TMA box reads
+    them), scores in float32 from the bf16 operands, the online softmax in
+    log2 units, P rounded to bf16 for P V while l sums the float32 P, and
+    one rounding of the output to bf16.  The package's plain version keeps
+    the reference's float32 P; this emulation lives here, beside the
+    tests that hold it."""
+    b, hq, sq, d = q.shape
+    hkv, sk = k.shape[1], k.shape[2]
+    sl2 = torch.tensor((1.0 / d ** 0.5 if sm_scale is None else sm_scale)
+                       * 1.4426950408889634, dtype=torch.float32)
+    kf = torch.nn.functional.pad(k.float().repeat_interleave(hq // hkv, dim=1),
+                                 (0, 0, 0, -sk % 64))
+    vf = torch.nn.functional.pad(v.float().repeat_interleave(hq // hkv, dim=1),
+                                 (0, 0, 0, -sk % 64))
+    out = torch.zeros(b, hq, sq, d)
+    for q0 in range(0, sq, 128):
+        last = min(q0 + 128, sq) - 1
+        kv_end = min(sk, last + 1) if causal else sk
+        qt = q[:, :, q0:last + 1].float()
+        qpos = torch.arange(q0, last + 1)[:, None]
+        m = torch.full(qt.shape[:3], FA.NEG_INF)
+        l = torch.zeros(qt.shape[:3])
+        o = torch.zeros(qt.shape)
+        for k0 in range(0, kv_end, 64):
+            kpos = torch.arange(k0, k0 + 64)[None, :]
+            s = (qt @ kf[:, :, k0:k0 + 64].transpose(-1, -2)) * sl2
+            s = torch.where(causal & (qpos < kpos), torch.full_like(s, FA.NEG_INF), s)
+            s = torch.where(kpos >= sk, torch.full_like(s, -float("inf")), s)
+            mx = torch.maximum(m, s.amax(dim=-1))
+            alpha = torch.exp2(m - mx)
+            p = torch.exp2(s - mx[..., None])
+            l = l * alpha + p.sum(dim=-1)
+            o = o * alpha[..., None] + p.bfloat16().float() @ vf[:, :, k0:k0 + 64]
+            m = mx
+        out[:, :, q0:last + 1] = o / torch.where(l == 0, torch.ones_like(l), l)[..., None]
+    return out.bfloat16()
+
+
+# the bf16 tolerance of the card's checks, over the largest output: the
+# emulation rounds P to bf16 (each term of P V moves by at most 2**-8 of
+# itself) and the output once (2**-8); the reference keeps P in float32
+BF16_RTOL = 2e-2
+
+
+def _close_bf16(got, want, q, k, v, causal):
+    """Within BF16_RTOL of the largest output, and element by element
+    within ``kernel.wgmma_bound``: one bf16 step of each output plus 2**-8
+    of the attention of |v|, the most that rounding P to bf16 moves it."""
+    g = got.float()
+    w = want.float() if isinstance(want, torch.Tensor) else torch.as_tensor(
+        np.asarray(want, np.float32))
+    err = (g - w).abs()
+    assert err.max().item() <= BF16_RTOL * (1 + w.abs().max().item()), err.max().item()
+    excess = (err / FA.wgmma_bound(q, k, v, w, causal)).max().item()
+    assert excess <= 1.0, excess
+    return excess
+
+
+# (B, Hq, Hkv, Sq, Sk, D, causal, block_q, block_k of the reference's call)
+WGMMA_CASES = [
+    (1, 4, 4, 256, 256, 128, True, 128, 128),
+    (1, 4, 4, 256, 256, 128, False, 128, 64),
+    (1, 8, 2, 128, 384, 64, True, 64, 128),    # Sq < Sk: top-left; GQA group 4
+    (2, 4, 1, 192, 192, 64, True, 64, 64),     # S not a multiple of the 128-row tile
+    (1, 2, 2, 320, 320, 64, False, 64, 64),    # 5 kv tiles, full
+    (1, 4, 4, 448, 208, 128, True, 64, 16),    # Sq > Sk; Sk not a multiple of 64
+]
+
+
+@pytest.mark.parametrize("b,hq,hkv,sq,sk,d,causal,bq,bk", WGMMA_CASES)
+def test_wgmma_emulation_matches_the_pallas_kernel(b, hq, hkv, sq, sk, d, causal, bq, bk):
+    (jq, tq), (jk, tk), (jv, tv) = _qkv(np.random.RandomState(sq + sk + d), b, hq, hkv, sq,
+                                        sk, d, "bfloat16")
+    want = j_fa.flash_attention(jq, jk, jv, causal=causal, block_q=bq, block_k=bk,
+                                interpret=True)
+    got = wgmma_emulation(tq, tk, tv, causal)
+    _close_bf16(got, want, tq, tk, tv, causal)
+    # and the port's plain version (float32 P) on the same inputs
+    _close_bf16(got, flash_attention(tq, tk, tv, causal=causal, block_q=bq, block_k=bk),
+                tq, tk, tv, causal)
+
+
+def test_flash_path_rule():
+    """The path depends on the type, the head dim and the alignment only:
+    the wgmma kernel runs its own tiles whatever the blocks."""
+    bf, f32 = torch.bfloat16, torch.float32
+    assert FA.path_of(bf, 128) == "wgmma"
+    assert FA.path_of(bf, 64) == "wgmma"
+    assert FA.path_of(bf, 128, aligned=False) == "cuda_cores"
+    for dtype, d in ((f32, 128), (f32, 64), (torch.float16, 64), (bf, 96), (bf, 32),
+                     (bf, 256)):
+        assert FA.path_of(dtype, d) == "cuda_cores", (dtype, d)
+
+
+def test_wgmma_emulation_ignores_the_blocks():
+    """The tile algorithm's result is the same whatever blocks the caller
+    names, so explicit blocks such as 48 x 32 or 100 x 40 take the wgmma
+    kernel too: against the Pallas kernel at those blocks it stays within
+    the bound."""
+    for sq, bq, bk in ((96, 48, 32), (200, 100, 40)):
+        (jq, tq), (jk, tk), (jv, tv) = _qkv(np.random.RandomState(sq), 1, 2, 2, sq, sq, 64,
+                                            "bfloat16")
+        want = j_fa.flash_attention(jq, jk, jv, causal=True, block_q=bq, block_k=bk,
+                                    interpret=True)
+        _close_bf16(wgmma_emulation(tq, tk, tv, True), want, tq, tk, tv, True)
+
+
+@pytest.mark.parametrize("sq,sk,d", [(4096, 4096, 128), (2048, 2048, 128), (512, 2048, 128),
+                                     (4096, 4096, 64), (256, 256, 64), (64, 64, 64)])
+def test_h100_blocks_take_wgmma_for_bf16(sq, sk, d):
+    """Under h100 the autotiler's blocks for bf16 at head dim 64 and 128
+    divide the sequence, and the call takes the wgmma kernel: llama3-8b's
+    call needs no explicit blocks to reach the tensor cores."""
+    bq, bk = choose_block_sizes(sq, sk, d)
+    assert sq % bq == 0 and sk % bk == 0
+    assert FA.path_of(torch.bfloat16, d) == "wgmma"
+
+
+def test_flash_path_argument_on_cpu_tensors():
+    (_, tq), (_, tk), (_, tv) = _qkv(np.random.RandomState(8), 1, 2, 2, 64, 64, 64, "bfloat16")
+    before = (FA.launches, dict(FA.launches_by_path))
+    got = flash_attention(tq, tk, tv, block_q=64, block_k=64)
+    assert torch.equal(flash_attention(tq, tk, tv, block_q=64, block_k=64, path="cuda_cores"),
+                       got)
+    assert (FA.launches, FA.launches_by_path) == before
+    with pytest.raises(ValueError, match="path"):
+        flash_attention(tq, tk, tv, path="wgmma")
+
+
 # -------------------------------------------------------------- mlstm / GLA
 def _gla_inputs(rng, B, H, S, Dk, Dv):
     q = _pair(rng.randn(B, H, S, Dk) * 0.5)

@@ -16,6 +16,7 @@ from repro_torch.core import cache as t_cache  # noqa: E402
 from repro_torch.core import lower_cuda as LC  # noqa: E402
 from repro_torch.core.driver import stripe_jit  # noqa: E402
 from repro_torch.core.frontend import TileProgram  # noqa: E402
+from repro_torch.core.frontend import single_op_program  # noqa: E402
 from repro_torch.core.hwconfig import get_config  # noqa: E402
 from repro_torch.explore.runner import _random_arrays  # noqa: E402
 from repro_torch.explore.workloads import get_workloads, resnet50_conv2_3x3  # noqa: E402
@@ -164,6 +165,125 @@ def test_resnet_conv_on_the_windowed_kernel(dtype):
         _assert_kernel_close(got, want.to(got.dtype), "resnet conv vs conv2d")
 
 
+def _conv_program(b, x, y, c, k, dtype):
+    out = "int32" if dtype == "int8" else dtype
+    return single_op_program(
+        "O[n, x, y, k] += I[n, x + i - 1, y + j - 1, c] * F[i, j, c, k]",
+        {"I": ((b, x, y, c), dtype), "F": ((3, 3, c, k), dtype), "O": ((b, x, y, k), out)},
+        out="O", name=f"conv_{b}x{x}x{y}x{c}x{k}_{dtype}")
+
+
+def _windowed_paths_against_plain(prog):
+    """Every windowed unit of ``prog`` under h100 against its plain
+    version, launched twice (bit-identical), and the path each took
+    (read from ``launches_by_path``)."""
+    c = stripe_jit(prog, get_config("h100"), "cuda",
+                   cache=t_cache.CompilationCache(use_disk=False), use_disk=False)
+    env = _random_arrays(c.program.source, seed=8)
+    paths = []
+    for unit, kind, fns in c._fn.steps:
+        assert kind == "cuda", unit.name
+        for fn in fns:
+            before = dict(WK.launches_by_path)
+            got = fn(env)
+            again = fn(env)
+            want = fn.plain(env)
+            torch.cuda.synchronize()
+            ran = [p for p in WK.PATHS if WK.launches_by_path[p] == before[p] + 2]
+            assert ran == [WK.plan_path(fn.plan)], (before, WK.launches_by_path)
+            paths.append(ran[0])
+            assert torch.equal(got, again), f"{unit.name}: a relaunch differs"
+            _assert_kernel_close(got, want, f"{unit.name} ({ran[0]})")
+            env[fn.out_buf] = LC._place(env, c.program.buffers[fn.out_buf], fn, got)
+    return paths
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int8"])
+@pytest.mark.parametrize("batch", [1, 2])
+def test_windowed_igemm_resnet_units_on_the_card(batch, dtype):
+    """ResNet-50's conv2_x units take the igemm path (wgmma for bf16 and
+    int8, the CUDA cores for float32) and agree with their plain versions:
+    int8 bit-exact."""
+    _card()
+    paths = _windowed_paths_against_plain(resnet50_conv2_3x3(batch, dtype))
+    assert len(paths) >= 2 and set(paths) == {"igemm"}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16", "int8"])
+@pytest.mark.parametrize("shape", [(2, 13, 21, 32, 40), (1, 9, 70, 64, 136)],
+                         ids=["ragged-n", "three-n-tiles"])
+def test_windowed_igemm_ragged_convs_on_the_card(shape, dtype):
+    """Ragged spatial sizes, 32 channels (a K stage spans two taps), N
+    below one tile and over two, remainders over N whose filter columns
+    end inside the tile: every unit on igemm, against plain."""
+    _card()
+    paths = _windowed_paths_against_plain(_conv_program(*shape, dtype))
+    assert paths and set(paths) == {"igemm"}
+
+
+@pytest.mark.cuda
+def test_windowed_refused_plan_runs_general_on_the_card():
+    """fig4's int8 conv has 8 channels (8 bytes, not a 16-byte copy): the
+    view refuses it, with its reason, and the general loop runs it."""
+    _card()
+    prog = {w.name: w for w in get_workloads("all")}["fig4_conv"].build()
+    c = stripe_jit(prog, get_config("h100"), "cuda",
+                   cache=t_cache.CompilationCache(use_disk=False), use_disk=False)
+    plans = [fn.plan for _u, _k, fns in c._fn.steps for fn in fns if fn.kernel == "windowed"]
+    assert plans and all("16-byte copies" in WK.refusal(p) for p in plans)
+    assert set(_windowed_paths_against_plain(prog)) == {"general"}
+
+
+@pytest.mark.cuda
+def test_windowed_misaligned_input_runs_general_on_the_card():
+    """An input that starts off a 16-byte boundary: each launch classifies
+    with its tensors' own alignment, so units that take igemm on aligned
+    tensors run the general loop, and ``refusal`` with ``input_alignment``
+    of the same tensors names the reason."""
+    _card()
+    c = stripe_jit(_conv_program(1, 10, 12, 64, 64, "bfloat16"), get_config("h100"), "cuda",
+                   cache=t_cache.CompilationCache(use_disk=False), use_disk=False)
+    env = _random_arrays(c.program.source, seed=8)
+    shifted = torch.empty(env["I"].numel() + 1, dtype=env["I"].dtype, device="cuda")
+    env["I"] = shifted[1:].view(env["I"].shape).copy_(env["I"])
+    fns = [fn for _u, _k, fs in c._fn.steps for fn in fs if fn.kernel == "windowed"]
+    assert fns
+    for fn in fns:
+        aligned = WK.input_alignment([env[i.buf] for i in fn.plan.ins])
+        assert WK.plan_path(fn.plan) == "igemm"
+        assert WK.plan_path(fn.plan, aligned) == "general"
+        assert "16-byte boundaries" in WK.refusal(fn.plan, aligned)
+        before = dict(WK.launches_by_path)
+        got = fn(env)
+        want = fn.plain(env)
+        torch.cuda.synchronize()
+        assert WK.launches_by_path == {"igemm": before["igemm"],
+                                       "general": before["general"] + 1}
+        _assert_kernel_close(got, want, f"{fn.plan.out_ext} (general, misaligned)")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int8"])
+def test_windowed_general_path_argument_on_the_card(dtype):
+    """``path="general"`` runs the odometer loop on an igemm unit: the
+    two agree (int8 exactly), and each counts under its own path."""
+    _card()
+    c = stripe_jit(_conv_program(1, 10, 12, 64, 64, dtype), get_config("h100"), "cuda",
+                   cache=t_cache.CompilationCache(use_disk=False), use_disk=False)
+    env = _random_arrays(c.program.source, seed=9)
+    fn = next(fn for _u, _k, fns in c._fn.steps for fn in fns)
+    ins = [env[i.buf] for i in fn.plan.ins]
+    before = dict(WK.launches_by_path)
+    got = WK.windowed(fn.plan, ins, fn.out_clip)
+    gen = WK.windowed(fn.plan, ins, fn.out_clip, path="general")
+    torch.cuda.synchronize()
+    assert WK.launches_by_path == {"igemm": before["igemm"] + 1,
+                                   "general": before["general"] + 1}
+    _assert_kernel_close(got, gen, "igemm against general")
+
+
 @pytest.mark.cuda
 def test_elementwise_broadcasts_and_rounds_on_the_card():
     _card()
@@ -195,6 +315,9 @@ def test_elementwise_broadcasts_and_rounds_on_the_card():
 ])
 def test_flash_attention_kernel_matches_plain_on_the_card(b, hq, hkv, sq, sk, d, bq, bk,
                                                            causal, dtype):
+    """The call's path against plain at the case's blocks; where that is
+    wgmma (bf16 at head dim 64 or 128, whatever the blocks), also held to
+    its elementwise bound, and the CUDA-core kernel at the same blocks."""
     from repro_torch.kernels.flash_attention import kernel as FA
 
     _card()
@@ -204,11 +327,123 @@ def test_flash_attention_kernel_matches_plain_on_the_card(b, hq, hkv, sq, sk, d,
     k = torch.randn(b, hkv, sk, d, generator=gen, device="cuda").to(dt)
     v = torch.randn(b, hkv, sk, d, generator=gen, device="cuda").to(dt)
     before = FA.launches
+    by_path = dict(FA.launches_by_path)
     got = FA.flash_attention(q, k, v, causal=causal, block_q=bq, block_k=bk)
     torch.cuda.synchronize()
     assert FA.launches == before + 1
+    path = FA.path_of(q.dtype, d)
+    assert FA.launches_by_path[path] == by_path[path] + 1
     want = FA.flash_attention_plain(q, k, v, causal=causal, block_q=bq, block_k=bk)
     _assert_kernel_close(got, want, "flash_attention")
+    if path == "wgmma":
+        _assert_within_wgmma_bound(FA, got, want, q, k, v, causal)
+        cores = FA.flash_attention(q, k, v, causal=causal, block_q=bq, block_k=bk,
+                                   path="cuda_cores")
+        _assert_kernel_close(cores, want, "flash_attention (cuda_cores)")
+
+
+def _wgmma_excess(FA, got, want, q, k, v, causal):
+    """The largest error of the wgmma kernel over ``kernel.wgmma_bound``."""
+    torch.cuda.synchronize()
+    err = (got.float() - want.float()).abs()
+    return (err / FA.wgmma_bound(q, k, v, want, causal)).max().item()
+
+
+def _assert_within_wgmma_bound(FA, got, want, q, k, v, causal):
+    """Element by element: one bf16 step of each output plus 2**-8 of the
+    attention of |v|, the most that rounding P to bf16 moves it."""
+    excess = _wgmma_excess(FA, got, want, q, k, v, causal)
+    assert excess <= 1.0, excess
+
+
+# the cases of the CPU emulation (tests/test_torch_attention_kernels.py):
+# (B, Hq, Hkv, Sq, Sk, D, causal)
+WGMMA_CASES = [
+    (1, 4, 4, 256, 256, 128, True), (1, 4, 4, 256, 256, 128, False),
+    (1, 8, 2, 128, 384, 64, True),    # Sq < Sk: top-left; GQA group 4
+    (2, 4, 1, 192, 192, 64, True),    # S not a multiple of the 128-row CTA; group 4
+    (1, 2, 2, 320, 320, 64, False),   # S not a multiple of the 64-key tile
+    (1, 4, 4, 448, 208, 128, True),   # Sq > Sk; Sk not a multiple of 64
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,hq,hkv,sq,sk,d,causal", WGMMA_CASES)
+def test_flash_attention_wgmma_matches_plain_on_the_card(b, hq, hkv, sq, sk, d, causal):
+    """bf16 at head dims 64 and 128 takes the wgmma kernel and agrees with
+    the plain version (float32 P) within the bf16 tolerance; a relaunch is
+    bit-identical, and the CUDA-core kernel agrees on the same inputs."""
+    from repro_torch.kernels.flash_attention import kernel as FA
+
+    _card()
+    gen = torch.Generator(device="cuda").manual_seed(sq + sk + d + hq)
+    q = torch.randn(b, hq, sq, d, generator=gen, device="cuda").bfloat16()
+    k = torch.randn(b, hkv, sk, d, generator=gen, device="cuda").bfloat16()
+    v = torch.randn(b, hkv, sk, d, generator=gen, device="cuda").bfloat16()
+    bq, bk = 64, 16
+    before = dict(FA.launches_by_path)
+    got = FA.flash_attention(q, k, v, causal=causal, block_q=bq, block_k=bk)
+    again = FA.flash_attention(q, k, v, causal=causal, block_q=bq, block_k=bk)
+    cores = FA.flash_attention(q, k, v, causal=causal, block_q=bq, block_k=bk,
+                               path="cuda_cores")
+    torch.cuda.synchronize()
+    assert FA.launches_by_path == {"wgmma": before["wgmma"] + 2,
+                                   "cuda_cores": before["cuda_cores"] + 1}
+    assert torch.equal(got, again)
+    want = FA.flash_attention_plain(q, k, v, causal=causal, block_q=bq, block_k=bk)
+    _assert_kernel_close(got, want, "flash_attention (wgmma)")
+    _assert_within_wgmma_bound(FA, got, want, q, k, v, causal)
+    _assert_kernel_close(cores, want, "flash_attention (cuda_cores)")
+
+
+# faults planted in a copy of the wgmma kernel: (what, the line, its fault)
+WGMMA_FAULTS = [
+    ("O not rescaled by alpha",
+     "for (int i = 0; i < D / 2; ++i) o[i] *= alpha[(i >> 1) & 1];",
+     "for (int i = 0; i < D / 2; ++i) o[i] *= 1.0f;"),
+    ("the diagonal key masked",
+     "else if (p.causal && r0 + 8 * r < key) x = FA_NEG;",
+     "else if (p.causal && r0 + 8 * r <= key) x = FA_NEG;"),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("what,line,fault", WGMMA_FAULTS, ids=[f[0] for f in WGMMA_FAULTS])
+def test_the_wgmma_bound_catches_a_planted_fault(what, line, fault, tmp_path, monkeypatch,
+                                                 capsys):
+    """A copy of the sources with one fault in the wgmma kernel builds,
+    runs wgmma, and fails the elementwise bound at llama3-8b's head
+    layout (Hq 32, Hkv 8, D 128, S 1024, causal).  Prints both checks'
+    verdicts: the bound's largest error over bound, and whether the
+    tolerance of 2e-2 of the largest output would have passed it."""
+    import shutil
+
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.flash_attention import kernel as FA
+
+    _card()
+    for f in _build.CSRC.iterdir():
+        shutil.copy(f, tmp_path / f.name)
+    src = (tmp_path / "flash_attention.cu").read_text()
+    assert src.count(line) == 1, line
+    (tmp_path / "flash_attention.cu").write_text(src.replace(line, fault))
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    q = torch.randn(1, 32, 1024, 128, generator=gen, device="cuda").bfloat16()
+    k = torch.randn(1, 8, 1024, 128, generator=gen, device="cuda").bfloat16()
+    v = torch.randn(1, 8, 1024, 128, generator=gen, device="cuda").bfloat16()
+    want = FA.flash_attention_plain(q, k, v, causal=True)
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    monkeypatch.setattr(_build, "_LIBS", {})
+    before = FA.launches_by_path["wgmma"]
+    got = FA.flash_attention(q, k, v, causal=True)
+    assert FA.launches_by_path["wgmma"] == before + 1
+    excess = _wgmma_excess(FA, got, want, q, k, v, True)
+    err = (got.float() - want.float()).abs().max().item()
+    loose = err <= 2e-2 * (1 + want.float().abs().max().item())
+    with capsys.disabled():
+        print(f"\nplanted fault '{what}': error / bound {excess:.3f}, largest error "
+              f"{err:.3e}, passes 2e-2 of the largest output: {loose}")
+    assert excess > 1.0, (what, excess)
 
 
 @pytest.mark.cuda
