@@ -107,6 +107,13 @@ and prints no result):
    move it, about a tenth of the median output here: ``wgmma_excess``,
    the largest error over its bound, must not exceed 1); the CUDA-core
    design is timed on the bf16 case's inputs beside it (``cuda_cores_ms``).
+   Likewise the bf16 mLSTM and SSD calls must run the GLA kernel's
+   ``wgmma`` path and the float32 ones ``cuda_cores``; each wgmma output
+   is held element by element to ``kernel.gla_wgmma_bound`` (what
+   rounding k w, the carried state and P to bf16 can move it, through the
+   normalizer, plus one bf16 step; ``wgmma_excess`` <= 1, and
+   ``norm_rel_err`` printed beside it), with the CUDA-core kernel timed in
+   turns on the same inputs.
 
 Launch counts are read per path: every count is set to 0 just before the
 serve phase (path 1), before the sweep (path 2), before phase 8's calls
@@ -115,7 +122,10 @@ read just after each; the contraction kernel's ``launches_by_path``
 (skinny, tiled, general) is read the same way for the serve and sweep
 paths, and the serve path may launch no general loop; the windowed
 kernel's (igemm, general) for the sweep and ResNet paths, flash
-attention's (wgmma, cuda_cores) for path 3, all in the summary.  The
+attention's and the GLA kernel's (wgmma, cuda_cores) for path 3, all in
+the summary, which lists the six TPU kernels' counterparts
+(``stripe_matmul`` rides on the contraction kernel; its launches are
+phase 3's).  The
 last lines are the kernel summary (JSON), the card's name and power
 limit as ``nvidia-smi`` reports them, and the result line
 ``{"ok": true, "device": {...}}``.  TF32 is off wherever the plain
@@ -411,7 +421,7 @@ def time_matmul(torch, K, timer) -> dict:
             "view": _view_desc(K, kernel.plan), "ms": ms, "general_ms": general_ms,
             "plain_ms": timer(lambda: plain({"X": x, "W": w})),
             "library_ms": timer(lambda: torch.matmul(x, w)),
-            "bound_ms": max(t_bytes, t_ops),
+            "bound_ms": max(t_bytes, t_ops), "t_bytes_ms": t_bytes, "t_ops_ms": t_ops,
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
@@ -928,6 +938,23 @@ def _wgmma_check(torch, FA, what, got, want, q, k, v, causal) -> dict:
     return {"wgmma_excess": excess, "norm_rel_err": ((g - w).norm() / w.norm()).item()}
 
 
+def _gla_check(torch, GLA, what, path, got, want, ins, chunk, kw) -> dict:
+    """The GLA kernel's output against the plain version's: the error's
+    norm relative to the output's, and on the wgmma path the largest ratio
+    of error to ``kernel.gla_wgmma_bound`` (what rounding k w, C_prev and P
+    to bf16 can move an output, through the normalizer, plus one bf16
+    step), which must not exceed 1."""
+    g, w = got.float(), want.float()
+    row = {"norm_rel_err": ((g - w).norm() / w.norm()).item(), "wgmma_excess": None}
+    if path == "wgmma":
+        bound = GLA.gla_wgmma_bound(*ins, want, chunk, kw["normalize"], kw["scale"])
+        row["wgmma_excess"] = ((g - w).abs() / bound).max().item()
+        if not row["wgmma_excess"] <= 1.0:
+            raise AssertionError(f"{what}: GLA wgmma path off its elementwise bound "
+                                 f"(largest error / bound {row['wgmma_excess']:.3f})")
+    return row
+
+
 def _gla_macs(b, h, s, dk, dv, chunk) -> int:
     """Multiply-adds of the chunk's four products over the whole sequence:
     the scores q k^T and scores @ v on and below the diagonal, q @ C and
@@ -971,28 +998,41 @@ def check_attention_kernels(torch, timer) -> dict:
     mods = _kernel_modules()
     for mod in mods.values():
         mod.launches = 0
-    for p in FA.launches_by_path:
-        FA.launches_by_path[p] = 0
+    for mod in (FA, GLA):
+        for p in mod.launches_by_path:
+            mod.launches_by_path[p] = 0
     t0 = time.perf_counter()
-    flash_out, flash_paths = [], []
+    flash_out, flash_paths, gla_paths = [], [], {}
     for (q, k, v), (_sq, _sk, c, _dt) in zip(flash_in, FLASH_CASES):
         before = dict(FA.launches_by_path)
         flash_out.append(FA.flash_attention(q, k, v, causal=c))
         if DEVICE == "cuda":
             flash_paths.append(_path_ran(FA, before))
-    m_out = {ty: mlstm_chunk(*ins) for ty, ins in mlstm_in.items()}
-    s_out = {ty: ssd_chunk(x, dt, s_A, B, C, s_D) for ty, (x, dt, B, C) in ssd_in.items()}
+    m_out, s_out = {}, {}
+    for ty in GLA_DTYPES:
+        (x, dt, B, C), before = ssd_in[ty], dict(GLA.launches_by_path)
+        m_out[ty] = mlstm_chunk(*mlstm_in[ty])
+        if DEVICE == "cuda":
+            gla_paths[f"mlstm {ty}"] = _path_ran(GLA, before)
+        before = dict(GLA.launches_by_path)
+        s_out[ty] = ssd_chunk(x, dt, s_A, B, C, s_D)
+        if DEVICE == "cuda":
+            gla_paths[f"ssd {ty}"] = _path_ran(GLA, before)
     if DEVICE == "cuda":
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = {name: mod.launches for name, mod in mods.items()}
-    flash_by_path = dict(FA.launches_by_path)
+    flash_by_path, gla_by_path = dict(FA.launches_by_path), dict(GLA.launches_by_path)
     for name in ("flash_attention", "gla"):
         if counts[name] == 0:
             raise AssertionError(f"phase 8 launched no {name} kernel: {counts}")
     want_paths = ["wgmma" if dt == "bfloat16" else "cuda_cores" for *_x, dt in FLASH_CASES]
     if DEVICE == "cuda" and flash_paths != want_paths:
         raise AssertionError(f"flash paths {flash_paths}, want {want_paths}")
+    want_gla = {f"{m} {ty}": "wgmma" if ty == "bfloat16" else "cuda_cores"
+                for ty in GLA_DTYPES for m in ("mlstm", "ssd")}
+    if DEVICE == "cuda" and gla_paths != want_gla:
+        raise AssertionError(f"GLA paths {gla_paths}, want {want_gla}")
 
     rows, worst = [], {"flash_attention": 0.0, "gla": 0.0}
 
@@ -1049,13 +1089,25 @@ def check_attention_kernels(torch, timer) -> dict:
             row = {"unit": what, "kernel": "gla", "chunk": chunk}
             want = chunked_gla_torch(*ins, chunk=chunk, **kw)
             row.update(hold(what, "gla", out, want if post is None else post(want), ty))
+            row["path"] = GLA.path_of(ins[0].dtype, dims[3], dims[4], chunk)
+            # the kernel's own output (the SSD's skip left out), held to the
+            # wgmma path's elementwise bound where it runs that path
+            got = GLA.chunked_gla(*ins, chunk=chunk, **kw)
+            row.update(_gla_check(torch, GLA, what, row["path"], got, want, ins, chunk, kw))
             row.update(_attention_bound(torch, ins, want, _gla_macs(*dims, chunk)))
-            row.update({"ms": timer(lambda: GLA.chunked_gla(*ins, chunk=chunk, **kw)),
-                        "plain_ms": timer(lambda: chunked_gla_torch(*ins, chunk=chunk, **kw)),
+            if row["path"] == "wgmma" and DEVICE == "cuda":
+                # the CUDA-core design on the same inputs, timed in turns
+                row["ms"], row["cuda_cores_ms"] = timer.turns(
+                    lambda: GLA.chunked_gla(*ins, chunk=chunk, **kw),
+                    lambda: GLA.chunked_gla(*ins, chunk=chunk, **kw, path="cuda_cores"))
+            else:
+                row["ms"] = timer(lambda: GLA.chunked_gla(*ins, chunk=chunk, **kw))
+                row["cuda_cores_ms"] = row["ms"] if row["path"] == "cuda_cores" else None
+            row.update({"plain_ms": timer(lambda: chunked_gla_torch(*ins, chunk=chunk, **kw)),
                         "library_ms": None, "library": None})
             rows.append(row)
     return {"wall_s": wall, "launches": counts, "flash_launches_by_path": flash_by_path,
-            "rows": rows, "max_abs_err": worst}
+            "gla_launches_by_path": gla_by_path, "rows": rows, "max_abs_err": worst}
 
 
 def _pick(rows, prefix):
@@ -1117,7 +1169,9 @@ def main() -> None:
         print("  unit " + json.dumps(r), flush=True)
 
     timer = _Timer(torch, args.reps)
+    K.launches = 0
     mm_err = check_matmul(torch, K)
+    mm_launches = K.launches
     mm_row = time_matmul(torch, K, timer)
     print(f"stripe_matmul: 9 cases on the card, max abs error {mm_err:.3e}", flush=True)
     print("  unit " + json.dumps(mm_row), flush=True)
@@ -1218,6 +1272,19 @@ def main() -> None:
     flash["cuda_cores_ms"] = attn["rows"][0].get("cuda_cores_ms")
     flash["wgmma_excess"] = attn["rows"][0].get("wgmma_excess")
     flash["launches_by_path"] = attn["flash_launches_by_path"]
+    # GLA: the bf16 mLSTM and SSD calls (wgmma), the CUDA-core design's
+    # times beside them; launches: phase 8's path
+    gla_rows = [r for r in attn["rows"] if r["kernel"] == "gla" and r["dtype"] == "bfloat16"]
+    gla = _kernel_entry("chunked_gla", "src/repro_torch/csrc/gla.cu",
+                        "src/repro/kernels/mlstm_chunk/kernel.py:115", attn["launches"]["gla"],
+                        gla_rows, attn["max_abs_err"]["gla"])
+    gla["cuda_cores_ms"] = sum(r["cuda_cores_ms"] for r in gla_rows)
+    gla["wgmma_excess"] = max(r["wgmma_excess"] for r in gla_rows)
+    gla["launches_by_path"] = attn["gla_launches_by_path"]
+    # stripe_matmul rides on the contraction kernel; launches: phase 3's
+    matmul_entry = _kernel_entry("stripe_matmul", "src/repro_torch/csrc/contraction.cu",
+                                 "src/repro/kernels/stripe_matmul/kernel.py:23", mm_launches,
+                                 [mm_row], mm_err)
     summary = {"kernels": [
         contraction,
         _kernel_entry("elementwise", "src/repro_torch/csrc/elementwise.cu",
@@ -1225,11 +1292,8 @@ def main() -> None:
                       ew, max(r["max_abs_err"] for r in ew)),
         windowed,
         flash,
-        _kernel_entry("chunked_gla", "src/repro_torch/csrc/gla.cu",
-                      "src/repro/kernels/mlstm_chunk/kernel.py:115", attn["launches"]["gla"],
-                      [r for r in attn["rows"]
-                       if r["kernel"] == "gla" and r["dtype"] == "bfloat16"],
-                      attn["max_abs_err"]["gla"]),
+        gla,
+        matmul_entry,
     ]}
     print(json.dumps(summary))
     print(card)

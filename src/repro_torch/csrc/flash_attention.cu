@@ -118,8 +118,10 @@ __global__ void __launch_bounds__(FA_WARPS * 32, 1) flash_fwd_kernel(const __gri
     float* Ps = Vs + 32 * DP;      // [FA_WARPS][R][32]
 
     const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-    const int qi = p.n_q - 1 - (int)blockIdx.x;  // the longest causal tiles first
-    const int bh = blockIdx.y;
+    // b*h and the q tile share grid x, a head's tiles together, the
+    // longest causal ones first
+    const int qi = p.n_q - 1 - (int)(blockIdx.x % p.n_q);
+    const int bh = (int)(blockIdx.x / p.n_q);
     const int b = bh / p.hq, h = bh % p.hq;
     const int q0 = qi * p.block_q;
     const long long q_base = ((long long)bh * p.sq + q0) * p.d;
@@ -290,8 +292,12 @@ __global__ void __launch_bounds__(FW_THREADS, 1) flash_wgmma_kernel(
     uint64_t* empty = full + FW_STAGES;
     uint64_t* qbar = empty + FW_STAGES;
 
-    const int bh = blockIdx.x;
-    const int q0 = ((int)gridDim.y - 1 - (int)blockIdx.y) * FW_BM;  // the longest causal tiles first
+    // grid x: every head's q tile of one row range, then the next range,
+    // the longest causal tiles first
+    const int n_qt = (p.sq + FW_BM - 1) / FW_BM;
+    const int n_bh = (int)(gridDim.x / n_qt);
+    const int bh = (int)(blockIdx.x % n_bh);
+    const int q0 = (n_qt - 1 - (int)(blockIdx.x / n_bh)) * FW_BM;
     const int kvh = (bh / p.hq) * p.hkv + (bh % p.hq) / p.group;
     const int last_q = min(q0 + FW_BM, p.sq) - 1;
     const int kv_end = p.causal ? min(p.sk, last_q + 1) : p.sk;
@@ -439,7 +445,7 @@ static int launch_fw(const FaParams* p, int n_bh, cudaStream_t st) {
     const cudaError_t e = cudaFuncSetAttribute(
         flash_wgmma_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
     if (e != cudaSuccess) return (int)e;
-    const dim3 grid(n_bh, (p->sq + FW_BM - 1) / FW_BM);
+    const unsigned grid = (unsigned)n_bh * (unsigned)((p->sq + FW_BM - 1) / FW_BM);
     flash_wgmma_kernel<D><<<grid, FW_THREADS, bytes, st>>>(*p, tq, tk, tv);
     return (int)cudaGetLastError();
 }
@@ -452,7 +458,7 @@ static int launch_fa(const FaParams* p, int n_bh, cudaStream_t st) {
     const cudaError_t e = cudaFuncSetAttribute(
         flash_fwd_kernel<T, DPL, R>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
     if (e != cudaSuccess) return (int)e;
-    flash_fwd_kernel<T, DPL, R><<<dim3(p->n_q, n_bh), FA_WARPS * 32, bytes, st>>>(*p);
+    flash_fwd_kernel<T, DPL, R><<<(unsigned)p->n_q * (unsigned)n_bh, FA_WARPS * 32, bytes, st>>>(*p);
     return (int)cudaGetLastError();
 }
 

@@ -1,4 +1,5 @@
-// Chunkwise gated linear attention (mLSTM, Mamba2's SSD) as one CUDA kernel.
+// Chunkwise gated linear attention (mLSTM, Mamba2's SSD): a kernel on the
+// CUDA cores, and a bf16 path of two kernels on the tensor cores.
 //
 // Replaces: src/repro/kernels/mlstm_chunk/kernel.py::chunked_gla (the
 // pl.pallas_call at :136, body _gla_kernel at :65).  The recurrence
@@ -9,8 +10,12 @@
 //
 // evaluated a chunk of L steps at a time.  On the TPU the grid is (B*H,
 // chunks) with the chunk axis sequential and the whole (Dk, Dv) state in
-// VMEM scratch.  Here one CTA owns one (b*h, tile of TV = 64 columns of
-// Dv) and loops over the chunks itself, carrying its Dk x 64 float32
+// VMEM scratch.  Two paths (kernel.py::path_of picks one before the
+// launch): ``wgmma`` for bf16 (below, after the CUDA-core kernel), and
+// ``cuda_cores`` for float32 and the shapes wgmma does not take.
+//
+// cuda_cores: one CTA owns one (b*h, tile of TV = 64 columns of Dv), b*h
+// and the tile flattened on grid x, and loops over the chunks itself, carrying its Dk x 64 float32
 // slice of C in shared memory (384 x 64 x 4 = 96 KiB at xLSTM-125m's
 // width, where the whole 384 x 384 state, 576 KiB, fits no CTA).  The
 // columns of C evolve independently, so the Dv tiles share nothing but
@@ -39,11 +44,13 @@
 //
 // What bounds it: operations.  At xLSTM-125m's width (Dk = Dv = 384,
 // L = 256) a chunk does about 4 L Dk Dv + 2 L^2 (Dk + Dv) flops per
-// (L (2 Dk + Dv) + L Dv) elements moved; far above the ridge.  They run on
-// the CUDA cores in float32 here; tensor-core tiles (mma / wgmma on bf16
-// operands) and the redundant score work are for a later PR.
+// (L (2 Dk + Dv) + L Dv) elements moved; far above the ridge.  This
+// kernel runs them on the CUDA cores in float32 (TF32 would break the
+// reference's float32 semantics); the wgmma path runs bf16 inputs on the
+// tensor cores and computes the scores once per 128 columns of Dv.
 
 #include "dag.cuh"
+#include "hopper.cuh"
 
 #define GLA_THREADS 256
 #define GLA_TV 64   // Dv columns per CTA
@@ -139,8 +146,9 @@ __global__ void __launch_bounds__(GLA_THREADS, 1) gla_kernel(const __grid_consta
 
     const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
     const int ty = tid >> 4, tx = tid & 15;
-    const int v0 = blockIdx.x * GLA_TV;
-    const long long bh = blockIdx.y;
+    const int n_tv = (dv + GLA_TV - 1) / GLA_TV;  // b*h and the Dv tile share grid x
+    const int v0 = (int)(blockIdx.x % n_tv) * GLA_TV;
+    const long long bh = blockIdx.x / n_tv;
     const long long qk_base = bh * p.s * dk;
     const long long v_base = bh * p.s * dv;
     const long long g_base = bh * p.s;
@@ -286,15 +294,490 @@ static int launch_gla(const GlaParams* p, int n_bh, cudaStream_t st) {
     const cudaError_t e =
         cudaFuncSetAttribute(gla_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
     if (e != cudaSuccess) return (int)e;
-    const dim3 grid((p->dv + GLA_TV - 1) / GLA_TV, n_bh);
+    const unsigned grid = (unsigned)n_bh * (unsigned)((p->dv + GLA_TV - 1) / GLA_TV);
     gla_kernel<T><<<grid, GLA_THREADS, bytes, st>>>(*p);
+    return (int)cudaGetLastError();
+}
+
+
+// ============================================================ wgmma path
+// bf16 on the tensor cores, in two launches.  Per chunk c, cum is the
+// inclusive cumsum of the log decay, total = cum[L-1], w_s = exp(total -
+// cum_s) g_s.
+//
+// 1. gla_state_kernel: one CTA (one warpgroup) per (b*h, 64 rows of Dk, NV
+//    columns of Dv) walks the chunks in order, 64 steps an item.  The
+//    carried C tile is the wgmma accumulator itself, float32 in registers.
+//    At each chunk's start it writes C_prev(c), the state before the
+//    chunk, rounded once to bf16, to a scratch tensor (BH * NC, Dk, Dv)
+//    in C's own (Dk, Dv) layout, which the output kernel reads MN-major;
+//    then scales the registers by exp(total) and adds (k w)^T v with
+//    accumulate on.  k and v are both s-major, so both operands are read
+//    MN-major (A transposed, B transposed: both are 64 steps of 128-byte
+//    rows).  w multiplies along the reduction axis, so it goes onto the k
+//    slab in shared memory first: a generic-proxy pass that rounds k w to
+//    bf16 in place, then fence.proxy.async.  The normalizer goes through
+//    the same pass in float32 on the CUDA cores (n = exp(total) n + sum_s
+//    k_s w_s, from the unrounded products); only the CTAs of the first Dv
+//    tile keep it and write n_prev(c) (BH * NC, Dk), float32.
+// 2. gla_output_kernel: one CTA (one warpgroup) per (b*h, chunk, 64-row
+//    tile of the chunk, NV columns of Dv), all flattened on grid x, the
+//    longest row tiles of a chunk first.  The row tile's q stays in shared
+//    memory (Dk in 64-wide boxes); C_prev, k and v stream through a
+//    3-stage TMA ring in the order the products take them:
+//      inter  O = (q C_prev) over Dk (C_prev MN-major), then O *= scale
+//             exp(cum_t) row by row;
+//      intra  per 64-step tile s up to the diagonal: S = q k^T over Dk
+//             (both K-major), P = S scale exp(cum_t - cum_s) g_s with the
+//             mask inside the exp (-inf above the diagonal, as the
+//             reference has it), row sums of the float32 P, and O += P V
+//             with P rounded to bf16 as the register A operand (V
+//             MN-major), as the flash kernel does;
+//      normalize  den = max(|row sum + scale exp(cum_t) (q . n_prev)|, 1),
+//             q . n_prev on the CUDA cores from the resident q tile.
+//    The scores are computed once per NV = 128 columns of Dv.
+// Numerics against the reference's float32: k w, C_prev and P are each
+// rounded to bf16 once, and the output once (mlstm_chunk/kernel.py::
+// gla_wgmma_bound is the elementwise bound that follows).  Dk and Dv
+// multiples of 16, the chunk a multiple of 64, 16-byte aligned inputs
+// (kernel.py::path_of); TMA reads zeros past Dk and Dv.
+#define GW_THREADS 128  // one warpgroup; thread 0 also starts the TMA loads
+#define GW_STAGES 3     // ring depth
+#define GW_BOX 8192     // bytes of one box: 64 rows of 64 bf16 (128 bytes)
+
+struct GlaState {
+    void* c;  // (BH * NC, Dk, Dv) bf16: C before each chunk
+    void* n;  // (BH * NC, Dk) float32: n before each chunk
+};
+
+// Shared memory of the two kernels, in bytes (1024 of slack for the
+// swizzle's alignment).  State: the ring of (k box, NV / 64 v boxes), w
+// and g of the chunk, the normalizer's partials and the total.  Output:
+// the q tile, the ring of NV / 64 boxes, cum and g of the chunk, q . n_prev
+// of the rows, n_prev.
+__host__ __device__ inline int gw_state_smem(int nv, int chunk) {
+    return 1024 + GW_STAGES * (1 + nv / 64) * GW_BOX + 4 * (2 * chunk + 4 * 64 + 4) +
+           8 * GW_STAGES;
+}
+__host__ __device__ inline int gw_out_smem(int nv, int dk, int chunk) {
+    return 1024 + ((dk + 63) / 64) * GW_BOX + GW_STAGES * (nv / 64) * GW_BOX +
+           4 * (2 * chunk + 64 + dk) + 8 * (GW_STAGES + 1);
+}
+
+// d += A B over one k16 step, both operands bf16 and MN-major in shared
+// memory (A: 16 rows of 64 M elements; B: 16 rows of N elements, boxes of
+// 64 8192 bytes apart).  N = 64 or 128.
+template <int N> struct GwMma;
+template <> struct GwMma<128> {
+    static __device__ __forceinline__ void mma_tt(float* d, uint64_t da, uint64_t db) {
+        asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+                     "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " WG_REGS
+                     ", %64, %65, p, 1, 1, 1, 1;\n}\n"
+                     : WG_64("+f") : "l"(da), "l"(db), "r"(1));
+    }
+};
+template <> struct GwMma<64> {
+    static __device__ __forceinline__ void mma_tt(float* d, uint64_t da, uint64_t db) {
+        asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+                     "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " WG_REGS32
+                     ", %32, %33, p, 1, 1, 1, 1;\n}\n"
+                     : WG_32("+f") : "l"(da), "l"(db), "r"(1));
+    }
+};
+
+// Every thread: the chunk's log decays and gains from ``off`` over its
+// first ``n`` steps into shared memory, one round trip to memory (warp 0
+// then scans them there, with no load from memory in its serial chain).
+__device__ __forceinline__ void gw_decays(float* cum, float* g, const GlaParams& p, long long off,
+                                          int n) {
+#pragma unroll 4
+    for (int i = threadIdx.x; i < n; i += GW_THREADS) {
+        cum[i] = load_as<float>(p.ld, p.ld_dt, off + i);
+        g[i] = load_as<float>(p.g, p.g_dt, off + i);
+    }
+}
+
+// Warp 0: cum[i] becomes the inclusive cumsum of cum over the first ``n``
+// steps (n a multiple of 32).  Returns cum[n - 1] in every lane.
+__device__ __forceinline__ float gw_scan(float* cum, int n, int lane) {
+    float carry = 0.0f;
+    for (int base = 0; base < n; base += 32) {
+        float x = cum[base + lane];
+        for (int o = 1; o < 32; o <<= 1) {
+            const float y = __shfl_up_sync(0xffffffffu, x, o);
+            if (lane >= o) x += y;
+        }
+        x += carry;
+        cum[base + lane] = x;
+        carry = __shfl_sync(0xffffffffu, x, 31);
+    }
+    return carry;
+}
+
+__device__ __forceinline__ unsigned gw_pack(float lo, float hi) {
+    const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+    return *(const unsigned*)&v;
+}
+
+template <int NV>
+__global__ void __launch_bounds__(GW_THREADS) gla_state_kernel(
+        const __grid_constant__ GlaParams p, const __grid_constant__ GlaState st,
+        const __grid_constant__ CUtensorMap tk, const __grid_constant__ CUtensorMap tv) {
+    constexpr int VB = NV / 64;                // 64-column boxes of a v tile
+    constexpr int STAGE = (1 + VB) * GW_BOX;   // an item: 64 steps of k and of v
+    extern __shared__ __align__(16) unsigned char gs_raw[];
+    unsigned char* ring = gs_raw + ((1024 - (smem_u32(gs_raw) & 1023)) & 1023);
+    const int L = p.chunk, dk = p.dk, dv = p.dv;
+    float* wv = (float*)(ring + GW_STAGES * STAGE);  // [L] cum, then w
+    float* gv = wv + L;                              // [L] g
+    float* red = gv + L;                             // [4 warps][64] normalizer partials
+    float* tot = red + 4 * 64;                       // the chunk's total
+    uint64_t* full = (uint64_t*)(tot + 4);
+
+    const int nc = p.s / L, per = L / 64, n_items = nc * per;
+    const int ndv = (dv + NV - 1) / NV, ndk = (dk + 63) / 64;
+    const int dvt = (int)(blockIdx.x % ndv), dkt = (int)((blockIdx.x / ndv) % ndk);
+    const long long bh = blockIdx.x / ((unsigned)ndv * ndk);
+    const int d0 = dkt * 64, p0 = dvt * NV;
+    const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+    const bool norm = p.normalize && dvt == 0;  // CTA-uniform
+    __nv_bfloat16* cst = (__nv_bfloat16*)st.c;
+    float* nst = (float*)st.n;
+
+    if (tid == 0) {
+        for (int s = 0; s < GW_STAGES; ++s) mbar_init(&full[s], 1);
+        asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    }
+    __syncthreads();
+    // item j: steps 64 j .. 64 j + 63 of the sequence, k's Dk tile and v's Dv tile
+    auto fetch = [&](int j) {
+        const int s = j % GW_STAGES;
+        unsigned char* dst = ring + s * STAGE;
+        mbar_expect_tx(&full[s], STAGE);
+        tma_load3(&tk, dst, &full[s], d0, 64 * j, (int)bh);
+        for (int b = 0; b < VB; ++b)
+            tma_load3(&tv, dst + (1 + b) * GW_BOX, &full[s], p0 + 64 * b, 64 * j, (int)bh);
+    };
+    if (tid == 0)
+        for (int j = 0; j < GW_STAGES - 1 && j < n_items; ++j) fetch(j);
+
+    float d[NV / 2];
+#pragma unroll
+    for (int i = 0; i < NV / 2; ++i) d[i] = 0.0f;
+    float n_run = 0.0f;  // thread tid < 64: n of row d0 + tid
+    for (int c = 0; c < nc; ++c) {
+        // the chunk's carry weights (every reader of the last chunk's is
+        // past the barrier of its last item)
+        gw_decays(wv, gv, p, bh * p.s + (long long)c * L, L);
+        __syncthreads();
+        if (warp == 0) {
+            const float total = gw_scan(wv, L, lane);
+            for (int i = lane; i < L; i += 32) wv[i] = expf(total - wv[i]) * gv[i];
+            if (lane == 0) *tot = total;
+        }
+        __syncthreads();
+        const float et = expf(*tot);
+        // C_prev(c), rounded once, and n_prev(c)
+        const long long cbase = (bh * nc + c) * dk;
+#pragma unroll
+        for (int i = 0; i < NV / 2; i += 2) {
+            int r, col;
+            frag_mn(i, tid, r, col);
+            if (d0 + r < dk && p0 + col < dv)
+                *(__nv_bfloat162*)(cst + (cbase + d0 + r) * dv + p0 + col) =
+                    __floats2bfloat162_rn(d[i], d[i + 1]);
+        }
+        if (norm && tid < 64 && d0 + tid < dk) nst[cbase + d0 + tid] = n_run;
+#pragma unroll
+        for (int i = 0; i < NV / 2; ++i) d[i] *= et;
+
+        float nacc[8];
+#pragma unroll
+        for (int e = 0; e < 8; ++e) nacc[e] = 0.0f;
+        for (int u = 0; u < per; ++u) {
+            const int j = c * per + u, s = j % GW_STAGES;
+            unsigned char* kb = ring + s * STAGE;
+            mbar_wait(&full[s], (j / GW_STAGES) & 1);
+            // k w, rounded to bf16 in place: thread tid takes 16-byte chunk
+            // tid & 7 (columns 8 (tid & 7) ..) of rows tid / 8 + 16 q
+#pragma unroll
+            for (int q = 0; q < 4; ++q) {
+                const int r = (tid >> 3) + 16 * q, ch = tid & 7;
+                uint4* ptr = (uint4*)(kb + r * 128 + ((ch ^ (r & 7)) << 4));
+                uint4 raw = *ptr;
+                const float wr = wv[u * 64 + r];
+                unsigned* w4 = (unsigned*)&raw;
+#pragma unroll
+                for (int e = 0; e < 4; ++e) {
+                    const float2 f = __bfloat1622float2(*(const __nv_bfloat162*)&w4[e]);
+                    const float lo = f.x * wr, hi = f.y * wr;
+                    nacc[2 * e] += lo;
+                    nacc[2 * e + 1] += hi;
+                    w4[e] = gw_pack(lo, hi);
+                }
+                *ptr = raw;
+            }
+            fence_async_smem();
+            // every thread's k w is in place, and every thread is done with
+            // item j - 1, whose slot item j + GW_STAGES - 1 refills
+            __syncthreads();
+            if (tid == 0 && j + GW_STAGES - 1 < n_items) fetch(j + GW_STAGES - 1);
+            fence_regs<NV / 2>(d);
+            wgmma_fence();
+#pragma unroll
+            for (int kk = 0; kk < 4; ++kk)  // 16 steps a k16: 16 rows of 128 bytes
+                GwMma<NV>::mma_tt(d, sw128_mn_desc(kb + kk * 16 * 128),
+                                  sw128_mn_desc(kb + GW_BOX + kk * 16 * 128));
+            wgmma_commit();
+            wgmma_wait<0>();
+            fence_regs<NV / 2>(d);
+        }
+        if (norm) {
+            // the 16 threads of a column chunk: lanes xor 8, 16, then the warps
+#pragma unroll
+            for (int e = 0; e < 8; ++e) {
+                nacc[e] += __shfl_xor_sync(0xffffffffu, nacc[e], 8);
+                nacc[e] += __shfl_xor_sync(0xffffffffu, nacc[e], 16);
+            }
+            if (lane < 8)
+#pragma unroll
+                for (int e = 0; e < 8; ++e) red[warp * 64 + lane * 8 + e] = nacc[e];
+            __syncthreads();
+            if (tid < 64) n_run = et * n_run + red[tid] + red[64 + tid] + red[128 + tid] + red[192 + tid];
+        }
+    }
+}
+
+template <int NV>
+__global__ void __launch_bounds__(GW_THREADS) gla_output_kernel(
+        const __grid_constant__ GlaParams p, const __grid_constant__ GlaState st,
+        const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+        const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap tc) {
+    constexpr int VB = NV / 64, STAGE = VB * GW_BOX;
+    extern __shared__ __align__(16) unsigned char go_raw[];
+    unsigned char* smem = go_raw + ((1024 - (smem_u32(go_raw) & 1023)) & 1023);
+    const int L = p.chunk, dk = p.dk, dv = p.dv;
+    const int nc = p.s / L, nr = L / 64, nd = (dk + 63) / 64, ndv = (dv + NV - 1) / NV;
+    unsigned char* sq = smem;                          // [nd] boxes of the q tile
+    unsigned char* ring = sq + nd * GW_BOX;            // [stage] NV / 64 boxes
+    float* cum = (float*)(ring + GW_STAGES * STAGE);   // [L]
+    float* gg = cum + L;                               // [L]
+    float* qn = gg + L;                                // [64] q . n_prev of each row
+    float* nps = qn + 64;                              // [dk] n_prev
+    uint64_t* full = (uint64_t*)(nps + dk);
+    uint64_t* qbar = full + GW_STAGES;
+
+    unsigned long long bid = blockIdx.x;
+    const int dvt = (int)(bid % ndv);
+    bid /= ndv;
+    const int rt = nr - 1 - (int)(bid % nr);  // the longest row tiles of a chunk first
+    bid /= nr;
+    const int c = (int)(bid % nc);
+    const long long bh = (long long)(bid / nc);
+    const int t0 = rt * 64, p0 = dvt * NV, lp = t0 + 64;
+    const long long row0 = (long long)c * L;  // the chunk's first step
+    const int n_items = nd + (rt + 1) * (nd + 1);
+    const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+
+    if (tid == 0) {
+        for (int s = 0; s < GW_STAGES; ++s) mbar_init(&full[s], 1);
+        mbar_init(qbar, 1);
+        asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    }
+    __syncthreads();
+    // items: nd slabs of C_prev (64 rows of Dk, NV columns), then per s tile
+    // up to the diagonal its nd slabs of k (64 steps, 64 of Dk) and its v tile
+    auto fetch = [&](int j) {
+        const int s = j % GW_STAGES;
+        unsigned char* dst = ring + s * STAGE;
+        if (j < nd) {
+            mbar_expect_tx(&full[s], STAGE);
+            for (int b = 0; b < VB; ++b)
+                tma_load3(&tc, dst + b * GW_BOX, &full[s], p0 + 64 * b, 64 * j, (int)(bh * nc + c));
+            return;
+        }
+        const int jj = j - nd, part = jj % (nd + 1);
+        const int srow = (int)(row0 + 64 * (jj / (nd + 1)));
+        if (part < nd) {
+            mbar_expect_tx(&full[s], GW_BOX);
+            tma_load3(&tk, dst, &full[s], 64 * part, srow, (int)bh);
+        } else {
+            mbar_expect_tx(&full[s], STAGE);
+            for (int b = 0; b < VB; ++b)
+                tma_load3(&tv, dst + b * GW_BOX, &full[s], p0 + 64 * b, srow, (int)bh);
+        }
+    };
+    if (tid == 0) {
+        mbar_expect_tx(qbar, nd * GW_BOX);
+        for (int j = 0; j < nd; ++j)
+            tma_load3(&tq, sq + j * GW_BOX, qbar, 64 * j, (int)(row0 + t0), (int)bh);
+        for (int j = 0; j < GW_STAGES - 1 && j < n_items; ++j) fetch(j);
+    }
+    // the chunk's decays up to this tile's last row
+    gw_decays(cum, gg, p, bh * p.s + row0, lp);
+    if (p.normalize) {
+        const float* np = (const float*)st.n + (bh * nc + c) * dk;
+        for (int i = tid; i < dk; i += GW_THREADS) nps[i] = np[i];
+    }
+    __syncthreads();
+    if (warp == 0) gw_scan(cum, lp, lane);  // the first item's barrier publishes it
+    mbar_wait(qbar, 0);
+    if (p.normalize) {
+        // q . n_prev: two threads a row, 32 columns of each box apiece
+        const int r = tid >> 1, h = tid & 1;
+        float acc = 0.0f;
+        for (int j = 0; j < nd; ++j) {
+#pragma unroll
+            for (int q = 0; q < 4; ++q) {
+                const int ch = 4 * h + q, dd = 64 * j + 8 * ch;
+                const uint4 raw = *(const uint4*)(sq + j * GW_BOX + r * 128 + ((ch ^ (r & 7)) << 4));
+                const unsigned* w4 = (const unsigned*)&raw;
+#pragma unroll
+                for (int e = 0; e < 4; ++e) {
+                    const float2 f = __bfloat1622float2(*(const __nv_bfloat162*)&w4[e]);
+                    if (dd + 2 * e < dk) acc += f.x * nps[dd + 2 * e];
+                    if (dd + 2 * e + 1 < dk) acc += f.y * nps[dd + 2 * e + 1];
+                }
+            }
+        }
+        acc += __shfl_xor_sync(0xffffffffu, acc, 1);
+        if (h == 0) qn[r] = acc;
+    }
+
+    int j = 0;
+    // wait for item j; the barrier also frees item j - 1's slot for the refill
+    auto take = [&]() -> const unsigned char* {
+        const int s = j % GW_STAGES;
+        mbar_wait(&full[s], (j / GW_STAGES) & 1);
+        __syncthreads();
+        if (tid == 0 && j + GW_STAGES - 1 < n_items) fetch(j + GW_STAGES - 1);
+        ++j;
+        return ring + s * STAGE;
+    };
+
+    // inter: O = q C_prev over Dk, then scale exp(cum_t) by row
+    float o[NV / 2];
+#pragma unroll
+    for (int i = 0; i < NV / 2; ++i) o[i] = 0.0f;
+    for (int b = 0; b < nd; ++b) {
+        const unsigned char* cb = take();
+        fence_regs<NV / 2>(o);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+            Wgmma<__nv_bfloat16, NV>::template mma<1>(o, sw128_desc(sq + b * GW_BOX + kk * 32),
+                                                       sw128_mn_desc(cb + kk * 16 * 128));
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs<NV / 2>(o);
+    }
+    const int rq = (tid >> 5) * 16 + ((tid & 31) >> 2);  // rows rq and rq + 8 of the tile
+    const float ec[2] = {expf(cum[t0 + rq]), expf(cum[t0 + rq + 8])};
+#pragma unroll
+    for (int i = 0; i < NV / 2; ++i) o[i] *= p.scale * ec[(i >> 1) & 1];
+
+    // intra: the s tiles up to the diagonal
+    float rs[2] = {0.0f, 0.0f};
+    for (int stl = 0; stl <= rt; ++stl) {
+        float sc[32];
+#pragma unroll
+        for (int i = 0; i < 32; ++i) sc[i] = 0.0f;
+        for (int b = 0; b < nd; ++b) {
+            const unsigned char* kb = take();
+            fence_regs<32>(sc);
+            wgmma_fence();
+#pragma unroll
+            for (int kk = 0; kk < 4; ++kk)
+                Wgmma<__nv_bfloat16, 64>::template mma<0>(sc, sw128_desc(sq + b * GW_BOX + kk * 32),
+                                                           sw128_desc(kb + kk * 32));
+            wgmma_commit();
+            wgmma_wait<0>();
+            fence_regs<32>(sc);
+        }
+        // P = S scale exp(cum_t - cum_s) g_s, the mask inside the exp
+#pragma unroll
+        for (int i = 0; i < 32; ++i) {
+            const int r = (i >> 1) & 1, t = t0 + rq + 8 * r;
+            const int s = 64 * stl + (i >> 2) * 8 + (tid & 3) * 2 + (i & 1);
+            const float x = sc[i] * p.scale * expf(t >= s ? cum[t] - cum[s] : -INFINITY) * gg[s];
+            sc[i] = x;
+            rs[r] += x;
+        }
+        unsigned a[4][4];
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+            for (int u = 0; u < 4; ++u) a[kk][u] = gw_pack(sc[kk * 8 + 2 * u], sc[kk * 8 + 2 * u + 1]);
+        const unsigned char* vb = take();
+        fence_regs<NV / 2>(o);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+            Wgmma<__nv_bfloat16, NV>::template mma_rs<1>(o, a[kk], sw128_mn_desc(vb + kk * 16 * 128));
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs<NV / 2>(o);
+    }
+
+    // the row sums live in the quad of a row
+    float den[2] = {1.0f, 1.0f};
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+        rs[r] += __shfl_xor_sync(0xffffffffu, rs[r], 1);
+        rs[r] += __shfl_xor_sync(0xffffffffu, rs[r], 2);
+        if (p.normalize) den[r] = fmaxf(fabsf(rs[r] + p.scale * ec[r] * qn[rq + 8 * r]), 1.0f);
+    }
+    __nv_bfloat16* out = (__nv_bfloat16*)p.o;
+    const long long obase = bh * p.s + row0 + t0;
+#pragma unroll
+    for (int i = 0; i < NV / 2; i += 2) {
+        int row, col;
+        frag_mn(i, tid, row, col);
+        const int r = (i >> 1) & 1;
+        if (p0 + col < dv)
+            *(__nv_bfloat162*)(out + (obase + row) * dv + p0 + col) =
+                __floats2bfloat162_rn(o[i] / den[r], o[i + 1] / den[r]);
+    }
+}
+
+// The TMA map of a (heads, rows, width) bf16 tensor: boxes of 64 x 64,
+// zeros past ``width``.
+static int gw_map(CUtensorMap* map, const void* ptr, int width, int rows, long long heads) {
+    const cuuint64_t dims[3] = {(cuuint64_t)width, (cuuint64_t)rows, (cuuint64_t)heads};
+    const cuuint64_t strides[2] = {(cuuint64_t)width * 2, (cuuint64_t)width * 2 * rows};
+    const cuuint32_t box[3] = {64, 64, 1};
+    return tensor_map3(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, ptr, dims, strides, box);
+}
+
+template <int NV>
+static int launch_gw(const GlaParams* p, const GlaState* sc, int n_bh, cudaStream_t st) {
+    const int nc = p->s / p->chunk;
+    alignas(64) CUtensorMap tq, tk, tv, tc;
+    int rc = gw_map(&tq, p->q, p->dk, p->s, n_bh);
+    if (!rc) rc = gw_map(&tk, p->k, p->dk, p->s, n_bh);
+    if (!rc) rc = gw_map(&tv, p->v, p->dv, p->s, n_bh);
+    if (!rc) rc = gw_map(&tc, sc->c, p->dv, p->dk, (long long)n_bh * nc);
+    if (rc) return rc;
+    const int s_bytes = gw_state_smem(NV, p->chunk), o_bytes = gw_out_smem(NV, p->dk, p->chunk);
+    cudaError_t e = cudaFuncSetAttribute(gla_state_kernel<NV>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, s_bytes);
+    if (e == cudaSuccess)
+        e = cudaFuncSetAttribute(gla_output_kernel<NV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 o_bytes);
+    if (e != cudaSuccess) return (int)e;
+    const unsigned ndv = (unsigned)((p->dv + NV - 1) / NV), ndk = (unsigned)((p->dk + 63) / 64);
+    gla_state_kernel<NV><<<(unsigned)n_bh * ndk * ndv, GW_THREADS, s_bytes, st>>>(*p, *sc, tk, tv);
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return (int)e;
+    gla_output_kernel<NV><<<(unsigned)n_bh * (unsigned)(p->s / 64) * ndv, GW_THREADS, o_bytes, st>>>(
+        *p, *sc, tq, tk, tv, tc);
     return (int)cudaGetLastError();
 }
 
 extern "C" {
 
-// Launches one chunked GLA over ``n_bh`` = B * H rows of heads on
-// ``stream`` (grid: ceil(Dv / 64) x n_bh), q, k and v of type
+// Launches one chunked GLA on the CUDA cores over ``n_bh`` = B * H rows of
+// heads on ``stream`` (grid x: n_bh * ceil(Dv / 64)), q, k and v of type
 // p->qkv_dt.  Returns cudaGetLastError(), or -1 for a type not built.
 int stripe_gla_launch(const GlaParams* p, int n_bh, void* stream) {
     const cudaStream_t st = (cudaStream_t)stream;
@@ -305,8 +788,31 @@ int stripe_gla_launch(const GlaParams* p, int n_bh, void* stream) {
     }
 }
 
+// Launches the wgmma path (bf16; Dk, Dv multiples of 16, the chunk a
+// multiple of 64): the state kernel, then the output kernel, on
+// ``stream``.  ``c`` and ``n`` are the scratch tensors of C_prev (BH * NC,
+// Dk, Dv) bf16 and n_prev (BH * NC, Dk) float32.  Returns
+// cudaGetLastError(), an error code of hopper.cuh, or -1 for inputs the
+// path does not take.
+int stripe_gla_wgmma(const GlaParams* p, void* c, void* n, int n_bh, void* stream) {
+    if (p->qkv_dt != DT_BF16 || p->out_dt != DT_BF16 || p->dk % 16 || p->dv % 16 ||
+        p->chunk % 64 || p->s % p->chunk)
+        return -1;
+    const GlaState sc = {c, n};
+    const cudaStream_t st = (cudaStream_t)stream;
+    return p->dv <= 64 ? launch_gw<64>(p, &sc, n_bh, st) : launch_gw<128>(p, &sc, n_bh, st);
+}
+
 // Shared memory of one CTA for (dk, chunk), in bytes.
 int stripe_gla_smem(int dk, int chunk) { return gla_smem_floats(dk, chunk) * (int)sizeof(float); }
+
+// Shared memory of the wgmma path's state and output kernels for (dk, dv,
+// chunk), in bytes.
+void stripe_gla_wgmma_smem(int dk, int dv, int chunk, long long* out) {
+    const int nv = dv <= 64 ? 64 : 128;
+    out[0] = gw_state_smem(nv, chunk);
+    out[1] = gw_out_smem(nv, dk, chunk);
+}
 
 // Layout of GlaParams as this compiler laid it out, for the binding's check.
 void stripe_gla_layout(long long* out) {

@@ -4,8 +4,8 @@ its plain PyTorch version, and the block sizes the autotiler chooses.
 ``csrc/flash_attention.cu`` replaces the TPU kernel
 ``src/repro/kernels/flash_attention/kernel.py::flash_attention``: GQA
 attention, causal or full, with the online softmax (m, l, acc) in float32.
-One CTA owns one (b*Hq head, q tile) and loops over the kv tiles itself,
-up to the diagonal under ``causal``; the source says how the work is laid
+One CTA owns one (b*Hq head, q tile), the two flattened on grid x, and
+loops over the kv tiles itself, up to the diagonal under ``causal``; the source says how the work is laid
 out.  Two kernels: ``wgmma`` (bf16 on the tensor cores, P rounded to
 bf16 for P V) and ``cuda_cores`` (float32 arithmetic throughout);
 :func:`path_of` is the rule that picks one before the launch.
@@ -43,6 +43,8 @@ WGMMA_ROWS = 64
 # needs more than 4 columns a lane); the head dim up to 256.
 WARPS = 8
 MAX_HEAD_DIM = 256
+# CUDA's limit on grid x, where both kernels put b*Hq and the q tile
+GRID_X = 2**31 - 1
 _TYPES = (torch.float32, torch.bfloat16)
 
 
@@ -322,10 +324,10 @@ def _launch(q, k, v, causal: bool, sm_scale: float, block_q: int, block_k: int,
         if block_q > max_block_q(d):
             raise ValueError(f"flash_attention: block_q {block_q} > {max_block_q(d)}, the rows "
                              f"one CTA of the kernel holds at head dim {d}")
-        if b * hq > 65535:
-            raise ValueError(f"flash_attention: B*Hq = {b * hq} exceeds the grid's y limit")
-    elif -(-sq // (2 * WGMMA_ROWS)) > 65535:
-        raise ValueError(f"flash_attention: Sq = {sq} exceeds the grid's y limit")
+    # b*Hq and the q tile share grid x
+    ctas = b * hq * (sq // block_q if path == "cuda_cores" else -(-sq // (2 * WGMMA_ROWS)))
+    if ctas > GRID_X:
+        raise ValueError(f"flash_attention: {ctas} CTAs exceed the grid's x limit {GRID_X}")
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out

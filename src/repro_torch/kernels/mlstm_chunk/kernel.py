@@ -10,15 +10,19 @@ recurrence
     n_t = decay_t * n_{t-1} + gain_t * k_t                (normalizer, optional)
     h_t = q_t @ C_t [/ max(|q_t . n_t|, 1)]
 
-evaluated chunk by chunk, decays in log space.  One CTA owns one (b*h,
-tile of 64 columns of Dv) and loops over the chunks, its slice of the
-state in shared memory; the source says how the work is laid out.
+evaluated chunk by chunk, decays in log space.  Two paths, picked by
+:func:`path_of` before the launch: ``wgmma`` (bf16 on the tensor cores: a
+state kernel that writes the state before every chunk, then a
+chunk-parallel output kernel) and ``cuda_cores`` (one CTA per (b*h, 64
+columns of Dv) looping over the chunks, float32 arithmetic throughout);
+the source says how the work is laid out.
 
 :func:`chunked_gla` launches the kernel for CUDA tensors (raising on any
 failure) and runs its plain version, ``nn.scan_ops.chunked_gla_torch``,
 only for CPU tensors.
-``launches`` counts kernel launches.  ``mlstm_chunk`` (and
-``ssd_chunk.ssd_chunk``) only transform their gates and call it.
+``launches`` counts entry calls that launched, ``launches_by_path`` the
+same calls by path.  ``mlstm_chunk`` (and ``ssd_chunk.ssd_chunk``) only
+transform their gates and call it.
 """
 from __future__ import annotations
 
@@ -32,14 +36,22 @@ from .. import _build
 from ...core.hwconfig import get_config
 from ...nn.scan_ops import chunked_gla_torch
 
-# Kernel launches since import (or since the caller last reset it).
+# Kernel launches since import (or since the caller last reset it), and
+# the same launches by path.
 launches = 0
+PATHS = ("wgmma", "cuda_cores")
+launches_by_path = {p: 0 for p in PATHS}
 
-# The kernel's geometry (csrc/gla.cu): Dv columns per CTA, the score tile,
-# the depth of a staged slab and the staging row stride.
+# The CUDA-core kernel's geometry (csrc/gla.cu): Dv columns per CTA, the
+# score tile, the depth of a staged slab and the staging row stride.
 TV, TILE, KD, LD = 64, 64, 32, 68
+# The wgmma path's: rows of a tile (one warpgroup's m64; the chunk is a
+# multiple), the ring's depth and the bytes of one 64 x 64 bf16 box.
+WGMMA_ROWS, WGMMA_STAGES, WGMMA_BOX = 64, 3, 8192
 _TYPES = (torch.float32, torch.bfloat16)
 _SMEM_LIMIT = get_config("h100").mem("SMEM").size_bytes  # what one H100 block may use
+# CUDA's limit on grid x, where every kernel of both paths puts b*h
+GRID_X = 2**31 - 1
 
 
 def smem_bytes(dk: int, chunk: int) -> int:
@@ -47,6 +59,81 @@ def smem_bytes(dk: int, chunk: int) -> int:
     Dk x 64 state slice, n, four chunk-long vectors, q . n of a row tile,
     and two staging tiles."""
     return 4 * (dk * TV + ((dk + 3) & ~3) + 4 * chunk + TILE + 2 * TILE * LD)
+
+
+def wgmma_smem_bytes(dk: int, dv: int, chunk: int) -> tuple:
+    """Shared memory of the wgmma path's state and output kernels
+    (``gw_state_smem``, ``gw_out_smem`` in the source), 1024 bytes of each
+    for the swizzle's alignment.  State: a ring of (a 64-step k box and
+    NV / 64 v boxes), NV = 64 where Dv <= 64 else 128, then w and g of
+    the chunk, the normalizer's partials and the barriers.  Output: the q
+    tile (Dk in 64-wide boxes), a ring of NV / 64 boxes, cum and g of the
+    chunk, q . n_prev of the rows, n_prev, the barriers."""
+    vb = 1 if dv <= 64 else 2
+    state = (1024 + WGMMA_STAGES * (1 + vb) * WGMMA_BOX + 4 * (2 * chunk + 4 * 64 + 4)
+             + 8 * WGMMA_STAGES)
+    out = (1024 + -(-dk // 64) * WGMMA_BOX + WGMMA_STAGES * vb * WGMMA_BOX
+           + 4 * (2 * chunk + 64 + dk) + 8 * (WGMMA_STAGES + 1))
+    return state, out
+
+
+def path_of(dtype: torch.dtype, dk: int, dv: int, chunk: int, aligned: bool = True) -> str:
+    """The path a call takes, decided before the launch: ``wgmma`` for
+    bf16 where Dk and Dv are multiples of 16, the chunk a multiple of 64
+    (the output kernel's row tiles) and q, k, v at 16-byte boundaries (TMA
+    reads them); ``cuda_cores`` for anything else, float32 above all,
+    whose semantics the tensor cores would break."""
+    if (dtype == torch.bfloat16 and dk % 16 == 0 and dv % 16 == 0 and chunk % WGMMA_ROWS == 0
+            and aligned):
+        return "wgmma"
+    return "cuda_cores"
+
+
+# The wgmma path against the plain version (float32 throughout), element
+# by element.  bf16 keeps 8 significant bits, so one rounding moves a value
+# by at most 2**-8 of itself.  The path rounds four things: P before P V
+# (each intra-chunk term P_ts v_s moves by 2**-8 of |P_ts| |v_s|); k w
+# before (k w)^T v, whose errors the carried state sums (C_prev moves by
+# 2**-8 of the same state built from |k|, |w|, |v|); C_prev itself once
+# more (2**-8 of |C_prev|); and the output once, as the plain version
+# does (one bf16 step, 2**-7 of |out|).  The first three reach the output
+# through the normalizer's denominator max(|norm|, 1), which both compute
+# in float32.
+BF16_STEP = 2.0 ** -7
+
+
+def gla_wgmma_bound(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    log_decay: torch.Tensor, gain: torch.Tensor, want: torch.Tensor,
+                    chunk: int, normalize: bool = True, scale: float = 1.0) -> torch.Tensor:
+    """The largest difference, element by element, that the wgmma path may
+    show against ``want`` = the plain version on the same inputs:
+
+        2**-7 |want| + 2**-8 (intra + (2 + 2**-8) inter) / den
+
+    in float32, where intra + inter is the plain version (unnormalized) on
+    |q|, |k|, |v|, |gain| and |scale|, intra its part from within each
+    chunk (the same call with every chunk a head of its own, so no state
+    crosses a chunk) and inter the rest, the state's; den is 1, or under
+    ``normalize`` max(|norm|, 1), norm being the plain version's
+    unnormalized output for v = 1 (the state then is n)."""
+    b, h, s = q.shape[:3]
+    qf, kf, vf = q.float(), k.float(), v.float()
+    ld, g = log_decay.float(), gain.float()
+
+    def per_chunk(x):
+        return x.reshape(b, h * (s // chunk), chunk, *x.shape[3:])
+
+    absd = (qf.abs(), kf.abs(), vf.abs(), ld, g.abs())
+    full = chunked_gla_torch(*absd, chunk=chunk, normalize=False, scale=abs(scale))
+    intra = chunked_gla_torch(*map(per_chunk, absd), chunk=chunk, normalize=False,
+                              scale=abs(scale)).reshape(full.shape)
+    inter = (full - intra).clamp(min=0.0)
+    moved = BF16_STEP / 2 * (intra + (2 + BF16_STEP / 2) * inter)
+    if normalize:
+        norm = chunked_gla_torch(qf, kf, torch.ones_like(vf[..., :1]), ld, g, chunk=chunk,
+                                 normalize=False, scale=scale)
+        moved = moved / norm.abs().clamp(min=1.0)
+    return BF16_STEP * want.float().abs() + moved
 
 
 # ------------------------------------------------------------ chunk length
@@ -136,6 +223,12 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.stripe_gla_smem.restype = ctypes.c_int
     lib.stripe_gla_layout.argtypes = [ctypes.c_void_p]
     lib.stripe_gla_layout.restype = None
+    lib.stripe_gla_wgmma.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                                     ctypes.c_int, ctypes.c_void_p]
+    lib.stripe_gla_wgmma.restype = ctypes.c_int
+    lib.stripe_gla_wgmma_smem.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                                          ctypes.c_void_p]
+    lib.stripe_gla_wgmma_smem.restype = None
     _build.check_layout(lib.stripe_gla_layout,
                         (ctypes.sizeof(_GlaParams), _GlaParams.s.offset,
                          _GlaParams.qkv_dt.offset, _GlaParams.normalize.offset,
@@ -145,13 +238,21 @@ def _bind(lib: ctypes.CDLL) -> None:
             raise _build.KernelBuildError(
                 f"gla shared memory: C {lib.stripe_gla_smem(dk, chunk)} B, Python "
                 f"{smem_bytes(dk, chunk)} B (Dk {dk}, chunk {chunk})")
+    for dk, dv, chunk in ((16, 16, 64), (64, 64, 256), (384, 384, 256), (128, 80, 128)):
+        got = (ctypes.c_longlong * 2)()
+        lib.stripe_gla_wgmma_smem(dk, dv, chunk, ctypes.addressof(got))
+        if tuple(got) != wgmma_smem_bytes(dk, dv, chunk):
+            raise _build.KernelBuildError(
+                f"gla wgmma shared memory: C {tuple(got)} B, Python "
+                f"{wgmma_smem_bytes(dk, dv, chunk)} B (Dk {dk}, Dv {dv}, chunk {chunk})")
 
 
 def load_library() -> ctypes.CDLL:
     return _build.load("gla", _bind)
 
 
-def _launch(q, k, v, log_decay, gain, chunk: int, normalize: bool, scale: float) -> torch.Tensor:
+def _launch(q, k, v, log_decay, gain, chunk: int, normalize: bool, scale: float,
+            path: Optional[str]) -> torch.Tensor:
     global launches
     device = q.device
     for name, t in (("k", k), ("v", v), ("log_decay", log_decay), ("gain", gain)):
@@ -164,14 +265,23 @@ def _launch(q, k, v, log_decay, gain, chunk: int, normalize: bool, scale: float)
                         f"kernel takes one of {_TYPES} for all three")
     b, h, s, dk = q.shape
     dv = v.shape[3]
-    if smem_bytes(dk, chunk) > _SMEM_LIMIT:
-        raise ValueError(f"chunked_gla: Dk {dk} at chunk {chunk} needs "
-                         f"{smem_bytes(dk, chunk)} B of shared memory, over one block's "
-                         f"{_SMEM_LIMIT}")
-    if b * h > 65535:
-        raise ValueError(f"chunked_gla: B*H = {b * h} exceeds the grid's y limit")
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     log_decay, gain = log_decay.contiguous(), gain.contiguous()
+    if path is None:
+        path = path_of(q.dtype, dk, dv, chunk, all(t.data_ptr() % 16 == 0 for t in (q, k, v)))
+    if path == "wgmma":
+        need = max(wgmma_smem_bytes(dk, dv, chunk))
+        # the CTAs of the state kernel (b*h, 64 rows of Dk, 128 columns of
+        # Dv) and of the output kernel (b*h, chunk, 64-row tile, the same)
+        ctas = b * h * max(s // WGMMA_ROWS, -(-dk // 64)) * -(-dv // 128)
+    else:
+        need = smem_bytes(dk, chunk)
+        ctas = b * h * -(-dv // TV)
+    if need > _SMEM_LIMIT:
+        raise ValueError(f"chunked_gla ({path}): Dk {dk}, Dv {dv} at chunk {chunk} needs {need} B "
+                         f"of shared memory, over one block's {_SMEM_LIMIT}")
+    if ctas > GRID_X:
+        raise ValueError(f"chunked_gla ({path}): {ctas} CTAs exceed the grid's x limit {GRID_X}")
     out = torch.empty((b, h, s, dv), dtype=q.dtype, device=device)
     if out.numel() == 0:
         return out
@@ -181,22 +291,39 @@ def _launch(q, k, v, log_decay, gain, chunk: int, normalize: bool, scale: float)
                    qkv_dt=_build.dtype_code(q.dtype), ld_dt=_build.dtype_code(log_decay.dtype),
                    g_dt=_build.dtype_code(gain.dtype), out_dt=_build.dtype_code(q.dtype),
                    normalize=int(bool(normalize)), scale=scale)
-    rc = lib.stripe_gla_launch(ctypes.addressof(p), b * h, _build.stream_of(device))
-    _build.launch_rc(rc, "gla")
+    stream = _build.stream_of(device)
+    if path == "wgmma":
+        # the state before every chunk, which the state kernel writes and
+        # the output kernel reads: C_prev in bf16, n_prev in float32
+        n_rows = b * h * (s // chunk)
+        c_prev = torch.empty((n_rows, dk, dv), dtype=torch.bfloat16, device=device)
+        n_prev = torch.empty((n_rows, dk), dtype=torch.float32, device=device)
+        rc = lib.stripe_gla_wgmma(ctypes.addressof(p), c_prev.data_ptr(), n_prev.data_ptr(),
+                                  b * h, stream)
+    else:
+        rc = lib.stripe_gla_launch(ctypes.addressof(p), b * h, stream)
+    _build.launch_rc(rc, f"gla ({path})")
     launches += 1
+    launches_by_path[path] += 1
     return out
 
 
 def chunked_gla(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 log_decay: torch.Tensor, gain: torch.Tensor,
                 chunk: Optional[int] = None, normalize: bool = True,
-                scale: float = 1.0) -> torch.Tensor:
+                scale: float = 1.0, path: Optional[str] = None) -> torch.Tensor:
     """q/k: (B, H, S, Dk); v: (B, H, S, Dv); log_decay/gain: (B, H, S).
     Returns (B, H, S, Dv) in ``q.dtype``.  The kernel for CUDA tensors, the
-    plain version for CPU tensors."""
+    plain version for CPU tensors.
+
+    ``path``: None takes :func:`path_of`'s choice; ``"cuda_cores"`` forces
+    the CUDA-core kernel, to time it against the wgmma path on the same
+    inputs."""
+    if path not in (None, "cuda_cores"):
+        raise ValueError(f"path is None (the rule's choice) or 'cuda_cores', not {path!r}")
     chunk = _resolve(q, k, v, log_decay, gain, chunk)
     if q.is_cuda:
-        return _launch(q, k, v, log_decay, gain, chunk, normalize, float(scale))
+        return _launch(q, k, v, log_decay, gain, chunk, normalize, float(scale), path)
     if any(t.is_cuda for t in (k, v, log_decay, gain)):
         raise ValueError("chunked_gla: q on the CPU, another input on the card")
     return chunked_gla_torch(q, k, v, log_decay, gain, chunk=chunk, normalize=normalize,

@@ -360,6 +360,132 @@ def test_chunk_under_h100_at_the_target_widths():
         assert GLA.smem_bytes(dk, c) <= get_config("h100").mem("SMEM").size_bytes
 
 
+# ------------------------------------------ chunked GLA on the tensor cores
+def gla_wgmma_emulation(q, k, v, log_decay, gain, chunk, normalize=True, scale=1.0):
+    """The bf16 wgmma path's two-pass decomposition (csrc/gla.cu) on the
+    CPU, rounding to bf16 exactly where its kernels do.  The state pass
+    walks the chunks: it records C_prev, the state before each chunk
+    rounded to bf16, and n_prev in float32, then carries C in float32 as
+    exp(total) C + (k w)^T v with k w rounded to bf16, and n as exp(total) n
+    + sum_s k_s w_s from the unrounded products.  The output pass takes
+    every chunk at once: scale exp(cum_t) q C_prev, the scores S = q k^T in
+    float32, P = S scale exp(cum_t - cum_s) g_s with the mask inside the
+    exp, O += bf16(P) V, the normalizer from the row sums of the float32 P
+    and scale exp(cum_t) q . n_prev, and one rounding of the output."""
+    b, h, s, dk = q.shape
+    dv, nc = v.shape[-1], s // chunk
+    qf = q.float().reshape(b * h, nc, chunk, dk)
+    kf = k.float().reshape(b * h, nc, chunk, dk)
+    vf = v.float().reshape(b * h, nc, chunk, dv)
+    g = gain.float().reshape(b * h, nc, chunk)
+    cum = torch.cumsum(log_decay.float().reshape(b * h, nc, chunk), dim=-1)
+    total = cum[..., -1]
+    w = torch.exp(total[..., None] - cum) * g
+    C, n = torch.zeros(b * h, dk, dv), torch.zeros(b * h, dk)
+    c_prev, n_prev = [], []
+    for c in range(nc):
+        c_prev.append(C.bfloat16().float())
+        n_prev.append(n)
+        kw = kf[:, c] * w[:, c, :, None]
+        et = torch.exp(total[:, c])
+        C = et[:, None, None] * C + kw.bfloat16().float().transpose(1, 2) @ vf[:, c]
+        n = et[:, None] * n + kw.sum(dim=1)
+    c_prev, n_prev = torch.stack(c_prev, dim=1), torch.stack(n_prev, dim=1)
+    tril = torch.tril(torch.ones(chunk, chunk, dtype=torch.bool))
+    dmat = torch.where(tril, cum[..., :, None] - cum[..., None, :], torch.tensor(-float("inf")))
+    p = (qf @ kf.transpose(-1, -2)) * scale * torch.exp(dmat) * g[..., None, :]
+    ecum = torch.exp(cum)
+    o = scale * ecum[..., None] * (qf @ c_prev) + p.bfloat16().float() @ vf
+    if normalize:
+        norm = p.sum(dim=-1) + scale * ecum * (qf * n_prev[:, :, None, :]).sum(dim=-1)
+        o = o / norm.abs().clamp(min=1.0)[..., None]
+    return o.reshape(b, h, s, dv).bfloat16()
+
+
+def _gla_gates(rng, kind, B, H, S):
+    """(log_decay, gain) of an mLSTM (forget-gate bias 3, input gate
+    clamped at 8), an SSD (dt > 0, A < 0), or a strong decay (log decay
+    uniform down to -20, which the mask inside the exp has to hold)."""
+    if kind == "mlstm":
+        f = rng.randn(B, H, S) + 3.0
+        i = rng.randn(B, H, S)
+        return -np.logaddexp(0.0, -f), np.exp(np.minimum(i, 8.0))
+    if kind == "ssd":
+        dt = np.logaddexp(0.0, rng.randn(B, H, S))
+        A = -np.linspace(1.0, 16.0, H)
+        return dt * A[None, :, None], dt
+    return -20.0 * rng.rand(B, H, S), 0.5 + rng.rand(B, H, S)
+
+
+@pytest.mark.parametrize("chunk", [64, 128])
+@pytest.mark.parametrize("normalize", [True, False])
+@pytest.mark.parametrize("kind", ["mlstm", "ssd", "strong"])
+def test_gla_wgmma_emulation_matches_the_pallas_kernel(kind, normalize, chunk):
+    """The decomposition of the wgmma path against the JAX kernel in
+    interpret mode (bf16 inputs, Dk 128 != Dv 64, S 256): within the bf16
+    tolerance of the largest output, and element by element within
+    ``kernel.gla_wgmma_bound`` (largest error over bound <= 1); and
+    against the port's plain version the same way."""
+    B, H, S, Dk, Dv = 1, 2, 256, 128, 64
+    rng = np.random.RandomState(chunk + len(kind) + normalize)
+    (jq, tq), (jk, tk), (jv, tv) = (_pair(rng.randn(B, H, S, d) * 0.5, "bfloat16")
+                                    for d in (Dk, Dk, Dv))
+    ld, g = _gla_gates(rng, kind, B, H, S)
+    (jld, tld), (jg, tg) = _pair(ld), _pair(g)
+    scale = Dk ** -0.5 if kind == "mlstm" else 1.0
+    want = j_gla.chunked_gla(jq, jk, jv, jld, jg, chunk=chunk, normalize=normalize,
+                             scale=scale, interpret=True)
+    got = gla_wgmma_emulation(tq, tk, tv, tld, tg, chunk, normalize, scale)
+    plain = chunked_gla(tq, tk, tv, tld, tg, chunk=chunk, normalize=normalize, scale=scale)
+    for ref in (torch.as_tensor(np.asarray(want, np.float32)), plain.float()):
+        err = (got.float() - ref).abs()
+        assert err.max().item() <= BF16_RTOL * (1 + ref.abs().max().item()), err.max().item()
+        bound = GLA.gla_wgmma_bound(tq, tk, tv, tld, tg, ref, chunk, normalize, scale)
+        excess = (err / bound).max().item()
+        print(f"{kind} normalize={normalize} chunk {chunk}: error / bound {excess:.3f}")
+        assert excess <= 1.0, excess
+
+
+def test_gla_path_rule():
+    """bf16 with Dk and Dv multiples of 16, the chunk a multiple of 64 and
+    aligned inputs takes wgmma; everything else the CUDA cores."""
+    bf, f32 = torch.bfloat16, torch.float32
+    for dk, dv, chunk in ((384, 384, 256), (64, 64, 256), (128, 64, 64), (16, 16, 64),
+                          (48, 80, 128)):
+        assert GLA.path_of(bf, dk, dv, chunk) == "wgmma", (dk, dv, chunk)
+    assert GLA.path_of(bf, 128, 64, 64, aligned=False) == "cuda_cores"
+    for dtype, dk, dv, chunk in ((f32, 384, 384, 256), (f32, 64, 64, 256), (bf, 40, 64, 64),
+                                 (bf, 64, 24, 64), (bf, 64, 64, 32), (bf, 64, 64, 96),
+                                 (torch.float16, 64, 64, 64)):
+        assert GLA.path_of(dtype, dk, dv, chunk) == "cuda_cores", (dtype, dk, dv, chunk)
+
+
+def test_gla_target_widths_take_wgmma_in_bf16():
+    """Phase 8's calls (xlstm-125m: S 2048, Dk = Dv = 384; zamba2-2.7b's
+    SSD: S 4096, N = P = 64) at the chunk the autotiler picks take the
+    wgmma path in bf16, and both of its kernels fit one CTA, two to an SM
+    at xlstm-125m's width."""
+    limit = get_config("h100").mem("SMEM").size_bytes
+    for seq, dk, dv in ((2048, 384, 384), (4096, 64, 64)):
+        c = choose_chunk(seq, dk, dv)
+        assert GLA.path_of(torch.bfloat16, dk, dv, c) == "wgmma"
+        assert GLA.path_of(torch.float32, dk, dv, c) == "cuda_cores"
+        assert 2 * max(GLA.wgmma_smem_bytes(dk, dv, c)) <= limit
+
+
+def test_gla_path_argument_on_cpu_tensors():
+    rng = np.random.RandomState(9)
+    (_, tq), (_, tk), (_, tv) = _gla_inputs(rng, 1, 2, 128, 64, 64)
+    tq, tk, tv = tq.bfloat16(), tk.bfloat16(), tv.bfloat16()
+    ld, g = -torch.rand(1, 2, 128), torch.rand(1, 2, 128)
+    before = (GLA.launches, dict(GLA.launches_by_path))
+    got = chunked_gla(tq, tk, tv, ld, g, chunk=64)
+    assert torch.equal(chunked_gla(tq, tk, tv, ld, g, chunk=64, path="cuda_cores"), got)
+    assert (GLA.launches, GLA.launches_by_path) == before
+    with pytest.raises(ValueError, match="path"):
+        chunked_gla(tq, tk, tv, ld, g, chunk=64, path="wgmma")
+
+
 # --------------------------------------------------------------- ssd_chunk
 @pytest.mark.parametrize("s,p,n", [(64, 16, 8), (128, 32, 16)])
 def test_ssd_chunk_matches_the_jax_kernel(s, p, n):

@@ -446,6 +446,24 @@ def test_the_wgmma_bound_catches_a_planted_fault(what, line, fault, tmp_path, mo
     assert excess > 1.0, (what, excess)
 
 
+def _gla_case(b, h, s, dk, dv, dtype, seed):
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    dt = getattr(torch, dtype)
+    q = (0.5 * torch.randn(b, h, s, dk, generator=gen, device="cuda")).to(dt)
+    k = (0.5 * torch.randn(b, h, s, dk, generator=gen, device="cuda")).to(dt)
+    v = (0.5 * torch.randn(b, h, s, dv, generator=gen, device="cuda")).to(dt)
+    ld = -0.2 * torch.randn(b, h, s, generator=gen, device="cuda").abs()
+    g = 0.5 * torch.randn(b, h, s, generator=gen, device="cuda").abs()
+    return q, k, v, ld, g
+
+
+def _gla_wgmma_excess(GLA, got, want, ins, chunk, normalize, scale):
+    """The largest error of the GLA wgmma path over ``kernel.gla_wgmma_bound``."""
+    torch.cuda.synchronize()
+    err = (got.float() - want.float()).abs()
+    return (err / GLA.gla_wgmma_bound(*ins, want, chunk, normalize, scale)).max().item()
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("normalize", [True, False])
 @pytest.mark.parametrize("b,h,s,dk,dv,chunk,dtype", [
@@ -453,25 +471,110 @@ def test_the_wgmma_bound_catches_a_planted_fault(what, line, fault, tmp_path, mo
     (2, 2, 128, 32, 32, 32, "float32"),
     (1, 3, 256, 40, 96, 128, "float32"),   # two Dv tiles, Dk not a multiple of 32
     (2, 2, 512, 64, 64, 256, "bfloat16"),  # two row tiles under the diagonal
+    (1, 2, 512, 384, 384, 256, "bfloat16"),  # xlstm-125m's head width
+    (2, 70, 256, 128, 64, 64, "bfloat16"),   # Dk != Dv; B*H = 140 over 132 SMs
+    (1, 3, 256, 48, 80, 128, "bfloat16"),    # ragged: zeros past Dk and Dv in the boxes
 ])
 def test_gla_kernel_matches_plain_on_the_card(b, h, s, dk, dv, chunk, dtype, normalize):
+    """The call's path (``path_of``: wgmma for these bf16 cases, the CUDA
+    cores for float32) against plain within the type's tolerance; a wgmma
+    call also element by element within ``kernel.gla_wgmma_bound``, and
+    the CUDA-core kernel on the same inputs against plain."""
     from repro_torch.kernels.mlstm_chunk import kernel as GLA
     from repro_torch.nn.scan_ops import chunked_gla_torch
 
     _card()
-    gen = torch.Generator(device="cuda").manual_seed(s + dk + dv)
-    dt = getattr(torch, dtype)
-    q = (0.5 * torch.randn(b, h, s, dk, generator=gen, device="cuda")).to(dt)
-    k = (0.5 * torch.randn(b, h, s, dk, generator=gen, device="cuda")).to(dt)
-    v = (0.5 * torch.randn(b, h, s, dv, generator=gen, device="cuda")).to(dt)
-    ld = -0.2 * torch.randn(b, h, s, generator=gen, device="cuda").abs()
-    g = 0.5 * torch.randn(b, h, s, generator=gen, device="cuda").abs()
-    before = GLA.launches
-    got = GLA.chunked_gla(q, k, v, ld, g, chunk=chunk, normalize=normalize, scale=0.5)
+    ins = _gla_case(b, h, s, dk, dv, dtype, s + dk + dv)
+    before, by_path = GLA.launches, dict(GLA.launches_by_path)
+    got = GLA.chunked_gla(*ins, chunk=chunk, normalize=normalize, scale=0.5)
     torch.cuda.synchronize()
+    path = GLA.path_of(ins[0].dtype, dk, dv, chunk)
+    assert path == ("wgmma" if dtype == "bfloat16" else "cuda_cores")
     assert GLA.launches == before + 1
-    want = chunked_gla_torch(q, k, v, ld, g, chunk=chunk, normalize=normalize, scale=0.5)
-    _assert_kernel_close(got, want, "chunked_gla")
+    assert GLA.launches_by_path[path] == by_path[path] + 1
+    want = chunked_gla_torch(*ins, chunk=chunk, normalize=normalize, scale=0.5)
+    _assert_kernel_close(got, want, f"chunked_gla ({path})")
+    if path == "wgmma":
+        excess = _gla_wgmma_excess(GLA, got, want, ins, chunk, normalize, 0.5)
+        assert excess <= 1.0, excess
+        cores = GLA.chunked_gla(*ins, chunk=chunk, normalize=normalize, scale=0.5,
+                                path="cuda_cores")
+        _assert_kernel_close(cores, want, "chunked_gla (cuda_cores)")
+
+
+@pytest.mark.cuda
+def test_the_gla_wgmma_bound_catches_a_planted_fault(tmp_path, monkeypatch, capsys):
+    """A copy of the sources whose state kernel drops the carry's
+    exp(total) (C is never decayed from one chunk to the next) builds,
+    runs wgmma, and fails the elementwise bound on an mLSTM (B 1, H 4, S
+    1024, Dk = Dv = 128, chunk 256, forget-gate bias 3, normalized).
+    Prints its error over the bound and whether the 2e-2 gate of the
+    largest output would have passed it."""
+    import shutil
+
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.mlstm_chunk import kernel as GLA
+    from repro_torch.nn.scan_ops import chunked_gla_torch
+
+    _card()
+    line = "for (int i = 0; i < NV / 2; ++i) d[i] *= et;"
+    for f in _build.CSRC.iterdir():
+        shutil.copy(f, tmp_path / f.name)
+    src = (tmp_path / "gla.cu").read_text()
+    assert src.count(line) == 1, line
+    (tmp_path / "gla.cu").write_text(src.replace(line, line.replace("*= et", "*= 1.0f")))
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    q, k, v = (torch.randn(1, 4, 1024, 128, generator=gen, device="cuda").bfloat16()
+               for _ in range(3))
+    f_gate = 3.0 + torch.randn(1, 4, 1024, generator=gen, device="cuda")
+    i_gate = torch.randn(1, 4, 1024, generator=gen, device="cuda")
+    ins = (q, k, v, F.logsigmoid(f_gate), torch.exp(i_gate))
+    want = chunked_gla_torch(*ins, chunk=256, normalize=True, scale=128 ** -0.5)
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    monkeypatch.setattr(_build, "_LIBS", {})
+    before = GLA.launches_by_path["wgmma"]
+    got = GLA.chunked_gla(*ins, chunk=256, normalize=True, scale=128 ** -0.5)
+    assert GLA.launches_by_path["wgmma"] == before + 1
+    excess = _gla_wgmma_excess(GLA, got, want, ins, 256, True, 128 ** -0.5)
+    err = (got.float() - want.float()).abs().max().item()
+    loose = err <= 2e-2 * (1 + want.float().abs().max().item())
+    with capsys.disabled():
+        print(f"\nplanted fault 'carry not decayed': error / bound {excess:.3f}, largest "
+              f"error {err:.3e}, passes 2e-2 of the largest output: {loose}")
+    assert excess > 1.0, excess
+
+
+@pytest.mark.cuda
+def test_b_times_h_over_65535_on_the_card():
+    """b*h rides on grid x, so B*H = 65536 runs: the GLA kernel on both
+    paths (bf16 on wgmma and on the CUDA cores, float32 on the CUDA cores)
+    and flash attention's CUDA-core kernel (float32), each against its
+    plain version."""
+    from repro_torch.kernels.flash_attention import kernel as FA
+    from repro_torch.kernels.mlstm_chunk import kernel as GLA
+    from repro_torch.nn.scan_ops import chunked_gla_torch
+
+    _card()
+    for dtype, path in (("bfloat16", None), ("bfloat16", "cuda_cores"), ("float32", None)):
+        ins = _gla_case(1024, 64, 64, 16, 16, dtype, 11)
+        by_path = dict(GLA.launches_by_path)
+        got = GLA.chunked_gla(*ins, chunk=64, normalize=True, scale=0.5, path=path)
+        ran = path or GLA.path_of(ins[0].dtype, 16, 16, 64)
+        assert GLA.launches_by_path[ran] == by_path[ran] + 1
+        want = chunked_gla_torch(*ins, chunk=64, normalize=True, scale=0.5)
+        _assert_kernel_close(got, want, f"chunked_gla B*H 65536 ({dtype}, {ran})")
+        if ran == "wgmma":
+            assert _gla_wgmma_excess(GLA, got, want, ins, 64, True, 0.5) <= 1.0
+        del ins, got, want
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    q, k, v = (torch.randn(1024, 64, 32, 32, generator=gen, device="cuda") for _ in range(3))
+    before = FA.launches_by_path["cuda_cores"]
+    got = FA.flash_attention(q, k, v, causal=True, block_q=32, block_k=32)
+    assert FA.launches_by_path["cuda_cores"] == before + 1
+    _assert_kernel_close(got, FA.flash_attention_plain(q, k, v, causal=True, block_q=32,
+                                                       block_k=32), "flash B*Hq 65536")
 
 
 @pytest.mark.cuda
