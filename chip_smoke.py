@@ -108,12 +108,19 @@ and prints no result):
    the largest error over its bound, must not exceed 1); the CUDA-core
    design is timed on the bf16 case's inputs beside it (``cuda_cores_ms``).
    Likewise the bf16 mLSTM and SSD calls must run the GLA kernel's
-   ``wgmma`` path and the float32 ones ``cuda_cores``; each wgmma output
-   is held element by element to ``kernel.gla_wgmma_bound`` (what
-   rounding k w, the carried state and P to bf16 can move it, through the
-   normalizer, plus one bf16 step; ``wgmma_excess`` <= 1, and
-   ``norm_rel_err`` printed beside it), with the CUDA-core kernel timed in
-   turns on the same inputs.
+   ``wgmma`` path and the float32 ones ``tf32x3``; each wgmma output is
+   held element by element to ``kernel.gla_wgmma_bound`` (what rounding k
+   w, the carried state and P to bf16 can move it, through the
+   normalizer, plus one bf16 step; ``wgmma_excess`` <= 1), each tf32x3
+   output to ``kernel.gla_tf32x3_bound`` (what splitting every product
+   into three tf32 products can move it, plus the float32 plain version's
+   own error against float64; ``tf32x3_excess`` <= 1), ``norm_rel_err``
+   printed beside either, with the CUDA-core kernel run on the same
+   inputs, held against plain at its type's tolerance
+   (``cuda_cores_max_abs_err``) and timed in turns.  A tf32x3 row's bound
+   is its bytes against three passes of its operations at the tensor
+   cores' TF32 rate, the rate that path computes at; its bound at the
+   CUDA cores' float32 rate stands beside it (``f32_cuda_core_bound_ms``).
 
 Launch counts are read per path: every count is set to 0 just before the
 serve phase (path 1), before the sweep (path 2), before phase 8's calls
@@ -122,7 +129,8 @@ read just after each; the contraction kernel's ``launches_by_path``
 (skinny, tiled, general) is read the same way for the serve and sweep
 paths, and the serve path may launch no general loop; the windowed
 kernel's (igemm, general) for the sweep and ResNet paths, flash
-attention's and the GLA kernel's (wgmma, cuda_cores) for path 3, all in
+attention's (wgmma, cuda_cores) and the GLA kernel's (wgmma, tf32x3,
+cuda_cores) for path 3, all in
 the summary, which lists the six TPU kernels' counterparts
 (``stripe_matmul`` rides on the contraction kernel; its launches are
 phase 3's).  The
@@ -151,6 +159,9 @@ HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS_PER_S = 67e12
 PEAK_OPS = {"float32": F32_FLOPS_PER_S, "bfloat16": 989e12, "float16": 989e12,
             "int8": 1979e12}
+# the tensor cores' dense TF32 rate: the GLA kernel's tf32x3 path runs
+# every float32 product as three tf32 products at it
+TF32_FLOPS_PER_S = 494.7e12
 # float32 sums of up to 14336 terms taken in another order, relative to
 # the largest output of the unit
 RTOL = 1e-4
@@ -923,6 +934,18 @@ def _attention_bound(torch, ins, out, pairs_macs: int) -> dict:
             "bytes": nbytes, "ops": ops, "t_bytes_ms": t_bytes, "t_ops_ms": t_ops}
 
 
+def _tf32x3_bound(row) -> dict:
+    """A tf32x3 row's bound: its bytes over the HBM rate against its
+    operations run three times (a_hi b_hi + a_hi b_lo + a_lo b_hi) at the
+    tensor cores' TF32 rate, which is what that path computes on; beside
+    it, for comparison, the same operations once at the CUDA cores'
+    float32 rate (the CUDA-core kernel's own bound)."""
+    t_ops = 3 * row["ops"] / TF32_FLOPS_PER_S * 1e3
+    return {"bound_ms": max(row["t_bytes_ms"], t_ops),
+            "bound_by": "bytes" if row["t_bytes_ms"] >= t_ops else "operations",
+            "t_ops_ms": t_ops, "f32_cuda_core_bound_ms": row["bound_ms"]}
+
+
 def _wgmma_check(torch, FA, what, got, want, q, k, v, causal) -> dict:
     """The wgmma flash kernel held element by element to
     ``kernel.wgmma_bound`` (one bf16 step of each output plus 2**-8 of the
@@ -940,18 +963,24 @@ def _wgmma_check(torch, FA, what, got, want, q, k, v, causal) -> dict:
 
 def _gla_check(torch, GLA, what, path, got, want, ins, chunk, kw) -> dict:
     """The GLA kernel's output against the plain version's: the error's
-    norm relative to the output's, and on the wgmma path the largest ratio
-    of error to ``kernel.gla_wgmma_bound`` (what rounding k w, C_prev and P
-    to bf16 can move an output, through the normalizer, plus one bf16
-    step), which must not exceed 1."""
-    g, w = got.float(), want.float()
-    row = {"norm_rel_err": ((g - w).norm() / w.norm()).item(), "wgmma_excess": None}
-    if path == "wgmma":
-        bound = GLA.gla_wgmma_bound(*ins, want, chunk, kw["normalize"], kw["scale"])
-        row["wgmma_excess"] = ((g - w).abs() / bound).max().item()
-        if not row["wgmma_excess"] <= 1.0:
-            raise AssertionError(f"{what}: GLA wgmma path off its elementwise bound "
-                                 f"(largest error / bound {row['wgmma_excess']:.3f})")
+    norm relative to the output's, and the largest ratio of error to the
+    path's elementwise bound, which must not exceed 1: on the wgmma path
+    ``kernel.gla_wgmma_bound`` (what rounding k w, C_prev and P to bf16 can
+    move an output, through the normalizer, plus one bf16 step), on the
+    tf32x3 path ``kernel.gla_tf32x3_bound`` (what the split of every
+    product into three tf32 products can move it, plus the plain version's
+    own float32 error against float64)."""
+    g, w = got.double(), want.double()
+    row = {"norm_rel_err": ((g - w).norm() / w.norm()).item(), "wgmma_excess": None,
+           "tf32x3_excess": None}
+    bounds = {"wgmma": GLA.gla_wgmma_bound, "tf32x3": GLA.gla_tf32x3_bound}
+    if path in bounds:
+        bound = bounds[path](*ins, want, chunk, kw["normalize"], kw["scale"])
+        key = f"{path}_excess"
+        row[key] = ((g - w).abs() / bound).max().item()
+        if not row[key] <= 1.0:
+            raise AssertionError(f"{what}: GLA {path} path off its elementwise bound "
+                                 f"(largest error / bound {row[key]:.3f})")
     return row
 
 
@@ -1029,7 +1058,7 @@ def check_attention_kernels(torch, timer) -> dict:
     want_paths = ["wgmma" if dt == "bfloat16" else "cuda_cores" for *_x, dt in FLASH_CASES]
     if DEVICE == "cuda" and flash_paths != want_paths:
         raise AssertionError(f"flash paths {flash_paths}, want {want_paths}")
-    want_gla = {f"{m} {ty}": "wgmma" if ty == "bfloat16" else "cuda_cores"
+    want_gla = {f"{m} {ty}": "wgmma" if ty == "bfloat16" else "tf32x3"
                 for ty in GLA_DTYPES for m in ("mlstm", "ssd")}
     if DEVICE == "cuda" and gla_paths != want_gla:
         raise AssertionError(f"GLA paths {gla_paths}, want {want_gla}")
@@ -1090,13 +1119,23 @@ def check_attention_kernels(torch, timer) -> dict:
             want = chunked_gla_torch(*ins, chunk=chunk, **kw)
             row.update(hold(what, "gla", out, want if post is None else post(want), ty))
             row["path"] = GLA.path_of(ins[0].dtype, dims[3], dims[4], chunk)
-            # the kernel's own output (the SSD's skip left out), held to the
-            # wgmma path's elementwise bound where it runs that path
+            # the kernel's own output (the SSD's skip left out), held to its
+            # path's elementwise bound
             got = GLA.chunked_gla(*ins, chunk=chunk, **kw)
             row.update(_gla_check(torch, GLA, what, row["path"], got, want, ins, chunk, kw))
             row.update(_attention_bound(torch, ins, want, _gla_macs(*dims, chunk)))
-            if row["path"] == "wgmma" and DEVICE == "cuda":
-                # the CUDA-core design on the same inputs, timed in turns
+            if row["path"] == "tf32x3":
+                row.update(_tf32x3_bound(row))
+            if row["path"] in ("wgmma", "tf32x3") and DEVICE == "cuda":
+                # the CUDA-core design on the same inputs: held against
+                # plain at its type's tolerance, then timed in turns
+                before = GLA.launches_by_path["cuda_cores"]
+                cores = GLA.chunked_gla(*ins, chunk=chunk, **kw, path="cuda_cores")
+                if GLA.launches_by_path["cuda_cores"] != before + 1:
+                    raise AssertionError(f"{what}: path='cuda_cores' launched no CUDA-core kernel")
+                row["cuda_cores_max_abs_err"] = _close(
+                    torch, cores, want, f"{what} (cuda_cores)",
+                    RTOL if ty == "float32" else BF16_RTOL)
                 row["ms"], row["cuda_cores_ms"] = timer.turns(
                     lambda: GLA.chunked_gla(*ins, chunk=chunk, **kw),
                     lambda: GLA.chunked_gla(*ins, chunk=chunk, **kw, path="cuda_cores"))
@@ -1280,7 +1319,15 @@ def main() -> None:
                         gla_rows, attn["max_abs_err"]["gla"])
     gla["cuda_cores_ms"] = sum(r["cuda_cores_ms"] for r in gla_rows)
     gla["wgmma_excess"] = max(r["wgmma_excess"] for r in gla_rows)
+    gla["cuda_cores_max_abs_err"] = max((r["cuda_cores_max_abs_err"] for r in attn["rows"]
+                                         if "cuda_cores_max_abs_err" in r), default=None)
     gla["launches_by_path"] = attn["gla_launches_by_path"]
+    # ... and the float32 calls (tf32x3), the same way
+    f32_rows = [r for r in attn["rows"] if r["kernel"] == "gla" and r["dtype"] == "float32"]
+    gla["tf32x3"] = {key: sum(r[key] for r in f32_rows)
+                     for key in ("ms", "cuda_cores_ms", "bound_ms", "f32_cuda_core_bound_ms",
+                                "plain_ms")}
+    gla["tf32x3"]["excess"] = max(r["tf32x3_excess"] for r in f32_rows)
     # stripe_matmul rides on the contraction kernel; launches: phase 3's
     matmul_entry = _kernel_entry("stripe_matmul", "src/repro_torch/csrc/contraction.cu",
                                  "src/repro/kernels/stripe_matmul/kernel.py:23", mm_launches,

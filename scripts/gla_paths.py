@@ -3,17 +3,19 @@
 
     python3 scripts/gla_paths.py            # one JSON line per case
 
-For the bf16 calls of ``chip_smoke.py``'s phase 8, xlstm-125m's mLSTM
-(B 8, H 4, S 2048, Dk = Dv = 384, forget-gate bias 3, normalized, q
-scaled by Dk^-1/2) and zamba2-2.7b's Mamba2 SSD (B 2, H 80, S 4096, P =
-N = 64, A = -(1..16), unnormalized), at the chunk the autotiler picks,
-it times (CUDA events, median of 15, L2 flushed before every launch,
-``chip_smoke.py``'s timer) the ``wgmma`` path in turns with the
-``cuda_cores`` kernel on the same inputs, and reads each kernel's device
-time from a ``torch.profiler`` trace of 10 back-to-back calls: the wgmma
-path's state and output kernels apart.  Each call is held against the
-plain version first (``chip_smoke.py``'s bf16 tolerance, and element by
-element to ``kernel.gla_wgmma_bound``).  Exits non-zero without a card.
+For the calls of ``chip_smoke.py``'s phase 8, xlstm-125m's mLSTM (B 8, H
+4, S 2048, Dk = Dv = 384, forget-gate bias 3, normalized, q scaled by
+Dk^-1/2) and zamba2-2.7b's Mamba2 SSD (B 2, H 80, S 4096, P = N = 64, A
+= -(1..16), unnormalized), each in bf16 and in float32 on the same
+values, at the chunk the autotiler picks, it times (CUDA events, median
+of 15, L2 flushed before every launch, ``chip_smoke.py``'s timer) the
+path the call takes (``wgmma`` for bf16, ``tf32x3`` for float32) in turns
+with the ``cuda_cores`` kernel on the same inputs, and reads each
+kernel's device time from a ``torch.profiler`` trace of 10 back-to-back
+calls: the state and output kernels apart, and on tf32x3 the transposed
+split copy of v.  Each call is held against the plain version first
+(``chip_smoke.py``'s tolerance of its type, and element by element to its
+path's bound), and so is the ``cuda_cores`` kernel's.  Exits non-zero without a card.
 """
 from __future__ import annotations
 
@@ -71,27 +73,33 @@ def main() -> None:
     x, bm, cm = (randn(sb, sh, ss, sp).bfloat16() for _ in range(3))
     dt = F.softplus(randn(sb, sh, ss))
     a = -torch.linspace(1.0, 16.0, sh, device="cuda")
-    cases = [
-        (f"mlstm xlstm-125m B{xb} H{xh} S{xs} Dk=Dv={xd} bfloat16",
-         (q, k, v, F.logsigmoid(f_gate), torch.exp(torch.clamp(i_gate, max=8.0))),
-         {"normalize": True, "scale": xd ** -0.5}, (xb, xh, xs, xd, xd)),
-        (f"ssd zamba2-2.7b B{sb} H{sh} S{ss} P=N={sp} bfloat16",
-         (cm, bm, x, dt * a[None, :, None], dt), {"normalize": False, "scale": 1.0},
-         (sb, sh, ss, sp, sp)),
-    ]
+    cases = []
+    for ty in (torch.bfloat16, torch.float32):
+        name = str(ty).replace("torch.", "")
+        cases += [
+            (f"mlstm xlstm-125m B{xb} H{xh} S{xs} Dk=Dv={xd} {name}",
+             (q.to(ty), k.to(ty), v.to(ty), F.logsigmoid(f_gate),
+              torch.exp(torch.clamp(i_gate, max=8.0))),
+             {"normalize": True, "scale": xd ** -0.5}, (xb, xh, xs, xd, xd)),
+            (f"ssd zamba2-2.7b B{sb} H{sh} S{ss} P=N={sp} {name}",
+             (cm.to(ty), bm.to(ty), x.to(ty), dt * a[None, :, None], dt),
+             {"normalize": False, "scale": 1.0}, (sb, sh, ss, sp, sp)),
+        ]
     for what, ins, kw, dims in cases:
         chunk = GLA.choose_chunk(dims[2], dims[3], dims[4])
-        path = GLA.path_of(torch.bfloat16, dims[3], dims[4], chunk)
+        path = GLA.path_of(ins[0].dtype, dims[3], dims[4], chunk)
         got = GLA.chunked_gla(*ins, chunk=chunk, **kw)
         want = chunked_gla_torch(*ins, chunk=chunk, **kw)
         err = chip_smoke._close(torch, got, want, what)
         check = chip_smoke._gla_check(torch, GLA, what, path, got, want, ins, chunk, kw)
+        cores = GLA.chunked_gla(*ins, chunk=chunk, **kw, path="cuda_cores")
+        cores_err = chip_smoke._close(torch, cores, want, f"{what} (cuda_cores)")
         ms, cores_ms = timer.turns(
             lambda: GLA.chunked_gla(*ins, chunk=chunk, **kw),
             lambda: GLA.chunked_gla(*ins, chunk=chunk, **kw, path="cuda_cores"))
         print(json.dumps({
             "case": f"{what} chunk {chunk}", "path": path, "ms": ms, "cuda_cores_ms": cores_ms,
-            "max_abs_err": err, **check,
+            "max_abs_err": err, "cuda_cores_max_abs_err": cores_err, **check,
             "device_ms": device_ms(torch, lambda: GLA.chunked_gla(*ins, chunk=chunk, **kw)),
             "cuda_cores_device_ms": device_ms(
                 torch, lambda: GLA.chunked_gla(*ins, chunk=chunk, **kw, path="cuda_cores"), n=3),

@@ -1,5 +1,6 @@
 // Chunkwise gated linear attention (mLSTM, Mamba2's SSD): a kernel on the
-// CUDA cores, and a bf16 path of two kernels on the tensor cores.
+// CUDA cores, and two paths of two kernels each on the tensor cores (bf16,
+// and float32 in 3xTF32).
 //
 // Replaces: src/repro/kernels/mlstm_chunk/kernel.py::chunked_gla (the
 // pl.pallas_call at :136, body _gla_kernel at :65).  The recurrence
@@ -10,9 +11,10 @@
 //
 // evaluated a chunk of L steps at a time.  On the TPU the grid is (B*H,
 // chunks) with the chunk axis sequential and the whole (Dk, Dv) state in
-// VMEM scratch.  Two paths (kernel.py::path_of picks one before the
-// launch): ``wgmma`` for bf16 (below, after the CUDA-core kernel), and
-// ``cuda_cores`` for float32 and the shapes wgmma does not take.
+// VMEM scratch.  Three paths (kernel.py::path_of picks one before the
+// launch): ``wgmma`` for bf16 and ``tf32x3`` for float32 (below, after the
+// CUDA-core kernel), and ``cuda_cores`` for the shapes and types neither
+// takes.
 //
 // cuda_cores: one CTA owns one (b*h, tile of TV = 64 columns of Dv), b*h
 // and the tile flattened on grid x, and loops over the chunks itself, carrying its Dk x 64 float32
@@ -45,9 +47,10 @@
 // What bounds it: operations.  At xLSTM-125m's width (Dk = Dv = 384,
 // L = 256) a chunk does about 4 L Dk Dv + 2 L^2 (Dk + Dv) flops per
 // (L (2 Dk + Dv) + L Dv) elements moved; far above the ridge.  This
-// kernel runs them on the CUDA cores in float32 (TF32 would break the
-// reference's float32 semantics); the wgmma path runs bf16 inputs on the
-// tensor cores and computes the scores once per 128 columns of Dv.
+// kernel runs them on the CUDA cores in float32.  The tensor-core paths
+// compute the scores once per 128 columns of Dv: ``wgmma`` on bf16 inputs,
+// ``tf32x3`` on float32 inputs with every product split into three tf32
+// products, which keeps float32's accuracy (plain TF32 would not).
 
 #include "dag.cuh"
 #include "hopper.cuh"
@@ -385,26 +388,29 @@ template <> struct GwMma<64> {
     }
 };
 
-// Every thread: the chunk's log decays and gains from ``off`` over its
-// first ``n`` steps into shared memory, one round trip to memory (warp 0
-// then scans them there, with no load from memory in its serial chain).
-__device__ __forceinline__ void gw_decays(float* cum, float* g, const GlaParams& p, long long off,
+// Every thread: the chunk's log decays (as F: float, or double on the
+// tf32x3 path) and gains from ``off`` over its first ``n`` steps into
+// shared memory, one round trip to memory (warp 0 then scans them there,
+// with no load from memory in its serial chain).
+template <typename F>
+__device__ __forceinline__ void gw_decays(F* cum, float* g, const GlaParams& p, long long off,
                                           int n) {
 #pragma unroll 4
     for (int i = threadIdx.x; i < n; i += GW_THREADS) {
-        cum[i] = load_as<float>(p.ld, p.ld_dt, off + i);
+        cum[i] = (F)load_as<float>(p.ld, p.ld_dt, off + i);
         g[i] = load_as<float>(p.g, p.g_dt, off + i);
     }
 }
 
 // Warp 0: cum[i] becomes the inclusive cumsum of cum over the first ``n``
-// steps (n a multiple of 32).  Returns cum[n - 1] in every lane.
-__device__ __forceinline__ float gw_scan(float* cum, int n, int lane) {
-    float carry = 0.0f;
+// steps (n a multiple of 32), in F.  Returns cum[n - 1] in every lane.
+template <typename F>
+__device__ __forceinline__ F gw_scan(F* cum, int n, int lane) {
+    F carry = 0;
     for (int base = 0; base < n; base += 32) {
-        float x = cum[base + lane];
+        F x = cum[base + lane];
         for (int o = 1; o < 32; o <<= 1) {
-            const float y = __shfl_up_sync(0xffffffffu, x, o);
+            const F y = __shfl_up_sync(0xffffffffu, x, o);
             if (lane >= o) x += y;
         }
         x += carry;
@@ -489,7 +495,7 @@ __global__ void __launch_bounds__(GW_THREADS) gla_state_kernel(
         }
         if (norm && tid < 64 && d0 + tid < dk) nst[cbase + d0 + tid] = n_run;
 #pragma unroll
-        for (int i = 0; i < NV / 2; ++i) d[i] *= et;
+        for (int i = 0; i < NV / 2; ++i) d[i] *= et;  // fault site: bf16 carry decay
 
         float nacc[8];
 #pragma unroll
@@ -774,6 +780,522 @@ static int launch_gw(const GlaParams* p, const GlaState* sc, int n_bh, cudaStrea
     return (int)cudaGetLastError();
 }
 
+// ============================================================ tf32x3 path
+// float32 on the tensor cores, in the wgmma path's decomposition (a state
+// kernel, then a chunk-parallel output kernel), every product in 3xTF32
+// (hopper.cuh: a b = a_hi b_hi + a_hi b_lo + a_lo b_hi, accumulated in
+// float32 by the tensor cores).  wgmma reads 32-bit operands K-major only,
+// so each product takes its A operand from registers, where the threads
+// gather and split it, and its B operand K-major from shared memory:
+//   q C_prev   A = q from the resident q tile; B = C_prev^T, which the
+//              state kernel writes transposed, (BH * NC, Dv, Dk), already
+//              split into hi and lo (float32 both, so C_prev is exact).
+//   q k^T      A = q; B = the k box as TMA brings it (64 steps of 32 of
+//              Dk); a generic-proxy pass clears the low bits of the box in
+//              place and writes lo beside it, then fence.proxy.async.
+//   P V and (k w)^T v   reduce over the steps s, so v has to be K-major in
+//              s: gla_vt_kernel writes v^T, (BH, Dv, S), split into hi and
+//              lo, once per call, with the steps of every group of 8 in
+//              the order 0 2 4 6 1 3 5 7.  That order makes the score
+//              accumulator's own registers the A operand of P V: a thread
+//              holds columns 2t and 2t + 1 of each 8, and the A operand
+//              wants columns t and t + 4.  The state kernel gathers (k w)^T
+//              from the k box in the same order.
+// Per chunk c, cum is the inclusive cumsum of the log decay, total =
+// cum[L-1], w_s = exp(total - cum_s) g_s.  Warp 0 takes cum in float64:
+// at |cum| in the thousands (an SSD head of A = -16) a float32 cum is off
+// by 2^-12 and more, so exp(cum_t - cum_s) of neighbouring steps would move
+// by 1e-4, far past what the split costs, in another direction than the
+// plain version's own float32 cumsum; the differences go to float32 before
+// the exp, the per-row and per-chunk exps are taken in float64.
+// 1. gla_state_tf32_kernel: one CTA (one warpgroup) per (b*h, 64 rows of
+//    Dk, NV columns of Dv) walks the chunks, 32 steps an item (two k boxes
+//    of 32 x 32 and the v^T boxes hi, lo of 32 x NV).  The carried C tile
+//    is the accumulator, float32; before each chunk it writes C_prev(c)^T
+//    hi and lo and n_prev(c) (the CTAs of the first Dv tile), then C =
+//    exp(total) C + (k w)^T v.  n = exp(total) n + sum_s k_s w_s in
+//    float32 on the CUDA cores, from the products the gather makes.
+// 2. gla_output_tf32_kernel: one CTA per (b*h, chunk, 64-row tile, NV
+//    columns of Dv), the longest row tiles first, the q tile resident in
+//    shared memory (Dk in boxes of 32), items through a 3-stage ring:
+//    C_prev^T (hi, lo) per 32 of Dk; then per s tile up to the diagonal
+//    its k boxes and its two v^T items of 32 steps.  O = q C_prev scale
+//    exp(cum_t); S = q k^T; P = S scale exp(cum_t - cum_s) g_s, the mask
+//    inside the exp; O += P V; den = max(|row sum of P + scale exp(cum_t)
+//    q . n_prev|, 1) as the wgmma path has it.
+// Numerics against the reference's float32: each product term moves by at
+// most 3 2^-20 of |a| |b| (mlstm_chunk/kernel.py::gla_tf32x3_bound).  Dk
+// and Dv multiples of 8 (k8, and TMA's 16-byte strides), the chunk a
+// multiple of 64, 16-byte aligned inputs (kernel.py::path_of); TMA reads
+// zeros past Dk and Dv.  Shared memory: the state kernel 85 KiB at NV 128
+// (two stages; two CTAs an SM), the output kernel the 8 KiB q boxes plus
+// three stages of 2 NV 128 bytes: 198 KiB at Dk 384 (one CTA an SM), 69
+// KiB at Dk 64 (three).
+#define GT_STAGES 3  // the output kernel's ring
+#define GT_KBOX 8192 // 64 rows of 32 float32
+
+struct GlaState3 {
+    void* c_hi;   // (BH * NC, Dv, Dk) float32: C^T before each chunk, hi
+    void* c_lo;   //   ... and lo
+    void* n;      // (BH * NC, Dk) float32: n before each chunk
+    void* vt_hi;  // (BH, Dv, S) float32: v^T, steps permuted within 8, hi
+    void* vt_lo;  //   ... and lo
+};
+
+__host__ __device__ inline int gt_state_stages(int nv) { return nv == 64 ? 3 : 2; }
+// Shared memory of the two kernels, in bytes (1024 of slack for the
+// swizzle's alignment).  State: the ring of (two k boxes of 32 x 32, v^T
+// hi and lo of 32 x NV), cum (float64), w and g of the chunk, the total
+// (float64), the barriers.  Output: the q boxes, the ring of (a box of 32
+// x NV or 32 x 64 and its lo), cum (float64) and g of the chunk, q .
+// n_prev of the rows, n_prev, the barriers.
+__host__ __device__ inline int gt_state_smem(int nv, int chunk) {
+    return 1024 + gt_state_stages(nv) * (GT_KBOX + 256 * nv) + 16 * chunk + 8 +
+           8 * gt_state_stages(nv);
+}
+__host__ __device__ inline int gt_out_smem(int nv, int dk, int chunk) {
+    return 1024 + ((dk + 31) / 32) * GT_KBOX + GT_STAGES * 256 * nv + 12 * chunk +
+           4 * (64 + dk) + 8 * (GT_STAGES + 1);
+}
+
+// d += A B over one k8 step in 3xTF32: A (hi, lo) in registers, B (hi, lo)
+// K-major in shared memory.
+template <int N>
+__device__ __forceinline__ void mma3(float* d, const unsigned* ahi, const unsigned* alo,
+                                     uint64_t bhi, uint64_t blo) {
+    Wgmma<float, N>::template mma_rs<0>(d, ahi, bhi);
+    Wgmma<float, N>::template mma_rs<0>(d, ahi, blo);  // fault site: tf32x3 lo product
+    Wgmma<float, N>::template mma_rs<0>(d, alo, bhi);  // fault site: tf32x3 lo product
+}
+
+__device__ __forceinline__ void split(float x, unsigned& hi, unsigned& lo) {
+    const float h = tf32_hi(x);
+    hi = __float_as_uint(h);
+    lo = __float_as_uint(x - h);
+}
+
+// Element (row, col) of a 128-byte-swizzled box of float32 rows of 32.
+__device__ __forceinline__ float sw_at(const unsigned char* box, int row, int col) {
+    return *(const float*)(box + row * 128 + ((((col >> 2) ^ (row & 7))) << 4) + (col & 3) * 4);
+}
+
+// v (BH, S, Dv) -> v^T (BH, Dv, S) hi and lo, the steps of each group of 8
+// in the order 0 2 4 6 1 3 5 7.  One CTA per (b*h, 32 steps), Dv in tiles
+// of 32 through shared memory.
+__global__ void __launch_bounds__(256) gla_vt_kernel(const float* v, float* vt_hi, float* vt_lo,
+                                                     int s, int dv) {
+    __shared__ float tile[32][33];
+    const int n_st = s / 32, tx = threadIdx.x & 31, ty = threadIdx.x >> 5;
+    const long long bh = blockIdx.x / n_st;
+    const int s0 = (int)(blockIdx.x % n_st) * 32;
+    const int k = tx & 7, from = (tx & ~7) + (k < 4 ? 2 * k : 2 * k - 7);
+    const float* src = v + (bh * s + s0) * dv;
+    for (int p0 = 0; p0 < dv; p0 += 32) {
+        __syncthreads();
+        for (int r = ty; r < 32; r += 8)
+            tile[r][tx] = p0 + tx < dv ? src[(long long)r * dv + p0 + tx] : 0.0f;
+        __syncthreads();
+        for (int r = ty; r < 32 && p0 + r < dv; r += 8) {
+            const float x = tile[from][r], hi = tf32_hi(x);
+            const long long o = (bh * dv + p0 + r) * s + s0 + tx;
+            vt_hi[o] = hi;
+            vt_lo[o] = x - hi;
+        }
+    }
+}
+
+template <int NV>
+__global__ void __launch_bounds__(GW_THREADS) gla_state_tf32_kernel(
+        const __grid_constant__ GlaParams p, const __grid_constant__ GlaState3 st,
+        const __grid_constant__ CUtensorMap tk, const __grid_constant__ CUtensorMap tvh,
+        const __grid_constant__ CUtensorMap tvl) {
+    constexpr int STAGES = NV == 64 ? 3 : 2, VBOX = NV * 128;
+    constexpr int STAGE = GT_KBOX + 2 * VBOX;  // an item: 32 steps of k (two boxes) and v^T hi, lo
+    extern __shared__ __align__(16) unsigned char ts_raw[];
+    unsigned char* ring = ts_raw + ((1024 - (smem_u32(ts_raw) & 1023)) & 1023);
+    const int L = p.chunk, dk = p.dk, dv = p.dv;
+    double* cum = (double*)(ring + STAGES * STAGE);  // [L]
+    float* wv = (float*)(cum + L);                   // [L] w
+    float* gv = wv + L;                              // [L] g
+    double* tot = (double*)(gv + L);                 // the chunk's total
+    uint64_t* full = (uint64_t*)(tot + 1);
+
+    const int nc = p.s / L, per = L / 32, n_items = nc * per;
+    const int ndv = (dv + NV - 1) / NV, ndk = (dk + 63) / 64;
+    const int dvt = (int)(blockIdx.x % ndv), dkt = (int)((blockIdx.x / ndv) % ndk);
+    const long long bh = blockIdx.x / ((unsigned)ndv * ndk);
+    const int d0 = dkt * 64, p0 = dvt * NV;
+    const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
+    const bool norm = p.normalize && dvt == 0;  // CTA-uniform
+    float* chi = (float*)st.c_hi;
+    float* clo = (float*)st.c_lo;
+    float* nst = (float*)st.n;
+
+    if (tid == 0) {
+        for (int s = 0; s < STAGES; ++s) mbar_init(&full[s], 1);
+        asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    }
+    __syncthreads();
+    // item j: steps 32 j .. 32 j + 31 of the sequence, k's 64 rows of Dk
+    // in two boxes, v^T's Dv tile hi and lo
+    auto fetch = [&](int j) {
+        const int s = j % STAGES;
+        unsigned char* dst = ring + s * STAGE;
+        mbar_expect_tx(&full[s], STAGE);
+        tma_load3(&tk, dst, &full[s], d0, 32 * j, (int)bh);
+        tma_load3(&tk, dst + GT_KBOX / 2, &full[s], d0 + 32, 32 * j, (int)bh);
+        tma_load3(&tvh, dst + GT_KBOX, &full[s], 32 * j, p0, (int)bh);
+        tma_load3(&tvl, dst + GT_KBOX + VBOX, &full[s], 32 * j, p0, (int)bh);
+    };
+    if (tid == 0)
+        for (int j = 0; j < STAGES - 1 && j < n_items; ++j) fetch(j);
+
+    float d[NV / 2];
+#pragma unroll
+    for (int i = 0; i < NV / 2; ++i) d[i] = 0.0f;
+    float n_run[2] = {0.0f, 0.0f};  // n of rows d0 + 16 warp + g (+ 8), in every lane of the quad
+    for (int c = 0; c < nc; ++c) {
+        // the chunk's carry weights (every reader of the last chunk's is
+        // past the barrier of its last item)
+        gw_decays(cum, gv, p, bh * p.s + (long long)c * L, L);
+        __syncthreads();
+        if (warp == 0) {
+            const double total = gw_scan(cum, L, lane);
+            for (int i = lane; i < L; i += 32) wv[i] = expf((float)(total - cum[i])) * gv[i];
+            if (lane == 0) *tot = total;
+        }
+        __syncthreads();
+        const float et = (float)exp(*tot);
+        // C_prev(c)^T, split, and n_prev(c)
+        const long long cb = bh * nc + c;
+#pragma unroll
+        for (int i = 0; i < NV / 2; ++i) {
+            int r, col;
+            frag_mn(i, tid, r, col);
+            if (d0 + r < dk && p0 + col < dv) {
+                const long long off = (cb * dv + p0 + col) * dk + d0 + r;
+                const float hi = tf32_hi(d[i]);
+                chi[off] = hi;
+                clo[off] = d[i] - hi;
+            }
+        }
+        if (norm && t == 0)
+#pragma unroll
+            for (int rr = 0; rr < 2; ++rr) {
+                const int row = d0 + 16 * warp + g + 8 * rr;
+                if (row < dk) nst[cb * dk + row] = n_run[rr];
+            }
+#pragma unroll
+        for (int i = 0; i < NV / 2; ++i) d[i] *= et;
+
+        float nacc[2] = {0.0f, 0.0f};
+        for (int u = 0; u < per; ++u) {
+            const int j = c * per + u, s = j % STAGES;
+            const unsigned char* kb = ring + s * STAGE;
+            mbar_wait(&full[s], (j / STAGES) & 1);
+            // A = (k w)^T: rows 16 warp + g (+ 8) of the 64 of Dk, k8 step kk
+            // at steps 8 kk + 2 t and 8 kk + 2 t + 1 (v^T's order)
+            unsigned ahi[4][4], alo[4][4];
+#pragma unroll
+            for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+                for (int e = 0; e < 4; ++e) {
+                    const int m = 16 * warp + g + 8 * (e & 1), step = 8 * kk + 2 * t + (e >> 1);
+                    const float x = sw_at(kb + (m >> 5) * (GT_KBOX / 2), step, m & 31) *
+                                    wv[u * 32 + step];
+                    nacc[e & 1] += x;
+                    split(x, ahi[kk][e], alo[kk][e]);
+                }
+            // every thread has gathered item j and is done with item j - 1,
+            // whose slot item j + STAGES - 1 refills
+            __syncthreads();
+            if (tid == 0 && j + STAGES - 1 < n_items) fetch(j + STAGES - 1);
+            const unsigned char* vh = kb + GT_KBOX;
+            fence_regs<NV / 2>(d);
+            wgmma_fence();
+#pragma unroll
+            for (int kk = 0; kk < 4; ++kk)
+                mma3<NV>(d, ahi[kk], alo[kk], sw128_desc(vh + kk * 32),
+                         sw128_desc(vh + VBOX + kk * 32));
+            wgmma_commit();
+            wgmma_wait<0>();
+            fence_regs<NV / 2>(d);
+        }
+        if (norm)
+#pragma unroll
+            for (int rr = 0; rr < 2; ++rr) {
+                nacc[rr] += __shfl_xor_sync(0xffffffffu, nacc[rr], 1);
+                nacc[rr] += __shfl_xor_sync(0xffffffffu, nacc[rr], 2);
+                n_run[rr] = et * n_run[rr] + nacc[rr];
+            }
+    }
+}
+
+// A fragment of q for k8 step ``kk`` of a q box (64 rows of 32 of Dk),
+// split: (g, t), (g + 8, t), (g, t + 4), (g + 8, t + 4) of the warp's rows.
+__device__ __forceinline__ void q_frag(const unsigned char* box, int kk, int warp, int g, int t,
+                                       unsigned* hi, unsigned* lo) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+        split(sw_at(box, 16 * warp + g + 8 * (e & 1), 8 * kk + t + 4 * (e >> 1)), hi[e], lo[e]);
+}
+
+template <int NV>
+__global__ void __launch_bounds__(GW_THREADS) gla_output_tf32_kernel(
+        const __grid_constant__ GlaParams p, const __grid_constant__ GlaState3 st,
+        const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+        const __grid_constant__ CUtensorMap tvh, const __grid_constant__ CUtensorMap tvl,
+        const __grid_constant__ CUtensorMap tch, const __grid_constant__ CUtensorMap tcl) {
+    constexpr int HALF = NV * 128, STAGE = 2 * HALF;  // an item: a box and its lo
+    extern __shared__ __align__(16) unsigned char gt_raw[];
+    unsigned char* smem = gt_raw + ((1024 - (smem_u32(gt_raw) & 1023)) & 1023);
+    const int L = p.chunk, dk = p.dk, dv = p.dv;
+    const int nc = p.s / L, nr = L / 64, nd = (dk + 31) / 32, ndv = (dv + NV - 1) / NV;
+    unsigned char* sq = smem;                          // [nd] boxes of the q tile
+    unsigned char* ring = sq + nd * GT_KBOX;           // [stage] a box, its lo
+    double* cum = (double*)(ring + GT_STAGES * STAGE); // [L]
+    float* gg = (float*)(cum + L);                     // [L]
+    float* qn = gg + L;                                // [64] q . n_prev of each row
+    float* nps = qn + 64;                              // [dk] n_prev
+    uint64_t* full = (uint64_t*)(nps + dk);
+    uint64_t* qbar = full + GT_STAGES;
+
+    unsigned long long bid = blockIdx.x;
+    const int dvt = (int)(bid % ndv);
+    bid /= ndv;
+    const int rt = nr - 1 - (int)(bid % nr);  // the longest row tiles of a chunk first
+    bid /= nr;
+    const int c = (int)(bid % nc);
+    const long long bh = (long long)(bid / nc);
+    const int t0 = rt * 64, p0 = dvt * NV, lp = t0 + 64;
+    const long long row0 = (long long)c * L;  // the chunk's first step
+    const int n_items = nd + (rt + 1) * (nd + 2);
+    const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
+
+    if (tid == 0) {
+        for (int s = 0; s < GT_STAGES; ++s) mbar_init(&full[s], 1);
+        mbar_init(qbar, 1);
+        asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    }
+    __syncthreads();
+    // items: nd boxes of C_prev^T (NV rows of Dv, 32 of Dk; hi, lo), then
+    // per s tile up to the diagonal its nd k boxes (64 steps, 32 of Dk) and
+    // two v^T items (NV rows of Dv, 32 steps; hi, lo)
+    auto fetch = [&](int j) {
+        const int s = j % GT_STAGES;
+        unsigned char* dst = ring + s * STAGE;
+        if (j < nd) {
+            mbar_expect_tx(&full[s], STAGE);
+            tma_load3(&tch, dst, &full[s], 32 * j, p0, (int)(bh * nc + c));
+            tma_load3(&tcl, dst + HALF, &full[s], 32 * j, p0, (int)(bh * nc + c));
+            return;
+        }
+        const int jj = j - nd, part = jj % (nd + 2);
+        const int srow = (int)(row0 + 64 * (jj / (nd + 2)));
+        if (part < nd) {
+            mbar_expect_tx(&full[s], GT_KBOX);
+            tma_load3(&tk, dst, &full[s], 32 * part, srow, (int)bh);
+        } else {
+            const int s0 = srow + 32 * (part - nd);
+            mbar_expect_tx(&full[s], STAGE);
+            tma_load3(&tvh, dst, &full[s], s0, p0, (int)bh);
+            tma_load3(&tvl, dst + HALF, &full[s], s0, p0, (int)bh);
+        }
+    };
+    if (tid == 0) {
+        mbar_expect_tx(qbar, nd * GT_KBOX);
+        for (int j = 0; j < nd; ++j)
+            tma_load3(&tq, sq + j * GT_KBOX, qbar, 32 * j, (int)(row0 + t0), (int)bh);
+        for (int j = 0; j < GT_STAGES - 1 && j < n_items; ++j) fetch(j);
+    }
+    // the chunk's decays up to this tile's last row
+    gw_decays(cum, gg, p, bh * p.s + row0, lp);
+    if (p.normalize) {
+        const float* np = (const float*)st.n + (bh * nc + c) * dk;
+        for (int i = tid; i < dk; i += GW_THREADS) nps[i] = np[i];
+    }
+    __syncthreads();
+    if (warp == 0) gw_scan(cum, lp, lane);  // the first item's barrier publishes it
+    mbar_wait(qbar, 0);
+    if (p.normalize) {
+        // q . n_prev: two threads a row, 16 columns of each box apiece
+        const int r = tid >> 1, h = tid & 1;
+        float acc = 0.0f;
+        for (int b = 0; b < nd; ++b)
+#pragma unroll
+            for (int e = 0; e < 16; ++e) {
+                const int col = 16 * h + e;
+                if (32 * b + col < dk) acc += sw_at(sq + b * GT_KBOX, r, col) * nps[32 * b + col];
+            }
+        acc += __shfl_xor_sync(0xffffffffu, acc, 1);
+        if (h == 0) qn[r] = acc;
+    }
+
+    int j = 0;
+    // wait for item j (a k box: split it in place, lo beside it); the
+    // barrier also frees item j - 1's slot for the refill
+    auto take = [&](bool split_box) -> const unsigned char* {
+        const int s = j % GT_STAGES;
+        unsigned char* it = ring + s * STAGE;
+        mbar_wait(&full[s], (j / GT_STAGES) & 1);
+        if (split_box) {
+#pragma unroll
+            for (int q = 0; q < GT_KBOX / 16 / GW_THREADS; ++q) {
+                float4* x = (float4*)it + tid + q * GW_THREADS;
+                const float4 v = *x;
+                const float4 h = make_float4(tf32_hi(v.x), tf32_hi(v.y), tf32_hi(v.z), tf32_hi(v.w));
+                *x = h;
+                *(float4*)(it + GT_KBOX + 16 * (tid + q * GW_THREADS)) =
+                    make_float4(v.x - h.x, v.y - h.y, v.z - h.z, v.w - h.w);
+            }
+            fence_async_smem();
+        }
+        __syncthreads();
+        if (tid == 0 && j + GT_STAGES - 1 < n_items) fetch(j + GT_STAGES - 1);
+        ++j;
+        return it;
+    };
+
+    // inter: O = q C_prev over Dk, then scale exp(cum_t) by row
+    float o[NV / 2];
+#pragma unroll
+    for (int i = 0; i < NV / 2; ++i) o[i] = 0.0f;
+    unsigned ahi[4][4], alo[4][4];
+    for (int b = 0; b < nd; ++b) {
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) q_frag(sq + b * GT_KBOX, kk, warp, g, t, ahi[kk], alo[kk]);
+        const unsigned char* cbx = take(false);
+        fence_regs<NV / 2>(o);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+            mma3<NV>(o, ahi[kk], alo[kk], sw128_desc(cbx + kk * 32), sw128_desc(cbx + HALF + kk * 32));
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs<NV / 2>(o);
+    }
+    const int rq = warp * 16 + g;  // rows rq and rq + 8 of the tile
+    const float ec[2] = {(float)exp(cum[t0 + rq]), (float)exp(cum[t0 + rq + 8])};
+#pragma unroll
+    for (int i = 0; i < NV / 2; ++i) o[i] *= p.scale * ec[(i >> 1) & 1];
+
+    // intra: the s tiles up to the diagonal
+    float rs[2] = {0.0f, 0.0f};
+    for (int stl = 0; stl <= rt; ++stl) {
+        float sc[32];
+#pragma unroll
+        for (int i = 0; i < 32; ++i) sc[i] = 0.0f;
+        for (int b = 0; b < nd; ++b) {
+#pragma unroll
+            for (int kk = 0; kk < 4; ++kk) q_frag(sq + b * GT_KBOX, kk, warp, g, t, ahi[kk], alo[kk]);
+            const unsigned char* kb = take(true);
+            fence_regs<32>(sc);
+            wgmma_fence();
+#pragma unroll
+            for (int kk = 0; kk < 4; ++kk)
+                mma3<64>(sc, ahi[kk], alo[kk], sw128_desc(kb + kk * 32),
+                         sw128_desc(kb + GT_KBOX + kk * 32));
+            wgmma_commit();
+            wgmma_wait<0>();
+            fence_regs<32>(sc);
+        }
+        // P = S scale exp(cum_t - cum_s) g_s, the mask inside the exp
+#pragma unroll
+        for (int i = 0; i < 32; ++i) {
+            const int r = (i >> 1) & 1, tt = t0 + rq + 8 * r;
+            const int s = 64 * stl + (i >> 2) * 8 + t * 2 + (i & 1);
+            const float x =
+                sc[i] * p.scale * expf(tt >= s ? (float)(cum[tt] - cum[s]) : -INFINITY) * gg[s];
+            sc[i] = x;
+            rs[r] += x;
+        }
+        // O += P V, 32 steps an item: P's k8 step kk is its registers 4 kk
+        // (row g, step 2t), 4 kk + 2 (g + 8, 2t), 4 kk + 1 (g, 2t + 1),
+        // 4 kk + 3 (g + 8, 2t + 1), which v^T's order of steps matches
+        for (int u = 0; u < 2; ++u) {
+#pragma unroll
+            for (int kk = 0; kk < 4; ++kk) {
+                const int i = 4 * (4 * u + kk);
+                split(sc[i], ahi[kk][0], alo[kk][0]);
+                split(sc[i + 2], ahi[kk][1], alo[kk][1]);
+                split(sc[i + 1], ahi[kk][2], alo[kk][2]);
+                split(sc[i + 3], ahi[kk][3], alo[kk][3]);
+            }
+            const unsigned char* vb = take(false);
+            fence_regs<NV / 2>(o);
+            wgmma_fence();
+#pragma unroll
+            for (int kk = 0; kk < 4; ++kk)
+                mma3<NV>(o, ahi[kk], alo[kk], sw128_desc(vb + kk * 32), sw128_desc(vb + HALF + kk * 32));
+            wgmma_commit();
+            wgmma_wait<0>();
+            fence_regs<NV / 2>(o);
+        }
+    }
+
+    // the row sums live in the quad of a row
+    float den[2] = {1.0f, 1.0f};
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+        rs[r] += __shfl_xor_sync(0xffffffffu, rs[r], 1);
+        rs[r] += __shfl_xor_sync(0xffffffffu, rs[r], 2);
+        if (p.normalize) den[r] = fmaxf(fabsf(rs[r] + p.scale * ec[r] * qn[rq + 8 * r]), 1.0f);
+    }
+    float* out = (float*)p.o;
+    const long long obase = bh * p.s + row0 + t0;
+#pragma unroll
+    for (int i = 0; i < NV / 2; i += 2) {
+        int row, col;
+        frag_mn(i, tid, row, col);
+        const int r = (i >> 1) & 1;
+        if (p0 + col < dv)
+            *(float2*)(out + (obase + row) * dv + p0 + col) = make_float2(o[i] / den[r], o[i + 1] / den[r]);
+    }
+}
+
+// The TMA map of a (heads, rows, width) float32 tensor: boxes of 32 x
+// ``box_rows``, zeros past ``width`` and ``rows``.
+static int gt_map(CUtensorMap* map, const void* ptr, int width, int rows, long long heads,
+                  int box_rows) {
+    const cuuint64_t dims[3] = {(cuuint64_t)width, (cuuint64_t)rows, (cuuint64_t)heads};
+    const cuuint64_t strides[2] = {(cuuint64_t)width * 4, (cuuint64_t)width * 4 * rows};
+    const cuuint32_t box[3] = {32, (cuuint32_t)box_rows, 1};
+    return tensor_map3(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, ptr, dims, strides, box);
+}
+
+template <int NV>
+static int launch_gt(const GlaParams* p, const GlaState3* sc, int n_bh, cudaStream_t st) {
+    const int nc = p->s / p->chunk;
+    alignas(64) CUtensorMap tq, tk, tk32, tvh, tvl, tch, tcl;
+    int rc = gt_map(&tq, p->q, p->dk, p->s, n_bh, 64);
+    if (!rc) rc = gt_map(&tk, p->k, p->dk, p->s, n_bh, 64);
+    if (!rc) rc = gt_map(&tk32, p->k, p->dk, p->s, n_bh, 32);
+    if (!rc) rc = gt_map(&tvh, sc->vt_hi, p->s, p->dv, n_bh, NV);
+    if (!rc) rc = gt_map(&tvl, sc->vt_lo, p->s, p->dv, n_bh, NV);
+    if (!rc) rc = gt_map(&tch, sc->c_hi, p->dk, p->dv, (long long)n_bh * nc, NV);
+    if (!rc) rc = gt_map(&tcl, sc->c_lo, p->dk, p->dv, (long long)n_bh * nc, NV);
+    if (rc) return rc;
+    const int s_bytes = gt_state_smem(NV, p->chunk), o_bytes = gt_out_smem(NV, p->dk, p->chunk);
+    cudaError_t e = cudaFuncSetAttribute(gla_state_tf32_kernel<NV>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, s_bytes);
+    if (e == cudaSuccess)
+        e = cudaFuncSetAttribute(gla_output_tf32_kernel<NV>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize, o_bytes);
+    if (e != cudaSuccess) return (int)e;
+    gla_vt_kernel<<<(unsigned)n_bh * (unsigned)(p->s / 32), 256, 0, st>>>(
+        (const float*)p->v, (float*)sc->vt_hi, (float*)sc->vt_lo, p->s, p->dv);
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return (int)e;
+    const unsigned ndv = (unsigned)((p->dv + NV - 1) / NV), ndk = (unsigned)((p->dk + 63) / 64);
+    gla_state_tf32_kernel<NV><<<(unsigned)n_bh * ndk * ndv, GW_THREADS, s_bytes, st>>>(
+        *p, *sc, tk32, tvh, tvl);
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return (int)e;
+    gla_output_tf32_kernel<NV><<<(unsigned)n_bh * (unsigned)(p->s / 64) * ndv, GW_THREADS, o_bytes,
+                                 st>>>(*p, *sc, tq, tk, tvh, tvl, tch, tcl);
+    return (int)cudaGetLastError();
+}
+
 extern "C" {
 
 // Launches one chunked GLA on the CUDA cores over ``n_bh`` = B * H rows of
@@ -803,6 +1325,20 @@ int stripe_gla_wgmma(const GlaParams* p, void* c, void* n, int n_bh, void* strea
     return p->dv <= 64 ? launch_gw<64>(p, &sc, n_bh, st) : launch_gw<128>(p, &sc, n_bh, st);
 }
 
+// Launches the tf32x3 path (float32; Dk, Dv multiples of 8, the chunk a
+// multiple of 64): v's transposed split copy, the state kernel, then the
+// output kernel, on ``stream``.  ``st`` holds the scratch tensors: C_prev^T
+// hi and lo (BH * NC, Dv, Dk), n_prev (BH * NC, Dk) and v^T hi and lo
+// (BH, Dv, S), all float32.  Returns cudaGetLastError(), an error code of
+// hopper.cuh, or -1 for inputs the path does not take.
+int stripe_gla_tf32x3(const GlaParams* p, const GlaState3* st, int n_bh, void* stream) {
+    if (p->qkv_dt != DT_F32 || p->out_dt != DT_F32 || p->dk % 8 || p->dv % 8 ||
+        p->chunk % 64 || p->s % p->chunk)
+        return -1;
+    const cudaStream_t cs = (cudaStream_t)stream;
+    return p->dv <= 64 ? launch_gt<64>(p, st, n_bh, cs) : launch_gt<128>(p, st, n_bh, cs);
+}
+
 // Shared memory of one CTA for (dk, chunk), in bytes.
 int stripe_gla_smem(int dk, int chunk) { return gla_smem_floats(dk, chunk) * (int)sizeof(float); }
 
@@ -812,6 +1348,14 @@ void stripe_gla_wgmma_smem(int dk, int dv, int chunk, long long* out) {
     const int nv = dv <= 64 ? 64 : 128;
     out[0] = gw_state_smem(nv, chunk);
     out[1] = gw_out_smem(nv, dk, chunk);
+}
+
+// Shared memory of the tf32x3 path's state and output kernels for (dk,
+// dv, chunk), in bytes.
+void stripe_gla_tf32x3_smem(int dk, int dv, int chunk, long long* out) {
+    const int nv = dv <= 64 ? 64 : 128;
+    out[0] = gt_state_smem(nv, chunk);
+    out[1] = gt_out_smem(nv, dk, chunk);
 }
 
 // Layout of GlaParams as this compiler laid it out, for the binding's check.

@@ -1,9 +1,10 @@
 // Hopper (sm_90a) building blocks shared by the tensor-core kernels
-// (contraction.cu, windowed.cu, flash_attention.cu): 16-byte cp.async
-// copies, mbarriers, 3-D TMA loads and the host's tensor-map encoder,
-// wgmma's shared-memory descriptors in the 128-byte swizzle, the wgmma
-// products themselves, and the map from an accumulator register to its
-// (row, column) in the warpgroup's tile.
+// (contraction.cu, windowed.cu, flash_attention.cu, gla.cu): 16-byte
+// cp.async copies, mbarriers, 3-D TMA loads and the host's tensor-map
+// encoder, wgmma's shared-memory descriptors in the 128-byte swizzle, the
+// wgmma products themselves (bf16, f16, int8, and tf32 with the split of a
+// float32 into two tf32 values for 3xTF32), and the map from an
+// accumulator register to its (row, column) in the warpgroup's tile.
 
 #pragma once
 
@@ -105,12 +106,13 @@ __device__ __forceinline__ uint64_t sw128_mn_desc(const void* p) {
 #define WG_64(c) WG_32(c), WG_8(c, 32), WG_8(c, 40), WG_8(c, 48), WG_8(c, 56)
 
 // d (+)= A (64 x K-step) * B (N x K-step), one K step of 32 bytes: k16 for
-// 16-bit types, k32 for int8.  ``mma``: A and B in shared memory; ``mma_rs``
-// (16-bit types): A in registers, four 32-bit registers of two elements in
-// the accumulator's own layout (frag_mn), which is how one product's
-// output feeds the next.  TB: B is MN-major (the transposed read wgmma
-// offers for 16-bit types only).  ``acc`` 0 overwrites d instead of adding.
-// N is 64 or 128; d holds N / 2 registers.
+// 16-bit types, k32 for int8, k8 for tf32 (float, below).  ``mma``: A and B
+// in shared memory (not for tf32); ``mma_rs`` (16-bit types and tf32): A in
+// registers, for 16-bit types four 32-bit registers of two elements in the
+// accumulator's own layout (frag_mn), which is how one product's output
+// feeds the next.  TB: B is MN-major (the transposed read wgmma offers for
+// 16-bit types only).  ``acc`` 0 overwrites d instead of adding.  N is 64
+// or 128; d holds N / 2 registers.
 template <typename S, int N = 128> struct Wgmma;
 
 template <> struct Wgmma<__nv_bfloat16, 128> {
@@ -187,6 +189,51 @@ template <> struct Wgmma<int8_t, 64> {
                      : WG_32("+r") : "l"(da), "l"(db), "r"(acc));
     }
 };
+
+// tf32: float32 operands of which the tensor cores read the sign, the
+// exponent and the top 10 mantissa bits; one K step of 32 bytes is k8.
+// Both operands K-major only: wgmma's transposed read (TB) exists for
+// 16-bit types alone, so a float32 operand that lies MN-major in memory
+// is transposed before it reaches shared memory, or gathered by the
+// threads into the register A operand.  Only ``mma_rs`` is here (the
+// 3xTF32 products split A in registers); A in four 32-bit
+// registers per thread, of rows g and g + 8 of the warp's 16 (g = lane /
+// 4) at columns t and t + 4 of the k8 step (t = lane % 4), in the order
+// (g, t), (g + 8, t), (g, t + 4), (g + 8, t + 4).
+template <> struct Wgmma<float, 128> {
+    template <int TB>
+    static __device__ __forceinline__ void mma_rs(float* d, const unsigned* a, uint64_t db,
+                                                  int acc = 1) {
+        static_assert(TB == 0, "wgmma reads 32-bit operands K-major only");
+        asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+                     "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 " WG_REGS
+                     ", {%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+                     : WG_64("+f")
+                     : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc));
+    }
+};
+template <> struct Wgmma<float, 64> {
+    template <int TB>
+    static __device__ __forceinline__ void mma_rs(float* d, const unsigned* a, uint64_t db,
+                                                  int acc = 1) {
+        static_assert(TB == 0, "wgmma reads 32-bit operands K-major only");
+        asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+                     "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 " WG_REGS32
+                     ", {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+                     : WG_32("+f")
+                     : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc));
+    }
+};
+
+// 3xTF32: a float32 x is hi + lo exactly, hi = x with its low 13 mantissa
+// bits cleared (a tf32 value, whatever the tensor cores do with the bits
+// they drop) and lo = x - hi (|lo| < 2^-10 |x|), of which the tensor
+// cores read the top bits in turn.  a b is then a_hi b_hi + a_hi b_lo +
+// a_lo b_hi, off by at most about 3 2^-20 |a| |b|.
+#define TF32_MASK 0xffffe000u
+__device__ __forceinline__ float tf32_hi(float x) {
+    return __uint_as_float(__float_as_uint(x) & TF32_MASK);
+}
 
 __device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
 __device__ __forceinline__ void wgmma_commit() { asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory"); }

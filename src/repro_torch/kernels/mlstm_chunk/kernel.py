@@ -10,12 +10,14 @@ recurrence
     n_t = decay_t * n_{t-1} + gain_t * k_t                (normalizer, optional)
     h_t = q_t @ C_t [/ max(|q_t . n_t|, 1)]
 
-evaluated chunk by chunk, decays in log space.  Two paths, picked by
+evaluated chunk by chunk, decays in log space.  Three paths, picked by
 :func:`path_of` before the launch: ``wgmma`` (bf16 on the tensor cores: a
 state kernel that writes the state before every chunk, then a
-chunk-parallel output kernel) and ``cuda_cores`` (one CTA per (b*h, 64
-columns of Dv) looping over the chunks, float32 arithmetic throughout);
-the source says how the work is laid out.
+chunk-parallel output kernel), ``tf32x3`` (float32 in the same two
+kernels, every product as three tf32 products, which keeps float32's
+accuracy) and ``cuda_cores`` (one CTA per (b*h, 64 columns of Dv) looping
+over the chunks, float32 arithmetic throughout); the source says how the
+work is laid out.
 
 :func:`chunked_gla` launches the kernel for CUDA tensors (raising on any
 failure) and runs its plain version, ``nn.scan_ops.chunked_gla_torch``,
@@ -39,7 +41,7 @@ from ...nn.scan_ops import chunked_gla_torch
 # Kernel launches since import (or since the caller last reset it), and
 # the same launches by path.
 launches = 0
-PATHS = ("wgmma", "cuda_cores")
+PATHS = ("wgmma", "tf32x3", "cuda_cores")
 launches_by_path = {p: 0 for p in PATHS}
 
 # The CUDA-core kernel's geometry (csrc/gla.cu): Dv columns per CTA, the
@@ -48,6 +50,10 @@ TV, TILE, KD, LD = 64, 64, 32, 68
 # The wgmma path's: rows of a tile (one warpgroup's m64; the chunk is a
 # multiple), the ring's depth and the bytes of one 64 x 64 bf16 box.
 WGMMA_ROWS, WGMMA_STAGES, WGMMA_BOX = 64, 3, 8192
+# The tf32x3 path's: the output kernel's ring depth and the bytes of one
+# box of 64 rows of 32 float32 (a q or k box; C_prev^T and v^T come in
+# boxes of NV rows of 32).
+TF32_STAGES, TF32_BOX = 3, 8192
 _TYPES = (torch.float32, torch.bfloat16)
 _SMEM_LIMIT = get_config("h100").mem("SMEM").size_bytes  # what one H100 block may use
 # CUDA's limit on grid x, where every kernel of both paths puts b*h
@@ -77,15 +83,36 @@ def wgmma_smem_bytes(dk: int, dv: int, chunk: int) -> tuple:
     return state, out
 
 
+def tf32x3_smem_bytes(dk: int, dv: int, chunk: int) -> tuple:
+    """Shared memory of the tf32x3 path's state and output kernels
+    (``gt_state_smem``, ``gt_out_smem`` in the source), 1024 bytes of each
+    for the swizzle's alignment; NV = 64 where Dv <= 64 else 128.  State: a
+    ring (3 stages at NV 64, else 2) of (two 32 x 32 k boxes, 4096 bytes
+    each, and v^T hi and lo, NV rows of 128 bytes each), then the chunk's
+    cum (float64), w and g, the total (float64), the barriers.  Output:
+    the q tile (Dk in boxes of 32), a ring of (a box of NV rows of 128
+    bytes and its lo), cum (float64) and g of the chunk, q . n_prev of the
+    rows, n_prev, the barriers."""
+    nv = 64 if dv <= 64 else 128
+    stages = 3 if nv == 64 else 2
+    state = 1024 + stages * (TF32_BOX + 256 * nv) + 16 * chunk + 8 + 8 * stages
+    out = (1024 + -(-dk // 32) * TF32_BOX + TF32_STAGES * 256 * nv + 12 * chunk
+           + 4 * (64 + dk) + 8 * (TF32_STAGES + 1))
+    return state, out
+
+
 def path_of(dtype: torch.dtype, dk: int, dv: int, chunk: int, aligned: bool = True) -> str:
-    """The path a call takes, decided before the launch: ``wgmma`` for
-    bf16 where Dk and Dv are multiples of 16, the chunk a multiple of 64
-    (the output kernel's row tiles) and q, k, v at 16-byte boundaries (TMA
-    reads them); ``cuda_cores`` for anything else, float32 above all,
-    whose semantics the tensor cores would break."""
-    if (dtype == torch.bfloat16 and dk % 16 == 0 and dv % 16 == 0 and chunk % WGMMA_ROWS == 0
-            and aligned):
-        return "wgmma"
+    """The path a call takes, decided before the launch, where q, k and v
+    lie at 16-byte boundaries (TMA reads them) and the chunk is a multiple
+    of 64 (the output kernels' row tiles): ``wgmma`` for bf16 where Dk and
+    Dv are multiples of 16 (wgmma's k16), ``tf32x3`` for float32 where they
+    are multiples of 8 (k8); ``cuda_cores`` for anything else (float16,
+    float32 at a chunk of 16 or 32 or at Dk 4)."""
+    if aligned and chunk % WGMMA_ROWS == 0:
+        if dtype == torch.bfloat16 and dk % 16 == 0 and dv % 16 == 0:
+            return "wgmma"
+        if dtype == torch.float32 and dk % 8 == 0 and dv % 8 == 0:
+            return "tf32x3"
     return "cuda_cores"
 
 
@@ -134,6 +161,63 @@ def gla_wgmma_bound(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                  normalize=False, scale=scale)
         moved = moved / norm.abs().clamp(min=1.0)
     return BF16_STEP * want.float().abs() + moved
+
+
+# The tf32x3 path against the plain version, element by element.  Every
+# product a b is computed as a_hi b_hi + a_hi b_lo + a_lo b_hi, where hi
+# is a with its low 13 mantissa bits cleared (exact: a tf32 value) and lo
+# = a - hi, |lo| < 2**-10 |a|, whose own low bits the tensor cores drop
+# (the H100 truncates them, by at most 2**-10 of |lo|: tests/
+# test_torch_cuda.py shows it): the dropped a_lo b_lo and the two lo
+# operands move the product by at most 3 * 2**-20 |a| |b|.  The products: (k w)^T v into the state, q
+# C_prev (C_prev carries the first's error, stored exactly as hi + lo), q
+# k^T into the scores (P moves by the same fraction of the same product
+# on |q|, |k|) and P V.  So the unnormalized output moves by at most 2 *
+# 3 * 2**-20 of the plain version on |q|, |k|, |v|, |gain| (each part,
+# inter and intra, meets two products: its own and the one before it).
+# Under ``normalize`` the row sums of P move by 3 * 2**-20 of the same
+# sums on |q|, |k|, and the denominator max(|norm|, 1) with them.
+TF32X3_EPS = 3 * 2.0 ** -20
+# the float32 accumulation's own error, in multiples of the plain float32
+# version's against the same computation in float64
+TF32X3_ACC = 4.0
+
+
+def gla_tf32x3_bound(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     log_decay: torch.Tensor, gain: torch.Tensor, want: torch.Tensor,
+                     chunk: int, normalize: bool = True, scale: float = 1.0) -> torch.Tensor:
+    """The largest difference, element by element, that the tf32x3 path
+    may show against ``want`` (the plain version's float32 output on the
+    same inputs, or the reference's):
+
+        (2 eps full + eps |exact| nsum) / den + |want - exact|
+            + 4 |plain - exact|
+
+    in float64, eps = 3 * 2**-20, where ``exact`` is the plain version in
+    float64 and ``plain`` in float32; full is the plain version
+    (unnormalized, float64) on |q|, |k|, |v|, |gain| and |scale|, nsum the
+    same for v = 1; den is 1, or under ``normalize`` max(|norm|, 1), norm
+    being the unnormalized output for v = 1 (the state then is n).  The
+    first term is the split's (the module's note above); |want - exact|
+    is the reference's own error, exactly; the last stands for the path's
+    float32 accumulation, whose order differs from the plain version's
+    and whose error is of the same kind.  Plain TF32, the lo terms
+    dropped, moves a product by up to 2**-10 of |a| |b| and exceeds it."""
+    d = torch.float64
+    qd, kd, vd, ld, gd = (t.to(d) for t in (q, k, v, log_decay, gain))
+
+    def gla(q_, k_, v_, ld_, g_, norm=False, sc=scale):
+        return chunked_gla_torch(q_, k_, v_, ld_, g_, chunk=chunk, normalize=norm, scale=sc)
+
+    exact = gla(qd, kd, vd, ld, gd, normalize)
+    plain = gla(*(t.float() for t in (q, k, v, log_decay, gain)), normalize).to(d)
+    moved = 2 * TF32X3_EPS * gla(qd.abs(), kd.abs(), vd.abs(), ld, gd.abs(), sc=abs(scale))
+    if normalize:
+        ones = torch.ones_like(vd[..., :1])
+        nsum = gla(qd.abs(), kd.abs(), ones, ld, gd.abs(), sc=abs(scale))
+        den = gla(qd, kd, ones, ld, gd).abs().clamp(min=1.0)
+        moved = (moved + TF32X3_EPS * exact.abs() * nsum) / den
+    return moved + (want.to(d) - exact).abs() + TF32X3_ACC * (plain - exact).abs()
 
 
 # ------------------------------------------------------------ chunk length
@@ -216,6 +300,11 @@ class _GlaParams(ctypes.Structure):
     ]
 
 
+class _GlaState3(ctypes.Structure):
+    """The tf32x3 path's scratch (``GlaState3`` in the source)."""
+    _fields_ = [(name, ctypes.c_void_p) for name in ("c_hi", "c_lo", "n", "vt_hi", "vt_lo")]
+
+
 def _bind(lib: ctypes.CDLL) -> None:
     lib.stripe_gla_launch.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
     lib.stripe_gla_launch.restype = ctypes.c_int
@@ -229,6 +318,11 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.stripe_gla_wgmma_smem.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int,
                                           ctypes.c_void_p]
     lib.stripe_gla_wgmma_smem.restype = None
+    lib.stripe_gla_tf32x3.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                                      ctypes.c_void_p]
+    lib.stripe_gla_tf32x3.restype = ctypes.c_int
+    lib.stripe_gla_tf32x3_smem.argtypes = lib.stripe_gla_wgmma_smem.argtypes
+    lib.stripe_gla_tf32x3_smem.restype = None
     _build.check_layout(lib.stripe_gla_layout,
                         (ctypes.sizeof(_GlaParams), _GlaParams.s.offset,
                          _GlaParams.qkv_dt.offset, _GlaParams.normalize.offset,
@@ -238,13 +332,16 @@ def _bind(lib: ctypes.CDLL) -> None:
             raise _build.KernelBuildError(
                 f"gla shared memory: C {lib.stripe_gla_smem(dk, chunk)} B, Python "
                 f"{smem_bytes(dk, chunk)} B (Dk {dk}, chunk {chunk})")
-    for dk, dv, chunk in ((16, 16, 64), (64, 64, 256), (384, 384, 256), (128, 80, 128)):
-        got = (ctypes.c_longlong * 2)()
-        lib.stripe_gla_wgmma_smem(dk, dv, chunk, ctypes.addressof(got))
-        if tuple(got) != wgmma_smem_bytes(dk, dv, chunk):
-            raise _build.KernelBuildError(
-                f"gla wgmma shared memory: C {tuple(got)} B, Python "
-                f"{wgmma_smem_bytes(dk, dv, chunk)} B (Dk {dk}, Dv {dv}, chunk {chunk})")
+    for dk, dv, chunk in ((16, 16, 64), (64, 64, 256), (384, 384, 256), (128, 80, 128),
+                          (40, 96, 128)):
+        for fn, py in ((lib.stripe_gla_wgmma_smem, wgmma_smem_bytes),
+                       (lib.stripe_gla_tf32x3_smem, tf32x3_smem_bytes)):
+            got = (ctypes.c_longlong * 2)()
+            fn(dk, dv, chunk, ctypes.addressof(got))
+            if tuple(got) != py(dk, dv, chunk):
+                raise _build.KernelBuildError(
+                    f"gla {fn.__name__}: C {tuple(got)} B, Python {py(dk, dv, chunk)} B "
+                    f"(Dk {dk}, Dv {dv}, chunk {chunk})")
 
 
 def load_library() -> ctypes.CDLL:
@@ -274,6 +371,10 @@ def _launch(q, k, v, log_decay, gain, chunk: int, normalize: bool, scale: float,
         # the CTAs of the state kernel (b*h, 64 rows of Dk, 128 columns of
         # Dv) and of the output kernel (b*h, chunk, 64-row tile, the same)
         ctas = b * h * max(s // WGMMA_ROWS, -(-dk // 64)) * -(-dv // 128)
+    elif path == "tf32x3":
+        need = max(tf32x3_smem_bytes(dk, dv, chunk))
+        # the same two kernels, and v's transposed copy (b*h, 32 steps)
+        ctas = b * h * max(max(s // WGMMA_ROWS, -(-dk // 64)) * -(-dv // 128), s // 32)
     else:
         need = smem_bytes(dk, chunk)
         ctas = b * h * -(-dv // TV)
@@ -300,6 +401,17 @@ def _launch(q, k, v, log_decay, gain, chunk: int, normalize: bool, scale: float,
         n_prev = torch.empty((n_rows, dk), dtype=torch.float32, device=device)
         rc = lib.stripe_gla_wgmma(ctypes.addressof(p), c_prev.data_ptr(), n_prev.data_ptr(),
                                   b * h, stream)
+    elif path == "tf32x3":
+        # C_prev^T (transposed, split into hi and lo, float32 both) and
+        # n_prev, which the state kernel writes and the output kernel
+        # reads, and v^T split, which both read
+        n_rows = b * h * (s // chunk)
+        c_prev = torch.empty((2, n_rows, dv, dk), dtype=torch.float32, device=device)
+        n_prev = torch.empty((n_rows, dk), dtype=torch.float32, device=device)
+        vt = torch.empty((2, b * h, dv, s), dtype=torch.float32, device=device)
+        st = _GlaState3(c_hi=c_prev[0].data_ptr(), c_lo=c_prev[1].data_ptr(),
+                        n=n_prev.data_ptr(), vt_hi=vt[0].data_ptr(), vt_lo=vt[1].data_ptr())
+        rc = lib.stripe_gla_tf32x3(ctypes.addressof(p), ctypes.addressof(st), b * h, stream)
     else:
         rc = lib.stripe_gla_launch(ctypes.addressof(p), b * h, stream)
     _build.launch_rc(rc, f"gla ({path})")
@@ -317,8 +429,8 @@ def chunked_gla(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     plain version for CPU tensors.
 
     ``path``: None takes :func:`path_of`'s choice; ``"cuda_cores"`` forces
-    the CUDA-core kernel, to time it against the wgmma path on the same
-    inputs."""
+    the CUDA-core kernel, to time it against the wgmma or tf32x3 path on
+    the same inputs."""
     if path not in (None, "cuda_cores"):
         raise ValueError(f"path is None (the rule's choice) or 'cuda_cores', not {path!r}")
     chunk = _resolve(q, k, v, log_decay, gain, chunk)

@@ -12,7 +12,8 @@ def chunked_gla_torch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                       normalize: bool = True, scale: float = 1.0) -> torch.Tensor:
     """q/k: (B,H,S,Dk); v: (B,H,S,Dv); log_decay/gain: (B,H,S).  Returns
     (B,H,S,Dv) in ``q.dtype``.  A chunk that does not divide S is halved
-    until it does, as the reference's."""
+    until it does, as the reference's.  Computes in float32, or in float64
+    where q is float64 (the yardstick of the tf32x3 path's error bound)."""
     b, h, s, dk = q.shape
     dv = v.shape[-1]
     chunk = min(chunk, s)
@@ -24,15 +25,16 @@ def chunked_gla_torch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     def seg(x, dlast):
         return x.reshape(bh, n, chunk, dlast).transpose(0, 1)  # (n, bh, L, d)
 
-    qs = seg(q.float() * scale, dk)
-    ks = seg(k.float(), dk)
-    vs = seg(v.float(), dv)
-    lds = log_decay.reshape(bh, n, chunk).transpose(0, 1).float()
-    gs = gain.reshape(bh, n, chunk).transpose(0, 1).float()
+    acc = torch.float64 if q.dtype == torch.float64 else torch.float32
+    qs = seg(q.to(acc) * scale, dk)
+    ks = seg(k.to(acc), dk)
+    vs = seg(v.to(acc), dv)
+    lds = log_decay.reshape(bh, n, chunk).transpose(0, 1).to(acc)
+    gs = gain.reshape(bh, n, chunk).transpose(0, 1).to(acc)
     tril = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool, device=q.device))
 
-    C = torch.zeros((bh, dk, dv), dtype=torch.float32, device=q.device)
-    nvec = torch.zeros((bh, dk), dtype=torch.float32, device=q.device)
+    C = torch.zeros((bh, dk, dv), dtype=acc, device=q.device)
+    nvec = torch.zeros((bh, dk), dtype=acc, device=q.device)
     outs = []
     for qc, kc, vc, ldc, gc in zip(qs, ks, vs, lds, gs):
         cum = torch.cumsum(ldc, dim=-1)                      # (bh, L)

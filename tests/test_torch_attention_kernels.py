@@ -448,15 +448,21 @@ def test_gla_wgmma_emulation_matches_the_pallas_kernel(kind, normalize, chunk):
 
 def test_gla_path_rule():
     """bf16 with Dk and Dv multiples of 16, the chunk a multiple of 64 and
-    aligned inputs takes wgmma; everything else the CUDA cores."""
+    aligned inputs takes wgmma; float32 with Dk and Dv multiples of 8 and
+    the same chunk and alignment tf32x3; everything else the CUDA cores."""
     bf, f32 = torch.bfloat16, torch.float32
     for dk, dv, chunk in ((384, 384, 256), (64, 64, 256), (128, 64, 64), (16, 16, 64),
                           (48, 80, 128)):
         assert GLA.path_of(bf, dk, dv, chunk) == "wgmma", (dk, dv, chunk)
+    for dk, dv, chunk in ((384, 384, 256), (64, 64, 256), (128, 64, 64), (16, 16, 64),
+                          (40, 96, 128), (8, 8, 64), (48, 24, 192)):
+        assert GLA.path_of(f32, dk, dv, chunk) == "tf32x3", (dk, dv, chunk)
     assert GLA.path_of(bf, 128, 64, 64, aligned=False) == "cuda_cores"
-    for dtype, dk, dv, chunk in ((f32, 384, 384, 256), (f32, 64, 64, 256), (bf, 40, 64, 64),
-                                 (bf, 64, 24, 64), (bf, 64, 64, 32), (bf, 64, 64, 96),
-                                 (torch.float16, 64, 64, 64)):
+    assert GLA.path_of(f32, 128, 64, 64, aligned=False) == "cuda_cores"
+    for dtype, dk, dv, chunk in ((bf, 40, 64, 64), (bf, 64, 24, 64), (bf, 64, 64, 32),
+                                 (bf, 64, 64, 96), (torch.float16, 64, 64, 64),
+                                 (f32, 64, 64, 16), (f32, 64, 64, 32), (f32, 4, 64, 64),
+                                 (f32, 64, 12, 64), (f32, 64, 64, 96)):
         assert GLA.path_of(dtype, dk, dv, chunk) == "cuda_cores", (dtype, dk, dv, chunk)
 
 
@@ -464,13 +470,141 @@ def test_gla_target_widths_take_wgmma_in_bf16():
     """Phase 8's calls (xlstm-125m: S 2048, Dk = Dv = 384; zamba2-2.7b's
     SSD: S 4096, N = P = 64) at the chunk the autotiler picks take the
     wgmma path in bf16, and both of its kernels fit one CTA, two to an SM
-    at xlstm-125m's width."""
+    at xlstm-125m's width; in float32 they take tf32x3, whose state kernel
+    fits two CTAs to an SM and whose output kernel one at xlstm-125m's
+    width (its q tile alone is 96 KiB), three at the SSD's."""
     limit = get_config("h100").mem("SMEM").size_bytes
-    for seq, dk, dv in ((2048, 384, 384), (4096, 64, 64)):
+    for seq, dk, dv, outs in ((2048, 384, 384, 1), (4096, 64, 64, 3)):
         c = choose_chunk(seq, dk, dv)
         assert GLA.path_of(torch.bfloat16, dk, dv, c) == "wgmma"
-        assert GLA.path_of(torch.float32, dk, dv, c) == "cuda_cores"
+        assert GLA.path_of(torch.float32, dk, dv, c) == "tf32x3"
         assert 2 * max(GLA.wgmma_smem_bytes(dk, dv, c)) <= limit
+        state, out = GLA.tf32x3_smem_bytes(dk, dv, c)
+        assert 2 * state <= limit
+        assert outs * out <= limit < (outs + 1) * out
+
+
+# --------------------------------------- chunked GLA in float32 on the tensor cores
+def _tf32(x: torch.Tensor, rn: bool = False) -> torch.Tensor:
+    """x as the tensor cores read it in tf32: its low 13 mantissa bits
+    cleared, after rounding the rest to nearest (half away from zero) if
+    ``rn``."""
+    b = x.float().contiguous().view(torch.int32)
+    if rn:
+        b = b + 0x1000
+    return (b & -8192).view(torch.float32)
+
+
+def _mm_tf32(a, b, lo=True, rn=False):
+    """a @ b as the tf32x3 path computes it, a_hi b_hi + a_hi b_lo + a_lo
+    b_hi in float32 (hi cleared exactly, lo = x - hi read as tf32 by
+    truncation, or by rounding if ``rn``); with ``lo`` False plain TF32,
+    tf32(a) tf32(b)."""
+    if not lo:
+        return _tf32(a, rn) @ _tf32(b, rn)
+    ah, bh = _tf32(a), _tf32(b)
+    return ah @ bh + ah @ _tf32(b - bh, rn) + _tf32(a - ah, rn) @ bh
+
+
+def gla_tf32x3_emulation(q, k, v, log_decay, gain, chunk, normalize=True, scale=1.0, lo=True,
+                         rn=False):
+    """The float32 tf32x3 path's two-pass decomposition (csrc/gla.cu) on
+    the CPU, with its four products, (k w)^T v, q C_prev, q k^T and P V,
+    each computed as :func:`_mm_tf32` does, bit by bit, and the decays'
+    prefix sums in float64 as the kernels take them (differences to
+    float32 before the exp; exp(cum_t) and exp(total) in float64).  The state pass
+    records C_prev and n_prev before each chunk (float32; the kernel stores
+    C_prev as hi + lo, exactly) and carries C as exp(total) C + (k w)^T v,
+    n as exp(total) n + sum_s k_s w_s; the output pass takes every chunk at
+    once: scale exp(cum_t) q C_prev, P = q k^T scale exp(cum_t - cum_s)
+    g_s with the mask inside the exp, O += P V, the normalizer from the
+    row sums of P and scale exp(cum_t) q . n_prev.  ``lo`` False drops the
+    lo terms: plain TF32."""
+    b, h, s, dk = q.shape
+    dv, nc = v.shape[-1], s // chunk
+    qf = q.float().reshape(b * h, nc, chunk, dk)
+    kf = k.float().reshape(b * h, nc, chunk, dk)
+    vf = v.float().reshape(b * h, nc, chunk, dv)
+    g = gain.float().reshape(b * h, nc, chunk)
+    cum = torch.cumsum(log_decay.float().reshape(b * h, nc, chunk).double(), dim=-1)
+    total = cum[..., -1]
+    w = torch.exp((total[..., None] - cum).float()) * g
+    C, n = torch.zeros(b * h, dk, dv), torch.zeros(b * h, dk)
+    c_prev, n_prev = [], []
+    for c in range(nc):
+        c_prev.append(C)
+        n_prev.append(n)
+        kw = kf[:, c] * w[:, c, :, None]
+        et = torch.exp(total[:, c]).float()
+        C = et[:, None, None] * C + _mm_tf32(kw.transpose(1, 2), vf[:, c], lo, rn)
+        n = et[:, None] * n + kw.sum(dim=1)
+    c_prev, n_prev = torch.stack(c_prev, dim=1), torch.stack(n_prev, dim=1)
+    tril = torch.tril(torch.ones(chunk, chunk, dtype=torch.bool))
+    dmat = torch.where(tril, (cum[..., :, None] - cum[..., None, :]).float(),
+                       torch.tensor(-float("inf")))
+    p = _mm_tf32(qf, kf.transpose(-1, -2), lo, rn) * scale * torch.exp(dmat) * g[..., None, :]
+    ecum = torch.exp(cum).float()
+    o = scale * ecum[..., None] * _mm_tf32(qf, c_prev, lo, rn) + _mm_tf32(p, vf, lo, rn)
+    if normalize:
+        norm = p.sum(dim=-1) + scale * ecum * (qf * n_prev[:, :, None, :]).sum(dim=-1)
+        o = o / norm.abs().clamp(min=1.0)[..., None]
+    return o.reshape(b, h, s, dv)
+
+
+def _gla_f32_case(kind, normalize, chunk, dk, dv, S=256):
+    """Float32 q, k, v (B 1, H 2) and the gates of ``kind``, for both
+    packages: (jax inputs, torch inputs)."""
+    rng = np.random.RandomState(chunk + len(kind) + normalize + dk)
+    pairs = [_pair(rng.randn(1, 2, S, d) * 0.5) for d in (dk, dk, dv)]
+    pairs += [_pair(x) for x in _gla_gates(rng, kind, 1, 2, S)]
+    return tuple(j for j, _ in pairs), tuple(t for _, t in pairs)
+
+
+@pytest.mark.parametrize("chunk", [64, 128])
+@pytest.mark.parametrize("normalize", [True, False])
+@pytest.mark.parametrize("kind", ["mlstm", "ssd", "strong"])
+def test_gla_tf32x3_emulation_matches_the_pallas_kernel(kind, normalize, chunk):
+    """The decomposition of the tf32x3 path against the JAX kernel in
+    interpret mode (float32 inputs, Dk 128 != Dv 64, S 256): within 1e-4
+    of the largest output, and element by element within
+    ``kernel.gla_tf32x3_bound`` (largest error over bound <= 1); and
+    against the port's plain version the same way."""
+    jins, tins = _gla_f32_case(kind, normalize, chunk, 128, 64)
+    scale = 128 ** -0.5 if kind == "mlstm" else 1.0
+    want = j_gla.chunked_gla(*jins, chunk=chunk, normalize=normalize, scale=scale,
+                             interpret=True)
+    got = gla_tf32x3_emulation(*tins, chunk, normalize, scale)
+    plain = chunked_gla(*tins, chunk=chunk, normalize=normalize, scale=scale)
+    for ref in (torch.as_tensor(np.asarray(want, np.float32)), plain):
+        err = (got.double() - ref.double()).abs()
+        assert err.max().item() <= 1e-4 * (1 + ref.abs().max().item()), err.max().item()
+        bound = GLA.gla_tf32x3_bound(*tins, ref, chunk, normalize, scale)
+        excess = (err / bound).max().item()
+        print(f"{kind} normalize={normalize} chunk {chunk}: error / bound {excess:.3f}")
+        assert excess <= 1.0, excess
+
+
+@pytest.mark.parametrize("rn", [False, True])
+@pytest.mark.parametrize("kind,normalize,chunk,dk,dv", [
+    ("mlstm", True, 128, 384, 384),  # xlstm-125m's head width
+    ("ssd", False, 64, 64, 64),      # the SSD's
+    ("strong", True, 64, 128, 64),
+])
+def test_gla_tf32x3_bound_catches_plain_tf32(kind, normalize, chunk, dk, dv, rn):
+    """Plain TF32 (the emulation with the lo terms dropped, the operands
+    truncated or rounded to nearest) exceeds ``kernel.gla_tf32x3_bound``
+    against the plain version, where 3xTF32 on the same inputs stays
+    within it: the bound has teeth at K = 384 too."""
+    _, tins = _gla_f32_case(kind, normalize, chunk, dk, dv)
+    scale = dk ** -0.5 if kind == "mlstm" else 1.0
+    plain = chunked_gla(*tins, chunk=chunk, normalize=normalize, scale=scale)
+    bound = GLA.gla_tf32x3_bound(*tins, plain, chunk, normalize, scale)
+    excess = {}
+    for lo in (True, False):
+        got = gla_tf32x3_emulation(*tins, chunk, normalize, scale, lo=lo, rn=rn)
+        excess[lo] = ((got.double() - plain.double()).abs() / bound).max().item()
+    print(f"{kind} Dk {dk}: error / bound, 3xTF32 {excess[True]:.3f}, TF32 {excess[False]:.1f}")
+    assert excess[True] <= 1.0 < excess[False], excess
 
 
 def test_gla_path_argument_on_cpu_tensors():

@@ -464,22 +464,34 @@ def _gla_wgmma_excess(GLA, got, want, ins, chunk, normalize, scale):
     return (err / GLA.gla_wgmma_bound(*ins, want, chunk, normalize, scale)).max().item()
 
 
+def _gla_tf32x3_excess(GLA, got, want, ins, chunk, normalize, scale):
+    """The largest error of the GLA tf32x3 path over ``kernel.gla_tf32x3_bound``."""
+    torch.cuda.synchronize()
+    err = (got.double() - want.double()).abs()
+    return (err / GLA.gla_tf32x3_bound(*ins, want, chunk, normalize, scale)).max().item()
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("normalize", [True, False])
-@pytest.mark.parametrize("b,h,s,dk,dv,chunk,dtype", [
-    (1, 2, 64, 16, 24, 16, "float32"),
-    (2, 2, 128, 32, 32, 32, "float32"),
-    (1, 3, 256, 40, 96, 128, "float32"),   # two Dv tiles, Dk not a multiple of 32
-    (2, 2, 512, 64, 64, 256, "bfloat16"),  # two row tiles under the diagonal
-    (1, 2, 512, 384, 384, 256, "bfloat16"),  # xlstm-125m's head width
-    (2, 70, 256, 128, 64, 64, "bfloat16"),   # Dk != Dv; B*H = 140 over 132 SMs
-    (1, 3, 256, 48, 80, 128, "bfloat16"),    # ragged: zeros past Dk and Dv in the boxes
+@pytest.mark.parametrize("b,h,s,dk,dv,chunk,dtype,path", [
+    (1, 2, 64, 16, 24, 16, "float32", "cuda_cores"),
+    (2, 2, 128, 32, 32, 32, "float32", "cuda_cores"),
+    (1, 3, 256, 40, 96, 128, "float32", "tf32x3"),  # ragged: zeros past Dk and Dv in the boxes
+    (1, 2, 512, 384, 384, 256, "float32", "tf32x3"),  # xlstm-125m's head width
+    (2, 2, 512, 64, 64, 256, "float32", "tf32x3"),    # the SSD's (P = N = 64)
+    (2, 70, 256, 128, 64, 64, "float32", "tf32x3"),   # Dk != Dv; B*H = 140 over 132 SMs
+    (2, 2, 512, 64, 64, 256, "bfloat16", "wgmma"),  # two row tiles under the diagonal
+    (1, 2, 512, 384, 384, 256, "bfloat16", "wgmma"),  # xlstm-125m's head width
+    (2, 70, 256, 128, 64, 64, "bfloat16", "wgmma"),   # Dk != Dv; B*H = 140 over 132 SMs
+    (1, 3, 256, 48, 80, 128, "bfloat16", "wgmma"),    # ragged: zeros past Dk and Dv in the boxes
 ])
-def test_gla_kernel_matches_plain_on_the_card(b, h, s, dk, dv, chunk, dtype, normalize):
-    """The call's path (``path_of``: wgmma for these bf16 cases, the CUDA
-    cores for float32) against plain within the type's tolerance; a wgmma
-    call also element by element within ``kernel.gla_wgmma_bound``, and
-    the CUDA-core kernel on the same inputs against plain."""
+def test_gla_kernel_matches_plain_on_the_card(b, h, s, dk, dv, chunk, dtype, path, normalize,
+                                              capsys):
+    """The call's path (``path_of``) against plain within the type's
+    tolerance; a wgmma call also element by element within
+    ``kernel.gla_wgmma_bound``, a tf32x3 call within
+    ``kernel.gla_tf32x3_bound``, and either one's CUDA-core kernel on the
+    same inputs against plain."""
     from repro_torch.kernels.mlstm_chunk import kernel as GLA
     from repro_torch.nn.scan_ops import chunked_gla_torch
 
@@ -488,18 +500,27 @@ def test_gla_kernel_matches_plain_on_the_card(b, h, s, dk, dv, chunk, dtype, nor
     before, by_path = GLA.launches, dict(GLA.launches_by_path)
     got = GLA.chunked_gla(*ins, chunk=chunk, normalize=normalize, scale=0.5)
     torch.cuda.synchronize()
-    path = GLA.path_of(ins[0].dtype, dk, dv, chunk)
-    assert path == ("wgmma" if dtype == "bfloat16" else "cuda_cores")
+    assert GLA.path_of(ins[0].dtype, dk, dv, chunk) == path
     assert GLA.launches == before + 1
     assert GLA.launches_by_path[path] == by_path[path] + 1
     want = chunked_gla_torch(*ins, chunk=chunk, normalize=normalize, scale=0.5)
     _assert_kernel_close(got, want, f"chunked_gla ({path})")
-    if path == "wgmma":
-        excess = _gla_wgmma_excess(GLA, got, want, ins, chunk, normalize, 0.5)
-        assert excess <= 1.0, excess
-        cores = GLA.chunked_gla(*ins, chunk=chunk, normalize=normalize, scale=0.5,
-                                path="cuda_cores")
-        _assert_kernel_close(cores, want, "chunked_gla (cuda_cores)")
+    if path == "cuda_cores":
+        return
+    check = _gla_wgmma_excess if path == "wgmma" else _gla_tf32x3_excess
+    excess = check(GLA, got, want, ins, chunk, normalize, 0.5)
+    with capsys.disabled():
+        print(f"\n{path} B{b} H{h} S{s} Dk{dk} Dv{dv} chunk {chunk} normalize={normalize}: "
+              f"error / bound {excess:.3f}")
+    assert excess <= 1.0, excess
+    cores = GLA.chunked_gla(*ins, chunk=chunk, normalize=normalize, scale=0.5, path="cuda_cores")
+    _assert_kernel_close(cores, want, "chunked_gla (cuda_cores)")
+
+
+def _fault_sites(src, name):
+    """The lines of a kernel source marked ``// fault site: <name>``, where
+    the planted-fault tests change it."""
+    return [line for line in src.splitlines() if line.endswith(f"// fault site: {name}")]
 
 
 @pytest.mark.cuda
@@ -519,11 +540,11 @@ def test_the_gla_wgmma_bound_catches_a_planted_fault(tmp_path, monkeypatch, caps
     from repro_torch.nn.scan_ops import chunked_gla_torch
 
     _card()
-    line = "for (int i = 0; i < NV / 2; ++i) d[i] *= et;"
     for f in _build.CSRC.iterdir():
         shutil.copy(f, tmp_path / f.name)
     src = (tmp_path / "gla.cu").read_text()
-    assert src.count(line) == 1, line
+    (line,) = _fault_sites(src, "bf16 carry decay")
+    assert "*= et;" in line, line
     (tmp_path / "gla.cu").write_text(src.replace(line, line.replace("*= et", "*= 1.0f")))
     gen = torch.Generator(device="cuda").manual_seed(3)
     q, k, v = (torch.randn(1, 4, 1024, 128, generator=gen, device="cuda").bfloat16()
@@ -547,17 +568,79 @@ def test_the_gla_wgmma_bound_catches_a_planted_fault(tmp_path, monkeypatch, caps
 
 
 @pytest.mark.cuda
+def test_the_gla_tf32x3_bound_catches_a_planted_fault(tmp_path, monkeypatch, capsys):
+    """A copy of the sources whose 3xTF32 product keeps only a_hi b_hi
+    (plain TF32: the lo products removed) builds, runs tf32x3, and fails
+    the elementwise bound on an mLSTM (B 1, H 4, S 1024, Dk = Dv = 384,
+    chunk 256, forget-gate bias 3, normalized, float32).  A second copy
+    that also leaves the low mantissa bits in place (hi = x: the tensor
+    cores' own reading of a float32 as tf32) fails it too; whether its
+    output equals the first's bit for bit says whether the card truncates
+    those bits (equal) or rounds them.  Prints each error over the bound."""
+    import shutil
+
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.mlstm_chunk import kernel as GLA
+    from repro_torch.nn.scan_ops import chunked_gla_torch
+
+    _card()
+    mask = "#define TF32_MASK 0xffffe000u"
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    q, k, v = (torch.randn(1, 4, 1024, 384, generator=gen, device="cuda") for _ in range(3))
+    f_gate = 3.0 + torch.randn(1, 4, 1024, generator=gen, device="cuda")
+    i_gate = torch.randn(1, 4, 1024, generator=gen, device="cuda")
+    ins = (q, k, v, F.logsigmoid(f_gate), torch.exp(i_gate))
+    kw = {"chunk": 256, "normalize": True, "scale": 384 ** -0.5}
+    want = chunked_gla_torch(*ins, **kw)
+    outs, csrc = {}, _build.CSRC
+    for what, keep_bits in (("lo products removed", False),
+                            ("lo products removed, low bits left", True)):
+        src_dir = tmp_path / what.replace(" ", "_").replace(",", "")
+        src_dir.mkdir()
+        for f in csrc.iterdir():
+            shutil.copy(f, src_dir / f.name)
+        gla = (src_dir / "gla.cu").read_text()
+        lo_terms = _fault_sites(gla, "tf32x3 lo product")
+        assert len(lo_terms) == 2 and all("mma_rs" in line for line in lo_terms), lo_terms
+        for line in lo_terms:
+            gla = gla.replace(line + "\n", "")
+        (src_dir / "gla.cu").write_text(gla)
+        if keep_bits:
+            hdr = (src_dir / "hopper.cuh").read_text()
+            assert hdr.count(mask) == 1, mask
+            (src_dir / "hopper.cuh").write_text(hdr.replace(mask, "#define TF32_MASK 0xffffffffu"))
+        monkeypatch.setattr(_build, "CSRC", src_dir)
+        monkeypatch.setattr(_build, "_LIBS", {})
+        before = GLA.launches_by_path["tf32x3"]
+        outs[what] = got = GLA.chunked_gla(*ins, **kw)
+        assert GLA.launches_by_path["tf32x3"] == before + 1
+        excess = _gla_tf32x3_excess(GLA, got, want, ins, kw["chunk"], True, kw["scale"])
+        err = (got - want).abs().max().item()
+        with capsys.disabled():
+            print(f"\nplanted fault '{what}': error / bound {excess:.3f}, largest error "
+                  f"{err:.3e} (largest output {want.abs().max().item():.3e})")
+        assert excess > 1.0, (what, excess)
+    same = torch.equal(*outs.values())
+    with capsys.disabled():
+        print(f"the tensor cores {'truncate' if same else 'round'} the low 13 mantissa bits of "
+              f"a float32 read as tf32 (outputs bit for bit equal: {same})")
+
+
+@pytest.mark.cuda
 def test_b_times_h_over_65535_on_the_card():
-    """b*h rides on grid x, so B*H = 65536 runs: the GLA kernel on both
-    paths (bf16 on wgmma and on the CUDA cores, float32 on the CUDA cores)
-    and flash attention's CUDA-core kernel (float32), each against its
-    plain version."""
+    """b*h rides on grid x, so B*H = 65536 runs: the GLA kernel on every
+    path (bf16 on wgmma and on the CUDA cores, float32 on tf32x3 and on the
+    CUDA cores) and flash attention's CUDA-core kernel (float32), each
+    against its plain version."""
     from repro_torch.kernels.flash_attention import kernel as FA
     from repro_torch.kernels.mlstm_chunk import kernel as GLA
     from repro_torch.nn.scan_ops import chunked_gla_torch
 
     _card()
-    for dtype, path in (("bfloat16", None), ("bfloat16", "cuda_cores"), ("float32", None)):
+    for dtype, path in (("bfloat16", None), ("bfloat16", "cuda_cores"), ("float32", None),
+                        ("float32", "cuda_cores")):
         ins = _gla_case(1024, 64, 64, 16, 16, dtype, 11)
         by_path = dict(GLA.launches_by_path)
         got = GLA.chunked_gla(*ins, chunk=64, normalize=True, scale=0.5, path=path)
@@ -567,6 +650,8 @@ def test_b_times_h_over_65535_on_the_card():
         _assert_kernel_close(got, want, f"chunked_gla B*H 65536 ({dtype}, {ran})")
         if ran == "wgmma":
             assert _gla_wgmma_excess(GLA, got, want, ins, 64, True, 0.5) <= 1.0
+        if ran == "tf32x3":
+            assert _gla_tf32x3_excess(GLA, got, want, ins, 64, True, 0.5) <= 1.0
         del ins, got, want
     gen = torch.Generator(device="cuda").manual_seed(12)
     q, k, v = (torch.randn(1024, 64, 32, 32, generator=gen, device="cuda") for _ in range(3))
