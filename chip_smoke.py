@@ -101,12 +101,20 @@ and prints no result):
    shapes) and timed as in phase 2, beside its bound and, for flash,
    ``scaled_dot_product_attention`` (the yardstick; GLA has no single
    PyTorch call).  The bf16 flash call must run the ``wgmma`` kernel and
-   the float32 ones ``cuda_cores`` (``launches_by_path`` read around each
+   the float32 ones ``tf32x3`` (``launches_by_path`` read around each
    call); the wgmma output is also held element by element to
    ``kernel.wgmma_bound`` (one bf16 step plus what rounding P to bf16 can
    move it, about a tenth of the median output here: ``wgmma_excess``,
-   the largest error over its bound, must not exceed 1); the CUDA-core
-   design is timed on the bf16 case's inputs beside it (``cuda_cores_ms``).
+   the largest error over its bound, must not exceed 1), each tf32x3
+   output to ``kernel.flash_tf32x3_bound`` (what splitting every product
+   into three tf32 products can move it through the softmax, plus the
+   float32 plain version's own error against float64: ``tf32x3_excess``
+   <= 1); the CUDA-core design runs on each case's inputs, held against
+   plain (``cuda_cores_max_abs_err``) and timed in turns beside it
+   (``cuda_cores_ms``).  Beside SDPA as PyTorch picks its backend (the
+   math backend for float32 with GQA), the float32 rows time its
+   memory-efficient backend on kv expanded to Hq heads outside the timed
+   call (``library_efficient_ms``).
    Likewise the bf16 mLSTM and SSD calls must run the GLA kernel's
    ``wgmma`` path and the float32 ones ``tf32x3``; each wgmma output is
    held element by element to ``kernel.gla_wgmma_bound`` (what rounding k
@@ -118,9 +126,10 @@ and prints no result):
    printed beside either, with the CUDA-core kernel run on the same
    inputs, held against plain at its type's tolerance
    (``cuda_cores_max_abs_err``) and timed in turns.  A tf32x3 row's bound
-   is its bytes against three passes of its operations at the tensor
-   cores' TF32 rate, the rate that path computes at; its bound at the
-   CUDA cores' float32 rate stands beside it (``f32_cuda_core_bound_ms``).
+   (flash or GLA) is its bytes against three passes of its operations at
+   the tensor cores' TF32 rate, the rate that path computes at; its bound
+   at the CUDA cores' float32 rate stands beside it
+   (``f32_cuda_core_bound_ms``).
 
 Launch counts are read per path: every count is set to 0 just before the
 serve phase (path 1), before the sweep (path 2), before phase 8's calls
@@ -129,8 +138,8 @@ read just after each; the contraction kernel's ``launches_by_path``
 (skinny, tiled, general) is read the same way for the serve and sweep
 paths, and the serve path may launch no general loop; the windowed
 kernel's (igemm, general) for the sweep and ResNet paths, flash
-attention's (wgmma, cuda_cores) and the GLA kernel's (wgmma, tf32x3,
-cuda_cores) for path 3, all in
+attention's and the GLA kernel's (wgmma, tf32x3, cuda_cores) for path 3,
+all in
 the summary, which lists the six TPU kernels' counterparts
 (``stripe_matmul`` rides on the contraction kernel; its launches are
 phase 3's).  The
@@ -159,8 +168,8 @@ HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS_PER_S = 67e12
 PEAK_OPS = {"float32": F32_FLOPS_PER_S, "bfloat16": 989e12, "float16": 989e12,
             "int8": 1979e12}
-# the tensor cores' dense TF32 rate: the GLA kernel's tf32x3 path runs
-# every float32 product as three tf32 products at it
+# the tensor cores' dense TF32 rate: the flash and GLA kernels' tf32x3
+# paths run every float32 product as three tf32 products at it
 TF32_FLOPS_PER_S = 494.7e12
 # float32 sums of up to 14336 terms taken in another order, relative to
 # the largest output of the unit
@@ -922,6 +931,20 @@ def _sdpa(torch, q, k, v, causal):
             backend)
 
 
+def _sdpa_efficient(torch, q, k, v, causal):
+    """SDPA's memory-efficient backend on the same inputs, kv expanded to
+    Hq heads here, outside the timed call (the backend takes no GQA)."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    group = q.shape[1] // k.shape[1]
+    ke, ve = (t.repeat_interleave(group, dim=1) for t in (k, v))
+
+    def call():
+        with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
+            return torch.nn.functional.scaled_dot_product_attention(q, ke, ve, is_causal=causal)
+    return call
+
+
 def _attention_bound(torch, ins, out, pairs_macs: int) -> dict:
     """Bytes (each input read once, the output written once) over the HBM
     rate against ``pairs_macs`` multiply-adds over the peak of the inputs'
@@ -946,19 +969,22 @@ def _tf32x3_bound(row) -> dict:
             "t_ops_ms": t_ops, "f32_cuda_core_bound_ms": row["bound_ms"]}
 
 
-def _wgmma_check(torch, FA, what, got, want, q, k, v, causal) -> dict:
-    """The wgmma flash kernel held element by element to
-    ``kernel.wgmma_bound`` (one bf16 step of each output plus 2**-8 of the
-    attention of |v|, the most that rounding P to bf16 can move it): the
-    largest ratio of error to bound must not exceed 1.  Also the error's
-    norm relative to the output's."""
-    g, w = got.float(), want.float()
-    err = (g - w).abs()
-    excess = (err / FA.wgmma_bound(q, k, v, want, causal)).max().item()
+def _flash_check(torch, FA, what, path, got, want, q, k, v, causal) -> dict:
+    """A tensor-core flash kernel held element by element to its path's
+    bound: ``kernel.wgmma_bound`` (one bf16 step of each output plus 2**-8
+    of the attention of |v|, the most that rounding P to bf16 can move
+    it) or ``kernel.flash_tf32x3_bound`` (what the split of every product
+    into three tf32 products can move an output through the softmax, plus
+    the plain version's own float32 error against float64): the largest
+    ratio of error to bound must not exceed 1.  Also the error's norm
+    relative to the output's."""
+    bound = {"wgmma": FA.wgmma_bound, "tf32x3": FA.flash_tf32x3_bound}[path]
+    g, w = got.double(), want.double()
+    excess = ((g - w).abs() / bound(q, k, v, want, causal)).max().item()
     if not excess <= 1.0:
-        raise AssertionError(f"{what}: wgmma kernel off its elementwise bound "
+        raise AssertionError(f"{what}: {path} kernel off its elementwise bound "
                              f"(largest error / bound {excess:.3f})")
-    return {"wgmma_excess": excess, "norm_rel_err": ((g - w).norm() / w.norm()).item()}
+    return {f"{path}_excess": excess, "norm_rel_err": ((g - w).norm() / w.norm()).item()}
 
 
 def _gla_check(torch, GLA, what, path, got, want, ins, chunk, kw) -> dict:
@@ -1055,7 +1081,7 @@ def check_attention_kernels(torch, timer) -> dict:
     for name in ("flash_attention", "gla"):
         if counts[name] == 0:
             raise AssertionError(f"phase 8 launched no {name} kernel: {counts}")
-    want_paths = ["wgmma" if dt == "bfloat16" else "cuda_cores" for *_x, dt in FLASH_CASES]
+    want_paths = ["wgmma" if dt == "bfloat16" else "tf32x3" for *_x, dt in FLASH_CASES]
     if DEVICE == "cuda" and flash_paths != want_paths:
         raise AssertionError(f"flash paths {flash_paths}, want {want_paths}")
     want_gla = {f"{m} {ty}": "wgmma" if ty == "bfloat16" else "tf32x3"
@@ -1083,13 +1109,21 @@ def check_attention_kernels(torch, timer) -> dict:
         want = FA.flash_attention_plain(q, k, v, causal=causal)
         row.update(hold(what, "flash_attention", got, want, dt))
         row["path"] = FA.path_of(q.dtype, d)
-        if row["path"] == "wgmma":
-            row.update(_wgmma_check(torch, FA, what, got, want, q, k, v, causal))
+        if row["path"] in ("wgmma", "tf32x3"):
+            row.update(_flash_check(torch, FA, what, row["path"], got, want, q, k, v, causal))
         pairs = sum(min(i + 1, sk) for i in range(sq)) if causal else sq * sk
         row.update(_attention_bound(torch, (q, k, v), got, 2 * b * hq * pairs * d))
+        if row["path"] == "tf32x3":
+            row.update(_tf32x3_bound(row))
         lib, backend = _sdpa(torch, q, k, v, causal)
-        if row["path"] == "wgmma" and DEVICE == "cuda":
-            # the CUDA-core design on the same inputs, timed in turns
+        if DEVICE == "cuda":
+            # the CUDA-core design on the same inputs: held against plain,
+            # then timed in turns
+            before = FA.launches_by_path["cuda_cores"]
+            cores = FA.flash_attention(q, k, v, causal=causal, path="cuda_cores")
+            if FA.launches_by_path["cuda_cores"] != before + 1:
+                raise AssertionError(f"{what}: path='cuda_cores' launched no CUDA-core kernel")
+            row["cuda_cores_max_abs_err"] = _close(torch, cores, want, f"{what} (cuda_cores)")
             row["ms"], row["cuda_cores_ms"] = timer.turns(
                 lambda: FA.flash_attention(q, k, v, causal=causal),
                 lambda: FA.flash_attention(q, k, v, causal=causal, path="cuda_cores"))
@@ -1097,6 +1131,9 @@ def check_attention_kernels(torch, timer) -> dict:
             row["ms"] = timer(lambda: FA.flash_attention(q, k, v, causal=causal))
         row.update({"plain_ms": timer(lambda: FA.flash_attention_plain(q, k, v, causal=causal)),
                     "library_ms": _time_library(timer, lib, what), "library": backend})
+        if dt == "float32" and DEVICE == "cuda":
+            row["library_efficient_ms"] = _time_library(
+                timer, _sdpa_efficient(torch, q, k, v, causal), f"{what} (efficient)")
         rows.append(row)
 
     # the GLA rows: each entry point's output against the plain version of
@@ -1311,6 +1348,13 @@ def main() -> None:
     flash["cuda_cores_ms"] = attn["rows"][0].get("cuda_cores_ms")
     flash["wgmma_excess"] = attn["rows"][0].get("wgmma_excess")
     flash["launches_by_path"] = attn["flash_launches_by_path"]
+    # ... and the float32 calls (tf32x3), row by row
+    flash_f32 = [r for r in attn["rows"] if r["kernel"] == "flash_attention"
+                 and r["dtype"] == "float32"]
+    flash["tf32x3"] = {key: [r.get(key) for r in flash_f32]
+                       for key in ("ms", "cuda_cores_ms", "bound_ms", "f32_cuda_core_bound_ms",
+                                   "plain_ms", "library_ms", "library_efficient_ms",
+                                   "tf32x3_excess", "cuda_cores_max_abs_err")}
     # GLA: the bf16 mLSTM and SSD calls (wgmma), the CUDA-core design's
     # times beside them; launches: phase 8's path
     gla_rows = [r for r in attn["rows"] if r["kernel"] == "gla" and r["dtype"] == "bfloat16"]
@@ -1320,7 +1364,8 @@ def main() -> None:
     gla["cuda_cores_ms"] = sum(r["cuda_cores_ms"] for r in gla_rows)
     gla["wgmma_excess"] = max(r["wgmma_excess"] for r in gla_rows)
     gla["cuda_cores_max_abs_err"] = max((r["cuda_cores_max_abs_err"] for r in attn["rows"]
-                                         if "cuda_cores_max_abs_err" in r), default=None)
+                                         if r["kernel"] == "gla" and "cuda_cores_max_abs_err" in r),
+                                        default=None)
     gla["launches_by_path"] = attn["gla_launches_by_path"]
     # ... and the float32 calls (tf32x3), the same way
     f32_rows = [r for r in attn["rows"] if r["kernel"] == "gla" and r["dtype"] == "float32"]

@@ -100,7 +100,7 @@ def main() -> None:
     got = FA.flash_attention(q, k, v, causal=True)
     want = FA.flash_attention_plain(q, k, v, causal=True)
     err = chip_smoke._close(torch, got, want, what)
-    check = chip_smoke._wgmma_check(torch, FA, what, got, want, q, k, v, True)
+    check = chip_smoke._flash_check(torch, FA, what, "wgmma", got, want, q, k, v, True)
     ms, cores_ms = timer.turns(
         lambda: FA.flash_attention(q, k, v, causal=True),
         lambda: FA.flash_attention(q, k, v, causal=True, path="cuda_cores"))

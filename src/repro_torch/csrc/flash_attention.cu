@@ -1,5 +1,6 @@
-// Flash attention forward, GQA, causal or full: two CUDA kernels, one on
-// the tensor cores for bf16 and one on the CUDA cores for everything else.
+// Flash attention forward, GQA, causal or full: three paths, two on the
+// tensor cores (bf16; float32 in 3xTF32) and one on the CUDA cores for
+// everything else.
 //
 // Replaces: src/repro/kernels/flash_attention/kernel.py::flash_attention
 // (the pl.pallas_call at :137, body _fa_kernel at :63).  On the TPU the
@@ -43,11 +44,32 @@
 //   moves by at most 2^-8 of the attention of |v|, and the output's own
 //   rounding adds one bf16 step (kernel.wgmma_bound, which the tests and
 //   chip_smoke.py hold it to element by element).
-// cuda_cores (float32, other head dims): 8 warps; warp w owns R
-//   consecutive rows of the q tile (R = block_q / 8 rounded up to a power
-//   of two, a template parameter, so each thread keeps R rows of state in
-//   registers).  The Q tile lives in
-//   shared memory as float32 for the whole kv loop.  K and V come through
+// tf32x3 (float32, D 64 or 128): the wgmma kernel's structure in float32,
+//   every product as three tf32 products, a_hi b_hi + a_hi b_lo + a_lo
+//   b_hi (hi = x with its low 13 mantissa bits cleared, lo = x - hi), which
+//   moves a product by at most 3 2^-20 |a| |b| where plain TF32 moves it
+//   by 2^-10 (kernel.flash_tf32x3_bound carries that through the softmax).
+//   wgmma reads 32-bit operands K-major only, so a prep kernel
+//   (flash_split_kernel) writes K split, hi and lo (B*Hkv, Sk, D), and V
+//   transposed and split, (B*Hkv, D, Sk rounded up to 8, zeros past Sk),
+//   the keys of every 8 in the order 0 2 4 6 1 3 5 7: the score
+//   accumulator's registers (keys 2t, 2t + 1 of each 8) are then P's A
+//   operand (columns t, t + 4).  The main kernel (flash_tf32x3_kernel):
+//   128 q rows a CTA, two consumer warpgroups and a producer warpgroup
+//   (setmaxnreg moves its registers to the consumers), which loads Q once and keeps a ring of 32-key stages, K hi and lo and V^T
+//   hi and lo (64 KiB a stage at D 128: two stages and the 64 KiB Q tile
+//   fill 192 KiB, one CTA an SM; four at D 64).  Each consumer splits its
+//   64 Q rows once: hi back into the swizzled box, lo into registers
+//   (D / 2 of them), so S = Q K^T is Q_hi K_hi + Q_hi K_lo from shared
+//   memory and Q_lo K_hi from registers, m64n32k8 a step; then the online
+//   softmax as on the wgmma path (l sums the float32 P), P split in
+//   registers, and O += P V as three m64nDk8 products a step.  Its bound
+//   is operations at the TF32 rate, three times over.
+// cuda_cores (float32 or bf16 at other head dims, or misaligned): 8
+//   warps; warp w owns R consecutive rows of the q tile (R = block_q / 8
+//   rounded up to a power of two, a template parameter, so each thread
+//   keeps R rows of state in registers).  The Q tile lives in shared
+//   memory as float32 for the whole kv loop.  K and V come through
 //   shared memory 32 keys at a time, one key per lane: for its key a lane
 //   forms the R scores (float4 reads, the Q rows broadcast), the warp
 //   reduces max and sum with shuffles, and the probabilities go through a
@@ -57,9 +79,7 @@
 //   bf16: a template parameter) and convert to float32 once, on the way
 //   into shared memory.  Its shared-memory traffic (one float4 read of K
 //   plus R broadcast float4 reads of Q per 4R multiply-adds) caps the
-//   score loop near 80% of the float32 rate at R = 16.  For float32 it
-//   beats SDPA's math backend; TF32 tensor cores would break the
-//   reference's float32 semantics.
+//   score loop near 80% of the float32 rate at R = 16.
 
 #include "dag.cuh"
 #include "hopper.cuh"
@@ -364,7 +384,7 @@ __global__ void __launch_bounds__(FW_THREADS, 1) flash_wgmma_kernel(
             const int r = (i >> 1) & 1, key = kv0 + (i >> 2) * 8 + (t & 3) * 2 + (i & 1);
             float x = sc[i] * sl2;
             if (key >= p.sk) x = -INFINITY;  // past the keys: the TMA box's zero rows
-            else if (p.causal && r0 + 8 * r < key) x = FA_NEG;
+            else if (p.causal && r0 + 8 * r < key) x = FA_NEG;  // fault site: flash wgmma causal mask
             sc[i] = x;
             mx[r] = fmaxf(mx[r], x);
         }
@@ -387,7 +407,7 @@ __global__ void __launch_bounds__(FW_THREADS, 1) flash_wgmma_kernel(
         l[0] = l[0] * alpha[0] + ps[0];
         l[1] = l[1] * alpha[1] + ps[1];
 #pragma unroll
-        for (int i = 0; i < D / 2; ++i) o[i] *= alpha[(i >> 1) & 1];
+        for (int i = 0; i < D / 2; ++i) o[i] *= alpha[(i >> 1) & 1];  // fault site: flash wgmma rescale
 
         // O += P V: P as bf16 register fragments, 16 keys a step
         unsigned a[FW_BN / 16][4];
@@ -447,6 +467,262 @@ static int launch_fw(const FaParams* p, int n_bh, cudaStream_t st) {
     if (e != cudaSuccess) return (int)e;
     const unsigned grid = (unsigned)n_bh * (unsigned)((p->sq + FW_BM - 1) / FW_BM);
     flash_wgmma_kernel<D><<<grid, FW_THREADS, bytes, st>>>(*p, tq, tk, tv);
+    return (int)cudaGetLastError();
+}
+
+// ============================================================ tf32x3 path
+#define FT_BM 128       // q rows a CTA: two consumer warpgroups of 64
+#define FT_BN 32        // keys a kv stage
+#define FT_THREADS 384  // two consumer warpgroups, one producer warpgroup
+// registers a thread: 168 at launch (384 threads on 64K registers); the
+// producer gives back all but 40, which lets each consumer hold 232
+#define FT_REGS_PRODUCER 40
+#define FT_REGS_CONSUMER 232
+static_assert(128 * FT_REGS_PRODUCER + 256 * FT_REGS_CONSUMER <= 168 * FT_THREADS,
+              "the warpgroups' registers exceed the CTA's at launch");
+#define FT_KBOX 4096    // bytes of a K box: 32 keys x 32 floats of D
+
+__host__ __device__ constexpr int ft_stages(int d) { return d == 64 ? 4 : 2; }
+// a stage: K hi and lo (D / 32 boxes each), V^T hi and lo (D rows of 32 keys)
+__host__ __device__ constexpr int ft_stage_bytes(int d) { return 2 * (d / 32) * FT_KBOX + 2 * d * 128; }
+// the Q tile (D / 32 boxes of 128 rows), the ring, the barriers; 1024 of
+// slack for the swizzle's alignment
+__host__ __device__ constexpr int ft_smem_bytes(int d) {
+    return 1024 + (d / 32) * FT_BM * 128 + ft_stages(d) * ft_stage_bytes(d) +
+           8 * (2 * ft_stages(d) + 1);
+}
+
+__device__ __forceinline__ void bar_sync(int id, int threads) {
+    asm volatile("bar.sync %0, %1;\n" :: "r"(id), "r"(threads) : "memory");
+}
+
+// k (B*Hkv, Sk, D) -> k hi and lo, the same layout; v (B*Hkv, Sk, D) ->
+// v^T hi and lo (B*Hkv, D, Skp), Skp = Sk rounded up to 8, zeros past Sk,
+// the keys of every 8 in the order 0 2 4 6 1 3 5 7.  One CTA per (b*Hkv,
+// 32 keys); D a multiple of 4.
+__global__ void __launch_bounds__(256) flash_split_kernel(const float* k, const float* v,
+                                                          float* kh, float* kl, float* vh,
+                                                          float* vl, int sk, int skp, int d) {
+    __shared__ float tile[32][33];
+    const int n_st = (skp + 31) / 32, s0 = (int)(blockIdx.x % n_st) * 32;
+    const long long bh = blockIdx.x / n_st, base = (bh * sk + s0) * d;
+    const float4* k4 = (const float4*)(k + base);
+    for (int i = threadIdx.x; i < min(32, sk - s0) * d / 4; i += 256) {
+        const float4 x = k4[i];
+        const float4 h = make_float4(tf32_hi(x.x), tf32_hi(x.y), tf32_hi(x.z), tf32_hi(x.w));
+        ((float4*)(kh + base))[i] = h;
+        ((float4*)(kl + base))[i] = make_float4(x.x - h.x, x.y - h.y, x.z - h.z, x.w - h.w);
+    }
+    transpose_split32(v + bh * sk * d, vh + bh * d * skp, vl + bh * d * skp, sk, d, skp, s0, tile);
+}
+
+// D: the head dim (64 or 128), in boxes of 32 floats (128 bytes)
+template <int D>
+__global__ void __launch_bounds__(FT_THREADS, 1) flash_tf32x3_kernel(
+        const __grid_constant__ FaParams p, const __grid_constant__ CUtensorMap tq,
+        const __grid_constant__ CUtensorMap tkh, const __grid_constant__ CUtensorMap tkl,
+        const __grid_constant__ CUtensorMap tvh, const __grid_constant__ CUtensorMap tvl) {
+    constexpr int NB = D / 32;          // boxes along the head dim
+    constexpr int QBOX = FT_BM * 128;   // bytes of a Q box: 128 rows x 32 of D
+    constexpr int VBOX = D * 128;       // ... of a V^T box: D rows x 32 keys
+    constexpr int STAGES = ft_stages(D), STAGE = ft_stage_bytes(D);
+    extern __shared__ __align__(16) unsigned char ft_raw[];
+    unsigned char* smem = ft_raw + ((1024 - (smem_u32(ft_raw) & 1023)) & 1023);
+    unsigned char* sq = smem;                // [box]
+    unsigned char* ring = sq + NB * QBOX;    // [stage]: K hi boxes, K lo boxes, V^T hi, V^T lo
+    uint64_t* full = (uint64_t*)(ring + STAGES * STAGE);
+    uint64_t* empty = full + STAGES;
+    uint64_t* qbar = empty + STAGES;
+
+    // grid x: every head's q tile of one row range, then the next range,
+    // the longest causal tiles first
+    const int n_qt = (p.sq + FT_BM - 1) / FT_BM;
+    const int n_bh = (int)(gridDim.x / n_qt);
+    const int bh = (int)(blockIdx.x % n_bh);
+    const int q0 = (n_qt - 1 - (int)(blockIdx.x / n_bh)) * FT_BM;
+    const int kvh = (bh / p.hq) * p.hkv + (bh % p.hq) / p.group;
+    const int last_q = min(q0 + FT_BM, p.sq) - 1;
+    const int kv_end = p.causal ? min(p.sk, last_q + 1) : p.sk;
+    const int n_kv = (kv_end + FT_BN - 1) / FT_BN;
+
+    if (threadIdx.x == 0) {
+        for (int s = 0; s < STAGES; ++s) {
+            mbar_init(&full[s], 1);
+            mbar_init(&empty[s], 2);
+        }
+        mbar_init(qbar, 1);
+        asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    }
+    __syncthreads();
+
+    if (threadIdx.x >= 256) {  // the producer warpgroup: one thread issues the copies
+        reg_dealloc<FT_REGS_PRODUCER>();
+        if (threadIdx.x == 256) {
+            mbar_expect_tx(qbar, NB * QBOX);
+            for (int c = 0; c < NB; ++c) tma_load3(&tq, sq + c * QBOX, qbar, c * 32, q0, bh);
+            for (int j = 0; j < n_kv; ++j) {
+                const int s = j % STAGES;
+                unsigned char* st = ring + s * STAGE;
+                if (j >= STAGES) mbar_wait(&empty[s], ((j / STAGES) - 1) & 1);
+                mbar_expect_tx(&full[s], STAGE);
+                for (int c = 0; c < NB; ++c) {
+                    tma_load3(&tkh, st + c * FT_KBOX, &full[s], c * 32, j * FT_BN, kvh);
+                    tma_load3(&tkl, st + (NB + c) * FT_KBOX, &full[s], c * 32, j * FT_BN, kvh);
+                }
+                tma_load3(&tvh, st + 2 * NB * FT_KBOX, &full[s], j * FT_BN, 0, kvh);
+                tma_load3(&tvl, st + 2 * NB * FT_KBOX + VBOX, &full[s], j * FT_BN, 0, kvh);
+            }
+        }
+        return;
+    }
+
+    reg_alloc<FT_REGS_CONSUMER>();  // o, Q's lo and P's split live across the products
+    const int wg = threadIdx.x >> 7, t = threadIdx.x & 127;
+    const int w16 = wg * 64 + (t >> 5) * 16 + ((t & 31) >> 2), tc = t & 3;  // rows w16, w16 + 8
+    const int r0 = q0 + w16;
+    // Q, split once: hi back into its box (read by the first two products
+    // from shared memory), lo into registers (the third's A operand)
+    mbar_wait(qbar, 0);
+    unsigned qlo[D / 8][4];
+#pragma unroll
+    for (int kk = 0; kk < D / 8; ++kk)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+            float* at = sw_ptr(sq + (kk >> 2) * QBOX, w16 + 8 * (e & 1), (kk & 3) * 8 + tc + 4 * (e >> 1));
+            const float x = *at, hi = tf32_hi(x);
+            *at = hi;
+            qlo[kk][e] = __float_as_uint(x - hi);
+        }
+    fence_async_smem();
+    bar_sync(1 + wg, 128);  // this warpgroup's 64 rows are split
+
+    const unsigned char* qa = sq + wg * 64 * 128;  // this warpgroup's rows of each box
+    const float sl2 = p.sm_scale * 1.4426950408889634f;  // scores in log2 units: exp2
+    float o[D / 2], m[2] = {FA_NEG, FA_NEG}, l[2] = {0.0f, 0.0f};
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) o[i] = 0.0f;
+    for (int j = 0; j < n_kv; ++j) {
+        const int s = j % STAGES;
+        const unsigned char* ks = ring + s * STAGE;
+        const unsigned char* vs = ks + 2 * NB * FT_KBOX;
+        mbar_wait(&full[s], (j / STAGES) & 1);
+        float sc[16];
+#pragma unroll
+        for (int i = 0; i < 16; ++i) sc[i] = 0.0f;
+        fence_regs<16>(sc);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < D / 8; ++kk) {  // 8 of D a step: box kk / 4, 32 bytes on
+            const int c = kk >> 2, off = (kk & 3) * 32;
+            const uint64_t qh = sw128_desc(qa + c * QBOX + off);
+            const uint64_t kh = sw128_desc(ks + c * FT_KBOX + off);
+            const uint64_t kl = sw128_desc(ks + (NB + c) * FT_KBOX + off);
+            Wgmma<float, 32>::template mma<0>(sc, qh, kh);
+            Wgmma<float, 32>::template mma<0>(sc, qh, kl);  // fault site: flash tf32x3 lo product
+            Wgmma<float, 32>::template mma_rs<0>(sc, qlo[kk], kh);  // fault site: flash tf32x3 lo product
+        }
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs<16>(sc);
+
+        // scale, mask, and the online softmax over this stage's 32 keys
+        const int kv0 = j * FT_BN;
+        float mx[2] = {m[0], m[1]};
+#pragma unroll
+        for (int i = 0; i < 16; ++i) {
+            const int r = (i >> 1) & 1, key = kv0 + (i >> 2) * 8 + tc * 2 + (i & 1);
+            float x = sc[i] * sl2;
+            if (key >= p.sk) x = -INFINITY;  // past the keys: the TMA box's zero rows
+            else if (p.causal && r0 + 8 * r < key) x = FA_NEG;
+            sc[i] = x;
+            mx[r] = fmaxf(mx[r], x);
+        }
+        float alpha[2], ps[2] = {0.0f, 0.0f};
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+            mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+            mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+            alpha[r] = exp2f(m[r] - mx[r]);
+            m[r] = mx[r];
+        }
+#pragma unroll
+        for (int i = 0; i < 16; ++i) {
+            const int r = (i >> 1) & 1;
+            sc[i] = exp2f(sc[i] - m[r]);
+            ps[r] += sc[i];
+        }
+        // l is this thread's share of the row sum; the quad's four shares
+        // meet once, after the loop
+        l[0] = l[0] * alpha[0] + ps[0];
+        l[1] = l[1] * alpha[1] + ps[1];
+#pragma unroll
+        for (int i = 0; i < D / 2; ++i) o[i] *= alpha[(i >> 1) & 1];
+
+        // O += P V, 8 keys a step: P's k8 step kk is its registers 4 kk
+        // (row g, key 2t), 4 kk + 2 (g + 8, 2t), 4 kk + 1 (g, 2t + 1),
+        // 4 kk + 3 (g + 8, 2t + 1), which V^T's order of keys matches
+        unsigned ph[FT_BN / 8][4], pl[FT_BN / 8][4];
+#pragma unroll
+        for (int kk = 0; kk < FT_BN / 8; ++kk) {
+            const int i = 4 * kk;
+            split(sc[i], ph[kk][0], pl[kk][0]);
+            split(sc[i + 2], ph[kk][1], pl[kk][1]);
+            split(sc[i + 1], ph[kk][2], pl[kk][2]);
+            split(sc[i + 3], ph[kk][3], pl[kk][3]);
+        }
+        fence_regs<D / 2>(o);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < FT_BN / 8; ++kk) {
+            const uint64_t vh = sw128_desc(vs + kk * 32), vl = sw128_desc(vs + VBOX + kk * 32);
+            Wgmma<float, D>::template mma_rs<0>(o, ph[kk], vh);
+            Wgmma<float, D>::template mma_rs<0>(o, ph[kk], vl);  // fault site: flash tf32x3 lo product
+            Wgmma<float, D>::template mma_rs<0>(o, pl[kk], vh);  // fault site: flash tf32x3 lo product
+        }
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs<D / 2>(o);
+        if (t == 0) mbar_arrive(&empty[s]);  // this warpgroup is done with the slot
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+        l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+        l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+        l[r] = l[r] == 0.0f ? 1.0f : l[r];
+    }
+    float* out = (float*)p.o;
+#pragma unroll
+    for (int i = 0; i < D / 2; i += 2) {
+        int row, col;
+        frag_mn(i, t, row, col);
+        const int q = q0 + wg * 64 + row, r = (i >> 1) & 1;
+        if (q < p.sq)
+            *(float2*)(out + ((long long)bh * p.sq + q) * D + col) =
+                make_float2(o[i] / l[r], o[i + 1] / l[r]);
+    }
+}
+
+template <int D>
+static int launch_ft(const FaParams* p, float* kh, float* kl, float* vh, float* vl, int n_bh,
+                     cudaStream_t st) {
+    const int n_kvh = n_bh / p->group, skp = (p->sk + 7) & ~7;
+    alignas(64) CUtensorMap tq, tkh, tkl, tvh, tvl;
+    int rc = f32_map(&tq, p->q, D, p->sq, n_bh, FT_BM);
+    if (!rc) rc = f32_map(&tkh, kh, D, p->sk, n_kvh, FT_BN);
+    if (!rc) rc = f32_map(&tkl, kl, D, p->sk, n_kvh, FT_BN);
+    if (!rc) rc = f32_map(&tvh, vh, skp, D, n_kvh, D);
+    if (!rc) rc = f32_map(&tvl, vl, skp, D, n_kvh, D);
+    if (rc) return rc;
+    constexpr int bytes = ft_smem_bytes(D);
+    cudaError_t e = cudaFuncSetAttribute(flash_tf32x3_kernel<D>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (e != cudaSuccess) return (int)e;
+    flash_split_kernel<<<(unsigned)n_kvh * (unsigned)((skp + 31) / 32), 256, 0, st>>>(
+        (const float*)p->k, (const float*)p->v, kh, kl, vh, vl, p->sk, skp, D);
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return (int)e;
+    const unsigned grid = (unsigned)n_bh * (unsigned)((p->sq + FT_BM - 1) / FT_BM);
+    flash_tf32x3_kernel<D><<<grid, FT_THREADS, bytes, st>>>(*p, tq, tkh, tkl, tvh, tvl);
     return (int)cudaGetLastError();
 }
 
@@ -528,6 +804,40 @@ int stripe_flash_attention_wgmma(const FaParams* p, int d, int n_bh, void* strea
         case 128: return launch_fw<128>(p, n_bh, st);
         default: return -1;
     }
+}
+
+// Launches the tf32x3 path (float32, head dim p->d 64 or 128) on
+// ``stream``: the split copies of k and v into the scratch ``k_hi``,
+// ``k_lo`` (B*Hkv, Sk, D) and ``vt_hi``, ``vt_lo`` (B*Hkv, D, Sk rounded
+// up to 8), then the main kernel.  Returns cudaGetLastError(), an error
+// code of hopper.cuh, or -1 for inputs the path does not take.
+int stripe_flash_attention_tf32x3(const FaParams* p, void* k_hi, void* k_lo, void* vt_hi,
+                                  void* vt_lo, int n_bh, void* stream) {
+    const cudaStream_t st = (cudaStream_t)stream;
+    if (p->dt != DT_F32 || p->sq <= 0 || p->sk <= 0) return -1;
+    float *kh = (float*)k_hi, *kl = (float*)k_lo, *vh = (float*)vt_hi, *vl = (float*)vt_lo;
+    switch (p->d) {
+        case 64: return launch_ft<64>(p, kh, kl, vh, vl, n_bh, st);
+        case 128: return launch_ft<128>(p, kh, kl, vh, vl, n_bh, st);
+        default: return -1;
+    }
+}
+
+// Shared memory of one CTA of the tf32x3 kernel at head dim ``d``, in
+// bytes (-1: not built).
+int stripe_flash_attention_tf32x3_smem(int d) {
+    return d == 64 ? ft_smem_bytes(64) : d == 128 ? ft_smem_bytes(128) : -1;
+}
+
+// Registers a thread of the tf32x3 kernel at head dim ``d`` holds at
+// launch, which setmaxnreg redistributes (-1: not built, or the query
+// failed).
+int stripe_flash_attention_tf32x3_regs(int d) {
+    cudaFuncAttributes a;
+    const cudaError_t e = d == 64    ? cudaFuncGetAttributes(&a, flash_tf32x3_kernel<64>)
+                          : d == 128 ? cudaFuncGetAttributes(&a, flash_tf32x3_kernel<128>)
+                                     : cudaErrorInvalidValue;
+    return e == cudaSuccess ? a.numRegs : -1;
 }
 
 // Shared memory of one CTA of (dpl, rows), in bytes (-1: not built).

@@ -868,40 +868,16 @@ __device__ __forceinline__ void mma3(float* d, const unsigned* ahi, const unsign
     Wgmma<float, N>::template mma_rs<0>(d, alo, bhi);  // fault site: tf32x3 lo product
 }
 
-__device__ __forceinline__ void split(float x, unsigned& hi, unsigned& lo) {
-    const float h = tf32_hi(x);
-    hi = __float_as_uint(h);
-    lo = __float_as_uint(x - h);
-}
-
-// Element (row, col) of a 128-byte-swizzled box of float32 rows of 32.
-__device__ __forceinline__ float sw_at(const unsigned char* box, int row, int col) {
-    return *(const float*)(box + row * 128 + ((((col >> 2) ^ (row & 7))) << 4) + (col & 3) * 4);
-}
-
 // v (BH, S, Dv) -> v^T (BH, Dv, S) hi and lo, the steps of each group of 8
 // in the order 0 2 4 6 1 3 5 7.  One CTA per (b*h, 32 steps), Dv in tiles
 // of 32 through shared memory.
 __global__ void __launch_bounds__(256) gla_vt_kernel(const float* v, float* vt_hi, float* vt_lo,
                                                      int s, int dv) {
     __shared__ float tile[32][33];
-    const int n_st = s / 32, tx = threadIdx.x & 31, ty = threadIdx.x >> 5;
-    const long long bh = blockIdx.x / n_st;
-    const int s0 = (int)(blockIdx.x % n_st) * 32;
-    const int k = tx & 7, from = (tx & ~7) + (k < 4 ? 2 * k : 2 * k - 7);
-    const float* src = v + (bh * s + s0) * dv;
-    for (int p0 = 0; p0 < dv; p0 += 32) {
-        __syncthreads();
-        for (int r = ty; r < 32; r += 8)
-            tile[r][tx] = p0 + tx < dv ? src[(long long)r * dv + p0 + tx] : 0.0f;
-        __syncthreads();
-        for (int r = ty; r < 32 && p0 + r < dv; r += 8) {
-            const float x = tile[from][r], hi = tf32_hi(x);
-            const long long o = (bh * dv + p0 + r) * s + s0 + tx;
-            vt_hi[o] = hi;
-            vt_lo[o] = x - hi;
-        }
-    }
+    const int n_st = s / 32;
+    const long long off = (long long)(blockIdx.x / n_st) * s * dv;
+    transpose_split32(v + off, vt_hi + off, vt_lo + off, s, dv, s, (int)(blockIdx.x % n_st) * 32,
+                      tile);
 }
 
 template <int NV>
@@ -1253,27 +1229,17 @@ __global__ void __launch_bounds__(GW_THREADS) gla_output_tf32_kernel(
     }
 }
 
-// The TMA map of a (heads, rows, width) float32 tensor: boxes of 32 x
-// ``box_rows``, zeros past ``width`` and ``rows``.
-static int gt_map(CUtensorMap* map, const void* ptr, int width, int rows, long long heads,
-                  int box_rows) {
-    const cuuint64_t dims[3] = {(cuuint64_t)width, (cuuint64_t)rows, (cuuint64_t)heads};
-    const cuuint64_t strides[2] = {(cuuint64_t)width * 4, (cuuint64_t)width * 4 * rows};
-    const cuuint32_t box[3] = {32, (cuuint32_t)box_rows, 1};
-    return tensor_map3(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, ptr, dims, strides, box);
-}
-
 template <int NV>
 static int launch_gt(const GlaParams* p, const GlaState3* sc, int n_bh, cudaStream_t st) {
     const int nc = p->s / p->chunk;
     alignas(64) CUtensorMap tq, tk, tk32, tvh, tvl, tch, tcl;
-    int rc = gt_map(&tq, p->q, p->dk, p->s, n_bh, 64);
-    if (!rc) rc = gt_map(&tk, p->k, p->dk, p->s, n_bh, 64);
-    if (!rc) rc = gt_map(&tk32, p->k, p->dk, p->s, n_bh, 32);
-    if (!rc) rc = gt_map(&tvh, sc->vt_hi, p->s, p->dv, n_bh, NV);
-    if (!rc) rc = gt_map(&tvl, sc->vt_lo, p->s, p->dv, n_bh, NV);
-    if (!rc) rc = gt_map(&tch, sc->c_hi, p->dk, p->dv, (long long)n_bh * nc, NV);
-    if (!rc) rc = gt_map(&tcl, sc->c_lo, p->dk, p->dv, (long long)n_bh * nc, NV);
+    int rc = f32_map(&tq, p->q, p->dk, p->s, n_bh, 64);
+    if (!rc) rc = f32_map(&tk, p->k, p->dk, p->s, n_bh, 64);
+    if (!rc) rc = f32_map(&tk32, p->k, p->dk, p->s, n_bh, 32);
+    if (!rc) rc = f32_map(&tvh, sc->vt_hi, p->s, p->dv, n_bh, NV);
+    if (!rc) rc = f32_map(&tvl, sc->vt_lo, p->s, p->dv, n_bh, NV);
+    if (!rc) rc = f32_map(&tch, sc->c_hi, p->dk, p->dv, (long long)n_bh * nc, NV);
+    if (!rc) rc = f32_map(&tcl, sc->c_lo, p->dk, p->dv, (long long)n_bh * nc, NV);
     if (rc) return rc;
     const int s_bytes = gt_state_smem(NV, p->chunk), o_bytes = gt_out_smem(NV, p->dk, p->chunk);
     cudaError_t e = cudaFuncSetAttribute(gla_state_tf32_kernel<NV>,

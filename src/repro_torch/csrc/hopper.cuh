@@ -3,7 +3,8 @@
 // cp.async copies, mbarriers, 3-D TMA loads and the host's tensor-map
 // encoder, wgmma's shared-memory descriptors in the 128-byte swizzle, the
 // wgmma products themselves (bf16, f16, int8, and tf32 with the split of a
-// float32 into two tf32 values for 3xTF32), and the map from an
+// float32 into two tf32 values for 3xTF32), the address of a float32 in a
+// swizzled box, 3xTF32's transposed split copy, and the map from an
 // accumulator register to its (row, column) in the warpgroup's tile.
 
 #pragma once
@@ -195,11 +196,34 @@ template <> struct Wgmma<int8_t, 64> {
 // Both operands K-major only: wgmma's transposed read (TB) exists for
 // 16-bit types alone, so a float32 operand that lies MN-major in memory
 // is transposed before it reaches shared memory, or gathered by the
-// threads into the register A operand.  Only ``mma_rs`` is here (the
-// 3xTF32 products split A in registers); A in four 32-bit
+// threads into the register A operand.  ``mma_rs``: A in four 32-bit
 // registers per thread, of rows g and g + 8 of the warp's 16 (g = lane /
 // 4) at columns t and t + 4 of the k8 step (t = lane % 4), in the order
-// (g, t), (g + 8, t), (g, t + 4), (g + 8, t + 4).
+// (g, t), (g + 8, t), (g, t + 4), (g + 8, t + 4).  ``mma`` (N 32 only,
+// flash attention's scores): A in shared memory too.
+#define WG_REGS16 \
+    "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}"
+#define WG_16(c) WG_8(c, 0), WG_8(c, 8)
+template <> struct Wgmma<float, 32> {
+    template <int TB>
+    static __device__ __forceinline__ void mma(float* d, uint64_t da, uint64_t db, int acc = 1) {
+        static_assert(TB == 0, "wgmma reads 32-bit operands K-major only");
+        asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+                     "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 " WG_REGS16
+                     ", %16, %17, p, 1, 1;\n}\n"
+                     : WG_16("+f") : "l"(da), "l"(db), "r"(acc));
+    }
+    template <int TB>
+    static __device__ __forceinline__ void mma_rs(float* d, const unsigned* a, uint64_t db,
+                                                  int acc = 1) {
+        static_assert(TB == 0, "wgmma reads 32-bit operands K-major only");
+        asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+                     "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 " WG_REGS16
+                     ", {%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+                     : WG_16("+f")
+                     : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc));
+    }
+};
 template <> struct Wgmma<float, 128> {
     template <int TB>
     static __device__ __forceinline__ void mma_rs(float* d, const unsigned* a, uint64_t db,
@@ -234,6 +258,57 @@ template <> struct Wgmma<float, 64> {
 __device__ __forceinline__ float tf32_hi(float x) {
     return __uint_as_float(__float_as_uint(x) & TF32_MASK);
 }
+
+__device__ __forceinline__ void split(float x, unsigned& hi, unsigned& lo) {
+    const float h = tf32_hi(x);
+    hi = __float_as_uint(h);
+    lo = __float_as_uint(x - h);
+}
+
+// Element (row, col) of a 128-byte-swizzled box of float32 rows of 32, as
+// TMA writes it (the box 1024-byte aligned).
+__device__ __forceinline__ float* sw_ptr(unsigned char* box, int row, int col) {
+    return (float*)(box + row * 128 + ((((col >> 2) ^ (row & 7))) << 4) + (col & 3) * 4);
+}
+__device__ __forceinline__ float sw_at(const unsigned char* box, int row, int col) {
+    return *sw_ptr(const_cast<unsigned char*>(box), row, col);
+}
+
+// 3xTF32's transposed operand: rows s0 .. s0 + 31 of a row-major (rows,
+// width) float32 tensor x, written as x^T (width, ld) split into hi and
+// lo, the rows of every 8 in the order 0 2 4 6 1 3 5 7 (a score
+// accumulator's registers, columns 2t and 2t + 1 of each 8, are then the
+// A operand of the product with it, columns t and t + 4).  Rows past
+// ``rows`` read as zeros; columns past ``ld`` are not written.  All 256
+// threads of the CTA take part, through ``tile`` in shared memory.
+__device__ __forceinline__ void transpose_split32(const float* x, float* hi, float* lo, int rows,
+                                                  int width, int ld, int s0, float (*tile)[33]) {
+    const int tx = threadIdx.x & 31, ty = threadIdx.x >> 5;
+    const int j = tx & 7, from = (tx & ~7) + (j < 4 ? 2 * j : 2 * j - 7);
+    for (int p0 = 0; p0 < width; p0 += 32) {
+        __syncthreads();
+        for (int r = ty; r < 32; r += 8)
+            tile[r][tx] = s0 + r < rows && p0 + tx < width
+                              ? x[(long long)(s0 + r) * width + p0 + tx] : 0.0f;
+        __syncthreads();
+        if (s0 + tx < ld)
+            for (int r = ty; r < 32 && p0 + r < width; r += 8) {
+                const float v = tile[from][r], h = tf32_hi(v);
+                const long long o = (long long)(p0 + r) * ld + s0 + tx;
+                hi[o] = h;
+                lo[o] = v - h;
+            }
+    }
+}
+
+// Warp-specialised register budgets: a warpgroup (all its threads) gives
+// registers back to the CTA's pool, or takes them from it, waiting until
+// the pool holds them.  The kernel's register count at launch (set by its
+// launch bounds) must cover what the warpgroups hold after both.
+template <int N>
+__device__ __forceinline__ void reg_dealloc() { asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" :: "n"(N)); }
+template <int N>
+__device__ __forceinline__ void reg_alloc() { asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" :: "n"(N)); }
 
 __device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
 __device__ __forceinline__ void wgmma_commit() { asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory"); }
@@ -304,4 +379,14 @@ static int tensor_map3(CUtensorMap* map, CUtensorMapDataType type, const void* p
                            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
                            CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
     return r == CUDA_SUCCESS ? 0 : ERR_ENCODE + (int)r;
+}
+
+// The TMA map of a (heads, rows, width) float32 tensor: boxes of 32 of the
+// width (128 bytes) by ``box_rows``; zeros past ``width`` and ``rows``.
+static inline int f32_map(CUtensorMap* map, const void* ptr, int width, int rows, long long heads,
+                          int box_rows) {
+    const cuuint64_t dims[3] = {(cuuint64_t)width, (cuuint64_t)rows, (cuuint64_t)heads};
+    const cuuint64_t strides[2] = {(cuuint64_t)width * 4, (cuuint64_t)width * 4 * rows};
+    const cuuint32_t box[3] = {32, (cuuint32_t)box_rows, 1};
+    return tensor_map3(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, ptr, dims, strides, box);
 }

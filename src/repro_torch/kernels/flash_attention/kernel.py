@@ -5,10 +5,13 @@ its plain PyTorch version, and the block sizes the autotiler chooses.
 ``src/repro/kernels/flash_attention/kernel.py::flash_attention``: GQA
 attention, causal or full, with the online softmax (m, l, acc) in float32.
 One CTA owns one (b*Hq head, q tile), the two flattened on grid x, and
-loops over the kv tiles itself, up to the diagonal under ``causal``; the source says how the work is laid
-out.  Two kernels: ``wgmma`` (bf16 on the tensor cores, P rounded to
-bf16 for P V) and ``cuda_cores`` (float32 arithmetic throughout);
-:func:`path_of` is the rule that picks one before the launch.
+loops over the kv tiles itself, up to the diagonal under ``causal``; the
+source says how the work is laid out.  Three paths: ``wgmma`` (bf16 on
+the tensor cores, P rounded to bf16 for P V), ``tf32x3`` (float32 on the
+tensor cores, every product as three tf32 products, which keeps
+float32's accuracy: a prep kernel splits k and transposes v first) and
+``cuda_cores`` (float32 arithmetic throughout); :func:`path_of` is the
+rule that picks one before the launch.
 
 :func:`flash_attention` launches the kernel for CUDA tensors (raising on
 any failure) and runs :func:`flash_attention_plain` only for CPU tensors.
@@ -30,13 +33,19 @@ NEG_INF = -1e30
 # Kernel launches since import (or since the caller last reset it), and
 # the same launches by path.
 launches = 0
-PATHS = ("wgmma", "cuda_cores")
+PATHS = ("wgmma", "tf32x3", "cuda_cores")
 launches_by_path = {p: 0 for p in PATHS}
 
-# The wgmma kernel's head dims (64-wide boxes of 128 bytes) and its CTA's
-# q rows (two warpgroups of 64).
+# The tensor-core kernels' head dims (boxes of 128 bytes) and the q rows of
+# each of their CTA's two warpgroups.
 WGMMA_HEAD_DIMS = (64, 128)
 WGMMA_ROWS = 64
+# The tf32x3 kernel's keys a stage and the bytes of one 128-byte-wide row
+# of a box; the registers a thread holds at launch (384 threads on the
+# SM's 64K, in steps of 8), which its warpgroups trade with setmaxnreg:
+# with fewer, the consumers' request would wait forever.
+TF32_KEYS, BOX_ROW = 32, 128
+TF32_LAUNCH_REGS = 65536 // 384 // 8 * 8
 
 # The kernel's geometry (csrc/flash_attention.cu): 8 warps; each warp owns
 # R rows of the q tile, R a power of two up to 16 (8 where the head dim
@@ -74,6 +83,21 @@ def smem_bytes(block_q: int, head_dim: int) -> int:
     dp = 32 * _dpl(head_dim)
     rows = WARPS * rows_per_warp(block_q)
     return 4 * (rows * (dp + 4) + 32 * (dp + 4) + 32 * dp + rows * 32)
+
+
+def tf32x3_stages(head_dim: int) -> int:
+    """The tf32x3 kernel's ring depth: 2 at head dim 128, 4 at 64."""
+    return 4 if head_dim == 64 else 2
+
+
+def tf32x3_smem_bytes(head_dim: int) -> int:
+    """Shared memory of one CTA of the tf32x3 kernel (``ft_smem_bytes`` in
+    the source): 1024 bytes of slack for the swizzle's alignment, the Q
+    tile (128 rows of the head dim in 32-float boxes), a ring of stages of
+    32 keys (K hi and lo, V^T hi and lo) and the barriers."""
+    nb, stages = head_dim // 32, tf32x3_stages(head_dim)
+    stage = 2 * nb * TF32_KEYS * BOX_ROW + 2 * head_dim * BOX_ROW
+    return 1024 + nb * 2 * WGMMA_ROWS * BOX_ROW + stages * stage + 8 * (2 * stages + 1)
 
 
 # ------------------------------------------------------------ block sizes
@@ -155,15 +179,19 @@ def choose_block_sizes(seq_q: int, seq_k: int, head_dim: int) -> Tuple[int, int]
 
 
 def path_of(dtype: torch.dtype, head_dim: int, aligned: bool = True) -> str:
-    """The kernel a call takes, decided before the launch: ``wgmma`` for
-    bf16 at head dim 64 or 128 with q, k, v at 16-byte boundaries (TMA
-    reads them); ``cuda_cores`` for anything else: float32, whose
-    semantics the tensor cores would break, and other head dims.  The
-    wgmma kernel runs its own 128 x 64 tiles whatever the blocks; its
-    result does not depend on them (a kv block past a row's diagonal adds
-    exactly 0)."""
-    if dtype == torch.bfloat16 and head_dim in WGMMA_HEAD_DIMS and aligned:
-        return "wgmma"
+    """The kernel a call takes, decided before the launch, at head dim 64
+    or 128 with q, k, v at 16-byte boundaries (TMA reads them): ``wgmma``
+    for bf16, ``tf32x3`` for float32 (three tf32 products for each, which
+    keeps float32's accuracy: :func:`flash_tf32x3_bound`); ``cuda_cores``
+    for anything else (other head dims, misaligned operands).  The
+    tensor-core kernels run their own tiles (128 q rows by 64 keys, or 32
+    in float32) whatever the blocks; their result does not depend on them
+    (a kv block past a row's diagonal adds exactly 0)."""
+    if head_dim in WGMMA_HEAD_DIMS and aligned:
+        if dtype == torch.bfloat16:
+            return "wgmma"
+        if dtype == torch.float32:
+            return "tf32x3"
     return "cuda_cores"
 
 
@@ -186,6 +214,78 @@ def wgmma_bound(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, want: torch.T
     abs_v = flash_attention_plain(q.float(), k.float(), v.float().abs(), causal, sm_scale,
                                   block_q=q.shape[2], block_k=math.gcd(k.shape[2], 512))
     return BF16_STEP * want.float().abs() + BF16_STEP / 2 * abs_v
+
+
+# The tf32x3 kernel against the plain version, element by element.  Every
+# product a b is a_hi b_hi + a_hi b_lo + a_lo b_hi, hi being a with its
+# low 13 mantissa bits cleared (exact) and lo = a - hi, |lo| < 2**-10 |a|,
+# whose own low bits the tensor cores drop: the dropped a_lo b_lo and the
+# two lo operands move the product by at most eps |a| |b|, eps = 3 *
+# 2**-20.  Scores: a score of row i moves by at most
+# D_i = eps sm_scale max_j sum_d |q_id| |k_jd| over the keys j the row
+# sees, so each probability p_ij / l_i moves by at most a factor
+# e^(+-2 D_i) and the output by (e^(2 D_i) - 1) attention(q, k, |v|)_i.
+# P V: its terms move by eps p |v|, the output by eps e^(2 D_i) of the
+# same attention of |v|.  The float32 accumulation, whose order differs
+# from the plain version's, is TF32X3_ACC times the plain version's own
+# error against float64.
+TF32X3_EPS = 3 * 2.0 ** -20
+TF32X3_ACC = 4.0
+
+
+def _attention64(q, k, v, causal: bool, sm_scale: float):
+    """In float64, by blocks of 256 q rows (the scores of a block at
+    llama3-8b's S 2048 are 134 MB): the attention output, the attention of
+    |v|, and each row's largest sm_scale sum_d |q_d| |k_d| over the keys
+    it sees (B, Hq, Sq, 1)."""
+    rows = 256
+    b, hq, sq, d = q.shape
+    hkv, sk = k.shape[1], k.shape[2]
+    f64 = torch.float64
+    qd = q.to(f64).reshape(b, hkv, hq // hkv, sq, d)
+    kt = k.to(f64).unsqueeze(2).transpose(-1, -2)
+    vd = v.to(f64).unsqueeze(2)
+    out, abs_v = torch.empty_like(qd), torch.empty_like(qd)
+    span = torch.empty(qd.shape[:-1] + (1,), dtype=f64, device=q.device)
+    for r0 in range(0, sq, rows):
+        qs = qd[..., r0:r0 + rows, :]
+        s = torch.matmul(qs, kt) * sm_scale
+        mag = torch.matmul(qs.abs(), kt.abs()) * abs(sm_scale)
+        if causal:
+            hidden = (torch.arange(r0, r0 + qs.shape[-2], device=q.device)[:, None]
+                      < torch.arange(sk, device=q.device)[None, :])
+            s = s.masked_fill(hidden, -math.inf)
+            mag = mag.masked_fill(hidden, 0.0)
+        p = torch.softmax(s, dim=-1)
+        out[..., r0:r0 + rows, :] = torch.matmul(p, vd)
+        abs_v[..., r0:r0 + rows, :] = torch.matmul(p, vd.abs())
+        span[..., r0:r0 + rows, :] = mag.amax(dim=-1, keepdim=True)
+    return tuple(x.reshape(b, hq, sq, -1) for x in (out, abs_v, span))
+
+
+def flash_tf32x3_bound(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, want: torch.Tensor,
+                       causal: bool = True, sm_scale: Optional[float] = None) -> torch.Tensor:
+    """The largest difference, element by element, that the tf32x3 kernel
+    may show against ``want`` (the plain version's float32 output on the
+    same inputs, or the reference's):
+
+        (e^(2 D) - 1 + eps e^(2 D)) attention(q, k, |v|) + |want - exact|
+            + 4 |plain - exact|
+
+    in float64, eps = 3 * 2**-20 and D = eps sm_scale max_j sum_d |q_d|
+    |k_jd| per row over the keys it sees, where ``exact`` is the attention
+    in float64 and ``plain`` :func:`flash_attention_plain` in float32 (the
+    module's note above).  Plain TF32, the lo terms dropped, moves a
+    product by up to 2**-10 of |a| |b| and exceeds it."""
+    d = q.shape[-1]
+    sm_scale = 1.0 / math.sqrt(d) if sm_scale is None else sm_scale
+    exact, abs_v, span = _attention64(q, k, v, causal, sm_scale)
+    plain = flash_attention_plain(q.float(), k.float(), v.float(), causal, sm_scale,
+                                  block_q=q.shape[2], block_k=math.gcd(k.shape[2], 512))
+    grow = torch.expm1(2 * TF32X3_EPS * span)
+    moved = (grow + TF32X3_EPS * (1 + grow)) * abs_v
+    return (moved + (want.double() - exact).abs()
+            + TF32X3_ACC * (plain.double() - exact).abs())
 
 
 def _resolve(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, sm_scale, block_q,
@@ -280,6 +380,13 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.stripe_flash_attention_wgmma.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
                                                  ctypes.c_void_p]
     lib.stripe_flash_attention_wgmma.restype = ctypes.c_int
+    lib.stripe_flash_attention_tf32x3.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int,
+                                                                          ctypes.c_void_p]
+    lib.stripe_flash_attention_tf32x3.restype = ctypes.c_int
+    lib.stripe_flash_attention_tf32x3_smem.argtypes = [ctypes.c_int]
+    lib.stripe_flash_attention_tf32x3_smem.restype = ctypes.c_int
+    lib.stripe_flash_attention_tf32x3_regs.argtypes = [ctypes.c_int]
+    lib.stripe_flash_attention_tf32x3_regs.restype = ctypes.c_int
     lib.stripe_flash_attention_smem.argtypes = [ctypes.c_int, ctypes.c_int]
     lib.stripe_flash_attention_smem.restype = ctypes.c_int
     lib.stripe_flash_attention_layout.argtypes = [ctypes.c_void_p]
@@ -296,6 +403,17 @@ def _bind(lib: ctypes.CDLL) -> None:
                 raise _build.KernelBuildError(
                     f"flash_attention shared memory: C {got} B, Python {smem_bytes(WARPS * r, d)} B "
                     f"(head dim {d}, {r} rows a warp)")
+    for d in WGMMA_HEAD_DIMS:
+        got = lib.stripe_flash_attention_tf32x3_smem(d)
+        if got != tf32x3_smem_bytes(d):
+            raise _build.KernelBuildError(
+                f"flash_attention tf32x3 shared memory: C {got} B, Python "
+                f"{tf32x3_smem_bytes(d)} B (head dim {d})")
+        regs = lib.stripe_flash_attention_tf32x3_regs(d)
+        if regs != TF32_LAUNCH_REGS:
+            raise _build.KernelBuildError(
+                f"flash_attention tf32x3 kernel (head dim {d}) holds {regs} registers a "
+                f"thread at launch, not {TF32_LAUNCH_REGS}: its setmaxnreg split needs them")
 
 
 def load_library() -> ctypes.CDLL:
@@ -324,8 +442,12 @@ def _launch(q, k, v, causal: bool, sm_scale: float, block_q: int, block_k: int,
         if block_q > max_block_q(d):
             raise ValueError(f"flash_attention: block_q {block_q} > {max_block_q(d)}, the rows "
                              f"one CTA of the kernel holds at head dim {d}")
-    # b*Hq and the q tile share grid x
+    # b*Hq and the q tile share grid x; the tf32x3 prep kernel runs one CTA
+    # per (b*Hkv, 32 keys)
+    skp = -(-sk // 8) * 8
     ctas = b * hq * (sq // block_q if path == "cuda_cores" else -(-sq // (2 * WGMMA_ROWS)))
+    if path == "tf32x3":
+        ctas = max(ctas, b * hkv * -(-skp // TF32_KEYS))
     if ctas > GRID_X:
         raise ValueError(f"flash_attention: {ctas} CTAs exceed the grid's x limit {GRID_X}")
     out = torch.empty_like(q)
@@ -339,6 +461,15 @@ def _launch(q, k, v, causal: bool, sm_scale: float, block_q: int, block_k: int,
     if path == "wgmma":
         rc = lib.stripe_flash_attention_wgmma(ctypes.addressof(p), d, b * hq,
                                               _build.stream_of(device))
+    elif path == "tf32x3":
+        # k split into hi and lo, and v transposed and split, which the
+        # prep kernel writes and the main kernel reads
+        ks = torch.empty((2, b * hkv, sk, d), dtype=torch.float32, device=device)
+        vt = torch.empty((2, b * hkv, d, skp), dtype=torch.float32, device=device)
+        rc = lib.stripe_flash_attention_tf32x3(ctypes.addressof(p), ks[0].data_ptr(),
+                                               ks[1].data_ptr(), vt[0].data_ptr(),
+                                               vt[1].data_ptr(), b * hq,
+                                               _build.stream_of(device))
     else:
         rc = lib.stripe_flash_attention_launch(ctypes.addressof(p), _dpl(d),
                                                rows_per_warp(block_q), b * hq,
@@ -360,8 +491,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     tensors.
 
     ``path``: None takes :func:`path_of`'s choice; ``"cuda_cores"`` forces
-    the CUDA-core kernel, to time it against the wgmma one on the same
-    inputs."""
+    the CUDA-core kernel, to time it against the wgmma or tf32x3 one on
+    the same inputs."""
     if path not in (None, "cuda_cores"):
         raise ValueError(f"path is None (the rule's choice) or 'cuda_cores', not {path!r}")
     sm_scale, block_q, block_k = _resolve(q, k, v, sm_scale, block_q, block_k)

@@ -240,13 +240,17 @@ def test_wgmma_emulation_matches_the_pallas_kernel(b, hq, hkv, sq, sk, d, causal
 
 def test_flash_path_rule():
     """The path depends on the type, the head dim and the alignment only:
-    the wgmma kernel runs its own tiles whatever the blocks."""
+    the tensor-core kernels run their own tiles whatever the blocks."""
     bf, f32 = torch.bfloat16, torch.float32
     assert FA.path_of(bf, 128) == "wgmma"
     assert FA.path_of(bf, 64) == "wgmma"
+    assert FA.path_of(f32, 128) == "tf32x3"
+    assert FA.path_of(f32, 64) == "tf32x3"
     assert FA.path_of(bf, 128, aligned=False) == "cuda_cores"
-    for dtype, d in ((f32, 128), (f32, 64), (torch.float16, 64), (bf, 96), (bf, 32),
-                     (bf, 256)):
+    assert FA.path_of(f32, 128, aligned=False) == "cuda_cores"
+    assert FA.path_of(f32, 64, aligned=False) == "cuda_cores"
+    for dtype, d in ((torch.float16, 64), (bf, 96), (bf, 32), (bf, 256), (f32, 96), (f32, 32),
+                     (f32, 256), (f32, 16)):
         assert FA.path_of(dtype, d) == "cuda_cores", (dtype, d)
 
 
@@ -618,6 +622,113 @@ def test_gla_path_argument_on_cpu_tensors():
     assert (GLA.launches, GLA.launches_by_path) == before
     with pytest.raises(ValueError, match="path"):
         chunked_gla(tq, tk, tv, ld, g, chunk=64, path="wgmma")
+
+
+# ----------------------------- flash attention in float32 on the tensor cores
+def flash_tf32x3_emulation(q, k, v, causal, sm_scale=None, lo=True, rn=False):
+    """The float32 tf32x3 kernel's tile algorithm (csrc/flash_attention.cu)
+    on the CPU: 32-key kv tiles (keys past Sk zero and masked -inf, as the
+    TMA box and the zero-padded v^T read them) up to the last query under
+    ``causal``, S = Q K^T and O += P V each as :func:`_mm_tf32` computes
+    it, scores in log2 units, the causal mask -1e30, the online softmax
+    with l summing the float32 P.  Every q row at once: a tile past a
+    row's diagonal adds exactly 0 (its probabilities are 0 and the running
+    max does not move), so where a CTA's kv loop ends does not change a
+    row.  ``lo`` False drops the lo terms: plain TF32."""
+    b, hq, sq, d = q.shape
+    hkv, sk = k.shape[1], k.shape[2]
+    sl2 = torch.tensor((1.0 / d ** 0.5 if sm_scale is None else sm_scale)
+                       * 1.4426950408889634, dtype=torch.float32)
+    kf, vf = (torch.nn.functional.pad(t.float().repeat_interleave(hq // hkv, dim=1),
+                                      (0, 0, 0, -sk % 32)) for t in (k, v))
+    qf = q.float()
+    qpos = torch.arange(sq)[:, None]
+    m = torch.full((b, hq, sq), FA.NEG_INF)
+    l = torch.zeros(b, hq, sq)
+    o = torch.zeros(b, hq, sq, d)
+    for k0 in range(0, min(sk, sq) if causal else sk, 32):
+        kpos = torch.arange(k0, k0 + 32)[None, :]
+        s = _mm_tf32(qf, kf[:, :, k0:k0 + 32].transpose(-1, -2), lo, rn) * sl2
+        s = torch.where(causal & (qpos < kpos), torch.full_like(s, FA.NEG_INF), s)
+        s = torch.where(kpos >= sk, torch.full_like(s, -float("inf")), s)
+        mx = torch.maximum(m, s.amax(dim=-1))
+        alpha = torch.exp2(m - mx)
+        p = torch.exp2(s - mx[..., None])
+        l = l * alpha + p.sum(dim=-1)
+        o = o * alpha[..., None] + _mm_tf32(p, vf[:, :, k0:k0 + 32], lo, rn)
+        m = mx
+    return o / torch.where(l == 0, torch.ones_like(l), l)[..., None]
+
+
+def _tf32x3_excess(got, want, q, k, v, causal):
+    """Within 1e-4 of the largest output, and the largest error over
+    ``kernel.flash_tf32x3_bound`` (returned)."""
+    w = want.double() if isinstance(want, torch.Tensor) else torch.as_tensor(
+        np.asarray(want, np.float64))
+    err = (got.double() - w).abs()
+    assert err.max().item() <= 1e-4 * (1 + w.abs().max().item()), err.max().item()
+    return (err / FA.flash_tf32x3_bound(q, k, v, w, causal)).max().item()
+
+
+# (B, Hq, Hkv, Sq, Sk, D, causal, block_q, block_k of the reference's call)
+TF32X3_CASES = [
+    (1, 4, 4, 256, 256, 128, True, 128, 128),
+    (1, 4, 4, 256, 256, 128, False, 128, 64),
+    (1, 8, 2, 128, 384, 64, True, 64, 128),    # Sq < Sk: top-left; GQA group 4
+    (2, 4, 1, 192, 192, 64, True, 64, 64),     # S not a multiple of the 128-row tile
+    (1, 4, 2, 96, 204, 128, False, 32, 68),    # Sk not a multiple of 8 nor of the 32-key tile
+    (1, 4, 4, 160, 100, 64, True, 32, 20),     # Sq > Sk; Sk not a multiple of 8
+]
+
+
+@pytest.mark.parametrize("b,hq,hkv,sq,sk,d,causal,bq,bk", TF32X3_CASES)
+def test_flash_tf32x3_emulation_matches_the_pallas_kernel(b, hq, hkv, sq, sk, d, causal, bq,
+                                                          bk):
+    """The tf32x3 tile algorithm against the JAX kernel in interpret mode
+    (float32): within 1e-4 of the largest output and element by element
+    within ``kernel.flash_tf32x3_bound``; and against the port's plain
+    version the same way."""
+    (jq, tq), (jk, tk), (jv, tv) = _qkv(np.random.RandomState(sq + sk + d + 1), b, hq, hkv, sq,
+                                        sk, d)
+    want = j_fa.flash_attention(jq, jk, jv, causal=causal, block_q=bq, block_k=bk,
+                                interpret=True)
+    got = flash_tf32x3_emulation(tq, tk, tv, causal)
+    plain = flash_attention(tq, tk, tv, causal=causal, block_q=bq, block_k=bk)
+    for ref in (want, plain):
+        excess = _tf32x3_excess(got, ref, tq, tk, tv, causal)
+        print(f"Sq {sq} Sk {sk} D {d} causal={causal}: error / bound {excess:.3f}")
+        assert excess <= 1.0, excess
+
+
+@pytest.mark.parametrize("rn", [False, True])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_tf32x3_bound_catches_plain_tf32(causal, rn):
+    """Plain TF32 (the emulation with the lo terms dropped, the operands
+    truncated or rounded to nearest) exceeds ``kernel.flash_tf32x3_bound``
+    against the plain version at llama3-8b's head dim 128 and GQA group 4,
+    where 3xTF32 on the same inputs stays within it."""
+    rng = np.random.RandomState(11 + causal)
+    tq, tk, tv = (torch.from_numpy(rng.randn(*shape).astype(np.float32))
+                  for shape in ((1, 8, 256, 128), (1, 2, 256, 128), (1, 2, 256, 128)))
+    plain = flash_attention(tq, tk, tv, causal=causal, block_q=128, block_k=128)
+    bound = FA.flash_tf32x3_bound(tq, tk, tv, plain, causal)
+    excess = {}
+    for lo in (True, False):
+        got = flash_tf32x3_emulation(tq, tk, tv, causal, lo=lo, rn=rn)
+        excess[lo] = ((got.double() - plain.double()).abs() / bound).max().item()
+    print(f"causal={causal} rn={rn}: error / bound, 3xTF32 {excess[True]:.3f}, "
+          f"TF32 {excess[False]:.1f}")
+    assert excess[True] <= 1.0 < excess[False], excess
+
+
+@pytest.mark.parametrize("d", [64, 128])
+def test_flash_tf32x3_smem_fits_one_cta(d):
+    """The tf32x3 kernel's shared memory (the binding checks the Python
+    mirror against the compiled library on the card) fits one H100 block:
+    the Q tile and at least two 32-key stages."""
+    limit = get_config("h100").mem("SMEM").size_bytes
+    assert FA.tf32x3_stages(d) >= 2
+    assert FA.tf32x3_smem_bytes(d) <= limit
 
 
 # --------------------------------------------------------------- ssd_chunk

@@ -316,8 +316,9 @@ def test_elementwise_broadcasts_and_rounds_on_the_card():
 def test_flash_attention_kernel_matches_plain_on_the_card(b, hq, hkv, sq, sk, d, bq, bk,
                                                            causal, dtype):
     """The call's path against plain at the case's blocks; where that is
-    wgmma (bf16 at head dim 64 or 128, whatever the blocks), also held to
-    its elementwise bound, and the CUDA-core kernel at the same blocks."""
+    wgmma or tf32x3 (bf16 or float32 at head dim 64 or 128, whatever the
+    blocks), also held to its elementwise bound, and the CUDA-core kernel
+    at the same blocks."""
     from repro_torch.kernels.flash_attention import kernel as FA
 
     _card()
@@ -335,8 +336,11 @@ def test_flash_attention_kernel_matches_plain_on_the_card(b, hq, hkv, sq, sk, d,
     assert FA.launches_by_path[path] == by_path[path] + 1
     want = FA.flash_attention_plain(q, k, v, causal=causal, block_q=bq, block_k=bk)
     _assert_kernel_close(got, want, "flash_attention")
-    if path == "wgmma":
-        _assert_within_wgmma_bound(FA, got, want, q, k, v, causal)
+    if path in ("wgmma", "tf32x3"):
+        if path == "wgmma":
+            _assert_within_wgmma_bound(FA, got, want, q, k, v, causal)
+        else:
+            assert _tf32x3_excess(FA, got, want, q, k, v, causal) <= 1.0
         cores = FA.flash_attention(q, k, v, causal=causal, block_q=bq, block_k=bk,
                                    path="cuda_cores")
         _assert_kernel_close(cores, want, "flash_attention (cuda_cores)")
@@ -387,7 +391,7 @@ def test_flash_attention_wgmma_matches_plain_on_the_card(b, hq, hkv, sq, sk, d, 
     cores = FA.flash_attention(q, k, v, causal=causal, block_q=bq, block_k=bk,
                                path="cuda_cores")
     torch.cuda.synchronize()
-    assert FA.launches_by_path == {"wgmma": before["wgmma"] + 2,
+    assert FA.launches_by_path == {"wgmma": before["wgmma"] + 2, "tf32x3": before["tf32x3"],
                                    "cuda_cores": before["cuda_cores"] + 1}
     assert torch.equal(got, again)
     want = FA.flash_attention_plain(q, k, v, causal=causal, block_q=bq, block_k=bk)
@@ -396,20 +400,19 @@ def test_flash_attention_wgmma_matches_plain_on_the_card(b, hq, hkv, sq, sk, d, 
     _assert_kernel_close(cores, want, "flash_attention (cuda_cores)")
 
 
-# faults planted in a copy of the wgmma kernel: (what, the line, its fault)
+# faults planted in a copy of the wgmma kernel: (what, the fault site that
+# marks the line, the text in it, its fault)
 WGMMA_FAULTS = [
-    ("O not rescaled by alpha",
-     "for (int i = 0; i < D / 2; ++i) o[i] *= alpha[(i >> 1) & 1];",
-     "for (int i = 0; i < D / 2; ++i) o[i] *= 1.0f;"),
-    ("the diagonal key masked",
-     "else if (p.causal && r0 + 8 * r < key) x = FA_NEG;",
-     "else if (p.causal && r0 + 8 * r <= key) x = FA_NEG;"),
+    ("O not rescaled by alpha", "flash wgmma rescale", "o[i] *= alpha[(i >> 1) & 1];",
+     "o[i] *= 1.0f;"),
+    ("the diagonal key masked", "flash wgmma causal mask", "r0 + 8 * r < key",
+     "r0 + 8 * r <= key"),
 ]
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("what,line,fault", WGMMA_FAULTS, ids=[f[0] for f in WGMMA_FAULTS])
-def test_the_wgmma_bound_catches_a_planted_fault(what, line, fault, tmp_path, monkeypatch,
+@pytest.mark.parametrize("what,site,text,fault", WGMMA_FAULTS, ids=[f[0] for f in WGMMA_FAULTS])
+def test_the_wgmma_bound_catches_a_planted_fault(what, site, text, fault, tmp_path, monkeypatch,
                                                  capsys):
     """A copy of the sources with one fault in the wgmma kernel builds,
     runs wgmma, and fails the elementwise bound at llama3-8b's head
@@ -425,8 +428,9 @@ def test_the_wgmma_bound_catches_a_planted_fault(what, line, fault, tmp_path, mo
     for f in _build.CSRC.iterdir():
         shutil.copy(f, tmp_path / f.name)
     src = (tmp_path / "flash_attention.cu").read_text()
-    assert src.count(line) == 1, line
-    (tmp_path / "flash_attention.cu").write_text(src.replace(line, fault))
+    (line,) = _fault_sites(src, site)
+    assert text in line, line
+    (tmp_path / "flash_attention.cu").write_text(src.replace(line, line.replace(text, fault)))
     gen = torch.Generator(device="cuda").manual_seed(1)
     q = torch.randn(1, 32, 1024, 128, generator=gen, device="cuda").bfloat16()
     k = torch.randn(1, 8, 1024, 128, generator=gen, device="cuda").bfloat16()
@@ -444,6 +448,104 @@ def test_the_wgmma_bound_catches_a_planted_fault(what, line, fault, tmp_path, mo
         print(f"\nplanted fault '{what}': error / bound {excess:.3f}, largest error "
               f"{err:.3e}, passes 2e-2 of the largest output: {loose}")
     assert excess > 1.0, (what, excess)
+
+
+def _tf32x3_excess(FA, got, want, q, k, v, causal):
+    """The largest error of the tf32x3 kernel over ``kernel.flash_tf32x3_bound``."""
+    torch.cuda.synchronize()
+    err = (got.double() - want.double()).abs()
+    return (err / FA.flash_tf32x3_bound(q, k, v, want, causal)).max().item()
+
+
+# llama3-8b's head layout (Hq 32, Hkv 8, D 128) unless named, and blocks
+# that divide the sequence (the reference's rule; the kernel runs its own
+# tiles): (B, Hq, Hkv, Sq, Sk, D, causal, block_q, block_k)
+TF32X3_CASES = [
+    (1, 32, 8, 1024, 1024, 128, True, None, None),
+    (1, 32, 8, 1024, 1024, 128, False, None, None),
+    (1, 32, 8, 512, 2048, 128, True, None, None),   # Sq < Sk: top-left
+    (1, 32, 8, 200, 200, 128, True, 40, 40),        # Sq not a multiple of the 128-row CTA
+    (1, 32, 8, 300, 1003, 128, False, 100, 59),     # Sk not a multiple of 8 nor of 32 keys
+    (2, 8, 2, 448, 208, 64, True, 64, 16),          # head dim 64; Sq > Sk
+    (2048, 32, 8, 40, 40, 128, True, None, None),   # B*Hq = 65536
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,hq,hkv,sq,sk,d,causal,bq,bk", TF32X3_CASES)
+def test_flash_attention_tf32x3_matches_plain_on_the_card(b, hq, hkv, sq, sk, d, causal, bq,
+                                                          bk, capsys):
+    """float32 at head dims 64 and 128 takes the tf32x3 kernel and agrees
+    with the plain version within 1e-4 of the largest output and element
+    by element within ``kernel.flash_tf32x3_bound``; a relaunch is
+    bit-identical, and ``path="cuda_cores"`` launches the CUDA-core kernel,
+    which agrees with plain on the same inputs."""
+    from repro_torch.kernels.flash_attention import kernel as FA
+
+    _card()
+    gen = torch.Generator(device="cuda").manual_seed(sq + sk + d + hq)
+    q = torch.randn(b, hq, sq, d, generator=gen, device="cuda")
+    k = torch.randn(b, hkv, sk, d, generator=gen, device="cuda")
+    v = torch.randn(b, hkv, sk, d, generator=gen, device="cuda")
+    assert FA.path_of(q.dtype, d) == "tf32x3"
+    before = dict(FA.launches_by_path)
+    blocks = {"block_q": bq, "block_k": bk}
+    got = FA.flash_attention(q, k, v, causal=causal, **blocks)
+    again = FA.flash_attention(q, k, v, causal=causal, **blocks)
+    cores = FA.flash_attention(q, k, v, causal=causal, path="cuda_cores", **blocks)
+    torch.cuda.synchronize()
+    assert FA.launches_by_path == {"wgmma": before["wgmma"], "tf32x3": before["tf32x3"] + 2,
+                                   "cuda_cores": before["cuda_cores"] + 1}
+    assert torch.equal(got, again)
+    want = FA.flash_attention_plain(q, k, v, causal=causal, **blocks)
+    _assert_kernel_close(got, want, "flash_attention (tf32x3)")
+    excess = _tf32x3_excess(FA, got, want, q, k, v, causal)
+    with capsys.disabled():
+        print(f"\ntf32x3 B{b} Hq{hq} Hkv{hkv} Sq{sq} Sk{sk} D{d} causal={causal}: "
+              f"error / bound {excess:.3f}")
+    assert excess <= 1.0, excess
+    _assert_kernel_close(cores, want, "flash_attention (cuda_cores)")
+
+
+@pytest.mark.cuda
+def test_the_flash_tf32x3_bound_catches_a_planted_fault(tmp_path, monkeypatch, capsys):
+    """A copy of the sources whose tf32x3 kernel keeps only a_hi b_hi in
+    both products (plain TF32: the lo products removed) builds, runs
+    tf32x3, and fails the elementwise bound at llama3-8b's head layout
+    (Hq 32, Hkv 8, D 128, S 1024, causal).  Prints its error over the
+    bound and whether the 1e-4 gate of the largest output would have
+    passed it."""
+    import shutil
+
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.flash_attention import kernel as FA
+
+    _card()
+    for f in _build.CSRC.iterdir():
+        shutil.copy(f, tmp_path / f.name)
+    src = (tmp_path / "flash_attention.cu").read_text()
+    lo_terms = _fault_sites(src, "flash tf32x3 lo product")
+    assert len(lo_terms) == 4 and all("mma" in line for line in lo_terms), lo_terms
+    for line in lo_terms:
+        src = src.replace(line + "\n", "")
+    (tmp_path / "flash_attention.cu").write_text(src)
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    q = torch.randn(1, 32, 1024, 128, generator=gen, device="cuda")
+    k = torch.randn(1, 8, 1024, 128, generator=gen, device="cuda")
+    v = torch.randn(1, 8, 1024, 128, generator=gen, device="cuda")
+    want = FA.flash_attention_plain(q, k, v, causal=True)
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    monkeypatch.setattr(_build, "_LIBS", {})
+    before = FA.launches_by_path["tf32x3"]
+    got = FA.flash_attention(q, k, v, causal=True)
+    assert FA.launches_by_path["tf32x3"] == before + 1
+    excess = _tf32x3_excess(FA, got, want, q, k, v, True)
+    err = (got - want).abs().max().item()
+    loose = err <= 1e-4 * (1 + want.abs().max().item())
+    with capsys.disabled():
+        print(f"\nplanted fault 'flash lo products removed': error / bound {excess:.3f}, "
+              f"largest error {err:.3e}, passes 1e-4 of the largest output: {loose}")
+    assert excess > 1.0, excess
 
 
 def _gla_case(b, h, s, dk, dv, dtype, seed):
