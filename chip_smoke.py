@@ -45,13 +45,22 @@ and prints no result):
    sum to bf16 once each, in different summation orders, which moves the
    result by at most one rounding step, 2**-8 = 3.9e-3 of the element).
    The cubes must run ``tiled`` on ``wgmma``; the 4 ResNet units must run
-   the windowed kernel's ``igemm`` path in each type (its
-   ``launches_by_path`` read around each launch), and every corpus conv
-   prints its windowed path and, where the conv view refuses it, why.
-   Each unit is timed as in phase 2 (a contraction or windowed unit with
-   ``general_ms``, its general loop timed in turns), beside one library
-   call of the same function where PyTorch has one (``torch.einsum``, ``torch._int_mm``,
-   cuDNN's ``conv2d``; none for an elementwise DAG or an int8 conv).
+   the windowed kernel's ``igemm`` path in each type, and the 4
+   ``h100-nofuse`` elementwise units (mm_bias_gelu's bias_gelu,
+   ffn_relu2's bias and relu2, moe_ffn's gate) the elementwise kernel's
+   ``vec`` path (each kernel's ``launches_by_path`` read around each
+   launch); every corpus conv prints its windowed path and, where the
+   conv view refuses it, why.  Each unit's general loop (the design
+   before the GEMM view, the implicit GEMM or the vec path) runs once
+   and is held against plain at the same tolerance
+   (``general_max_abs_err``).  Each unit is timed as in phase 2, with
+   ``general_ms`` (the general loop timed in turns), beside one library
+   call of the same function where PyTorch has one (``torch.einsum``,
+   ``torch._int_mm``, cuDNN's ``conv2d``, and for a map of one op on
+   whole loads that op, such as ``torch.add`` for a bias; none for a
+   longer elementwise DAG or an int8 conv), itself held against plain
+   where it is a map.  Then one empty kernel's launch, timed the same
+   way: the floor no unit's time can beat.
    Then path 4: the same ResNet layer in the three types through the
    compiled programs' entry point, every launch on ``igemm``, the layer
    held against ``conv2d`` in float64 (int8 exactly).
@@ -137,9 +146,10 @@ of the entry points (path 3) and before the ResNet layer (path 4), and
 read just after each; the contraction kernel's ``launches_by_path``
 (skinny, tiled, general) is read the same way for the serve and sweep
 paths, and the serve path may launch no general loop; the windowed
-kernel's (igemm, general) for the sweep and ResNet paths, flash
-attention's and the GLA kernel's (wgmma, tf32x3, cuda_cores) for path 3,
-all in
+kernel's (igemm, general) for the sweep and ResNet paths, the
+elementwise kernel's (vec, general) for the sweep (and phase 4's units,
+from their rows), flash attention's and the GLA kernel's (wgmma,
+tf32x3, cuda_cores) for path 3, all in
 the summary, which lists the six TPU kernels' counterparts
 (``stripe_matmul`` rides on the contraction kernel; its launches are
 phase 3's).  The
@@ -355,12 +365,16 @@ def _path_ran(K, before) -> str:
 
 def _general(K, fn, env):
     """The same unit through the general loop (the contraction's design
-    before its GEMM view, the windowed kernel's before its implicit GEMM),
-    for timing beside the view's path."""
+    before its GEMM view, the windowed kernel's before its implicit GEMM,
+    the elementwise kernel's before its vec path), for timing beside the
+    view's path."""
     plan = fn.plan
     if fn.kernel == "windowed":
         return _kernel_modules()["windowed"].windowed(
             plan, [env[i.buf] for i in plan.ins], fn.out_clip, path="general")
+    if fn.kernel == "elementwise":
+        return _kernel_modules()["elementwise"].elementwise(
+            plan, [env[s.buf] for s in plan.ins], fn.out_clip, path="general")
     return K.contraction(plan, [env[s.buf] for s in plan.slots],
                          [env[s.buf] for s in plan.eslots],
                          getattr(fn, "out_clip", fn.out_shape), path="general")
@@ -374,6 +388,14 @@ def _conv_desc(WK, plan, ins) -> dict:
     return {"path": "igemm", "mma": view.mma, "M": view.M, "N": view.N, "K": view.K,
             "kc": view.kc, "tile": list(view.tile), "stages": view.stages,
             "b_load": view.b_load}
+
+
+def _ew_desc(EW, plan, ins, clip) -> dict:
+    view = EW.vec_view(plan, ins, clip)
+    if view is None:
+        return {"path": "general", "reason": EW.refusal(plan, ins, clip)}
+    return {"path": "vec", "vectors": view.n_vec, "clipped": view.clipped,
+            "blocks": view.blocks()}
 
 
 def _view_desc(K, plan) -> dict:
@@ -531,7 +553,8 @@ def _library_call(torch, semantic, members, env):
     """One PyTorch call of the unit's function, the yardstick: the
     contraction as ``torch.einsum`` (operands promoted to one type, the
     cast inside the timed call), an int8 matmul as ``torch._int_mm``, a
-    float 2-D convolution as cuDNN's ``conv2d``; None for anything else."""
+    float 2-D convolution as cuDNN's ``conv2d``, a map of one op as that
+    op (:func:`_map_call`); None for anything else."""
     from repro_torch.core.flat import _product_leaves, analyze_flat
     from repro_torch.core.ir import Block
 
@@ -539,6 +562,10 @@ def _library_call(torch, semantic, members, env):
         if not (isinstance(s, Block) and s.name in members):
             continue
         op = analyze_flat(s)
+        if op.agg == "assign":
+            if len(members) == 1:
+                return _map_call(torch, semantic, op, env)
+            continue
         prod = _product_leaves(op.root)
         if op.agg != "add" or prod is None or len(prod[0]) != 2:
             continue
@@ -570,6 +597,40 @@ def _library_call(torch, semantic, members, env):
     return None
 
 
+def _map_call(torch, semantic, op, env):
+    """A map of one unary or binary op on whole loads as that one PyTorch
+    call (``torch.add`` for a bias add), where each load's indices are a
+    suffix of the output's (so torch's broadcast is the map's) and the
+    call's type is the output's; else None."""
+    from repro_torch.core.lower_torch import _J_BINARY, _J_UNARY, torch_dtype
+
+    n = op.root
+    table = _J_UNARY if len(n.args) == 1 else _J_BINARY if len(n.args) == 2 else {}
+    if n.kind != "op" or n.op == "cast" or n.op not in table:
+        return None
+    args = []
+    for a in n.args:
+        if a.kind != "load":
+            return None
+        axes = []
+        for e in a.ref.offsets:
+            if len(e.terms) != 1 or e.const != 0 or e.terms[0][1] != 1:
+                return None
+            axes.append(e.terms[0][0])
+        t = env[a.ref.from_buf]
+        if (axes != op.out_vars[len(op.out_vars) - len(axes):]
+                or tuple(t.shape) != tuple(op.ranges[v] for v in axes)):
+            return None
+        args.append(t)
+    out = semantic.buffers[op.out_ref.from_buf]
+    kind = torch.result_type(*args) if len(args) == 2 else args[0].dtype
+    if (tuple(out.shape) != tuple(op.ranges[v] for v in op.out_vars)
+            or kind != torch_dtype(str(out.dtype))):
+        return None
+    fn = table[n.op]
+    return lambda: fn(*args)
+
+
 def _time_library(timer, lib, what):
     """The yardstick's time, or None where PyTorch has no such call (or
     refuses these operands: the yardstick is not the port)."""
@@ -585,9 +646,8 @@ def _time_library(timer, lib, what):
 def unit_rows(torch, K, LC, timer, label, compiled, env) -> list:
     """Phase 4 for one compiled program: each unit's kernels against their
     plain versions (the unit's output buffer compared whole), timed; the
-    kernel's result feeds the units after it.  One row per unit; a
-    contraction or windowed unit's row names the path its launch took and
-    times the general loop beside it."""
+    kernel's result feeds the units after it.  One row per unit; each row
+    names the path its launch took and times the general loop beside it."""
     mods = _kernel_modules()
     buffers = compiled.program.buffers
     semantic = compiled.program.source
@@ -600,10 +660,9 @@ def unit_rows(torch, K, LC, timer, label, compiled, env) -> list:
         want_env = dict(got_env)
         paths = []
         for fn in fns:
-            viewed = fn.kernel in ("contraction", "windowed")
-            before = dict(mods[fn.kernel].launches_by_path) if viewed else None
+            before = dict(mods[fn.kernel].launches_by_path)
             got_env[fn.out_buf] = LC._place(got_env, buffers[fn.out_buf], fn, fn(env))
-            if viewed and DEVICE == "cuda":
+            if DEVICE == "cuda":
                 paths.append(_path_ran(mods[fn.kernel], before))
             want_env[fn.out_buf] = LC._place(want_env, buffers[fn.out_buf], fn, fn.plain(env))
         if DEVICE == "cuda":
@@ -621,30 +680,45 @@ def unit_rows(torch, K, LC, timer, label, compiled, env) -> list:
             types += t
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         t_ops = flops / _op_rate(types) * 1e3
+        # the general loop on the same unit, held to the same tolerance
+        gen_env = {k: v for k, v in env.items() if k not in outs}
+        for fn in fns:
+            before = dict(mods[fn.kernel].launches_by_path)
+            gen_env[fn.out_buf] = LC._place(gen_env, buffers[fn.out_buf], fn,
+                                            _general(K, fn, env))
+            if DEVICE == "cuda" and _path_ran(mods[fn.kernel], before) != "general":
+                raise AssertionError(f"{what}: path='general' ran another path")
+        general_err = _close(torch, gen_env[out], want_env[out], f"{what} (general loop)")
         lib = _library_call(torch, semantic, unit.members, env) if semantic else None
+        if lib is not None and fns[0].kernel == "elementwise":
+            _close(torch, lib(), want_env[out], f"{what} (library call)")
 
         def run(which, fns=fns):
             for fn in fns:
                 if which == "plain":
                     fn.plain(env)
-                elif which == "general" and fn.kernel in ("contraction", "windowed"):
+                elif which == "general":
                     _general(K, fn, env)
                 else:
                     fn(env)
 
         env[out] = got_env[out]
-        if any(fn.kernel in ("contraction", "windowed") for fn in fns) and DEVICE == "cuda":
+        if DEVICE == "cuda":
             ms, general_ms = timer.turns(lambda: run("kernel"), lambda: run("general"))
         else:
             ms, general_ms = timer(lambda: run("kernel")), None
         views = [_view_desc(K, fn.plan) if fn.kernel == "contraction"
                  else _conv_desc(mods["windowed"], fn.plan, [env[i.buf] for i in fn.plan.ins])
-                 for fn in fns if fn.kernel in ("contraction", "windowed")]
+                 if fn.kernel == "windowed"
+                 else _ew_desc(mods["elementwise"], fn.plan, [env[s.buf] for s in fn.plan.ins],
+                               fn.out_clip)
+                 for fn in fns]
         rows.append({
             "unit": what, "kernel": sorted({fn.kernel for fn in fns}),
             "launches": len(fns), "dtype": str(got_env[out].dtype).replace("torch.", ""),
             "paths": paths, "views": views,
             "max_abs_err": err, "max_abs_out": got_env[out].double().abs().max().item(),
+            "general_max_abs_err": general_err,
             "ms": ms, "general_ms": general_ms, "plain_ms": timer(lambda: run("plain")),
             "library_ms": _time_library(timer, lib, what),
             "bound_ms": max(t_bytes, t_ops),
@@ -702,7 +776,21 @@ def check_new_units(torch, api, K, LC, timer) -> list:
             if r["kernel"] == ["windowed"] and "/resnet50_" not in label:
                 print(f"  windowed path of {r['unit']}: {json.dumps(r['views'])}", flush=True)
         rows += got
+    # the unfused activation, bias and gate units take the vec path
+    unfused = [r for r in rows if r["unit"].startswith("h100-nofuse/")
+               and r["kernel"] == ["elementwise"]]
+    ran = [p for r in unfused for p in r["paths"]]
+    if DEVICE == "cuda" and ran != ["vec"] * 4:
+        raise AssertionError(f"the h100-nofuse elementwise units ran {ran}, not vec x 4: "
+                             f"{[r['views'] for r in unfused]}")
     return rows
+
+
+def empty_floor(torch, timer) -> float:
+    """The event time of one empty kernel's launch (phase 4's timer): the
+    floor no unit's time can beat."""
+    EW = _kernel_modules()["elementwise"]
+    return timer(lambda: EW.empty_launch(torch.device("cuda")))
 
 
 def resnet_path(torch, api) -> dict:
@@ -868,7 +956,7 @@ def sweep(torch, api, K) -> dict:
     mods = _kernel_modules()
     for mod in mods.values():
         mod.launches = 0
-    for m in (K, mods["windowed"]):
+    for m in (K, mods["windowed"], mods["elementwise"]):
         for p in m.launches_by_path:
             m.launches_by_path[p] = 0
     t0 = time.perf_counter()
@@ -881,6 +969,7 @@ def sweep(torch, api, K) -> dict:
     counts = {name: mod.launches for name, mod in mods.items()}
     by_path = dict(K.launches_by_path)
     windowed_by_path = dict(mods["windowed"].launches_by_path)
+    elementwise_by_path = dict(mods["elementwise"].launches_by_path)
     v = sw.validation
     for e in v["entries"]:
         if e["error"]:
@@ -910,7 +999,8 @@ def sweep(torch, api, K) -> dict:
             held = max(held, _close(torch, out[name], want[name], f"sweep {best.config_name}/"
                                     f"{w.name}/{name} against torch"))
     return {"wall_s": wall, "launches": counts, "launches_by_path": by_path,
-            "windowed_launches_by_path": windowed_by_path, "validation": v,
+            "windowed_launches_by_path": windowed_by_path,
+            "elementwise_launches_by_path": elementwise_by_path, "validation": v,
             "points": [(p.index, p.config_name, p.latency_s, p.n_kernels, p.dedup_of)
                        for p in sw.points],
             "best": best.config_name, "max_abs_err_vs_torch": held}
@@ -1259,6 +1349,8 @@ def main() -> None:
           f"{RTOL}*(1+max|p|), bf16 {BF16_RTOL}*(1+max|p|)", flush=True)
     for r in new_rows:
         print("  unit " + json.dumps(r), flush=True)
+    empty_ms = empty_floor(torch, timer)
+    print(f"empty kernel: {empty_ms} ms a launch (the timer's floor)", flush=True)
     rn = resnet_path(torch, api)
     print(f"ResNet-50 conv2_x b{RESNET_BATCH} through stripe_jit (f32, bf16, int8): "
           + json.dumps(rn), flush=True)
@@ -1294,7 +1386,9 @@ def main() -> None:
     sw = sweep(torch, api, K)
     v = sw["validation"]
     print(f"sweep: {SWEEP} in {sw['wall_s']:.1f} s; launches {json.dumps(sw['launches'])}; "
-          f"contraction by path {json.dumps(sw['launches_by_path'])}", flush=True)
+          f"contraction by path {json.dumps(sw['launches_by_path'])}; windowed by path "
+          f"{json.dumps(sw['windowed_launches_by_path'])}; elementwise by path "
+          f"{json.dumps(sw['elementwise_launches_by_path'])}", flush=True)
     for p in sw["points"]:
         print(f"  point {json.dumps(p)}")
     for e in v["entries"]:
@@ -1377,11 +1471,25 @@ def main() -> None:
     matmul_entry = _kernel_entry("stripe_matmul", "src/repro_torch/csrc/contraction.cu",
                                  "src/repro/kernels/stripe_matmul/kernel.py:23", mm_launches,
                                  [mm_row], mm_err)
+    # elementwise: every unfused elementwise unit of the corpus, the general
+    # loop's time beside it; launches: the sweep's, by path there and in
+    # phase 4's units
+    elementwise = _kernel_entry("elementwise", "src/repro_torch/csrc/elementwise.cu",
+                                "src/repro/core/lower_pallas.py:1097",
+                                sw["launches"]["elementwise"], ew,
+                                max(r["max_abs_err"] for r in ew))
+    elementwise["general_ms"] = sum(r["general_ms"] for r in ew)
+    elementwise["general_max_abs_err"] = max(r["general_max_abs_err"] for r in ew)
+    # one PyTorch call computes only some units (a bias add): by unit
+    elementwise["library_ms_by_unit"] = {r["unit"]: r["library_ms"] for r in ew}
+    phase4 = [p for r in new_rows if r["kernel"] == ["elementwise"] for p in r["paths"]]
+    elementwise["launches_by_path"] = {
+        "sweep": sw["elementwise_launches_by_path"],
+        "phase4": {p: phase4.count(p) for p in ("vec", "general")}}
+    elementwise["empty_kernel_ms"] = empty_ms
     summary = {"kernels": [
         contraction,
-        _kernel_entry("elementwise", "src/repro_torch/csrc/elementwise.cu",
-                      "src/repro/core/lower_pallas.py:1097", sw["launches"]["elementwise"],
-                      ew, max(r["max_abs_err"] for r in ew)),
+        elementwise,
         windowed,
         flash,
         gla,

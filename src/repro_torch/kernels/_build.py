@@ -9,10 +9,11 @@ windowed, flash_attention) ``csrc/hopper.cuh``, the Hopper building
 blocks (cp.async, mbarriers, TMA and its tensor maps, wgmma).  Each source
 compiles with ``nvcc`` for ``sm_90a`` into its own shared object under
 ``build/kernels/<hash>/`` at the repository root, the hash covering the
-source, the headers and the flags,
-and is bound with ``ctypes``.  The first load starts one ``nvcc`` per
-missing library, all at once, and waits for them together, so the five
-builds cost the time of the slowest.
+source, the headers and the flags (ptxas's report of its kernels'
+registers, stack frame and spills beside it, as
+``libstripe_<name>.ptxas.txt``), and is bound with ``ctypes``.  The first
+load starts one ``nvcc`` per missing library, all at once, and waits for
+them together, so the five builds cost the time of the slowest.
 
 Nothing is built on import: only a kernel launch (or an explicit
 :func:`build_all`) compiles, which happens only where ``nvcc`` exists.
@@ -22,6 +23,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -87,7 +89,10 @@ def build_all(names: Optional[Iterable[str]] = None) -> Dict[str, Path]:
         so = library_path(name)
         out[name] = so
         if so.exists():
-            BUILD_INFO[name] = {"path": str(so), "seconds": 0.0, "cached": True}
+            if BUILD_INFO.get(name, {}).get("path") != str(so):  # not built by this process
+                report = ptxas_path(so)
+                BUILD_INFO[name] = {"path": str(so), "seconds": 0.0, "cached": True,
+                                    "ptxas": report.read_text() if report.exists() else ""}
             continue
         so.parent.mkdir(parents=True, exist_ok=True)
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=so.parent)
@@ -107,6 +112,8 @@ def build_all(names: Optional[Iterable[str]] = None) -> Dict[str, Path]:
             os.unlink(tmp)
             failures.append(f"{SOURCES[name]}: nvcc failed ({proc.returncode}):\n{err[-4000:]}")
             continue
+        # the report first, so that a library on disk always has its own
+        ptxas_path(so).write_text(err.strip())
         os.replace(tmp, so)
         BUILD_INFO[name] = {"path": str(so), "seconds": time.perf_counter() - t0,
                             "cached": False, "ptxas": err.strip()}
@@ -130,6 +137,51 @@ def load(name: str, bind) -> ctypes.CDLL:
     bind(lib)
     _LIBS[name] = lib
     return lib
+
+
+def ptxas_path(so: Path) -> Path:
+    """Where the build of library ``so`` keeps what ``ptxas -v`` said."""
+    return so.with_suffix(".ptxas.txt")
+
+
+def ptxas_text(name: str) -> str:
+    """What ``ptxas -v`` said of library ``name``'s kernels when it was
+    built (building it first if it is missing)."""
+    if name not in BUILD_INFO:
+        build_all([name])
+    text = str(BUILD_INFO[name].get("ptxas", ""))
+    if not text:
+        raise KernelBuildError(f"{BUILD_INFO[name]['path']} has no ptxas report beside it")
+    return text
+
+
+_PTXAS_FN = re.compile(r"Function properties for (\S+)")
+_PTXAS_FRAME = re.compile(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                          r"(\d+) bytes spill loads")
+_PTXAS_REGS = re.compile(r"Used (\d+) registers")
+
+
+def parse_ptxas(text: str) -> Dict[str, Dict[str, int]]:
+    """Per kernel (its mangled name) of a ``ptxas -v`` report: registers,
+    stack frame and spill bytes."""
+    out: Dict[str, Dict[str, int]] = {}
+    fn = None
+    for line in text.splitlines():
+        m = _PTXAS_FN.search(line)
+        if m:
+            fn = m.group(1)
+            out.setdefault(fn, {})
+            continue
+        if fn is None:
+            continue
+        m = _PTXAS_FRAME.search(line)
+        if m:
+            out[fn].update(stack_frame=int(m.group(1)), spill_stores=int(m.group(2)),
+                           spill_loads=int(m.group(3)))
+        m = _PTXAS_REGS.search(line)
+        if m:
+            out[fn]["registers"] = int(m.group(1))
+    return out
 
 
 def check_layout(lib_fn, want) -> None:

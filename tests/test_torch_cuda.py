@@ -301,6 +301,155 @@ def test_elementwise_broadcasts_and_rounds_on_the_card():
     _assert_kernel_close(c(env)["O"], want, "silu(X + b) * s")
 
 
+def _map_unit(tin, tout, shape=(64, 96)):
+    """A compiled one-unit map, X + b broadcast along rows then gated by Y,
+    and its one elementwise launch."""
+    m, n = shape
+    tp = TileProgram(f"map_{tin}_{tout}")
+    tp.input("X", (m, n), tin); tp.input("b", (n,), tin); tp.input("Y", (m, n), tin)
+    tp.output("O", (m, n), tout)
+    act = "relu" if tin.startswith("int") else "silu"
+    tp.op(f"O[i, j] = {act}(X[i, j] + b[j]) * Y[i, j]", name="map")
+    prog = tp.build()
+    c = stripe_jit(prog, get_config("h100"), "cuda",
+                   cache=t_cache.CompilationCache(use_disk=False), use_disk=False)
+    (_unit, kind, (fn,)), = c._fn.steps
+    assert kind == "cuda" and fn.kernel == "elementwise"
+    return c, fn
+
+
+def _launch_path(fn, ins):
+    """One launch of ``fn``'s plan on ``ins``; returns (output, path)."""
+    before = dict(EW.launches_by_path)
+    got = EW.elementwise(fn.plan, ins, fn.out_clip)
+    torch.cuda.synchronize()
+    ran = [p for p in EW.PATHS if EW.launches_by_path[p] != before[p]]
+    assert len(ran) == 1 and EW.launches_by_path[ran[0]] == before[ran[0]] + 1
+    return got, ran[0]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tin,tout", [("float32", "float32"), ("float32", "bfloat16"),
+                                      ("bfloat16", "bfloat16"), ("float16", "float16"),
+                                      ("int8", "int32")])
+def test_elementwise_vec_matches_plain_on_the_card(tin, tout):
+    """The vec path against plain, a row-broadcast bias among the inputs:
+    integers exactly, float32 within 1e-4, 16-bit floats within 2e-2 of
+    the largest output."""
+    _card()
+    c, fn = _map_unit(tin, tout)
+    env = _random_arrays(c.program.source, seed=6)
+    ins = [env[s.buf] for s in fn.plan.ins]
+    assert EW.vec_view(fn.plan, ins, fn.out_clip) is not None, EW.refusal(fn.plan, ins)
+    got, ran = _launch_path(fn, ins)
+    assert ran == "vec"
+    _assert_kernel_close(got, fn.plain(env), f"{tin} -> {tout}")
+
+
+@pytest.mark.cuda
+def test_elementwise_refused_plans_run_general_on_the_card():
+    """A ragged unit (70 points a row) and a misaligned input take the
+    general loop, and still match plain."""
+    _card()
+    tp = TileProgram("ragged")
+    tp.input("X", (4, 33, 70), "bfloat16"); tp.input("b", (70,)); tp.input("s", (33, 1))
+    tp.output("O", (4, 33, 70), "bfloat16")
+    tp.op("O[n, i, j] = silu(X[n, i, j] + b[j]) * s[i, 0]", name="map")
+    c = stripe_jit(tp.build(), get_config("h100"), "cuda",
+                   cache=t_cache.CompilationCache(use_disk=False), use_disk=False)
+    (_unit, _kind, (fn,)), = c._fn.steps
+    env = _random_arrays(c.program.source, seed=7)
+    ins = [env[s.buf] for s in fn.plan.ins]
+    assert "not a multiple of 8" in EW.refusal(fn.plan, ins, fn.out_clip)
+    got, ran = _launch_path(fn, ins)
+    assert ran == "general"
+    _assert_kernel_close(got, fn.plain(env), "ragged")
+
+    c, fn = _map_unit("float32", "float32")
+    env = _random_arrays(c.program.source, seed=8)
+    big = torch.randn(64 * 96 + 1, device="cuda")
+    env["X"] = big[1:].view(64, 96)  # contiguous, 4 bytes past a 16-byte boundary
+    ins = [env[s.buf] for s in fn.plan.ins]
+    assert "16-byte" in EW.refusal(fn.plan, ins, fn.out_clip)
+    got, ran = _launch_path(fn, ins)
+    assert ran == "general"
+    _assert_kernel_close(got, fn.plain(env), "misaligned")
+
+
+@pytest.mark.cuda
+def test_elementwise_vec_takes_a_misaligned_row_scale_on_the_card():
+    """A per-row scale ``s[i, 0]`` (broadcast along variable 0, its row
+    stride 1) read from a slice 4 bytes past a 16-byte boundary: one scalar
+    a vector needs no alignment, so the unit takes vec and matches plain."""
+    _card()
+    tp = TileProgram("row_scale")
+    tp.input("X", (13, 48)); tp.input("s", (13, 1))
+    tp.output("O", (13, 48))
+    tp.op("O[i, j] = relu(X[i, j]) * s[i, 0]", name="map")
+    c = stripe_jit(tp.build(), get_config("h100"), "cuda",
+                   cache=t_cache.CompilationCache(use_disk=False), use_disk=False)
+    (_unit, _kind, (fn,)), = c._fn.steps
+    env = _random_arrays(c.program.source, seed=10)
+    env["s"] = torch.randn(14, device="cuda")[1:].view(13, 1)
+    ins = [env[s.buf] for s in fn.plan.ins]
+    assert EW.vec_view(fn.plan, ins, fn.out_clip) is not None, EW.refusal(fn.plan, ins)
+    got, ran = _launch_path(fn, ins)
+    assert ran == "vec"
+    _assert_kernel_close(got, fn.plain(env), "row scale")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tin,tout", [("float32", "float32"), ("int8", "int32")])
+def test_elementwise_general_path_argument_on_the_card(tin, tout):
+    """``path="general"`` forces the general loop on a plan the vec path
+    takes; both agree with plain."""
+    _card()
+    c, fn = _map_unit(tin, tout, shape=(48, 128))
+    env = _random_arrays(c.program.source, seed=9)
+    ins = [env[s.buf] for s in fn.plan.ins]
+    before = dict(EW.launches_by_path)
+    vec = EW.elementwise(fn.plan, ins, fn.out_clip)
+    gen = EW.elementwise(fn.plan, ins, fn.out_clip, path="general")
+    torch.cuda.synchronize()
+    assert EW.launches_by_path == {"vec": before["vec"] + 1, "general": before["general"] + 1}
+    want = fn.plain(env)
+    _assert_kernel_close(vec, want, "vec")
+    _assert_kernel_close(gen, want, "general")
+
+
+@pytest.mark.cuda
+def test_elementwise_vec_with_a_clip_on_the_card():
+    """A region of 104 points cut to 96 (whole vectors): the vec kernel
+    tests each vector against the clip and stores only those inside."""
+    _card()
+    plan = EW.MapPlan(out_vars=("j",), out_ext=(104,), out_dim=(0,), out_coef=(1,),
+                      out_shape=(104,), ins=(K.Slot("X", 0, (1,), ()),),
+                      prog=((K.OP_LOAD, 0), (K.OP_UNARY + K.UNARY_OPS.index("relu"), 0)),
+                      consts=())
+    x = torch.randn(104, device="cuda")
+    assert EW.vec_view(plan, [x], (96,)).clipped
+    before = dict(EW.launches_by_path)
+    got = EW.elementwise(plan, [x], (96,))
+    torch.cuda.synchronize()
+    assert EW.launches_by_path["vec"] == before["vec"] + 1
+    assert torch.equal(got, EW.elementwise_plain(plan, [x], (96,)))
+
+
+@pytest.mark.cuda
+def test_elementwise_vec_kernels_use_no_local_memory_on_the_card():
+    """Every vec instantiation keeps its stack in registers: ptxas reports
+    0 bytes of stack frame and of spills."""
+    _card()
+    usage = EW.resource_usage()
+    vec = {k: u for k, u in usage.items() if k.startswith("elementwise_vec_kernel")}
+    assert set(vec) == {f"elementwise_vec_kernel<{t}, {n}>" for t in ("float", "int")
+                        for n in range(1, 7)}
+    for name, u in vec.items():
+        assert u["stack_frame"] == u["spill_stores"] == u["spill_loads"] == 0, (name, u)
+        assert 0 < u["registers"] <= 255, (name, u)
+    print({k: (u["registers"], u["stack_frame"]) for k, u in usage.items()})
+
+
 # ------------------------------------------- flash attention and chunked GLA
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
