@@ -139,16 +139,53 @@ and prints no result):
    the tensor cores' TF32 rate, the rate that path computes at; its bound
    at the CUDA cores' float32 rate stands beside it
    (``f32_cuda_core_bound_ms``).
+9. **tune** — the tuning path: ``run_sweep(get_space("h100-sweep"),
+   "default", budget=8, measure_top_k=3, measure=3, tune_db=TuningDB(<a
+   temp dir>))`` on the card.  The measure mode times 3 candidate tilings
+   a workload under ``h100``; every workload must have a DB entry measured
+   on the card (``interpret`` false), and, for each, how many candidates
+   launch distinct unit plans is printed (candidates of one plan differ
+   by noise).  Each workload is then compiled with
+   ``stripe_jit(..., tune=db)``: the compile must replay the measured
+   winner (``decision_source == "tuned"``, every unit on its kernel) and
+   its outputs hold against the ``torch`` backend at phase 4's
+   tolerances.  The validated points' programs then run profiled on the
+   card, twice each (the first call builds the plans' launch parameters
+   and is not logged), a calibration
+   ``measured ~= a*t_mem + b*t_compute + c`` is fitted from the residual
+   rows the log holds (all ``interpret`` false), and the validated points are
+   re-scored under it: the measured ranks print beside the predicted
+   ones, uncalibrated and calibrated, with ``(a, b, c)``.  The contraction
+   and windowed kernels must have been launched.
+10. **model** — llama3-8b's own forward at full width with the serve
+   phase's weights (``--layers`` deep): ``Model.prefill`` on 4 prompts of
+   64 tokens, then 8 greedy ``Model.decode_step``s, with
+   ``oplib.set_backend("cuda")`` and again with ``"torch"`` (each after
+   one untimed prefill and decode step, which compile and load).  Every
+   projection is one launch of the contraction kernel, 7 a layer a call:
+   ``tiled`` on ``wgmma`` at prefill, ``skinny`` at decode (read from
+   ``launches_by_path`` around each call), every ``oplib`` unit on
+   ``cuda``.  After the counted runs, each of the 7 projections, at the
+   prefill's m = 256 and the decode's m = 4, runs on seeded tensors of the
+   model's type and is held against its kernel's plain version
+   (``BF16_RTOL``; the largest error prints as ``ops_max_abs_err``).
+   Logits are held between the backends as in phase 5, and the
+   prefill and decode-step times print on the host clock (with
+   ``torch.cuda.synchronize()``) beside the card's name and power limit.
+
+The run order is 1-6, 10, 7, 9, 8: phase 10 reuses the serve phase's
+weights, which are freed before phase 8.
 
 Launch counts are read per path: every count is set to 0 just before the
 serve phase (path 1), before the sweep (path 2), before phase 8's calls
-of the entry points (path 3) and before the ResNet layer (path 4), and
-read just after each; the contraction kernel's ``launches_by_path``
-(skinny, tiled, general) is read the same way for the serve and sweep
-paths, and the serve path may launch no general loop; the windowed
-kernel's (igemm, general) for the sweep and ResNet paths, the
-elementwise kernel's (vec, general) for the sweep (and phase 4's units,
-from their rows), flash attention's and the GLA kernel's (wgmma,
+of the entry points (path 3), before the ResNet layer (path 4), before
+phase 9 (path 5) and before phase 10's timed calls (path 6), and read
+just after each; the contraction kernel's ``launches_by_path`` (skinny,
+tiled, general) is read the same way for the serve, sweep, tune and model
+paths, and neither the serve nor the model path may launch the general
+loop; the windowed kernel's (igemm, general) for the sweep, ResNet and
+tune paths, the elementwise kernel's (vec, general) for the sweep and
+tune paths (and phase 4's units, from their rows), flash attention's and the GLA kernel's (wgmma,
 tf32x3, cuda_cores) for path 3, all in
 the summary, which lists the six TPU kernels' counterparts
 (``stripe_matmul`` rides on the contraction kernel; its launches are
@@ -198,6 +235,12 @@ PROMPT_LENS = (17, 40, 64, 100)
 CORPUS = ("mm_bias_gelu", "ffn_relu2", "attn_scores", "moe_ffn", "fig4_conv", "conv_mlp",
           "fig5_conv_f32")
 SWEEP = dict(space="h100-sweep", workloads="default", budget=8, measure_top_k=3)
+# phase 9: the same sweep with its measure mode (3 candidate tilings a
+# workload) into a tuning DB
+TUNE = dict(SWEEP, measure=3)
+# phase 10: llama3-8b's own prefill (MODEL_BATCH prompts of MODEL_PROMPT
+# tokens) and MODEL_STEPS greedy decode steps
+MODEL_BATCH, MODEL_PROMPT, MODEL_STEPS = 4, 64, 8
 RESNET_BATCH = 8
 # every kernel (its source is csrc/<name>.cu), and those the compiler's
 # units launch (the sweep must reach each of these)
@@ -1006,6 +1049,246 @@ def sweep(torch, api, K) -> dict:
             "best": best.config_name, "max_abs_err_vs_torch": held}
 
 
+def _sync(torch) -> None:
+    if DEVICE == "cuda":
+        torch.cuda.synchronize()
+
+
+def _zero_counts(*mods) -> None:
+    for mod in mods:
+        mod.launches = 0
+        for p in getattr(mod, "launches_by_path", {}):
+            mod.launches_by_path[p] = 0
+
+
+def tune(torch, api, K) -> dict:
+    """Phase 9, the tuning path: the sweep's measure mode fills a tuning
+    DB from the card, every workload then replays its measured winner
+    through ``stripe_jit(tune=)``, and a calibration fitted from profiled
+    runs on the card re-ranks the validated points."""
+    import dataclasses
+    import tempfile
+    from repro_torch.core import cache as stripe_cache
+    from repro_torch.explore.runner import _random_arrays, score_config
+    from repro_torch.explore.workloads import get_workloads
+    from repro_torch.obs import profile as obs_profile
+    from repro_torch.tune import (TuningDB, clear_calibrations, fit_calibration,
+                                  set_calibration)
+
+    mods = _kernel_modules()
+    _zero_counts(*mods.values())
+    hw = api.get_config("h100")
+    workloads = get_workloads(TUNE["workloads"])
+    out = {}
+    with tempfile.TemporaryDirectory() as d:
+        db = TuningDB(dir=Path(d) / "db")
+        t0 = time.perf_counter()
+        sw = api.run_sweep(api.get_space(TUNE["space"]), TUNE["workloads"],
+                           budget=TUNE["budget"], measure_top_k=TUNE["measure_top_k"],
+                           measure=TUNE["measure"], tune_db=db, measure_device=DEVICE)
+        _sync(torch)
+        out["sweep_wall_s"] = time.perf_counter() - t0
+        # every workload: an entry measured on the card under h100
+        entries = db.entries().values()
+        out["workloads"] = {}
+        for w in workloads:
+            wl = sw.measurement["workloads"].get(w.name, {"error": "not measured"})
+            if wl.get("error"):
+                raise AssertionError(f"tune: {w.name}: {wl['error']}")
+            mine = [e for e in entries if e["workload"] == w.name
+                    and e["hw_fingerprint"] == hw.fingerprint() and e["backend"] == "cuda"
+                    and e["interpret"] is (DEVICE == "cpu")]
+            if not mine:
+                raise AssertionError(f"tune: {w.name} has no DB entry measured on {DEVICE}")
+            out["workloads"][w.name] = {k: wl.get(k) for k in (
+                "n_candidates", "n_rejected", "n_distinct_plans", "analytic_s", "best_s",
+                "improved", "best_same_plan_as_analytic", "speedup_vs_analytic")}
+        # the measured winners replay, held against the torch backend
+        held = 0.0
+        for w in workloads:
+            got = api.jit(w.build(), hw, "cuda", cache=stripe_cache.CompilationCache(
+                use_disk=False), use_disk=False, tune=db, device=DEVICE)
+            if got.record.decision_source != "tuned":
+                raise AssertionError(f"tune: {w.name} compiled {got.record.decision_source}")
+            if set(got.record.block_backends.values()) != {"cuda"}:
+                raise AssertionError(f"tune: {w.name} units {got.record.block_backends}")
+            ref = api.jit(w.build(), hw, "torch", cache=stripe_cache.CompilationCache(
+                use_disk=False), use_disk=False)
+            arrays = _random_arrays(got.program.source, seed=SEED, device=DEVICE)
+            want, res = ref(arrays), got(arrays)
+            for name in got.program.outputs:
+                held = max(held, _close(torch, res[name], want[name],
+                                        f"tune {w.name}/{name} tuned against torch"))
+            out["workloads"][w.name]["tuned_candidate"] = got.record.tuned["candidate_id"]
+        out["max_abs_err_vs_torch"] = held
+        # profiled runs on the card: the residual rows the calibration fits
+        v = sw.validation
+        configs = {e["index"]: (sw.space.base_config() if e["index"] < 0
+                                else sw.space.apply(sw.points[e["index"]].point))
+                   for e in v["entries"]}
+        # two calls each: the log holds the second (on the card, the first
+        # builds every plan's launch parameters and is not logged)
+        cache = stripe_cache.CompilationCache(disk_dir=Path(d) / "cache")
+        for cfg_hw in configs.values():
+            for w in workloads:
+                c = api.jit(w.build(), cfg_hw, "cuda", cache=cache, use_disk=False,
+                            profile=True)
+                arrays = _random_arrays(c.program.source, seed=SEED, device=DEVICE)
+                c(arrays)
+                c(arrays)
+        rows = obs_profile.read_residuals(obs_profile.residual_log_path(cache))
+        if not rows or any(r["interpret"] is not (DEVICE == "cpu") for r in rows):
+            raise AssertionError(f"tune: residual rows {len(rows)}, interpret flags "
+                                 f"{sorted({r['interpret'] for r in rows})}")
+        measured = {e["index"]: e["measured_total_us"] for e in v["entries"]}
+        out["ranks"] = {"predicted": v["predicted_rank"], "measured": v["measured_rank"]}
+        out["points"] = [{"index": e["index"], "config": e["config"],
+                          "predicted_us": e["predicted_latency_s"] * 1e6,
+                          "measured_us": measured[e["index"]]} for e in v["entries"]]
+        cal = fit_calibration(rows, hw.fingerprint(), "cuda")
+        out["calibration"] = {"a": cal.scale_mem, "b": cal.scale_compute,
+                              "c_s": cal.overhead_s, "method": cal.method,
+                              "n_pairs": cal.n_pairs, "rows": len(rows)}
+        # re-score the validated points with the card's coefficients: the
+        # card is one, so the fit applies under every point's fingerprint
+        clear_calibrations()
+        try:
+            for cfg_hw in configs.values():
+                set_calibration(dataclasses.replace(cal, hw_fingerprint=cfg_hw.fingerprint()))
+            calibrated = {}
+            for idx, cfg_hw in configs.items():
+                scores, _ = score_config(cfg_hw, workloads,
+                                         cache=stripe_cache.CompilationCache(use_disk=False))
+                calibrated[idx] = sum(s.latency_s for s in scores.values())
+        finally:
+            clear_calibrations()
+        out["ranks"]["predicted_calibrated"] = sorted(calibrated, key=calibrated.get)
+        for row in out["points"]:
+            row["calibrated_us"] = calibrated[row["index"]] * 1e6
+    counts = {name: mod.launches for name, mod in mods.items()}
+    missing = [k for k in ("contraction", "windowed") if counts[k] == 0]
+    if DEVICE == "cuda" and missing:
+        raise AssertionError(f"phase 9 launched no {missing} kernel: {counts}")
+    out["launches"] = counts
+    out["launches_by_path"] = dict(K.launches_by_path)
+    out["windowed_launches_by_path"] = dict(mods["windowed"].launches_by_path)
+    out["elementwise_launches_by_path"] = dict(mods["elementwise"].launches_by_path)
+    return out
+
+
+def _model_ops(cfg, m: int):
+    """The (k, n, act) of the 7 projections of one dense layer at m rows."""
+    d, hd = cfg.d_model, cfg.hd
+    return [(d, cfg.n_heads * hd, None), (d, cfg.n_kv_heads * hd, None),
+            (d, cfg.n_kv_heads * hd, None), (cfg.n_heads * hd, d, None),
+            (d, cfg.d_ff, cfg.act.split("_")[0]), (d, cfg.d_ff, None), (cfg.d_ff, d, None)]
+
+
+def model(torch, api, K, cfg, params) -> dict:
+    """Phase 10, the model's own forward: ``Model.prefill`` on
+    ``MODEL_BATCH`` prompts of ``MODEL_PROMPT`` tokens, then
+    ``MODEL_STEPS`` greedy ``decode_step``s, with ``oplib`` on ``cuda`` and
+    again on ``torch``; the logits held between the two as the serve phase
+    holds them.  Every projection is one launch of the contraction kernel:
+    7 a layer a call, tiled (wgmma) at prefill and skinny at decode."""
+    from repro_torch.core import oplib
+
+    mdl = api.build_model(cfg)
+    batch = api.make_batch(cfg, "prefill", MODEL_BATCH, MODEL_PROMPT, seed=SEED, device=DEVICE)
+    max_len = MODEL_PROMPT + MODEL_STEPS
+    per_call = 7 * cfg.n_layers
+    old = oplib.get_backend()
+    runs = {}
+    try:
+        for backend in ("cuda", "torch"):
+            oplib.set_backend(backend)
+            # untimed: compiles the 10 programs and loads each kernel once
+            logits, cache = mdl.prefill(params, batch, mdl.init_cache(
+                MODEL_BATCH, max_len, device=DEVICE))
+            mdl.decode_step(params, cache, logits[:, -1:].argmax(-1).int())
+            _sync(torch)
+            _zero_counts(K)
+            cache = mdl.init_cache(MODEL_BATCH, max_len, device=DEVICE)
+            t0 = time.perf_counter()
+            logits, cache = mdl.prefill(params, batch, cache)
+            _sync(torch)
+            prefill_ms = (time.perf_counter() - t0) * 1e3
+            by_call = [dict(K.launches_by_path)]
+            rows, toks, step_ms = [logits[:, -1].float().cpu()], [], []
+            for _ in range(MODEL_STEPS):
+                tok = logits[:, -1:].argmax(-1).int()
+                toks.append(tok.cpu())
+                before = dict(K.launches_by_path)
+                _sync(torch)
+                t0 = time.perf_counter()
+                logits, cache = mdl.decode_step(params, cache, tok)
+                _sync(torch)
+                step_ms.append((time.perf_counter() - t0) * 1e3)
+                by_call.append({p: K.launches_by_path[p] - before[p] for p in before})
+                rows.append(logits[:, -1].float().cpu())
+            runs[backend] = {"prefill_ms": prefill_ms, "decode_step_ms": step_ms,
+                             "decode_step_ms_median": statistics.median(step_ms),
+                             "tokens": torch.cat(toks, 1), "rows": rows,
+                             "launches": K.launches, "by_call": by_call}
+    finally:
+        oplib.set_backend(old)
+    cuda, ref = runs["cuda"], runs["torch"]
+    if ref["launches"]:
+        raise AssertionError(f"the torch backend launched the kernel {ref['launches']} times")
+    # 7 launches a layer a call: tiled at prefill, skinny at decode
+    want = [{"skinny": 0, "tiled": per_call, "general": 0}] + \
+        [{"skinny": per_call, "tiled": 0, "general": 0}] * MODEL_STEPS
+    if cuda["by_call"] != want or cuda["launches"] != per_call * (1 + MODEL_STEPS):
+        raise AssertionError(f"model launches by call {cuda['by_call']}, want {want}")
+    # every CompiledOp unit on the kernel, wgmma at prefill, and each of
+    # the 7 projections held against its kernel's plain version on seeded
+    # tensors of the model's shapes (after the counted run)
+    units, op_err = {}, {}
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+    tdt = getattr(torch, cfg.dtype)
+    for m, path in ((MODEL_BATCH * MODEL_PROMPT, "tiled"), (MODEL_BATCH, "skinny")):
+        for k, n, act in _model_ops(cfg, m):
+            what = f"{m}x{k}x{n}{'/' + act if act else ''}"
+            op = oplib._compiled_linear(m, k, n, cfg.dtype, "float32", act, False, "cuda")
+            if set(op.block_backends.values()) != {"cuda"} or op.block_reasons:
+                raise AssertionError(f"linear {what}: {op.block_backends} {op.block_reasons}")
+            fns = [fn for _u, _kind, unit_fns in op.cuda_fn.steps for fn in unit_fns]
+            for fn in fns:
+                view = K.gemm_view(fn.plan)
+                if K.plan_path(fn.plan) != path or (path == "tiled" and view.mma != "wgmma"):
+                    raise AssertionError(f"linear {what}: {K.plan_path(fn.plan)}")
+            if len(fns) != 1:
+                raise AssertionError(f"linear {what}: {len(fns)} kernels, want 1")
+            arrays = {"X": torch.randn(m, k, generator=gen, device=DEVICE).to(tdt),
+                      "W": (torch.randn(k, n, generator=gen, device=DEVICE)
+                            * k ** -0.5).to(tdt)}
+            got = op.cuda_fn(arrays)["O"]
+            op_err[what] = max(op_err.get(what, 0.0), _close(
+                torch, got, fns[0].plain(arrays), f"model linear {what} ({path})"))
+            units[what] = path
+    # logits up to each row's first differing token, as the serve phase
+    div = {}
+    worst = 0.0
+    ta, tb = cuda["tokens"], ref["tokens"]
+    for r in range(MODEL_BATCH):
+        diff = (ta[r] != tb[r]).nonzero()
+        first = int(diff[0]) if len(diff) else None
+        div[r] = first
+        for j in range(MODEL_STEPS + 1 if first is None else first + 1):
+            a, b = cuda["rows"][j][r, : cfg.vocab], ref["rows"][j][r, : cfg.vocab]
+            rel = (a - b).abs().max().item() / b.abs().max().item()
+            worst = max(worst, rel)
+            if not rel <= LOGIT_RTOL:
+                raise AssertionError(f"model row {r} call {j}: logits differ by {rel:.3e}")
+    return {"layers": cfg.n_layers, "batch": MODEL_BATCH, "prompt": MODEL_PROMPT,
+            "steps": MODEL_STEPS, "units": units, "ops_max_abs_err": op_err,
+            "max_abs_err": max(op_err.values()), "max_logit_rel_err": worst,
+            "first_divergence": div, "launches": cuda["launches"],
+            "launches_by_call": {"prefill": cuda["by_call"][0], "decode": cuda["by_call"][1]},
+            **{f"{b}_{k}": runs[b][k] for b in runs
+               for k in ("prefill_ms", "decode_step_ms_median", "decode_step_ms")}}
+
+
 def _sdpa(torch, q, k, v, causal):
     """``scaled_dot_product_attention`` on the same inputs (the yardstick;
     the port never calls it) and the backend torch chose for them."""
@@ -1383,6 +1666,17 @@ def main() -> None:
     print("cuda vs torch, float32: " + json.dumps(compare(runs32, exact=True)), flush=True)
     print(f"tokens identical across backends (float32): {runs32['cuda'][0]}")
 
+    t0 = time.perf_counter()
+    md = model(torch, api, K, cfg, params)
+    print(f"model: Model.prefill ({MODEL_BATCH} x {MODEL_PROMPT} tokens) and {MODEL_STEPS} "
+          f"decode_steps, {cfg.n_layers} layers, oplib cuda against torch, in "
+          f"{time.perf_counter() - t0:.1f} s; card {card}: " + json.dumps(
+              {k: v for k, v in md.items() if not k.endswith("decode_step_ms")}), flush=True)
+    print(f"model: prefill {md['cuda_prefill_ms']:.3f} ms (torch {md['torch_prefill_ms']:.3f}), "
+          f"decode step median {md['cuda_decode_step_ms_median']:.3f} ms (torch "
+          f"{md['torch_decode_step_ms_median']:.3f}), host clock with torch.cuda.synchronize(); "
+          f"steps {json.dumps(md['cuda_decode_step_ms'])}; card {card}", flush=True)
+
     sw = sweep(torch, api, K)
     v = sw["validation"]
     print(f"sweep: {SWEEP} in {sw['wall_s']:.1f} s; launches {json.dumps(sw['launches'])}; "
@@ -1398,6 +1692,22 @@ def main() -> None:
           f"{v['measured_rank']}; every unit of every measured point on its kernel; "
           f"best predicted {sw['best']} against torch: max abs {sw['max_abs_err_vs_torch']:.3e}",
           flush=True)
+
+    tn = tune(torch, api, K)
+    print(f"tune: {TUNE} into a tuning DB in {tn['sweep_wall_s']:.1f} s; launches "
+          f"{json.dumps(tn['launches'])}; contraction by path "
+          f"{json.dumps(tn['launches_by_path'])}; windowed by path "
+          f"{json.dumps(tn['windowed_launches_by_path'])}", flush=True)
+    for name, wl in tn["workloads"].items():
+        print(f"  tuned {name}: " + json.dumps(wl), flush=True)
+    print(f"tune: every workload replays its measured winner (decision_source 'tuned', all "
+          f"units on cuda), against torch: max abs {tn['max_abs_err_vs_torch']:.3e}", flush=True)
+    print("tune: calibration measured ~= a*t_mem + b*t_compute + c fitted from the card's "
+          "residual rows (the log: each program's first warm call): "
+          + json.dumps(tn["calibration"]), flush=True)
+    for row in tn["points"]:
+        print("  ranked " + json.dumps(row), flush=True)
+    print("tune ranks (-1 = baseline): " + json.dumps(tn["ranks"]), flush=True)
 
     del params, params32
     torch.cuda.empty_cache()
@@ -1420,19 +1730,24 @@ def main() -> None:
     # the ResNet path for the windowed kernel.
     contraction = _kernel_entry(
         "contraction", "src/repro_torch/csrc/contraction.cu", "src/repro/core/lower_pallas.py:979",
-        serve_launches + sw["launches"]["contraction"], decode,
+        serve_launches + sw["launches"]["contraction"] + md["launches"]
+        + tn["launches"]["contraction"], decode,
         max([r["max_abs_err"] for r in rows]
-            + [r["max_abs_err"] for r in new_rows if r["kernel"] == ["contraction"]] + [mm_err]))
+            + [r["max_abs_err"] for r in new_rows if r["kernel"] == ["contraction"]]
+            + [mm_err, md["max_abs_err"]]))
     contraction["general_ms"] = sum(r["general_ms"] for r in decode)
     contraction["launches_by_path"] = {"serve": runs["cuda"][2]["launches_by_path"],
-                                       "sweep": sw["launches_by_path"]}
+                                       "sweep": sw["launches_by_path"],
+                                       "model": md["launches_by_call"],
+                                       "tune": tn["launches_by_path"]}
     windowed = _kernel_entry(
         "windowed", "src/repro_torch/csrc/windowed.cu", "src/repro/core/lower_pallas.py:812",
-        sw["launches"]["windowed"] + rn["launches"], conv,
+        sw["launches"]["windowed"] + rn["launches"] + tn["launches"]["windowed"], conv,
         max(r["max_abs_err"] for r in new_rows if r["kernel"] == ["windowed"]))
     windowed["general_ms"] = sum(r["general_ms"] for r in conv)
     windowed["launches_by_path"] = {"sweep": sw["windowed_launches_by_path"],
-                                    "resnet": rn["launches_by_path"]}
+                                    "resnet": rn["launches_by_path"],
+                                    "tune": tn["windowed_launches_by_path"]}
     # flash: llama3-8b's bf16 prefill attention at S 4096 (wgmma), the
     # CUDA-core design's time beside it; launches: phase 8's path
     flash = _kernel_entry("flash_attention", "src/repro_torch/csrc/flash_attention.cu",
@@ -1476,7 +1791,8 @@ def main() -> None:
     # phase 4's units
     elementwise = _kernel_entry("elementwise", "src/repro_torch/csrc/elementwise.cu",
                                 "src/repro/core/lower_pallas.py:1097",
-                                sw["launches"]["elementwise"], ew,
+                                sw["launches"]["elementwise"] + tn["launches"]["elementwise"],
+                                ew,
                                 max(r["max_abs_err"] for r in ew))
     elementwise["general_ms"] = sum(r["general_ms"] for r in ew)
     elementwise["general_max_abs_err"] = max(r["general_max_abs_err"] for r in ew)
@@ -1485,6 +1801,7 @@ def main() -> None:
     phase4 = [p for r in new_rows if r["kernel"] == ["elementwise"] for p in r["paths"]]
     elementwise["launches_by_path"] = {
         "sweep": sw["elementwise_launches_by_path"],
+        "tune": tn["elementwise_launches_by_path"],
         "phase4": {p: phase4.count(p) for p in ("vec", "general")}}
     elementwise["empty_kernel_ms"] = empty_ms
     summary = {"kernels": [

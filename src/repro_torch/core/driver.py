@@ -18,8 +18,14 @@ the two-level compilation cache (``cache.py``):
    (plain PyTorch, run eagerly), or ``reference`` (the exact numpy
    interpreter).
 
-The multi-device path (``mesh=``) and the measured tuning DB (``tune=``)
-are not ported yet; both arguments raise ``NotImplementedError``.
+``tune=`` consults the measured tuning DB (``tune/db.py``) before the
+analytic search.  The DB's ``interpret`` slot is the JAX package's: there
+it means "ran in Pallas interpret mode", here "the kernels' plain versions
+ran" (no tensor of the call on the card).  ``stripe_jit(device=)`` names
+where the program's tensors will live and so which slot it replays.
+
+The multi-device path (``mesh=``) is not ported yet and raises
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -89,8 +95,12 @@ class CompileRecord:
     measured_latency_s: Dict[str, float] = dataclasses.field(default_factory=dict)
     predicted_terms: Dict[str, Dict[str, float]] = dataclasses.field(default_factory=dict)
     # Where the tilings came from: "analytic" (the autotile search or a
-    # plain disk replay of its choice); the tuning DB adds "tuned" later.
+    # plain disk replay of its choice), "tuned" (a measured-best entry
+    # served by the tuning DB — ``tuned`` carries the entry's provenance:
+    # candidate id, measured latency, measurement source/rounds/age), or
+    # "replay" (caller-supplied tilings via ``compile_with_tilings``).
     decision_source: str = "analytic"
+    tuned: Dict[str, Any] = dataclasses.field(default_factory=dict)
 
     def fusion_decisions(self) -> List[Dict]:
         """Accepted/rejected merges recorded by the fusion pass."""
@@ -155,15 +165,18 @@ def _as_program(fn_or_contraction, tensors=None, out=None, ranges=None, name="op
     return obj
 
 
-def _not_ported(mesh, tune, hw: HardwareConfig) -> None:
+def _not_ported(mesh, hw: HardwareConfig) -> None:
     if mesh is not None or getattr(hw, "mesh_devices", lambda: 1)() > 1:
         raise NotImplementedError(
             "stripe_jit(mesh=...) is not ported yet: the multi-device slice "
             "(ROADMAP A9) brings it")
-    if tune is not None and tune is not False:
-        raise NotImplementedError(
-            "stripe_jit(tune=...) is not ported yet: the tuning slice "
-            "(ROADMAP A6) brings it")
+
+
+def plain_versions_ran(arrays: Mapping[str, Any]) -> bool:
+    """The port's ``interpret`` flag of one call: True when no tensor of
+    the call lies on the card, so every kernel ran its plain version (the
+    twin of the JAX package's Pallas interpret mode)."""
+    return not any(isinstance(v, torch.Tensor) and v.is_cuda for v in arrays.values())
 
 
 # --------------------------------------------------------------------------
@@ -298,19 +311,35 @@ def _lower(opt: Program, backend: str,
 
 
 def _attach_profiling(low: _Lowered, record: CompileRecord,
-                      cache: _cache.CompilationCache) -> Callable:
+                      cache: _cache.CompilationCache,
+                      tune_db=None, requested_backend: str = "") -> Callable:
     """Wrap a lowered callable so each call folds the lowering's per-unit
     wall times into ``record.measured_latency_s`` (best observation wins;
     the dict is shared with cache-hit records of the same artifact) and
-    the first call appends (predicted, measured) rows to the residual
-    JSONL under the cache dir."""
+    the first warm call appends (predicted, measured) rows to the residual
+    JSONL under the cache dir — and, when a tuning DB is attached,
+    records the program's measured latency under its compile identity, so
+    profiled serving traffic *populates* the DB.  Both carry the call's
+    ``interpret`` flag: whether the plain versions ran
+    (``plain_versions_ran``).
+
+    The first call on the card also builds each kernel plan's launch
+    parameters on the host (they depend on the operands' alignment, known
+    only at the call), which would be timed as the unit's latency: its
+    unit times are dropped, and the rows come from the second call.  On
+    the plain versions nothing is built, and the first call is warm."""
     inner = low.fn
     unit_times = getattr(inner, "unit_times", None)
-    state = {"logged": False}
+    state = {"logged": False, "cold": unit_times is not None}
 
     def wrapper(arrays):
         t0 = time.perf_counter()
         out = inner(arrays)
+        if state["cold"]:
+            state["cold"] = False
+            if not plain_versions_ran(arrays):
+                unit_times.clear()
+                return out
         if unit_times is not None:
             record.measured_latency_s.update(unit_times)
         else:
@@ -322,12 +351,43 @@ def _attach_profiling(low: _Lowered, record: CompileRecord,
                 record.measured_latency_s["<program>"] = dt
         if not state["logged"] and record.measured_latency_s:
             state["logged"] = True
+            interpret = plain_versions_ran(arrays)
             obs_profile.append_residuals(
-                obs_profile.residual_rows(record, False),
-                obs_profile.residual_log_path(cache))
+                obs_profile.residual_rows(record, interpret),
+                obs_profile.residual_log_path(cache), db=tune_db)
+            if tune_db is not None and record.tilings and record.ir_fingerprint:
+                try:
+                    tune_db.record(
+                        record.ir_fingerprint, record.hw_fingerprint,
+                        requested_backend or record.backend, interpret,
+                        tilings=record.tilings,
+                        measured_s=sum(record.measured_latency_s.values()),
+                        predicted_s=(sum(record.predicted_latency_s.values())
+                                     or None),
+                        block_backends=record.block_backends,
+                        source="profile")
+                except Exception:
+                    pass  # measurement feedback must never fail a call
         return out
 
     return wrapper
+
+
+# --------------------------------------------------------------------------
+# Measured-feedback tuning support
+# --------------------------------------------------------------------------
+def _resolve_tune(tune, cache: _cache.CompilationCache):
+    """Normalize the ``tune=`` argument: None/False disables, True opens
+    the :class:`~repro_torch.tune.db.TuningDB` next to the cache's disk
+    store (or the default cache dir), and a ``TuningDB`` instance is used
+    as given."""
+    if tune is None or tune is False:
+        return None
+    from ..tune.db import TuningDB
+
+    if isinstance(tune, TuningDB):
+        return tune
+    return TuningDB(dir=cache.disk_dir)
 
 
 def _calibration_fp(hw_fp: str) -> str:
@@ -396,6 +456,7 @@ def stripe_jit(fn_or_contraction: Union[Program, TileProgram, str, Callable],
                use_disk: bool = True,
                profile: bool = False,
                tune: Union[None, bool, Any] = None,
+               device: str = "cuda",
                mesh: Union[None, int, Tuple[int, ...], Any] = None) -> CompiledProgram:
     """Compile a tensor op end-to-end through the cached Stripe pipeline.
 
@@ -406,14 +467,31 @@ def stripe_jit(fn_or_contraction: Union[Program, TileProgram, str, Callable],
     ``cache`` defaults to the process-wide cache.  ``profile=True``
     wall-times each lowered unit per call: the record carries per-unit
     measured latencies next to the cost model's predictions, and the
-    first call appends (predicted, measured) rows to ``residuals.jsonl``
+    first warm call appends (predicted, measured) rows to ``residuals.jsonl``
     under the cache dir (``profile`` is part of the cache key).
-    ``mesh`` and ``tune`` are not ported yet and raise
-    ``NotImplementedError``.
+    ``tune`` consults the measured-feedback tuning DB before the analytic
+    autotile search: ``True`` opens the DB next to the cache's disk store,
+    or pass a :class:`repro_torch.tune.TuningDB`.  A fresh-enough
+    measured-best entry replays its tilings instead of searching —
+    ``record.decision_source == "tuned"``; each unit's legality is decided
+    afresh under them, and a unit that lands on another backend than the
+    entry recorded is listed in ``record.tuned["backend_changed"]`` — and
+    the entry's candidate id is folded into the cache key, so a better
+    measurement automatically re-keys the artifact.  ``device`` (where the
+    program's tensors will live: ``"cuda"`` or ``"cpu"``) picks the DB
+    slot: entries measured on the plain versions (``interpret`` true) are
+    replayed only for ``"cpu"``, entries measured on the card only for
+    ``"cuda"``.  With ``profile=True`` the first warm call (see
+    ``_attach_profiling``) also records its measurement back into the DB,
+    under the slot of that call's tensors.
+    ``mesh`` is not ported yet and raises ``NotImplementedError``.
     """
     if backend not in BACKENDS:
         raise ValueError(f"unknown backend {backend!r}; expected one of {BACKENDS}")
-    _not_ported(mesh, tune, hw)
+    if device not in ("cuda", "cpu"):
+        raise ValueError(f"unknown device {device!r}; expected 'cuda' or 'cpu'")
+    _not_ported(mesh, hw)
+    interpret = device == "cpu"
     if cache is None:
         cache = _cache.get_default_cache()
     with obs_trace.span("compile.stripe_jit", backend=backend, hw=hw.name,
@@ -422,9 +500,24 @@ def stripe_jit(fn_or_contraction: Union[Program, TileProgram, str, Callable],
         prog = _as_program(fn_or_contraction, tensors=tensors, out=out, ranges=ranges)
         ir_fp = ir_fingerprint(prog)
         hw_fp = hw.fingerprint()
+        tune_db = _resolve_tune(tune, cache)
+        tuned = None
+        if tune_db is not None:
+            # consulted *before* the memory probe: the tuned entry's
+            # candidate id is part of the key, so a DB update naturally
+            # misses the stale artifact and recompiles with the winner
+            with obs_trace.span("tune.lookup", backend=backend) as sp:
+                tuned = tune_db.lookup(ir_fp, hw_fp, backend, interpret)
+                sp.set(hit=tuned is not None)
+            if tuned is not None:
+                cache.stats.tuned_hits += 1
+            else:
+                cache.stats.tuned_misses += 1
         key = _cache.content_key(
             "stripe_jit", DRIVER_VERSION, _cache.CACHE_VERSION, _cache.PORT_TAG,
-            ir_fp, hw_fp, backend, bool(profile), _calibration_fp(hw_fp),
+            ir_fp, hw_fp, backend, bool(interpret), bool(profile),
+            tuned.fingerprint if tuned is not None else "",
+            _calibration_fp(hw_fp),
         )
         with obs_trace.span("cache.probe", level="memory") as sp:
             hit = cache.get_memory(key)
@@ -449,7 +542,11 @@ def stripe_jit(fn_or_contraction: Union[Program, TileProgram, str, Callable],
         with obs_trace.span("cache.probe", level="disk") as sp:
             payload = cache.get_disk(key) if use_disk else None
             sp.set(hit=payload is not None)
-        oracle = TilingOracle(known=(payload or {}).get("tilings"))
+        # the tuned entry's tilings take precedence over the disk replay
+        # (the disk payload under a tuned key holds the same tilings)
+        known = (tuned.tilings if tuned is not None
+                 else (payload or {}).get("tilings"))
+        oracle = TilingOracle(known=known)
         pm = PassManager(hw, oracle=oracle, autotune_workers=workers)
         opt = pm.run(copy.deepcopy(prog))
         low = _lower(opt, backend, hw, quarantine=cache.quarantine, key=key,
@@ -464,14 +561,32 @@ def stripe_jit(fn_or_contraction: Union[Program, TileProgram, str, Callable],
             block_backends=low.block_backends, block_fallbacks=low.block_fallbacks,
             quarantined=low.quarantined, quarantine=low.quarantine,
             profiled=bool(profile), ir_fingerprint=ir_fp, hw_fingerprint=hw_fp,
+            decision_source="tuned" if tuned is not None else "analytic",
+            tuned=({"candidate_id": tuned.candidate_id,
+                    "measured_s": tuned.measured_s,
+                    "predicted_s": tuned.predicted_s,
+                    "source": tuned.source, "rounds": tuned.rounds,
+                    "age_s": max(time.time() - tuned.ts, 0.0),
+                    "n_candidates": tuned.n_candidates,
+                    # units the fresh lowering put on another backend than
+                    # the entry recorded: legality is decided afresh under
+                    # the replayed tilings, never replayed from the entry
+                    "backend_changed": {
+                        u: {"entry": b, "now": low.block_backends.get(u, low.backend)}
+                        for u, b in tuned.block_backends.items()
+                        if b != low.block_backends.get(u, low.backend)}}
+                   if tuned is not None else {}),
         )
+        if record.tuned.get("backend_changed"):
+            csp.set(tuned_backend_changed=sorted(record.tuned["backend_changed"]))
         fn = low.fn
         if profile:
             record.predicted_terms = obs_profile.predicted_unit_terms(
                 opt, record.pass_trace)
             record.predicted_latency_s = {
                 u: t["latency_s"] for u, t in record.predicted_terms.items()}
-            fn = _attach_profiling(low, record, cache)
+            fn = _attach_profiling(low, record, cache, tune_db=tune_db,
+                                   requested_backend=backend)
         compiled = CompiledProgram(opt, fn, hw, record)
         cache.put_memory(key, compiled)
         if use_disk:
@@ -487,3 +602,39 @@ def stripe_jit(fn_or_contraction: Union[Program, TileProgram, str, Callable],
         csp.set(cache="disk" if record.disk_hit else "miss",
                 backend_used=low.backend, decision=record.decision_source)
         return compiled
+
+
+def compile_with_tilings(fn_or_contraction: Union[Program, TileProgram, str, Callable],
+                         hw: HardwareConfig,
+                         tilings: Mapping[str, Mapping[str, int]],
+                         backend: str = "cuda", *,
+                         tensors: Optional[Mapping[str, Tuple]] = None,
+                         out: Optional[str] = None,
+                         ranges: Optional[Mapping[str, int]] = None) -> CompiledProgram:
+    """Compile with a **fixed tiling assignment** — no cache, no search.
+
+    ``tilings`` uses the tiling-oracle key form (``"<block>#<fp16>"`` ->
+    {var: tile}); blocks absent from it fall back to the analytic search.
+    This is the explore measure-mode's candidate-replay entry: a sweep
+    candidate's tilings are forced through the pass pipeline on the
+    *base* config so the only thing that differs between measured
+    candidates is the tiling (and the backend), never the model."""
+    if backend not in BACKENDS:
+        raise ValueError(f"unknown backend {backend!r}; expected one of {BACKENDS}")
+    t0 = time.perf_counter()
+    prog = _as_program(fn_or_contraction, tensors=tensors, out=out, ranges=ranges)
+    ir_fp = ir_fingerprint(prog)
+    oracle = TilingOracle(known=tilings)
+    pm = PassManager(hw, oracle=oracle)
+    opt = pm.run(copy.deepcopy(prog))
+    low = _lower(opt, backend, hw, quarantine=None, key="")
+    record = CompileRecord(
+        key="", backend=low.backend, hw_name=hw.name,
+        compile_time_s=time.perf_counter() - t0,
+        tilings=dict(oracle.chosen), pass_trace=list(pm.trace),
+        fallback_reason=low.fallback, n_kernels=low.n_kernels,
+        groups=low.groups,
+        block_backends=low.block_backends, block_fallbacks=low.block_fallbacks,
+        ir_fingerprint=ir_fp, hw_fingerprint=hw.fingerprint(), decision_source="replay",
+    )
+    return CompiledProgram(opt, low.fn, hw, record)

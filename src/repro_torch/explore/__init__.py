@@ -13,14 +13,14 @@ pass.  This subsystem turns that property into an engine:
 * :mod:`repro_torch.explore.runner`    — the sweep driver: compile through
   the cached pipeline, dedupe by config fingerprint, score with the
   analytic cost model, optionally validate the top-K by measurement on
-  the card (the ``cuda`` backend's kernels);
+  the card (the ``cuda`` backend's kernels), and the measure mode
+  (``measure_candidates``: candidate tilings timed into the tuning DB);
 * :mod:`repro_torch.explore.report`    — Pareto-frontier extraction
   (predicted latency x arena pressure x kernels launched), JSON +
   markdown.
 
-The measure mode (``measure_candidates``, which feeds the tuning DB) and
-``mesh-sweep`` are not ported yet and raise ``NotImplementedError``
-(ROADMAP A6, A9).
+``mesh-sweep`` is not ported yet and raises ``NotImplementedError``
+(ROADMAP A9).
 
 CLI::
 

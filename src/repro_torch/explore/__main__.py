@@ -8,9 +8,12 @@ Example::
 
 ``--top-k`` measures through the ``cuda`` backend on the card by default
 (``--device cpu`` runs the kernels' plain versions instead, which says
-nothing about the card's time).  ``--measure`` (the tuning-DB measure
-mode) and the ``mesh-sweep`` space are not ported yet and exit with an
-error.  Prints the markdown report and writes ``explore_report.json`` +
+nothing about the card's time).  ``--measure N`` (the measure mode)
+times up to N candidate tilings per workload on the same backend and
+device and records every measurement in the tuning DB under
+``--tune-db`` (default: the compilation-cache dir), in the slot of
+``--device``.  The ``mesh-sweep`` space is not ported yet and exits with
+an error.  Prints the markdown report and writes ``explore_report.json`` +
 ``explore_report.md`` under ``--out``.  The sweep's compilation cache
 lives under ``--cache-dir`` (default ``<out>/cache``; honors
 ``$STRIPE_CACHE_DIR`` only when passed explicitly) so exploration never
@@ -22,7 +25,7 @@ import argparse
 import sys
 
 from .report import to_markdown, write_report
-from .runner import TUNE_DB_NOT_PORTED, run_sweep
+from .runner import run_sweep
 from .space import BUILTIN_SPACES, NOT_PORTED, _fmt, get_space
 from .workloads import CORPORA
 
@@ -62,14 +65,20 @@ def main(argv=None) -> int:
                     help="validate the K best predicted points by real "
                          "measurement (0 disables)")
     ap.add_argument("--backend", default="cuda",
-                    help="measurement backend for --top-k (default cuda)")
-    ap.add_argument("--device", default="cuda",
-                    help="where --top-k runs: cuda (the card, default) or cpu")
+                    help="measurement backend for --top-k and --measure (default cuda)")
+    ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
+                    help="where --top-k and --measure run: cuda (the card, default) "
+                         "or cpu (the kernels' plain versions)")
     ap.add_argument("--parallel", type=int, default=0,
                     help="process-pool width for scoring unique points "
                          "(0/1 = serial)")
     ap.add_argument("--measure", type=int, default=0,
-                    help=f"measure mode: not ported ({TUNE_DB_NOT_PORTED})")
+                    help="measure mode: wall-time up to N candidate tilings "
+                         "per workload and record every measurement in the "
+                         "tuning DB (0 disables)")
+    ap.add_argument("--tune-db", default=None, dest="tune_db",
+                    help="tuning-DB directory for --measure "
+                         "(default: the compilation-cache dir)")
     ap.add_argument("--out", default="explore_out",
                     help="output directory for the JSON/markdown report")
     ap.add_argument("--cache-dir", default=None,
@@ -80,15 +89,19 @@ def main(argv=None) -> int:
         space = get_space(args.space)
     except (KeyError, NotImplementedError) as e:
         ap.error(str(e))
-    if args.measure > 0:
-        ap.error(f"--measure: {TUNE_DB_NOT_PORTED}")
     cache_dir = args.cache_dir or f"{args.out}/cache"
+
+    tune_db = None
+    if args.measure > 0:
+        from ..tune.db import TuningDB
+
+        tune_db = TuningDB(dir=args.tune_db or cache_dir)
 
     sweep = run_sweep(
         space, args.workloads, budget=args.budget, strategy=args.strategy,
         seed=args.seed, cache_dir=cache_dir, parallel=args.parallel,
         measure_top_k=args.top_k, measure_backend=args.backend,
-        measure_device=args.device)
+        measure_device=args.device, measure=args.measure, tune_db=tune_db)
     jpath, mpath = write_report(sweep, args.out)
     print(to_markdown(sweep))
     print(f"wrote {jpath} and {mpath}")

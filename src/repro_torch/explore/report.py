@@ -152,24 +152,26 @@ def to_markdown(sweep: SweepResult, max_rows: int = 24) -> str:
                      f"{', interpret' if m.get('interpret') else ''}; "
                      f"min of {m['rounds']} interleaved rounds)")
         lines.append("")
-        lines.append("| workload | candidates | analytic (s/call) | "
+        lines.append("| workload | candidates | distinct plans | analytic (s/call) | "
                      "measured best (s/call) | speedup | winner |")
-        lines.append("|---|---:|---:|---:|---:|---|")
+        lines.append("|---|---:|---:|---:|---:|---:|---|")
         for w, wl in m["workloads"].items():
             if wl.get("error"):
-                lines.append(f"| `{w}` | - | - | - | - | err: {wl['error']} |")
+                lines.append(f"| `{w}` | - | - | - | - | - | err: {wl['error']} |")
                 continue
             # the measured winner is *promoted*: its candidate id is the
             # tuning-DB best, which stripe_jit(tune=...) replays
             speed = wl.get("speedup_vs_analytic")
             lines.append(
-                f"| `{w}` | {wl['n_candidates']} | "
+                f"| `{w}` | {wl['n_candidates']} | {wl['n_distinct_plans']} | "
                 f"{wl['analytic_s']:.4g} | {wl['best_s']:.4g} | "
                 f"{speed:.2f}x | `{wl['best_candidate']}`"
                 f"{' (analytic held)' if not wl['improved'] else ''} |")
         lines.append("")
         lines.append("every measurement above is recorded in the tuning DB; "
-                     "`stripe_jit(..., tune=...)` replays each winner.")
+                     "`stripe_jit(..., tune=...)` replays each winner.  Candidates "
+                     "of one plan launch the same kernels: between them the "
+                     "winner is noise.")
     lines.append("")
     return "\n".join(lines)
 

@@ -21,10 +21,9 @@ lowered through ``stripe_jit`` on a real backend (``cuda`` on the card by
 default: the port's kernels) and timed, and the measured ranking is
 recorded next to the predicted one.
 
-The JAX package's measure mode (``measure_candidates``: candidate tilings
-timed into the tuning DB) needs ``tune/db.py`` and ``stripe_jit(tune=)``,
-which are not ported yet (ROADMAP A6): asking for it raises
-``NotImplementedError``.
+The measure mode (``measure_candidates``) times candidate tilings per
+workload on the sweep's base config and records every measurement in
+the tuning DB, which later ``stripe_jit(..., tune=...)`` compiles replay.
 """
 from __future__ import annotations
 
@@ -35,14 +34,12 @@ from typing import Any, Dict, List, Mapping, Optional, Sequence, Tuple
 from ..core import cache as _cache
 from ..core.cost import ProgramScore, score_pass_trace
 from ..obs import trace as obs_trace
-from ..core.driver import compile_cached, stripe_jit
+from ..core.driver import compile_cached, compile_with_tilings, stripe_jit
 from ..core.hwconfig import HardwareConfig
+from ..kernels._build import KernelBuildError, KernelLaunchError
 from ..tune.measure import DEFAULT_CALLS, DEFAULT_ROUNDS, measure_interleaved
 from .space import SearchSpace
 from .workloads import Workload, get_workloads
-
-TUNE_DB_NOT_PORTED = ("the tuning DB (tune/db.py) and stripe_jit(tune=) are not yet "
-                      "ported (ROADMAP A6)")
 
 
 @dataclasses.dataclass
@@ -169,23 +166,29 @@ def run_sweep(space: SearchSpace, workload_spec: str = "default", *,
     ``measure_backend`` with tensors on ``measure_device`` and records the
     measured ranking.
 
-    ``measure`` > 0 (the measure mode) and ``tune_db`` need the tuning DB,
-    which is not ported yet: they raise ``NotImplementedError``."""
-    if measure > 0 or tune_db is not None:
-        raise NotImplementedError(f"measure mode: {TUNE_DB_NOT_PORTED}")
+    ``measure`` > 0 runs the **measure mode**: up to that many candidate
+    tilings per workload (analytic best, sweep-point winners, scaled
+    perturbations) are timed on ``measure_backend`` with tensors on
+    ``measure_device`` and every measurement lands in ``tune_db`` (a
+    :class:`~repro_torch.tune.TuningDB`; None opens one in ``cache_dir``)
+    — later ``stripe_jit`` compiles of the same workload for the same
+    device replay the measured winner.  With ``tune_db`` given, the top-K
+    validation's measurements are recorded there too."""
     with obs_trace.span("explore.sweep", strategy=strategy, budget=budget,
                         workloads=workload_spec):
         return _run_sweep(space, workload_spec, budget=budget,
                           strategy=strategy, seed=seed, cache_dir=cache_dir,
                           parallel=parallel, measure_top_k=measure_top_k,
-                          measure_backend=measure_backend, measure_device=measure_device)
+                          measure_backend=measure_backend, measure_device=measure_device,
+                          measure=measure, tune_db=tune_db)
 
 
 def _run_sweep(space: SearchSpace, workload_spec: str = "default", *,
                budget: int = 32, strategy: str = "grid", seed: int = 0,
                cache_dir: Optional[str] = None, parallel: int = 0,
                measure_top_k: int = 0, measure_backend: str = "cuda",
-               measure_device: str = "cuda") -> SweepResult:
+               measure_device: str = "cuda", measure: int = 0,
+               tune_db=None) -> SweepResult:
     t_start = time.perf_counter()
     workloads = get_workloads(workload_spec)
     cache = _cache.CompilationCache(disk_dir=cache_dir, use_disk=cache_dir is not None)
@@ -305,7 +308,17 @@ def _run_sweep(space: SearchSpace, workload_spec: str = "default", *,
     if measure_top_k > 0:
         sweep.validation = validate_top_k(sweep, measure_top_k,
                                           backend=measure_backend, cache=cache,
-                                          device=measure_device)
+                                          db=tune_db, device=measure_device)
+    if measure > 0:
+        if tune_db is None:
+            from ..tune.db import TuningDB
+
+            tune_db = TuningDB(dir=cache_dir)
+        sweep.measurement = measure_candidates(sweep, db=tune_db,
+                                               backend=measure_backend,
+                                               device=measure_device,
+                                               max_candidates=measure,
+                                               cache=cache)
     sweep.wall_time_s = time.perf_counter() - t_start
     return sweep
 
@@ -366,13 +379,14 @@ def validate_top_k(sweep: SweepResult, k: int, backend: str = "cuda",
     burst inflates one round of everything instead of biasing whichever
     config ran last), with the round count recorded in the result.  Each
     entry also carries the per-workload ``block_backends`` of its compile.
-    ``db`` (a tuning DB) is not ported yet and raises."""
-    if db is not None:
-        raise NotImplementedError(f"validate_top_k(db=...): {TUNE_DB_NOT_PORTED}")
+    When ``db`` is a :class:`~repro_torch.tune.TuningDB`, every
+    measurement is also recorded there, in the slot of ``device``
+    (``interpret`` true for ``"cpu"``)."""
     workloads = get_workloads(sweep.workload_spec)
     ranked = sorted(sweep.unique_points(), key=lambda p: p.latency_s)[:k]
     entries = []
     thunks: Dict[Tuple[int, str], Any] = {}
+    records: Dict[Tuple[int, str], Any] = {}
     for pos, res in enumerate([sweep.baseline] + ranked):
         entry = {"index": res.index, "config": res.config_name,
                  "predicted_latency_s": res.latency_s, "error": "",
@@ -387,6 +401,7 @@ def validate_top_k(sweep: SweepResult, k: int, backend: str = "cuda",
                     arrays = _random_arrays(compiled.program.source
                                             or compiled.program, device=device)
                     thunks[(pos, w.name)] = _timed_thunk(compiled, arrays)
+                    records[(pos, w.name)] = compiled.record
                     entry["block_backends"][w.name] = dict(compiled.record.block_backends)
             except Exception as e:
                 entry["error"] = f"{type(e).__name__}: {e}"
@@ -406,6 +421,17 @@ def validate_top_k(sweep: SweepResult, k: int, backend: str = "cuda",
             continue
         entry["measured_us"] = per_wl
         entry["measured_total_us"] = sum(per_wl.values())
+    if db is not None:
+        for key, m in measures.items():
+            rec = records.get(key)
+            if rec is None or not rec.ir_fingerprint:
+                continue
+            db.record(rec.ir_fingerprint, rec.hw_fingerprint, backend, device == "cpu",
+                      tilings=rec.tilings, measured_s=m.min_s,
+                      predicted_s=score_pass_trace(rec.pass_trace).latency_s,
+                      block_backends=rec.block_backends, rounds=m.rounds,
+                      calls=m.calls, source="explore.validate",
+                      workload=key[1])
     by_pred = sorted(entries, key=lambda e: e["predicted_latency_s"])
     by_meas = sorted(entries, key=lambda e: (e["measured_total_us"] is None,
                                              e["measured_total_us"] or 0.0))
@@ -418,7 +444,185 @@ def validate_top_k(sweep: SweepResult, k: int, backend: str = "cuda",
     }
 
 
-def measure_candidates(sweep: SweepResult, **_kwargs) -> Dict:
-    """The JAX package's measure mode (candidate tilings wall-timed into
-    the tuning DB).  Not ported yet: raises ``NotImplementedError``."""
-    raise NotImplementedError(f"measure_candidates: {TUNE_DB_NOT_PORTED}")
+# --------------------------------------------------------------------------
+# Measure mode: candidate tilings -> wall time -> tuning DB
+# --------------------------------------------------------------------------
+def _scale_tiling(tilings: Mapping[str, Mapping[str, int]],
+                  factor: float) -> Dict[str, Dict[str, int]]:
+    return {blk: {v: max(1, int(t * factor)) for v, t in tiles.items()}
+            for blk, tiles in tilings.items()}
+
+
+def _candidate_tilings(sweep: SweepResult, workload: Workload, base_tilings,
+                       cache, max_candidates: int) -> List[Dict[str, Dict[str, int]]]:
+    """Candidate tilings for one workload, analytic first: the base
+    config's analytic choice, sweep-point winners' tilings remapped onto
+    the base blocks (by block name — a point whose fusion decisions
+    differ contributes only its matching groups), and global halve /
+    double perturbations of the analytic tiles."""
+    from ..tune.db import candidate_id as cid
+
+    cands: List[Dict[str, Dict[str, int]]] = [dict(base_tilings)]
+    seen = {cid(base_tilings)}
+
+    def add(c):
+        key = cid(c)
+        if key not in seen and len(cands) < max_candidates:
+            seen.add(key)
+            cands.append(c)
+
+    base_by_name = {k.split("#")[0]: k for k in base_tilings}
+    for p in sorted(sweep.unique_points(), key=lambda r: r.latency_s):
+        if len(cands) >= max_candidates:
+            break
+        try:
+            hw = sweep.space.apply(p.point)
+            _, rec = compile_cached(workload.build(), hw, cache=cache)
+        except Exception:
+            continue
+        remapped = dict(base_tilings)
+        hit = False
+        for key, tiles in rec.tilings.items():
+            bk = base_by_name.get(key.split("#")[0])
+            if bk is not None and remapped[bk] != tiles:
+                remapped[bk] = dict(tiles)
+                hit = True
+        if hit:
+            add(remapped)
+    for factor in (0.5, 2.0, 0.25):
+        add(_scale_tiling(base_tilings, factor))
+    return cands
+
+
+def unit_plan(compiled) -> str:
+    """A content id of what a compiled program launches: per unit in
+    execution order, its backend and, for a kernel unit, each launch's
+    plan (the kernel, its launch plan, and the output region).  The CUDA
+    kernels take the tile as an input to the flattening, not as the
+    launch shape, so two tilings launch different kernels only where the
+    tiling changes the units (a ragged tile's remainder or constrained
+    block): candidates with one ``unit_plan`` time the same launches."""
+    from ..core.cache import stable_hash
+
+    steps = getattr(compiled._fn, "steps", None)
+    if steps is None:  # whole-program torch or reference lowering
+        return stable_hash([compiled.record.backend, compiled.record.groups])[:16]
+    sig = []
+    for u, kind, obj in steps:
+        launches = ([[fn.kernel, repr(fn.plan), list(fn.out_base), list(fn.out_clip)]
+                     for fn in obj] if kind == "cuda" else [])
+        sig.append([u.name, kind, launches])
+    return stable_hash(sig)[:16]
+
+
+def measure_candidates(sweep: SweepResult, *, db, backend: str = "cuda",
+                       device: str = "cuda", max_candidates: int = 6,
+                       rounds: int = 2, calls: int = 1, reject_factor: float = 5.0,
+                       cache=None) -> Dict:
+    """Measure-mode autotuning: wall-time candidate tilings per workload
+    on the sweep's base config and record **every** measurement into the
+    tuning DB (``db``); the measured winner becomes the entry's best,
+    which later ``stripe_jit(..., tune=...)`` compiles replay.
+
+    Candidates run on ``backend`` (``cuda``, the kernels) with tensors on
+    ``device``: on ``"cuda"`` the card's time is recorded with
+    ``interpret`` false; on ``"cpu"`` the kernels' plain versions run and
+    the DB slot says so (``interpret`` true), so such an entry is never
+    replayed for the card.  The analytic choice is always candidate 0, so
+    the summary's ``improved`` flag is measured-winner vs analytic on
+    identical harnesses.  Each workload also reports how many of its
+    candidates launch distinct unit plans (``n_distinct_plans``,
+    :func:`unit_plan`): candidates with one plan differ only by noise.
+
+    A candidate whose single warm call runs slower than ``reject_factor``
+    x the analytic candidate's is **early-rejected** — recorded in the DB
+    from that one shot (``rounds=1``, honestly labeled) instead of
+    burning full interleaved rounds on a certain loser.  That shot is
+    each candidate's second call: the first absorbs what only a first
+    call pays (a kernel module's load on the card), so no candidate is
+    judged, or judges the others, by it."""
+    base_hw = sweep.space.base_config()
+    workloads = get_workloads(sweep.workload_spec)
+    interpret = device == "cpu"
+    summary: Dict[str, Any] = {"backend": backend, "device": device,
+                               "interpret": interpret, "rounds": rounds,
+                               "calls": calls, "workloads": {}}
+    for w in workloads:
+        with obs_trace.span("explore.measure", workload=w.name,
+                            backend=backend):
+            try:
+                _, base_rec = compile_cached(w.build(), base_hw, cache=cache)
+            except Exception as e:
+                summary["workloads"][w.name] = {
+                    "error": f"{type(e).__name__}: {e}"}
+                continue
+            cands = _candidate_tilings(sweep, w, base_rec.tilings, cache,
+                                       max_candidates)
+            thunks: Dict[int, Any] = {}
+            meta: Dict[int, Any] = {}
+            plans: Dict[int, str] = {}
+            warm_s: Dict[int, float] = {}
+            errors: List[str] = []
+            for i, cand in enumerate(cands):
+                try:
+                    compiled = compile_with_tilings(
+                        w.build(), base_hw, cand, backend=backend)
+                    arrays = _random_arrays(compiled.program.source
+                                            or compiled.program, device=device)
+                    thunk = _timed_thunk(compiled, arrays)
+                    thunk()  # first call: module loads, allocator warm-up
+                    t0 = time.perf_counter()
+                    thunk()
+                    warm_s[i] = time.perf_counter() - t0
+                    thunks[i] = thunk
+                    meta[i] = compiled.record
+                    plans[i] = unit_plan(compiled)
+                except (KernelBuildError, KernelLaunchError):
+                    raise  # a kernel that cannot build or launch is never skipped
+                except Exception as e:
+                    # an infeasible perturbation is just skipped
+                    errors.append(f"candidate {i}: {type(e).__name__}: {e}")
+            cut = (reject_factor * warm_s[0]
+                   if 0 in warm_s and reject_factor > 0 else None)
+            rejected = {i for i in thunks
+                        if cut is not None and i != 0 and warm_s[i] > cut}
+            measures = measure_interleaved(
+                {i: thunks[i] for i in thunks if i not in rejected},
+                rounds=rounds, calls=calls, warmup=0)
+            wl: Dict[str, Any] = {"n_candidates": len(measures) + len(rejected),
+                                  "n_rejected": len(rejected),
+                                  "n_distinct_plans": len(set(plans.values())),
+                                  "analytic_s": None, "best_s": None,
+                                  "best_candidate": None, "improved": False,
+                                  "best_same_plan_as_analytic": None}
+            if errors:
+                wl["skipped"] = errors
+            timings = {i: (m.min_s, m.rounds, m.calls)
+                       for i, m in measures.items()}
+            for i in rejected:  # one-shot evidence: still worth keeping
+                timings[i] = (warm_s[i], 1, 1)
+            best_i = None
+            for i, (min_s, n_rounds, n_calls) in sorted(timings.items()):
+                rec = meta[i]
+                predicted = score_pass_trace(rec.pass_trace).latency_s
+                cid = db.record(
+                    base_rec.ir_fingerprint, base_rec.hw_fingerprint,
+                    backend, interpret, tilings=rec.tilings, measured_s=min_s,
+                    predicted_s=predicted, rounds=n_rounds, calls=n_calls,
+                    source=("explore.measure.rejected" if i in rejected
+                            else "explore.measure"), workload=w.name)
+                if i == 0:
+                    wl["analytic_s"] = min_s
+                if wl["best_s"] is None or min_s < wl["best_s"]:
+                    wl["best_s"] = min_s
+                    wl["best_candidate"] = cid
+                    best_i = i
+            if wl["analytic_s"] is not None and wl["best_s"] is not None:
+                wl["improved"] = wl["best_s"] < wl["analytic_s"]
+                wl["speedup_vs_analytic"] = (wl["analytic_s"] / wl["best_s"]
+                                             if wl["best_s"] else None)
+                # an "improved" winner that launches what the analytic
+                # candidate launches won on noise, not on its tiling
+                wl["best_same_plan_as_analytic"] = plans.get(best_i) == plans.get(0)
+            summary["workloads"][w.name] = wl
+    return summary

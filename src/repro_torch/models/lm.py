@@ -1,17 +1,23 @@
-"""Decoder-only LM, dense family: parameters and the output head.
+"""Decoder-only LM, dense family: parameters, the layer stack, the loss,
+prefill and decode.
 
 Per-layer parameters are stacked along a leading layer axis, as in the
-JAX package's ``params["blocks"]``; the serving steps index one layer at a
-time."""
+JAX package's ``params["blocks"]``; the stack is a Python loop over the
+layers (the JAX package scans them), each layer's parameters a view.
+The MoE and VLM members of the family come with ROADMAP A8b, training
+(where ``remat`` matters) with A8c."""
 from __future__ import annotations
+
+from typing import Any, Dict
 
 import torch
 
-from ..nn.attention import attn_init
-from ..nn.core import (Params, apply_norm, embed_init, embed_lookup, mlp_init,
-                       norm_init, param_dtype, unembed)
+from ..nn.attention import attention, attn_init, init_kv_cache
+from ..nn.core import (Params, apply_norm, embed_init, embed_lookup, mlp_apply, mlp_init,
+                       norm_init, param_dtype, softmax_xent, unembed)
 
-__all__ = ["init_params", "block_init", "layer", "_logits", "embed_lookup", "unembed"]
+__all__ = ["init_params", "block_init", "block_apply", "layer", "loss_fn", "init_cache",
+           "prefill", "decode_step", "_logits", "embed_lookup", "unembed"]
 
 
 def block_init(gen: torch.Generator, cfg, dtype, device=None) -> Params:
@@ -70,3 +76,66 @@ def _logits(p: Params, cfg, x: torch.Tensor) -> torch.Tensor:
     x = apply_norm(p["final_norm"], x, cfg.norm)
     w = p["embed"] if cfg.tie_embeddings else p["unembed"]
     return unembed(x, w, cfg.tie_embeddings)
+
+
+def block_apply(p: Params, x: torch.Tensor, cfg, cache=None):
+    h, new_cache = attention(p["attn"], apply_norm(p["ln1"], x, cfg.norm), cfg,
+                             causal=True, cache=cache)
+    x = x + h
+    h2 = mlp_apply(p["mlp"], apply_norm(p["ln2"], x, cfg.norm), cfg.act)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return x + h2, new_cache, aux
+
+
+def _stack(p: Params, x: torch.Tensor, cfg, caches=None, remat: bool = False):
+    """Every layer in turn.  ``caches`` holds the stacked per-layer KV
+    caches (``init_cache``): each layer writes its keys and values into
+    its slice of the stacked buffers in place (donated, see
+    ``attention``), and those buffers come back with the new positions.
+    The JAX package pins the activations' sharding here (``constrain``),
+    the identity on one device: the multi-device slice (ROADMAP A9) brings
+    it.  ``remat`` only matters under autograd (training, A8c)."""
+    auxs = []
+    new = []
+    for i in range(cfg.n_layers):
+        cache_i = None if caches is None else {k: v[i] for k, v in caches.items()}
+        x, new_cache, aux = block_apply(layer(p["blocks"], i), x, cfg, cache_i)
+        auxs.append(aux)
+        new.append(new_cache)
+    aux = torch.stack(auxs).sum()
+    if caches is None:
+        return x, None, aux
+    return x, dict(caches, pos=torch.stack([c["pos"] for c in new])), aux
+
+
+def _embed_inputs(p: Params, cfg, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+    # the dense family has no modality frontend (the VLM's patches: A8b)
+    return embed_lookup(p["embed"], batch["tokens"])
+
+
+def loss_fn(p: Params, cfg, batch: Dict[str, torch.Tensor], remat: bool = True):
+    x = _embed_inputs(p, cfg, batch)
+    x, _, aux = _stack(p, x, cfg, None, remat=remat)
+    logits = _logits(p, cfg, x)
+    loss = softmax_xent(logits[:, :-1], batch["labels"][:, 1:], cfg.vocab)
+    total = loss + 0.01 * aux
+    return total, {"loss": loss, "aux": aux}
+
+
+def init_cache(cfg, batch: int, max_len: int, dtype, device="cuda") -> Any:
+    one = init_kv_cache(cfg, batch, max_len, dtype, device)
+    return {k: v.expand((cfg.n_layers, *v.shape)).clone() for k, v in one.items()}
+
+
+def prefill(p: Params, cfg, batch: Dict[str, torch.Tensor], cache):
+    x = _embed_inputs(p, cfg, batch)
+    x, new_caches, _ = _stack(p, x, cfg, cache)
+    logits = _logits(p, cfg, x[:, -1:])
+    return logits, new_caches
+
+
+def decode_step(p: Params, cfg, cache, tokens: torch.Tensor):
+    """tokens: (B, 1)."""
+    x = embed_lookup(p["embed"], tokens)
+    x, new_caches, _ = _stack(p, x, cfg, cache)
+    return _logits(p, cfg, x), new_caches

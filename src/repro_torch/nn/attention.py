@@ -1,12 +1,14 @@
-"""GQA attention pieces the serving engine uses: parameter init, the
-causal mask and the reference attention ``mha`` (float32 scores)."""
+"""GQA attention with RoPE variants, qk-norm and a KV cache: parameter
+init, the causal mask, the reference attention ``mha`` (float32 scores)
+and the dense family's ``attention`` layer.  Cross-attention (``memory``)
+comes with the encoder-decoder family (ROADMAP A8b)."""
 from __future__ import annotations
 
-from typing import Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 
-from .core import Params, dense_init
+from .core import Params, apply_rope, dense_init, linear, rms_head_norm
 
 NEG_INF = -1e30
 
@@ -23,6 +25,11 @@ def attn_init(gen: torch.Generator, cfg, dtype, device=None) -> Params:
         p["q_norm"] = torch.ones((hd,), dtype=dtype, device=device)
         p["k_norm"] = torch.ones((hd,), dtype=dtype, device=device)
     return p
+
+
+def _split_heads(x: torch.Tensor, n: int) -> torch.Tensor:
+    b, s, _ = x.shape
+    return x.reshape(b, s, n, -1)
 
 
 def _gqa_scores(q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
@@ -58,3 +65,75 @@ def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def causal_mask(s: int, device=None) -> torch.Tensor:
     return torch.tril(torch.ones((s, s), dtype=torch.bool, device=device))[None, None]
+
+
+def attention(p: Params, x: torch.Tensor, cfg, *,
+              positions: Optional[torch.Tensor] = None,
+              mask: Optional[torch.Tensor] = None,
+              causal: bool = True,
+              cache: Optional[Dict[str, torch.Tensor]] = None,
+              impl: str = "xla") -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]]]:
+    """Self-attention.
+
+    * training/prefill: ``cache=None`` (or fresh) — full sequence.
+    * decode: ``cache`` holds (k, v, pos); x is (B, 1, D).
+
+    ``cache["pos"]`` is a 0-d int32 tensor (the current length): the new
+    keys and values are written into the cache's own ``k`` and ``v``
+    buffers at rows ``pos .. pos + s`` with ``index_copy_``, whose indices
+    stay on the device, so no layer waits for the host.  Those buffers are
+    donated (the JAX package's functional update, without its copy of the
+    whole cache): the returned cache holds them, written, and a new
+    ``pos``; the cache passed in is not to be used again.  ``impl`` is
+    unused, as in the JAX package: flash attention is not on the model
+    path.
+    """
+    b, s, d = x.shape
+    h, kvh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    sm_scale = 1.0 / float(hd) ** 0.5
+
+    q = _split_heads(linear(x, p["wq"]), h)
+    k = _split_heads(linear(x, p["wk"]), kvh)
+    v = _split_heads(linear(x, p["wv"]), kvh)
+
+    if cfg.qk_norm:
+        q = rms_head_norm(q, p["q_norm"])
+        k = rms_head_norm(k, p["k_norm"])
+
+    steps = torch.arange(s, dtype=torch.int32, device=x.device)
+    if positions is None:
+        if cache is not None and "pos" in cache:
+            positions = cache["pos"] + steps[None]
+        else:
+            positions = steps[None]
+    q = apply_rope(q, positions, cfg.rope, cfg.rope_theta)
+    k = apply_rope(k, positions, cfg.rope, cfg.rope_theta)
+
+    if cache is not None:
+        pos = cache["pos"]  # 0-d int32: current length
+        rows = (pos + steps).long()
+        ck = cache["k"].index_copy_(1, rows, k.to(cache["k"].dtype))
+        cv = cache["v"].index_copy_(1, rows, v.to(cache["v"].dtype))
+        t = ck.shape[1]
+        kpos = torch.arange(t, dtype=torch.int32, device=x.device)
+        valid = kpos[None, None, None, :] < (pos + s)
+        if causal and s > 1:
+            qpos = pos + steps
+            valid = valid & (kpos[None, None, None, :] <= qpos[None, None, :, None])
+        out = mha(q, ck, cv, valid, sm_scale)
+        new_cache = {"k": ck, "v": cv, "pos": pos + s}
+        return linear(out.reshape(b, s, h * hd), p["wo"]), new_cache
+
+    m = mask
+    if causal and m is None:
+        m = causal_mask(s, x.device)
+    out = mha(q, k, v, m, sm_scale)
+    return linear(out.reshape(b, s, h * hd), p["wo"]), None
+
+
+def init_kv_cache(cfg, batch: int, max_len: int, dtype, device="cuda") -> Dict[str, torch.Tensor]:
+    return {
+        "k": torch.zeros((batch, max_len, cfg.n_kv_heads, cfg.hd), dtype=dtype, device=device),
+        "v": torch.zeros((batch, max_len, cfg.n_kv_heads, cfg.hd), dtype=dtype, device=device),
+        "pos": torch.zeros((), dtype=torch.int32, device=device),
+    }

@@ -1,14 +1,19 @@
 """Core NN building blocks: plain functions on tensors, parameters in
 dicts, initialization from an explicit ``torch.Generator``.
 
-Only what serving needs is ported: embeddings, norms, RoPE, qk-norm, the
-activation table and the parameter initializers."""
+All dense projections route through ``repro_torch.core.oplib.linear`` —
+the Stripe-compiled op layer (an einsum on the ``torch`` backend; the
+Stripe-generated CUDA kernel on the ``cuda`` backend).  Ported: the dense
+family's pieces (embeddings, norms, RoPE, qk-norm, the MLP, the
+cross-entropy, the depthwise causal conv) and the parameter initializers."""
 from __future__ import annotations
 
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+
+from ..core import oplib
 
 Params = Dict[str, Any]
 
@@ -28,6 +33,18 @@ def dense_init(gen: torch.Generator, d_in: int, d_out: int, dtype, device=None,
                scale: Optional[float] = None) -> torch.Tensor:
     scale = scale if scale is not None else 1.0 / float(d_in) ** 0.5
     return _normal(gen, (d_in, d_out), scale, dtype, device)
+
+
+def linear(x: torch.Tensor, w: torch.Tensor, bias: Optional[torch.Tensor] = None,
+           act: Optional[str] = None) -> torch.Tensor:
+    if oplib.get_backend() == "torch":
+        out = torch.einsum("...k,kn->...n", x, w)
+        if bias is not None:
+            out = out + bias
+        if act is not None:
+            out = _ACT[act](out)
+        return out
+    return oplib.linear(x, w, bias, act)
 
 
 # ``gelu`` is the tanh approximation here, as in the JAX package's _ACT
@@ -105,6 +122,16 @@ def mlp_init(gen: torch.Generator, d: int, d_ff: int, act: str, dtype, device=No
             "w_down": dense_init(gen, d_ff, d, dtype, device)}
 
 
+def mlp_apply(p: Params, x: torch.Tensor, act: str) -> torch.Tensor:
+    if act.endswith("_glu"):
+        a = act.split("_")[0]
+        g = linear(x, p["w_gate"], act=a)
+        u = linear(x, p["w_up"])
+        return linear(g * u, p["w_down"])
+    h = linear(x, p["w_up"], act=act)
+    return linear(h, p["w_down"])
+
+
 # ----------------------------------------------------------- embeddings
 def embed_init(gen: torch.Generator, vocab: int, d: int, dtype, device=None) -> torch.Tensor:
     return _normal(gen, (vocab, d), 0.02, dtype, device)
@@ -119,3 +146,30 @@ def unembed(x: torch.Tensor, table_or_w: torch.Tensor, tied: bool) -> torch.Tens
     if tied:
         return torch.einsum("...d,vd->...v", x, table_or_w)
     return torch.einsum("...d,dv->...v", x, table_or_w)
+
+
+def softmax_xent(logits: torch.Tensor, labels: torch.Tensor, real_vocab: int) -> torch.Tensor:
+    """Mean token cross-entropy; logits over the padded vocab are masked."""
+    lf = logits.float()
+    pad = lf.shape[-1] - real_vocab
+    if pad > 0:
+        lf = torch.cat([lf[..., :real_vocab],
+                        torch.full((*lf.shape[:-1], pad), -1e30, dtype=torch.float32,
+                                   device=lf.device)], dim=-1)
+    logz = torch.logsumexp(lf, dim=-1)
+    gold = torch.gather(lf, -1, labels[..., None].long())[..., 0]
+    return torch.mean(logz - gold)
+
+
+# ----------------------------------------------------- causal conv (ssm)
+def causal_conv1d(x: torch.Tensor, w: torch.Tensor, state: Optional[torch.Tensor] = None
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Depthwise causal conv.  x: (B, S, C); w: (W, C).  Returns (y, new
+    state (B, W-1, C))."""
+    W = w.shape[0]
+    if state is None:
+        state = torch.zeros((x.shape[0], W - 1, x.shape[-1]), dtype=x.dtype, device=x.device)
+    xp = torch.cat([state, x], dim=1)
+    y = sum(xp[:, i: i + x.shape[1], :] * w[i] for i in range(W))
+    new_state = xp[:, -(W - 1):, :] if W > 1 else state
+    return y, new_state

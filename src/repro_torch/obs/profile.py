@@ -1,19 +1,23 @@
 """Kernel profiling support: cost-model residual logging.
 
 ``stripe_jit(..., profile=True)`` wall-times every lowered unit (a
-fusion group's Pallas kernels, a jnp fallback group, or the whole
+fusion group's CUDA kernels, a torch fallback group, or the whole
 program for the reference interpreter) on dispatch and attaches the
 measurements to the :class:`~repro_torch.core.driver.CompileRecord` next to
-the cost model's predicted per-unit latencies.  On the first profiled
-dispatch the (predicted, measured) pairs are appended — one JSON object
+the cost model's predicted per-unit latencies.  On the first warm profiled
+dispatch (on the card, the second: ``driver._attach_profiling``) the
+(predicted, measured) pairs are appended — one JSON object
 per line — to a **residual log** under the compilation-cache directory:
 
     {"ir_fingerprint": ..., "hw_fingerprint": ..., "block": "a+b",
-     "predicted_s": 1.2e-5, "measured_s": 3.4e-5, "backend": "pallas",
-     "interpret": true, "hw": "tpu_v5e", "key": ..., "ts": ...}
+     "predicted_s": 1.2e-5, "measured_s": 3.4e-5, "backend": "cuda",
+     "interpret": false, "hw": "h100", "key": ..., "ts": ...}
 
-This file is the feed for the measured-feedback tuning database
-(ROADMAP item 2): rows are keyed by IR fingerprint x hardware
+``interpret`` is true when the kernels' plain versions ran (no tensor of
+the call on the card), the twin of the JAX package's Pallas interpret
+mode: such a row times the host, never the card.
+
+This file is the feed for the measured-feedback tuning database: rows are keyed by IR fingerprint x hardware
 fingerprint, exactly the identity the compilation cache already uses, so
 accumulated (predicted, measured) pairs can calibrate the roofline /
 pipeline model coefficients per hardware config.
@@ -33,8 +37,8 @@ from typing import Any, Dict, List, Optional
 RESIDUAL_LOG_NAME = "residuals.jsonl"
 
 # Rotation: the log is compacted once it exceeds this many rows (the
-# newest half is kept; older rows fold into a tuning DB when the caller
-# passes one, and are dropped otherwise).
+# newest half is kept; older rows fold into the tuning DB's running
+# residual summaries, so long-run bias statistics survive rotation).
 ENV_RESIDUAL_CAP = "STRIPE_RESIDUAL_CAP"
 DEFAULT_RESIDUAL_CAP = 20_000
 
@@ -67,9 +71,10 @@ def append_residuals(rows: List[Dict[str, Any]], path=None,
 
     Growth is bounded: past ``cap`` rows (``$STRIPE_RESIDUAL_CAP``,
     default 20k; <= 0 disables) the log rotates — the newest ``cap // 2``
-    rows are kept and the older ones fold into ``db`` (an object with
-    ``fold_residuals(rows)``) when one is given, else they are dropped:
-    the port has no tuning DB yet (ROADMAP A6)."""
+    rows are kept and the older ones fold into the tuning DB next to the
+    log (``db`` overrides which DB; None opens ``tuning_db.json`` in the
+    log's directory), so ``python -m repro_torch.obs residuals`` still
+    reports the full history via the DB's running summaries."""
     if not rows:
         return None
     p = Path(path) if path is not None else residual_log_path()
@@ -99,21 +104,22 @@ def _rotate_locked(p: Path, cap: int, db=None) -> None:
         return
     keep = lines[-max(cap // 2, 1):]
     fold = lines[: len(lines) - len(keep)]
-    # The port has no tuning DB yet (ROADMAP A6): with no ``db`` given the
-    # older rows are dropped, not folded.
-    if db is not None:
-        try:
-            folded_rows = []
-            for ln in fold:
-                try:
-                    folded_rows.append(json.loads(ln))
-                except ValueError:
-                    continue
-            db.fold_residuals(folded_rows)
-        except Exception:
-            # compaction must never fail profiling; the rows are still
-            # dropped below so the log stays bounded either way
-            pass
+    try:
+        if db is None:
+            from ..tune.db import TuningDB
+
+            db = TuningDB(dir=p.parent)
+        folded_rows = []
+        for ln in fold:
+            try:
+                folded_rows.append(json.loads(ln))
+            except ValueError:
+                continue
+        db.fold_residuals(folded_rows)
+    except Exception:
+        # compaction must never fail profiling; the rows are still
+        # dropped below so the log stays bounded either way
+        pass
     try:
         import tempfile
 

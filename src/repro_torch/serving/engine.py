@@ -163,10 +163,19 @@ class ServingEngine:
         self._compile_cache = (compile_cache if compile_cache is not None
                                else stripe_cache.CompilationCache(
                                    capacity=256, use_disk=config.use_disk_cache))
+        self._tune_db = None
+        if config.tune:
+            # the tuning DB lives next to the disk compilation cache (or
+            # the process default dir): bucket compiles consult it, and
+            # profiled calls feed measurements back into it
+            from ..tune.db import TuningDB
+
+            self._tune_db = TuningDB(dir=self._compile_cache.disk_dir)
         self._jc = EngineLikeConfig(
             hw=_get_hw(config.hw), backend=config.backend,
             use_disk=self._compile_cache.disk_dir is not None,
-            cache=self._compile_cache, profile=config.profile)
+            cache=self._compile_cache, profile=config.profile,
+            tune=self._tune_db, device=self._device.type)
 
         # ---- paged KV state (static shapes; see paged.py for the layout)
         self._ps = config.page_size
@@ -192,6 +201,7 @@ class ServingEngine:
             config.backend, config.use_stripe_decode)
         self._records: Dict[str, CompileRecord] = {}
         self._compile_log: List[Dict[str, Any]] = []
+        self._pending_tuned: List[Dict[str, Any]] = []
         self._build_decode()
 
         # ---- async prep: submit() -> raw queue -> FIFO worker -> ready deque
@@ -244,6 +254,9 @@ class ServingEngine:
         self._h_prefill = self._obs.histogram("serve.prefill_s")
         self._h_queue = self._obs.histogram("serve.queue_wait_s")
         self._h_request = self._obs.histogram("serve.request_s")
+        for fields in self._pending_tuned:  # decode compiles pre-date the log
+            self._event("tuned_replay", **fields)
+        self._pending_tuned.clear()
 
     # -------------------------------------------------------------- events
     def _event(self, event: str, **fields) -> None:
@@ -279,7 +292,11 @@ class ServingEngine:
         ``cache_stats()``)."""
         key = stripe_cache.content_key(
             "serve_decode", self._model_fp, self.slots, self._ps, self._pps,
-            self.config.backend, self.config.hw, self.config.use_stripe_decode)
+            self.config.backend, self.config.hw, self.config.use_stripe_decode,
+            # tuned replays lower different tilings (and per device: the DB
+            # keeps plain-version and card timings apart), so a tuned bucket
+            # never aliases an untuned one in a shared live cache
+            self.config.tune, self._device.type)
         hit = self._compile_cache.get_memory(key)
         if hit is None:
             t0 = time.perf_counter()
@@ -293,15 +310,37 @@ class ServingEngine:
                 "kind": "decode_programs", "slots": self.slots,
                 "kv_window": self._kv_window,
                 "first_call_s": time.perf_counter() - t0})
+            if progs is not None:
+                self._note_tuned("decode", progs.records)
         self._decode_fn, self._decode_progs = hit
         if self._decode_progs is not None:
             self._records.update(
                 {f"decode/{k}": v for k, v in self._decode_progs.records.items()})
 
+    def _note_tuned(self, kind: str, records) -> None:
+        """Emit one ``tuned_replay`` event per freshly-compiled program
+        whose tilings came from the tuning DB (decision provenance for
+        the event log; replayed cache hits stay silent).  Decode compiles
+        happen before the event log exists, so early events buffer in
+        ``_pending_tuned`` and flush at the end of ``__init__``."""
+        for name, rec in records.items():
+            if (getattr(rec, "decision_source", "") == "tuned"
+                    and not rec.cache_hit):
+                tuned = getattr(rec, "tuned", None) or {}
+                fields = dict(kind=kind, program=name,
+                              candidate=str(tuned.get("candidate_id", "")),
+                              measured_s=tuned.get("measured_s"),
+                              source=str(tuned.get("source", "")))
+                if getattr(self, "_obs", None) is None:
+                    self._pending_tuned.append(fields)
+                else:
+                    self._event("tuned_replay", **fields)
+
     def _prefill_key(self, bucket: int) -> str:
         return stripe_cache.content_key(
             "serve_prefill", self._model_fp, self._ps, self._pps, bucket,
-            self.config.backend, self.config.hw, self.config.use_stripe_decode)
+            self.config.backend, self.config.hw, self.config.use_stripe_decode,
+            self.config.tune, self._device.type)
 
     def _get_prefill(self, bucket: int, params, warm: bool = False):
         """Fetch-or-compile the prefill step for one prompt bucket.
@@ -343,6 +382,7 @@ class ServingEngine:
         if progs is not None:
             self._records.update(
                 {f"prefill_L{bucket}/{k}": v for k, v in progs.records.items()})
+            self._note_tuned(f"prefill_L{bucket}", progs.records)
         if entry is not None:
             # post-embargo retry succeeded: the bucket is healthy again
             self._quarantine.clear(key)

@@ -98,6 +98,13 @@ class EngineConfig:
       ``stripe_jit(..., profile=True)``: per-unit measured latencies
       attach to each ``CompileRecord`` and (predicted, measured) rows
       land in the cost-model residual log.
+    * ``tune`` — consult (and, with ``profile``, populate) the measured
+      tuning DB next to the engine's compilation cache: bucket compiles
+      go through ``stripe_jit(..., tune=..., device=device)``, so a
+      workload measured by the explore sweep or a previous profiled run
+      on the same device replays its measured-best tiling (a
+      ``tuned_replay`` engine event; hit/miss counts in
+      ``cache_stats()``).
     """
 
     slots: int = 8
@@ -116,6 +123,7 @@ class EngineConfig:
     quarantine_backoff_s: float = 0.25
     event_log_size: int = 10_000
     profile: bool = False
+    tune: bool = False
 
     def validate(self) -> None:
         if self.slots < 1:

@@ -31,7 +31,7 @@ which upcasts for scores/values); callers cast in and out.
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, Optional
+from typing import Any, Callable, Dict, Optional
 
 import torch
 
@@ -51,7 +51,7 @@ _FUSABLE_ACT = {
 
 def _jit_opts(cfg: "EngineLikeConfig") -> Dict:
     return dict(backend=cfg.backend, use_disk=cfg.use_disk, cache=cfg.cache,
-                profile=cfg.profile)
+                profile=cfg.profile, tune=cfg.tune, device=cfg.device)
 
 
 @dataclasses.dataclass
@@ -63,6 +63,8 @@ class EngineLikeConfig:
     use_disk: bool = True
     cache: Optional[_cache.CompilationCache] = None
     profile: bool = False
+    tune: Any = None  # a repro_torch.tune.TuningDB, or None
+    device: str = "cuda"  # where the programs' tensors live (the DB slot)
 
 
 @dataclasses.dataclass

@@ -1106,3 +1106,81 @@ def test_bf16_output_is_rounded_once_on_the_card(m):
     got16, got32 = c16(env)["O"], c32(env)["O"]
     assert got16.dtype == torch.bfloat16 and got32.dtype == torch.float32
     assert torch.equal(got16, got32.to(torch.bfloat16))
+
+
+# ------------------------------------------------------------ tuning DB
+@pytest.mark.cuda
+def test_tuned_replay_on_the_card_logs_interpret_false(tmp_path):
+    """The first profiled call on the card (which builds the plans' launch
+    parameters) logs nothing; the second writes residual rows and a DB
+    entry with ``interpret`` false (the kernels ran, not their plain
+    versions); a compile for the card then replays it, and nothing of the
+    plain versions' slot."""
+    from repro_torch.obs import profile as obs_profile
+    from repro_torch.tune import TuningDB
+
+    _card()
+    hw = get_config("h100")
+    prog = _gemm_program(128, 256, 192, "float32")
+    cache = t_cache.CompilationCache(disk_dir=tmp_path)
+    db = TuningDB(dir=tmp_path)
+    c1 = stripe_jit(prog, hw, "cuda", cache=cache, profile=True, tune=db)
+    assert c1.record.decision_source == "analytic"
+    env = _random_arrays(c1.program.source, seed=3)
+    before = K.launches
+    want = c1(env)["O"]
+    torch.cuda.synchronize()
+    assert K.launches > before
+    log = obs_profile.residual_log_path(cache)
+    assert not obs_profile.read_residuals(log) and not c1.record.measured_latency_s
+    rec = c1.record
+    assert db.lookup(rec.ir_fingerprint, rec.hw_fingerprint, "cuda", False) is None
+    assert torch.equal(c1(env)["O"], want)
+    rows = obs_profile.read_residuals(log)
+    assert rows and all(r["interpret"] is False for r in rows)
+    assert db.lookup(rec.ir_fingerprint, rec.hw_fingerprint, "cuda", True) is None
+    entry = db.lookup(rec.ir_fingerprint, rec.hw_fingerprint, "cuda", False)
+    assert entry is not None and entry.source == "profile"
+    c2 = stripe_jit(prog, hw, "cuda", cache=t_cache.CompilationCache(disk_dir=tmp_path),
+                    tune=db)
+    assert c2.record.decision_source == "tuned"
+    assert c2.record.tuned["candidate_id"] == entry.candidate_id
+    assert set(c2.record.block_backends.values()) == {"cuda"}
+    assert torch.equal(c2(env)["O"], want)
+
+
+# --------------------------------------------------------------- oplib
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("m", [4, 512])
+def test_oplib_linear_on_the_card(m, dtype):
+    """``oplib.linear`` under ``cuda`` at llama3-8b's gate projection
+    (4096 -> 14336, silu epilogue): one launch of the contraction kernel,
+    skinny at m = 4 and tiled at m = 512 (wgmma in bf16), every unit on the
+    kernel, against its plain version on the same tensors."""
+    from repro_torch.core import oplib
+
+    _card()
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    tdt = getattr(torch, dtype)
+    x = torch.randn(m, 4096, generator=gen, device="cuda").to(tdt)
+    w = (torch.randn(4096, 14336, generator=gen, device="cuda") * 4096 ** -0.5).to(tdt)
+    old = oplib.get_backend()
+    oplib.set_backend("cuda")
+    try:
+        before = dict(K.launches_by_path)
+        got = oplib.linear(x, w, act="silu")
+        torch.cuda.synchronize()
+        ran = {p: K.launches_by_path[p] - before[p] for p in before}
+    finally:
+        oplib.set_backend(old)
+    expect = "skinny" if m <= 16 else "tiled"
+    assert ran == {**{p: 0 for p in ran}, expect: 1}, ran
+    op = oplib._compiled_linear(m, 4096, 14336, dtype, "float32", "silu", False, "cuda")
+    assert set(op.block_backends.values()) == {"cuda"}, op.block_reasons
+    ((_unit, kind, (fn,)),) = op.cuda_fn.steps
+    if m > 16:
+        assert K.gemm_view(fn.plan).mma == ("ffma" if dtype == "float32" else "wgmma")
+    want = fn.plain({"X": x, "W": w})
+    assert got.dtype == tdt
+    _assert_kernel_close(got, want, f"linear m={m} {dtype} ({expect})")

@@ -321,15 +321,13 @@ def test_driver_rejects_unported_arguments():
     prog = FUSION_PROGRAMS["chain"](TTile).build()
     with pytest.raises(NotImplementedError, match="A9"):
         t_jit(prog, t_hw("cpu_test"), "cuda", mesh=2)
-    with pytest.raises(NotImplementedError, match="A6"):
-        t_jit(prog, t_hw("cpu_test"), "cuda", tune=True)
 
 
 @pytest.mark.parametrize("with_db", [True, False])
 def test_residual_log_rotation(tmp_path, with_db):
     """The port's residual log rotates as the reference's does: the newest
-    half stays and a given DB receives the rest; with no DB (the port has
-    no tuning DB yet) the rest is dropped."""
+    half stays and a given DB receives the rest; with no DB given the rest
+    folds into the tuning DB beside the log."""
     from repro.obs import profile as j_profile
     from repro_torch.obs import profile as t_profile
 
@@ -353,6 +351,11 @@ def test_residual_log_rotation(tmp_path, with_db):
     assert len(logs["port"][0]) < len(rows)
     if with_db:
         assert logs["port"][1] == logs["ref"][1]
+    else:
+        from repro_torch.tune import TuningDB
+
+        folded = TuningDB(dir=tmp_path / "port").residual_summaries()
+        assert sum(f["rows"] for f in folded) == len(logs["ref"][1])
 
 
 def test_kernel_wrapper_uses_plain_version_only_for_cpu_tensors():

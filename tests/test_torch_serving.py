@@ -161,6 +161,9 @@ def test_import_pulls_in_no_jax_and_no_reference_package():
         bad = sorted(n for n in sys.modules
                      if n.split(".")[0] in ("jax", "jaxlib", "repro"))
         assert not bad, bad
+        new = ("repro_torch.tune.db", "repro_torch.core.oplib", "repro_torch.obs.__main__",
+               "repro_torch.models.build", "repro_torch.nn.attention", "repro_torch.models.lm")
+        assert all(m in sys.modules for m in new), [m for m in new if m not in sys.modules]
         print("ok", len([n for n in sys.modules if n.startswith("repro_torch")]))
     """)
     import os
