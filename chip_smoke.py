@@ -3,7 +3,7 @@
 NVIDIA card.
 
     python3 chip_smoke.py                # the full check, one card
-    python3 chip_smoke.py --layers 2     # a shorter model for a quick look
+    python3 chip_smoke.py --layers 2     # shorter models for a quick look
 
 Phases, each of which raises on failure (the script then exits non-zero
 and prints no result):
@@ -172,18 +172,42 @@ and prints no result):
    Logits are held between the backends as in phase 5, and the
    prefill and decode-step times print on the host clock (with
    ``torch.cuda.synchronize()``) beside the card's name and power limit.
+11. **wave** — the wave engine, the one serving path of the moe and vlm
+   families, after llama3-8b's weights are freed: qwen3-moe-30b-a3b at
+   full width (``--layers`` deep, 48 by default: d 2048, 32 / 4 heads,
+   128 experts top-8, vocab 151936; ~61 GB of seeded random bf16 weights
+   drawn on the card, a layer at a time), then internvl2-26b at 4 layers
+   and full width (d 6144, 48 / 8 heads, 256 zero patches in front of
+   every prompt).  Each serves the serve phase's 4 prompts (16 new tokens:
+   one prefill of 4 x 100 rows, 356 for the VLM, and 15 decode steps)
+   through ``WaveEngine(model, 4, max_len)`` with ``oplib`` on ``cuda``
+   and again on ``torch``: every request must finish; every projection
+   (q, k, v, o; and the VLM's dense MLP) must be one launch of the
+   contraction kernel a layer a call, ``tiled`` on wgmma at prefill and
+   ``skinny`` at decode, ``general`` 0 (read from ``launches_by_path``
+   around each call), every ``oplib`` unit on ``cuda``; each projection
+   at the prefill's and the decode's rows is held against its kernel's
+   plain version (``BF16_RTOL``), and the logits between the backends as
+   in phase 5, the torch run taking the cuda run's expert choices
+   (``moe_apply(experts=)``): left free, the two backends' rounding flips
+   the router's near-ties in some token at every call (the 8th and 9th
+   experts' probabilities within ~1e-4), so the free runs' logits are
+   printed beside the held ones, not held.  The prefill time, the decode-step median (host clock with
+   ``torch.cuda.synchronize()``), tokens/s, the peak of
+   ``torch.cuda.max_memory_allocated()`` and the launches by path print
+   beside the card's name and power limit.
 
-The run order is 1-6, 10, 7, 9, 8: phase 10 reuses the serve phase's
-weights, which are freed before phase 8.
+The run order is 1-6, 10, 11, 7, 9, 8: phase 10 reuses the serve phase's
+weights, which are freed before phase 11.
 
 Launch counts are read per path: every count is set to 0 just before the
 serve phase (path 1), before the sweep (path 2), before phase 8's calls
 of the entry points (path 3), before the ResNet layer (path 4), before
-phase 9 (path 5) and before phase 10's timed calls (path 6), and read
-just after each; the contraction kernel's ``launches_by_path`` (skinny,
-tiled, general) is read the same way for the serve, sweep, tune and model
-paths, and neither the serve nor the model path may launch the general
-loop; the windowed kernel's (igemm, general) for the sweep, ResNet and
+phase 9 (path 5), before phase 10's timed calls (path 6) and before
+each of phase 11's timed waves (path 7), and read just after each; the
+contraction kernel's ``launches_by_path`` (skinny, tiled, general) is
+read the same way for the serve, sweep, tune, model and wave paths, and
+none of the serve, model and wave paths may launch the general loop; the windowed kernel's (igemm, general) for the sweep, ResNet and
 tune paths, the elementwise kernel's (vec, general) for the sweep and
 tune paths (and phase 4's units, from their rows), flash attention's and the GLA kernel's (wgmma,
 tf32x3, cuda_cores) for path 3, all in
@@ -198,6 +222,7 @@ version and the yardstick run.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import statistics
 import subprocess
@@ -242,6 +267,12 @@ TUNE = dict(SWEEP, measure=3)
 # tokens) and MODEL_STEPS greedy decode steps
 MODEL_BATCH, MODEL_PROMPT, MODEL_STEPS = 4, 64, 8
 RESNET_BATCH = 8
+# phase 11: the wave engine's slots; qwen3-moe-30b-a3b's KV window and
+# internvl2-26b's (its 256 zero patches in front of the prompt), and
+# internvl2-26b's depth
+WAVE_SLOTS = 4
+WAVE_MOE, WAVE_MOE_MAX_LEN = "qwen3-moe-30b-a3b", 128
+WAVE_VLM, WAVE_VLM_MAX_LEN, WAVE_VLM_LAYERS = "internvl2-26b", 384, 4
 # every kernel (its source is csrc/<name>.cu), and those the compiler's
 # units launch (the sweep must reach each of these)
 KERNEL_MODULES = ("contraction", "elementwise", "windowed", "flash_attention", "gla")
@@ -1066,7 +1097,6 @@ def tune(torch, api, K) -> dict:
     DB from the card, every workload then replays its measured winner
     through ``stripe_jit(tune=)``, and a calibration fitted from profiled
     runs on the card re-ranks the validated points."""
-    import dataclasses
     import tempfile
     from repro_torch.core import cache as stripe_cache
     from repro_torch.explore.runner import _random_arrays, score_config
@@ -1176,12 +1206,51 @@ def tune(torch, api, K) -> dict:
     return out
 
 
-def _model_ops(cfg, m: int):
-    """The (k, n, act) of the 7 projections of one dense layer at m rows."""
+def _model_ops(cfg):
+    """The (k, n, act) of the projections of one layer that go through
+    ``oplib``: q, k, v and o, then a dense GLU MLP's 3 (7 a layer); a MoE
+    layer's experts are plain ``torch.einsum``s, so 4 a layer."""
     d, hd = cfg.d_model, cfg.hd
-    return [(d, cfg.n_heads * hd, None), (d, cfg.n_kv_heads * hd, None),
-            (d, cfg.n_kv_heads * hd, None), (cfg.n_heads * hd, d, None),
-            (d, cfg.d_ff, cfg.act.split("_")[0]), (d, cfg.d_ff, None), (cfg.d_ff, d, None)]
+    ops = [(d, cfg.n_heads * hd, None), (d, cfg.n_kv_heads * hd, None),
+           (d, cfg.n_kv_heads * hd, None), (cfg.n_heads * hd, d, None)]
+    if not cfg.moe:
+        ops += [(d, cfg.d_ff, cfg.act.split("_")[0]), (d, cfg.d_ff, None), (cfg.d_ff, d, None)]
+    return ops
+
+
+def hold_projections(torch, K, cfg, cases, what: str):
+    """Each ``oplib`` projection of ``cfg`` at each (m, path) of ``cases``:
+    every unit of its program on ``cuda``, one launch of the contraction
+    kernel on ``path`` (``tiled`` on wgmma, or ``skinny``), run on seeded
+    tensors of the model's type and held against the kernel's plain
+    version (``BF16_RTOL``).  Returns ({op: path}, {op: max abs error})."""
+    from repro_torch.core import oplib
+
+    units, op_err = {}, {}
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+    tdt = getattr(torch, cfg.dtype)
+    for m, path in cases:
+        for k, n, act in _model_ops(cfg):
+            op_name = f"{m}x{k}x{n}{'/' + act if act else ''}"
+            op = oplib._compiled_linear(m, k, n, cfg.dtype, "float32", act, False, "cuda")
+            if set(op.block_backends.values()) != {"cuda"} or op.block_reasons:
+                raise AssertionError(f"{what} linear {op_name}: {op.block_backends} "
+                                     f"{op.block_reasons}")
+            fns = [fn for _u, _kind, unit_fns in op.cuda_fn.steps for fn in unit_fns]
+            for fn in fns:
+                view = K.gemm_view(fn.plan)
+                if K.plan_path(fn.plan) != path or (path == "tiled" and view.mma != "wgmma"):
+                    raise AssertionError(f"{what} linear {op_name}: {K.plan_path(fn.plan)}")
+            if len(fns) != 1:
+                raise AssertionError(f"{what} linear {op_name}: {len(fns)} kernels, want 1")
+            arrays = {"X": torch.randn(m, k, generator=gen, device=DEVICE).to(tdt),
+                      "W": (torch.randn(k, n, generator=gen, device=DEVICE)
+                            * k ** -0.5).to(tdt)}
+            got = op.cuda_fn(arrays)["O"]
+            op_err[op_name] = max(op_err.get(op_name, 0.0), _close(
+                torch, got, fns[0].plain(arrays), f"{what} linear {op_name} ({path})"))
+            units[op_name] = path
+    return units, op_err
 
 
 def model(torch, api, K, cfg, params) -> dict:
@@ -1196,7 +1265,7 @@ def model(torch, api, K, cfg, params) -> dict:
     mdl = api.build_model(cfg)
     batch = api.make_batch(cfg, "prefill", MODEL_BATCH, MODEL_PROMPT, seed=SEED, device=DEVICE)
     max_len = MODEL_PROMPT + MODEL_STEPS
-    per_call = 7 * cfg.n_layers
+    per_call = len(_model_ops(cfg)) * cfg.n_layers
     old = oplib.get_backend()
     runs = {}
     try:
@@ -1243,29 +1312,8 @@ def model(torch, api, K, cfg, params) -> dict:
     # every CompiledOp unit on the kernel, wgmma at prefill, and each of
     # the 7 projections held against its kernel's plain version on seeded
     # tensors of the model's shapes (after the counted run)
-    units, op_err = {}, {}
-    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
-    tdt = getattr(torch, cfg.dtype)
-    for m, path in ((MODEL_BATCH * MODEL_PROMPT, "tiled"), (MODEL_BATCH, "skinny")):
-        for k, n, act in _model_ops(cfg, m):
-            what = f"{m}x{k}x{n}{'/' + act if act else ''}"
-            op = oplib._compiled_linear(m, k, n, cfg.dtype, "float32", act, False, "cuda")
-            if set(op.block_backends.values()) != {"cuda"} or op.block_reasons:
-                raise AssertionError(f"linear {what}: {op.block_backends} {op.block_reasons}")
-            fns = [fn for _u, _kind, unit_fns in op.cuda_fn.steps for fn in unit_fns]
-            for fn in fns:
-                view = K.gemm_view(fn.plan)
-                if K.plan_path(fn.plan) != path or (path == "tiled" and view.mma != "wgmma"):
-                    raise AssertionError(f"linear {what}: {K.plan_path(fn.plan)}")
-            if len(fns) != 1:
-                raise AssertionError(f"linear {what}: {len(fns)} kernels, want 1")
-            arrays = {"X": torch.randn(m, k, generator=gen, device=DEVICE).to(tdt),
-                      "W": (torch.randn(k, n, generator=gen, device=DEVICE)
-                            * k ** -0.5).to(tdt)}
-            got = op.cuda_fn(arrays)["O"]
-            op_err[what] = max(op_err.get(what, 0.0), _close(
-                torch, got, fns[0].plain(arrays), f"model linear {what} ({path})"))
-            units[what] = path
+    units, op_err = hold_projections(
+        torch, K, cfg, ((MODEL_BATCH * MODEL_PROMPT, "tiled"), (MODEL_BATCH, "skinny")), "model")
     # logits up to each row's first differing token, as the serve phase
     div = {}
     worst = 0.0
@@ -1287,6 +1335,166 @@ def model(torch, api, K, cfg, params) -> dict:
             "launches_by_call": {"prefill": cuda["by_call"][0], "decode": cuda["by_call"][1]},
             **{f"{b}_{k}": runs[b][k] for b in runs
                for k in ("prefill_ms", "decode_step_ms_median", "decode_step_ms")}}
+
+
+def _held_logits(runs, a: str, b: str, what: str, hold: bool) -> tuple:
+    """Per request, the logits behind each token of run ``a`` against run
+    ``b`` up to and including the first token where the two differ, as the
+    serve phase compares them; with ``hold``, each within ``LOGIT_RTOL`` of
+    the row's largest logit.  Returns (the largest relative error, the
+    first differing token by request)."""
+    div, worst = {}, 0.0
+    for uid in sorted(runs[a]["tokens"]):
+        ta, tb = runs[a]["tokens"][uid], runs[b]["tokens"][uid]
+        first = next((j for j, (x, y) in enumerate(zip(ta, tb)) if x != y), None)
+        div[uid] = first
+        for j in range(len(ta) if first is None else first + 1):
+            ra, rb = runs[a]["rows"][j][uid], runs[b]["rows"][j][uid]
+            rel = (ra - rb).abs().max().item() / rb.abs().max().item()
+            worst = max(worst, rel)
+            if hold and not rel <= LOGIT_RTOL:
+                raise AssertionError(f"{what} request {uid} token {j}: logits differ by "
+                                     f"{rel:.3e} of the largest (tolerance {LOGIT_RTOL})")
+    return worst, div
+
+
+def wave(torch, api, K, cfg, max_len: int, new_tokens: int) -> dict:
+    """Phase 11 for one model: seeded random weights drawn on the card, a
+    layer at a time; the serve phase's prompts through
+    ``WaveEngine(model, WAVE_SLOTS, max_len)``, four times: ``oplib`` on
+    ``cuda`` (its expert choices recorded), on ``cuda`` again (timed and
+    counted), on ``torch`` replaying the first run's expert choices, and on
+    ``torch`` again (timed).  The first and third runs compile and load
+    what the timed ones call.  The engine gains no hook: the script wraps
+    the ``Model``'s ``prefill`` / ``decode_step``, recording each call's
+    launches by path, its time on the host clock (with
+    ``torch.cuda.synchronize()``) and the logits behind each greedy token.
+    Every projection is one launch of the contraction kernel (4 a layer a
+    call for MoE, 7 for a dense MLP): ``tiled`` on wgmma at prefill,
+    ``skinny`` at decode, never ``general``; each is then held against its
+    kernel's plain version at the prefill's and the decode's rows.
+
+    The logits are held (``LOGIT_RTOL``) between the two runs that take
+    the same expert choices.  Left free, the backends' rounding flips the
+    router's near-ties (the 8th and 9th experts within ~1e-4 of each
+    other's probability) in some token at every call, each flip moving
+    that token by one expert's share, so the free runs are compared and
+    printed, not held."""
+    import numpy as np
+    from repro_torch.core import oplib
+    from repro_torch.models import lm
+    from repro_torch.nn import moe
+
+    cuda = DEVICE == "cuda"
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+    mdl = api.build_model(cfg)
+    t0 = time.perf_counter()
+    params = mdl.init(gen, device=DEVICE)
+    _sync(torch)
+    init_s = time.perf_counter() - t0
+    weights_gb = torch.cuda.memory_allocated() / 1e9 if cuda else None
+    per_call = len(_model_ops(cfg)) * cfg.n_layers
+    rng = np.random.RandomState(SEED)
+    prompts = [rng.randint(1, cfg.vocab, size=p) for p in PROMPT_LENS]
+    plen = max(PROMPT_LENS) + (cfg.frontend_len if cfg.frontend == "patches" else 0)
+    routes: list = []  # the recording run's expert choices, call by call, layer by layer
+    real_moe = lm.moe_apply
+
+    def recording(p, x, c):
+        routes.append(moe.route(p, x, c)[1])
+        return real_moe(p, x, c)
+
+    def replaying(p, x, c):
+        return real_moe(p, x, c, experts=next(replay))
+
+    replay = iter(())
+    runs = {}
+    old = oplib.get_backend()
+    try:
+        for run, backend, moe_fn in (("cuda_routed", "cuda", recording), ("cuda", "cuda", None),
+                                     ("torch_replay", "torch", replaying),
+                                     ("torch", "torch", None)):
+            oplib.set_backend(backend)
+            if moe_fn is replaying:
+                replay = iter(routes)
+            rec = {"ms": [], "by_call": [], "rows": []}
+
+            def recorded(fn, rec=rec):
+                def call(*a):
+                    before = dict(K.launches_by_path)
+                    _sync(torch)
+                    t0 = time.perf_counter()
+                    logits, cache = fn(*a)
+                    _sync(torch)
+                    rec["ms"].append((time.perf_counter() - t0) * 1e3)
+                    rec["by_call"].append({p: K.launches_by_path[p] - before[p] for p in before})
+                    rec["rows"].append(logits[:, -1, : cfg.vocab].float().cpu())
+                    return logits, cache
+                return call
+
+            model = dataclasses.replace(mdl, prefill=recorded(mdl.prefill),
+                                        decode_step=recorded(mdl.decode_step))
+            engine = api.WaveEngine(model, WAVE_SLOTS, max_len, device=DEVICE)
+            for uid, prompt in enumerate(prompts):
+                engine.submit(api.Request(uid=uid, prompt=prompt,
+                                          sampling=api.SamplingParams(max_new_tokens=new_tokens)))
+            _zero_counts(K)
+            if cuda:
+                torch.cuda.reset_peak_memory_stats()
+            if cfg.moe and moe_fn is not None:
+                lm.moe_apply = moe_fn
+            t0 = time.perf_counter()
+            try:
+                done = engine.run(params)
+                _sync(torch)
+            finally:
+                lm.moe_apply = real_moe
+            wall = time.perf_counter() - t0
+            if sorted(r.uid for r in done) != list(range(len(PROMPT_LENS))) or any(
+                    not r.done or len(r.out_tokens) != new_tokens for r in done):
+                raise AssertionError(f"wave {cfg.name} {run}: finished "
+                                     f"{[(r.uid, len(r.out_tokens)) for r in done]}")
+            n_tok = sum(len(r.out_tokens) for r in done)
+            runs[run] = {
+                "tokens": {r.uid: list(r.out_tokens) for r in done}, "rows": rec["rows"],
+                "by_call": rec["by_call"], "launches": K.launches,
+                "prefill_ms": rec["ms"][0], "decode_step_ms": rec["ms"][1:],
+                "decode_step_ms_median": statistics.median(rec["ms"][1:]),
+                "wall_s": wall, "tok_per_s": n_tok / wall,
+                "max_memory_allocated_gb": (torch.cuda.max_memory_allocated() / 1e9
+                                            if cuda else None),
+                "compile_log": engine.compile_log()}
+    finally:
+        oplib.set_backend(old)
+    if cfg.moe and next(replay, None) is not None:
+        raise AssertionError(f"wave {cfg.name}: the replay left recorded routes unused")
+    if runs["torch"]["launches"] or runs["torch_replay"]["launches"]:
+        raise AssertionError(f"wave {cfg.name}: the torch backend launched the kernel")
+    want = [{"skinny": 0, "tiled": per_call, "general": 0}] + \
+        [{"skinny": per_call, "tiled": 0, "general": 0}] * (new_tokens - 1)
+    for run in ("cuda_routed", "cuda"):
+        if runs[run]["by_call"] != want or runs[run]["launches"] != per_call * new_tokens:
+            raise AssertionError(f"wave {cfg.name} {run}: launches by call "
+                                 f"{runs[run]['by_call']}, want {want}")
+    units, op_err = hold_projections(
+        torch, K, cfg, ((WAVE_SLOTS * plen, "tiled"), (WAVE_SLOTS, "skinny")), f"wave {cfg.name}")
+    worst, div = _held_logits(runs, "cuda_routed", "torch_replay", f"wave {cfg.name}", True)
+    free, free_div = _held_logits(runs, "cuda", "torch", f"wave {cfg.name}", not cfg.moe)
+    del params
+    if cuda:
+        torch.cuda.empty_cache()
+    return {"model": cfg.name, "layers": cfg.n_layers, "d_model": cfg.d_model,
+            "slots": WAVE_SLOTS, "max_len": max_len, "prefill_rows": WAVE_SLOTS * plen,
+            "new_tokens": new_tokens, "init_s": init_s, "weights_gb": weights_gb,
+            "units": units, "ops_max_abs_err": op_err, "max_abs_err": max(op_err.values()),
+            "max_logit_rel_err": worst, "first_divergence": div,
+            "free_routing_max_logit_rel_err": free, "free_routing_first_divergence": free_div,
+            "launches": runs["cuda"]["launches"],
+            "launches_by_call": {"prefill": runs["cuda"]["by_call"][0],
+                                 "decode": runs["cuda"]["by_call"][1]},
+            **{f"{b}_{k}": runs[b][k] for b in ("cuda", "torch")
+               for k in ("prefill_ms", "decode_step_ms_median", "decode_step_ms", "wall_s",
+                         "tok_per_s", "max_memory_allocated_gb", "compile_log")}}
 
 
 def _sdpa(torch, q, k, v, causal):
@@ -1578,7 +1786,9 @@ def _kernel_entry(name, source, replaces, launches, rows, err) -> dict:
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--layers", type=int, default=32, help="model depth (full: 32)")
+    ap.add_argument("--layers", type=int, default=None,
+                    help="depth of llama3-8b and qwen3-moe-30b-a3b (default: full, 32 and 48; "
+                         "internvl2-26b runs at most 4)")
     ap.add_argument("--new-tokens", type=int, default=16)
     ap.add_argument("--reps", type=int, default=10, help="timed launches per unit")
     args = ap.parse_args()
@@ -1638,8 +1848,7 @@ def main() -> None:
     print(f"ResNet-50 conv2_x b{RESNET_BATCH} through stripe_jit (f32, bf16, int8): "
           + json.dumps(rn), flush=True)
 
-    import dataclasses
-    cfg = dataclasses.replace(full, n_layers=args.layers)
+    cfg = dataclasses.replace(full, n_layers=args.layers or full.n_layers)
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     t0 = time.perf_counter()
     params = api.build_model(cfg).init(gen, device="cuda")
@@ -1677,6 +1886,32 @@ def main() -> None:
           f"{md['torch_decode_step_ms_median']:.3f}), host clock with torch.cuda.synchronize(); "
           f"steps {json.dumps(md['cuda_decode_step_ms'])}; card {card}", flush=True)
 
+    # phase 11: the wave engine, qwen3-moe-30b-a3b at full width and
+    # internvl2-26b at 4 layers, on the card alone
+    del params, params32
+    torch.cuda.empty_cache()
+    wv = {}
+    for name, max_len, layers in ((WAVE_MOE, WAVE_MOE_MAX_LEN, args.layers),
+                                  (WAVE_VLM, WAVE_VLM_MAX_LEN,
+                                   min(WAVE_VLM_LAYERS, args.layers or WAVE_VLM_LAYERS))):
+        wcfg = api.configs.get(name)
+        wcfg = dataclasses.replace(wcfg, n_layers=layers or wcfg.n_layers)
+        t0 = time.perf_counter()
+        wv[name] = w = wave(torch, api, K, wcfg, max_len, args.new_tokens)
+        print(f"wave: {name} {wcfg.n_layers} layers, d_model {wcfg.d_model}, WaveEngine "
+              f"{WAVE_SLOTS} slots, prompts {PROMPT_LENS}, {args.new_tokens} new tokens, oplib "
+              f"cuda against torch, in {time.perf_counter() - t0:.1f} s; card {card}: "
+              + json.dumps({k: v for k, v in w.items() if not k.endswith("decode_step_ms")}),
+              flush=True)
+        print(f"wave: {name} prefill {w['cuda_prefill_ms']:.3f} ms (torch "
+              f"{w['torch_prefill_ms']:.3f}), decode step median "
+              f"{w['cuda_decode_step_ms_median']:.3f} ms (torch "
+              f"{w['torch_decode_step_ms_median']:.3f}), {w['cuda_tok_per_s']:.2f} tokens/s "
+              f"(torch {w['torch_tok_per_s']:.2f}), peak {w['cuda_max_memory_allocated_gb']:.2f} "
+              f"GB, host clock with torch.cuda.synchronize(); launches by call "
+              f"{json.dumps(w['launches_by_call'])}; steps "
+              f"{json.dumps(w['cuda_decode_step_ms'])}; card {card}", flush=True)
+
     sw = sweep(torch, api, K)
     v = sw["validation"]
     print(f"sweep: {SWEEP} in {sw['wall_s']:.1f} s; launches {json.dumps(sw['launches'])}; "
@@ -1709,8 +1944,6 @@ def main() -> None:
         print("  ranked " + json.dumps(row), flush=True)
     print("tune ranks (-1 = baseline): " + json.dumps(tn["ranks"]), flush=True)
 
-    del params, params32
-    torch.cuda.empty_cache()
     t0 = time.perf_counter()
     attn = check_attention_kernels(torch, timer)
     print(f"attention and recurrence kernels: {len(attn['rows'])} cases in "
@@ -1731,14 +1964,15 @@ def main() -> None:
     contraction = _kernel_entry(
         "contraction", "src/repro_torch/csrc/contraction.cu", "src/repro/core/lower_pallas.py:979",
         serve_launches + sw["launches"]["contraction"] + md["launches"]
-        + tn["launches"]["contraction"], decode,
+        + sum(w["launches"] for w in wv.values()) + tn["launches"]["contraction"], decode,
         max([r["max_abs_err"] for r in rows]
             + [r["max_abs_err"] for r in new_rows if r["kernel"] == ["contraction"]]
-            + [mm_err, md["max_abs_err"]]))
+            + [mm_err, md["max_abs_err"]] + [w["max_abs_err"] for w in wv.values()]))
     contraction["general_ms"] = sum(r["general_ms"] for r in decode)
     contraction["launches_by_path"] = {"serve": runs["cuda"][2]["launches_by_path"],
                                        "sweep": sw["launches_by_path"],
                                        "model": md["launches_by_call"],
+                                       "wave": {n: w["launches_by_call"] for n, w in wv.items()},
                                        "tune": tn["launches_by_path"]}
     windowed = _kernel_entry(
         "windowed", "src/repro_torch/csrc/windowed.cu", "src/repro/core/lower_pallas.py:812",

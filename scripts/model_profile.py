@@ -1,12 +1,15 @@
 #!/usr/bin/env python3
-"""Where a call of llama3-8b's own forward spends its time, on one NVIDIA card.
+"""Where a call of an LM's own forward spends its time, on one NVIDIA card.
 
-    python3 scripts/model_profile.py              # 32 layers, one JSON line per call
+    python3 scripts/model_profile.py              # llama3-8b, 32 layers, one JSON line per call
     python3 scripts/model_profile.py --layers 4
     python3 scripts/model_profile.py --max-len 8192   # a long KV cache
+    python3 scripts/model_profile.py --model qwen3-moe-30b-a3b --prompt 100 --max-len 128
 
-``chip_smoke.py``'s phase 10 without its checks: random bf16 weights from
-a seeded generator, ``Model.prefill`` on 4 prompts of 64 tokens and
+``chip_smoke.py``'s phases 10 and 11 without their checks: random bf16
+weights from a seeded generator (``--model``, at full width, its full
+depth unless ``--layers``), ``Model.prefill`` on 4 prompts of
+``--prompt`` tokens (64 by default; 100 is phase 11's longest) and
 ``Model.decode_step`` at batch 4, with ``oplib`` on ``cuda`` (every
 projection one launch of the contraction kernel) and on ``torch``.  Each
 call runs once untimed, then under ``torch.profiler`` (CPU and CUDA
@@ -14,8 +17,9 @@ activities): the line gives the call's host-clock time (with
 ``torch.cuda.synchronize()``), the card's busy time (the union of its
 kernels' intervals), the idle share between them, the number of kernel
 launches, and the device time by kernel group: the contraction kernel,
-other matrix products (cuBLAS), and the rest (norms, RoPE, masks,
-softmax, copies), with the 8 kernels that take most of it.  The KV cache
+other matrix products (cuBLAS: the LM head, and a MoE layer's experts),
+and the rest (norms, RoPE, masks, softmax, copies, the MoE dispatch's
+scatters), with the 8 kernels that take most of it.  The KV cache
 holds ``--max-len`` rows (default 72, phase 10's), of which the decode
 step reads every one (its mask covers the rest).  The host
 time is taken under the profiler, which adds to it.  Exits non-zero
@@ -94,7 +98,9 @@ def profile_call(torch, fn) -> dict:
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--layers", type=int, default=32)
+    ap.add_argument("--model", default="llama3-8b", help="an lm-family config")
+    ap.add_argument("--layers", type=int, default=None, help="depth (default: the model's)")
+    ap.add_argument("--prompt", type=int, default=64, help="prompt tokens of each of 4 rows")
     ap.add_argument("--max-len", type=int, default=72, help="KV cache rows")
     args = ap.parse_args()
     import dataclasses
@@ -109,21 +115,23 @@ def main() -> None:
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True, text=True,
                           timeout=60, check=True).stdout.strip().splitlines()[0]
-    cfg = dataclasses.replace(api.configs.get("llama3-8b"), n_layers=args.layers)
+    cfg = api.configs.get(args.model)
+    cfg = dataclasses.replace(cfg, n_layers=args.layers or cfg.n_layers)
     model = api.build_model(cfg)
-    params = model.init(torch.Generator(device="cuda").manual_seed(0), device="cuda")
-    batch = api.make_batch(cfg, "prefill", 4, 64, seed=0)
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    batch = api.make_batch(cfg, "prefill", 4, args.prompt, seed=0)
     for backend in ("cuda", "torch"):
         oplib.set_backend(backend)
         logits, cache = model.prefill(params, batch, model.init_cache(4, args.max_len))
         tok = logits[:, -1:].argmax(-1).int()
-        # decode_step donates the cache: every call writes row 64 again
+        # decode_step donates the cache: every call writes the same row again
         calls = {"prefill": lambda: model.prefill(params, batch,
                                                   model.init_cache(4, args.max_len)),
                  "decode_step": lambda: model.decode_step(params, cache, tok)}
         for name, fn in calls.items():
-            row = {"call": name, "backend": backend, "layers": cfg.n_layers,
-                   "max_len": args.max_len, "card": card, **profile_call(torch, fn)}
+            row = {"call": name, "model": cfg.name, "backend": backend,
+                   "layers": cfg.n_layers, "prompt": args.prompt, "max_len": args.max_len,
+                   "card": card, **profile_call(torch, fn)}
             print(json.dumps(row), flush=True)
 
 

@@ -14,7 +14,9 @@ Hardware & model configs:
     ``Model`` with ``init``, ``loss``, ``prefill``, ``decode_step``,
     ``init_cache``), ``make_batch``
 Serving:
-    ``ServingEngine``, ``EngineConfig``, ``Request``, ``SamplingParams``
+    ``ServingEngine``, ``WaveEngine`` (the wave baseline, and the one
+    serving path of the moe and vlm families), ``EngineConfig``,
+    ``Request``, ``SamplingParams``
 Exploration:
     ``explore`` (subpackage: ``run_sweep``, ``get_space``,
     ``pareto_front``, ``dominating_baseline``, ...), ``get_workloads``,
@@ -48,7 +50,7 @@ from .kernels.flash_attention.ops import choose_block_sizes
 from .kernels.stripe_matmul.ops import matmul, matmul_ref
 from .models.build import build_model, make_batch
 from .reliability import FaultPlan, InjectedFault, faults
-from .serving import EngineConfig, Request, SamplingParams, ServingEngine
+from .serving import EngineConfig, Request, SamplingParams, ServingEngine, WaveEngine
 from .tune import TuningDB, fit_calibration, measure_interleaved, set_calibration
 
 jit = stripe_jit
@@ -60,7 +62,7 @@ __all__ = [
     "get_config", "HardwareConfig", "configs", "build_model", "make_batch",
     "tune", "TuningDB", "fit_calibration", "set_calibration", "measure_interleaved",
     "obs", "measure_candidates",
-    "ServingEngine", "EngineConfig", "Request", "SamplingParams",
+    "ServingEngine", "WaveEngine", "EngineConfig", "Request", "SamplingParams",
     "explore", "get_workloads", "roofline_hillclimb", "run_sweep", "get_space",
     "pareto_front", "dominating_baseline",
     "matmul", "matmul_ref", "choose_block_sizes",

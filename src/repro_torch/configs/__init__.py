@@ -6,8 +6,16 @@ from typing import Dict, List
 from .base import SHAPES, ArchConfig, ShapeSpec, applicable_shapes
 
 _MODULES = [
-    # only what the port serves; the other families come with later slices
+    "xlstm_125m",
+    "nemotron_4_15b",
+    "chatglm3_6b",
     "llama3_8b",
+    "qwen3_4b",
+    "qwen3_moe_30b_a3b",
+    "dbrx_132b",
+    "internvl2_26b",
+    "seamless_m4t_large_v2",
+    "zamba2_2_7b",
 ]
 
 _REGISTRY: Dict[str, ArchConfig] = {}

@@ -323,15 +323,17 @@ def _ensure_grid(outer: Block) -> Block:
     return grid
 
 
-def _collect(outer: Block):
-    """Common scaffolding: grid refs, local allocs, leaf stmts, epilogue."""
+def _collect(outer: Block, allow_base: bool = False):
+    """Common scaffolding: grid refs, local allocs, leaf stmts, epilogue.
+    ``allow_base``: inputs may be viewed from a constant base (a boundary
+    piece past the first tile)."""
     grid_ranges = {i.name: i.range for i in outer.idxs if not i.is_passthrough()}
     ins: List[GridRef] = []
     out: Optional[GridRef] = None
     local_alloc: Dict[str, Refinement] = {}
     for r in outer.refs:
         if r.dir == RefDir.IN:
-            ins.append(_grid_ref(r, grid_ranges))
+            ins.append(_grid_ref(r, grid_ranges, allow_base=allow_base))
         elif r.dir in (RefDir.OUT, RefDir.INOUT):
             if out is not None:
                 raise UnsupportedCuda("multiple outputs")
@@ -377,8 +379,8 @@ def _collect(outer: Block):
     return grid_ranges, ins, out, local_alloc, leaf_stmts, epilogue
 
 
-def extract_contraction(outer: Block) -> ContractionPlan:
-    grid_ranges, ins, out, local_alloc, leaf_stmts, epilogue = _collect(outer)
+def extract_contraction(outer: Block, allow_base: bool = False) -> ContractionPlan:
+    grid_ranges, ins, out, local_alloc, leaf_stmts, epilogue = _collect(outer, allow_base)
     if (out.ref.agg or "assign") not in ("add", "assign"):
         # dot_general + the scratch accumulation only realize a SUM
         raise UnsupportedCuda(
@@ -786,9 +788,13 @@ def _row_strides(shape: Sequence[int]) -> List[int]:
     return out
 
 
-def _reader(nest: _Nest, li: int, name: str, buffers: Mapping[str, TensorDecl]
+def _reader(nest: _Nest, li: int, name: str, buffers: Mapping[str, TensorDecl],
+            edges: Sequence[Tuple[Dict[str, int], int]] = ()
             ) -> Tuple[str, int, Dict[str, int]]:
-    """(buffer, element base, element stride per variable) of one read."""
+    """(buffer, element base, element stride per variable) of one read.
+    ``edges`` (a ragged piece's cut output dims: the variables' output
+    coefficients, and the rows kept) bound a coordinate that walks a cut
+    dim at a multiple of its output position by the rows that exist."""
     buf, _local, dims = nest.chain(li, name)
     if buf is None:
         raise UnsupportedCuda(f"{name} reads a block-local buffer")
@@ -805,6 +811,11 @@ def _reader(nest: _Nest, li: int, name: str, buffers: Mapping[str, TensorDecl]
     for d, ((coefs, const), size, st) in enumerate(zip(dims, shape, strides)):
         lo = const + sum(min(0, c * (nest.ext[k] - 1)) for k, c in coefs.items())
         hi = const + sum(max(0, c * (nest.ext[k] - 1)) for k, c in coefs.items())
+        for ecoefs, rows in edges:
+            k0 = next(iter(ecoefs))
+            t = coefs.get(k0, 0) // ecoefs[k0]
+            if t > 0 and all(coefs.get(k, 0) == t * c for k, c in ecoefs.items()):
+                hi -= sum(t * c * (nest.ext[k] - 1) for k, c in ecoefs.items()) - t * (rows - 1)
         if lo < 0 or hi >= size:
             raise UnsupportedCuda(f"{name} reads [{lo}, {hi}] of dim {d} of {buf}{shape}")
         base += const * st
@@ -896,9 +907,40 @@ def _as_input(a, decl: TensorDecl) -> torch.Tensor:
     return t
 
 
+def _edge_cut(nest: _Nest, out_of: Mapping[str, Tuple[int, int]]
+              ) -> Dict[int, Tuple[Dict[str, int], int]]:
+    """The output dims a ragged piece cuts, and where: ``{dim: (the dim's
+    variables at their output coefficients, rows kept)}``.  A boundary
+    piece of an output dim the tile does not divide carries the constraint
+    "this dim's position in the region <= r - 1" (the sum of the dim's
+    variables at their output coefficients): the piece is the contraction
+    over the first r rows.  Any other constraint (one over a reduction
+    variable, a halo, two dims at once) raises."""
+    cut: Dict[int, Tuple[Dict[str, int], int]] = {}
+    for li, blk in enumerate(nest.levels):
+        if "dense" in blk.tags:
+            continue  # the stencil pass proved its constraints redundant
+        for c in blk.constraints:
+            coefs, const = nest.resolve(li, c.expr)
+            dims = {out_of[k][0] if k in out_of else None for k in coefs}
+            if len(dims) != 1 or None in dims:
+                raise UnsupportedCuda(f"constraint {c} is not the edge of one output dim")
+            (d,) = dims
+            on_d = {k: cc for k, (dd, cc) in out_of.items() if dd == d}
+            if coefs != {k: -cc for k, cc in on_d.items()} or const < 0:
+                raise UnsupportedCuda(f"constraint {c} is not the edge of output dim {d}")
+            rows = min(const + 1, cut.get(d, (None, const + 1))[1])
+            cut[d] = (on_d, rows)
+    return cut
+
+
 def _emit_contraction(plan: ContractionPlan, outer: Block,
                       buffers: Mapping[str, TensorDecl],
-                      mp: Optional[memplan.BlockPlan] = None) -> Callable:
+                      mp: Optional[memplan.BlockPlan] = None,
+                      ragged: bool = False) -> Callable:
+    """One fusion group as one launch of the contraction kernel.  With
+    ``ragged`` the group is a boundary piece whose constraints cut output
+    dims (``_edge_cut``): its launch covers the rows kept."""
     has_red = bool(plan.red_vars)
     # The memory plan must agree with the emitter's own reduction analysis,
     # exactly as the Pallas emitter demands (same legality, same units).
@@ -932,6 +974,9 @@ def _emit_contraction(plan: ContractionPlan, outer: Block,
     if epi_level is not None and any(nest.level_of[k] > epi_level for k in out_of):
         raise UnsupportedCuda("an inner level writes the fused accumulator")
     red_keys = [k for k in nest.ext if k not in out_of]
+    cut = _edge_cut(nest, out_of) if ragged else {}
+    edges = list(cut.values())
+    out_shape = tuple(min(n, cut[d][1]) if d in cut else n for d, n in enumerate(out_shape))
 
     # operands: lhs loads then rhs loads, as leaf refinements
     slot_names: List[str] = []
@@ -939,12 +984,12 @@ def _emit_contraction(plan: ContractionPlan, outer: Block,
         for ld in side.loads():
             if ld.buf not in slot_names:
                 slot_names.append(ld.buf)
-    readers = [_reader(nest, leaf_li, n, buffers) for n in slot_names]
+    readers = [_reader(nest, leaf_li, n, buffers, edges) for n in slot_names]
     epi_names: List[str] = []
     for s in plan.epilogue:
         if isinstance(s, Load) and s.into != plan.acc_scalar and s.buf not in epi_names:
             epi_names.append(s.buf)
-    ereaders = [_reader(nest, epi_level, n, buffers) for n in epi_names]
+    ereaders = [_reader(nest, epi_level, n, buffers, edges) for n in epi_names]
     for (buf, _b, vs), n in zip(ereaders, epi_names):
         if any(vs.get(k, 0) for k in red_keys):
             raise UnsupportedCuda(f"epilogue input {n} varies over the reduction")
@@ -958,6 +1003,11 @@ def _emit_contraction(plan: ContractionPlan, outer: Block,
     out_keys = _merge_vars(list(out_of), ext, [ostr] + vtables,
                            same=lambda a, b: out_of[a][0] == out_of[b][0])
     red_keys = _merge_vars(red_keys, ext, [r[2] for r in readers])
+    for d in cut:
+        keys = [k for k in out_keys if out_of[k][0] == d]
+        if len(keys) != 1 or out_of[keys[0]][1] != 1:
+            raise UnsupportedCuda(f"the cut output dim {d} is not one unit-stride variable")
+        ext[keys[0]] = out_shape[d]
 
     big = max(readers, key=lambda r: math.prod(buffers[r[0]].shape))[2] if readers else {}
     out_order = _launch_order(out_keys, ostr, ext, big)
@@ -996,6 +1046,14 @@ def _emit_contraction(plan: ContractionPlan, outer: Block,
         lhs=lhs, rhs=rhs, epi=epi, consts=tuple(pf.consts), scale=float(plan.scale),
         out_dtype=out_dtype)
 
+    return _contraction_fn(kplan, buffers, base)
+
+
+def _contraction_fn(kplan: K.KernelPlan, buffers: Mapping[str, TensorDecl],
+                    base: Tuple[int, ...]) -> Callable:
+    """The launch of ``kplan``, writing its region at ``base``."""
+    out_shape = kplan.out_shape
+
     def operands(arrays):
         return ([_as_input(arrays[s.buf], buffers[s.buf]) for s in kplan.slots],
                 [_as_input(arrays[s.buf], buffers[s.buf]) for s in kplan.eslots])
@@ -1007,13 +1065,67 @@ def _emit_contraction(plan: ContractionPlan, outer: Block,
         return K.contraction_plain(kplan, *operands(arrays), getattr(fn, "out_clip", out_shape))
 
     fn.out_shape = out_shape
-    fn.out_dtype = torch_dtype(out_dtype)
+    fn.out_dtype = torch_dtype(kplan.out_dtype)
     fn.out_base = base
     fn.in_bufs = [s.buf for s in kplan.slots + kplan.eslots]
     fn.plan = kplan
     fn.plain = plain
     fn.kernel = "contraction"
     return fn
+
+
+def _joined(a: Callable, b: Callable, buffers: Mapping[str, TensorDecl]) -> Optional[Callable]:
+    """One launch for two contraction pieces of one unit whose regions
+    meet along one output dim, ``b`` right after ``a``, walked by one
+    unit-stride variable (an interior piece and the ragged edge the
+    boundary pass split off it); None when they do not."""
+    if a.kernel != "contraction" or b.kernel != "contraction" or a.out_buf != b.out_buf:
+        return None
+    pa, pb = a.plan, b.plan
+    same = ("out_vars", "out_dim", "out_coef", "red_vars", "red_ext", "lhs", "rhs", "epi",
+            "consts", "scale", "out_dtype")
+    if any(getattr(pa, f) != getattr(pb, f) for f in same):
+        return None
+    dims = [d for d, (x, y) in enumerate(zip(a.out_base, b.out_base)) if x != y]
+    if len(dims) != 1:
+        return None
+    (d,) = dims
+    on_d = [i for i, dd in enumerate(pa.out_dim) if dd == d]
+    if (len(on_d) != 1 or pa.out_coef[on_d[0]] != 1
+            or b.out_base[d] != a.out_base[d] + pa.out_shape[d]
+            or any(pa.out_shape[e] != pb.out_shape[e] for e in range(len(pa.out_shape))
+                   if e != d)):
+        return None
+    (i,) = on_d
+    if pa.out_ext[i] != pa.out_shape[d] or pb.out_ext[i] != pb.out_shape[d] or any(
+            x != y for v, (x, y) in enumerate(zip(pa.out_ext, pb.out_ext)) if v != i):
+        return None
+    for sa, sb in zip(pa.slots + pa.eslots, pb.slots + pb.eslots):
+        if (sa.buf, sa.ostride, sa.rstride, sa.dtype) != (sb.buf, sb.ostride, sb.rstride, sb.dtype) \
+                or sb.base - sa.base != pa.out_ext[i] * sa.ostride[i]:
+            return None
+    ext = list(pa.out_ext)
+    ext[i] += pb.out_ext[i]
+    shape = list(pa.out_shape)
+    shape[d] += pb.out_shape[d]
+    plan = dataclasses.replace(pa, out_ext=tuple(ext), out_shape=tuple(shape), _cparams={})
+    fn = _contraction_fn(plan, buffers, a.out_base)
+    fn.out_buf = a.out_buf
+    return fn
+
+
+def _join_pieces(fns: List[Callable], buffers: Mapping[str, TensorDecl]) -> List[Callable]:
+    """Join a unit's contraction pieces (``_joined``) while any two meet."""
+    fns = list(fns)
+    while True:
+        pair = next(((i, j, f) for i in range(len(fns)) for j in range(len(fns))
+                     if i != j for f in [_joined(fns[i], fns[j], buffers)] if f is not None),
+                    None)
+        if pair is None:
+            return fns
+        i, j, f = pair
+        fns[i] = f
+        del fns[j]
 
 
 def _leaf_store(levels: List[Block]) -> Store:
@@ -1269,6 +1381,16 @@ def lower_op_cuda(outer: Block, pipeline_depth: int = 2,
     # the general halo/masked path: constraint-carrying blocks (boundary
     # remainders, conv halos) and halo views of constraint-free interiors
     attempt("windowed", lambda: _emit_windowed(extract_windowed(outer), outer, buffers, mp=mp))
+    if fn is None and constrained and (agg != "assign" or outer.sub_blocks()):
+        # a boundary piece of a ragged output dim that the windowed path
+        # refuses (a nested tile) runs the contraction over the rows that
+        # exist; a block with any other constraint keeps the windowed
+        # path's reason alone, as in the reference
+        try:
+            fn = _emit_contraction(extract_contraction(outer, allow_base=True), outer, buffers,
+                                   mp=mp, ragged=True)
+        except UnsupportedCuda:
+            pass
     if fn is None:
         raise UnsupportedCuda("; ".join(errors))
     fn.out_buf = out_ref.from_buf
@@ -1387,11 +1509,15 @@ def lower_program_hybrid(prog: Program, pipeline_depth: int = 2,
             regions = []
             for b in u.blocks:
                 fn = lower_op_cuda(b, pipeline_depth=pipeline_depth, buffers=prog.buffers)
-                decl = prog.buffers.get(fn.out_buf)
-                if decl is None:
+                if fn.out_buf not in prog.buffers:
                     raise UnsupportedCuda(
                         f"{b.name}: kernel writes unknown buffer {fn.out_buf}")
-                fn.out_clip = _clip_extents(fn, decl, b.name)
+                kernels.append(fn)
+            # the pieces of one ragged output dim run as one launch
+            kernels = _join_pieces(kernels, prog.buffers)
+            for fn in kernels:
+                decl = prog.buffers[fn.out_buf]
+                fn.out_clip = _clip_extents(fn, decl, u.name)
                 base = fn.out_base
                 for obase, oclip in written_regions.get(fn.out_buf, []) + regions:
                     if all(b0 < o0 + c0 and o0 < b0 + c1 for b0, c1, o0, c0 in
@@ -1400,9 +1526,8 @@ def lower_program_hybrid(prog: Program, pipeline_depth: int = 2,
                         # placement (and the torch group executor would
                         # clobber, not accumulate) — refuse the program
                         raise _ProgramFallback(
-                            f"{b.name}: overlapping writes to {fn.out_buf}")
+                            f"{u.name}: overlapping writes to {fn.out_buf}")
                 regions.append((base, fn.out_clip))
-                kernels.append(fn)
             for fn, region in zip(kernels, regions):
                 written_regions.setdefault(fn.out_buf, []).append(region)
                 written.add(fn.out_buf)

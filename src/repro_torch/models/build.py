@@ -1,6 +1,7 @@
 """Uniform model API: ``build_model(cfg)`` returns a ``Model`` with
-init / loss / prefill / decode_step / init_cache.  Only the dense family
-is ported; the others come with ROADMAP A8b.
+init / loss / prefill / decode_step / init_cache.  The dense, moe and vlm
+families (module ``lm``) are ported; hybrid, ssm and audio come with
+ROADMAP A8b-2.
 
 Also provides ``input_specs(cfg, shape)`` (meta-device tensors standing in
 for every model input of a cell) and ``make_batch`` (small real batches
@@ -22,7 +23,7 @@ from . import lm
 @dataclasses.dataclass
 class Model:
     cfg: ArchConfig
-    init: Callable[..., Any]  # init(generator, device=None) -> params
+    init: Callable[..., Any]  # init(generator, device="cuda") -> params
     loss: Callable[..., Any]  # loss(params, batch, remat=True) -> (total, metrics)
     # prefill(params, batch, cache) -> (logits, cache); decode_step(params,
     # cache, tokens) -> (logits, cache).  Both donate the cache: its k and
@@ -33,12 +34,12 @@ class Model:
 
 
 def build_model(cfg: ArchConfig) -> Model:
-    if cfg.family != "dense":
+    if cfg.family not in ("dense", "moe", "vlm"):
         raise ValueError(f"no model for family {cfg.family} in this package yet "
-                         "(ROADMAP A8b)")
+                         "(ROADMAP A8b-2)")
     return Model(
         cfg=cfg,
-        init=lambda gen, device=None: lm.init_params(cfg, gen, device),
+        init=lambda gen, device="cuda": lm.init_params(cfg, gen, device),
         loss=lambda p, batch, remat=True: lm.loss_fn(p, cfg, batch, remat=remat),
         prefill=lambda p, batch, cache: lm.prefill(p, cfg, batch, cache),
         decode_step=lambda p, cache, tok: lm.decode_step(p, cfg, cache, tok),

@@ -1,11 +1,10 @@
-"""Decoder-only LM, dense family: parameters, the layer stack, the loss,
-prefill and decode.
+"""Decoder-only LM covering the dense, moe and vlm families: parameters,
+the layer stack, the loss, prefill and decode.
 
 Per-layer parameters are stacked along a leading layer axis, as in the
 JAX package's ``params["blocks"]``; the stack is a Python loop over the
 layers (the JAX package scans them), each layer's parameters a view.
-The MoE and VLM members of the family come with ROADMAP A8b, training
-(where ``remat`` matters) with A8c."""
+Training (where ``remat`` matters) comes with ROADMAP A8c."""
 from __future__ import annotations
 
 from typing import Any, Dict
@@ -15,18 +14,23 @@ import torch
 from ..nn.attention import attention, attn_init, init_kv_cache
 from ..nn.core import (Params, apply_norm, embed_init, embed_lookup, mlp_apply, mlp_init,
                        norm_init, param_dtype, softmax_xent, unembed)
+from ..nn.moe import moe_apply, moe_init
 
 __all__ = ["init_params", "block_init", "block_apply", "layer", "loss_fn", "init_cache",
            "prefill", "decode_step", "_logits", "embed_lookup", "unembed"]
 
 
 def block_init(gen: torch.Generator, cfg, dtype, device=None) -> Params:
-    return {
+    p = {
         "ln1": norm_init(cfg.d_model, cfg.norm, dtype, device),
         "attn": attn_init(gen, cfg, dtype, device),
         "ln2": norm_init(cfg.d_model, cfg.norm, dtype, device),
-        "mlp": mlp_init(gen, cfg.d_model, cfg.d_ff, cfg.act, dtype, device),
     }
+    if cfg.moe:
+        p["moe"] = moe_init(gen, cfg, dtype, device)
+    else:
+        p["mlp"] = mlp_init(gen, cfg.d_model, cfg.d_ff, cfg.act, dtype, device)
+    return p
 
 
 def _stack_into(dst, src, i: int):
@@ -37,13 +41,16 @@ def _stack_into(dst, src, i: int):
         dst[i].copy_(src)
 
 
-def init_params(cfg, gen: torch.Generator, device=None) -> Params:
+def init_params(cfg, gen: torch.Generator, device="cuda") -> Params:
     """Random parameters from ``gen`` (drawn on the generator's device),
-    stored on ``device`` in ``cfg.dtype``.  Layers are drawn one at a time
-    into the stacked tensors, so peak memory stays one layer above the
-    parameters."""
-    if cfg.family != "dense" or cfg.moe:
-        raise ValueError(f"no model for family {cfg.family} in this package yet")
+    stored on ``device`` (the card unless the caller passes ``"cpu"``) in
+    ``cfg.dtype``; a MoE router stays float32.  Layers are drawn one at a
+    time into the stacked tensors, so peak memory stays one layer above
+    the parameters.  The draws follow the JAX package's order of keys:
+    embed, blocks, unembed, then the VLM's ``patch_proj``."""
+    if torch.device(device).type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("init_params: device 'cuda' but torch.cuda.is_available() is "
+                           "False; pass device='cpu' to draw the parameters onto the CPU")
     dtype = param_dtype(cfg)
     embed = embed_init(gen, cfg.padded_vocab, cfg.d_model, dtype, device)
     first = block_init(gen, cfg, dtype, device)
@@ -62,6 +69,10 @@ def init_params(cfg, gen: torch.Generator, device=None) -> Params:
          "final_norm": norm_init(cfg.d_model, cfg.norm, dtype, device)}
     if not cfg.tie_embeddings:
         p["unembed"] = embed_init(gen, cfg.d_model, cfg.padded_vocab, dtype, device)
+    if cfg.frontend == "patches":
+        # stub frontend: a learned projection applied to precomputed patch
+        # embeddings, as in the JAX package
+        p["patch_proj"] = embed_init(gen, cfg.d_model, cfg.d_model, dtype, device)
     return p
 
 
@@ -82,8 +93,11 @@ def block_apply(p: Params, x: torch.Tensor, cfg, cache=None):
     h, new_cache = attention(p["attn"], apply_norm(p["ln1"], x, cfg.norm), cfg,
                              causal=True, cache=cache)
     x = x + h
-    h2 = mlp_apply(p["mlp"], apply_norm(p["ln2"], x, cfg.norm), cfg.act)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if cfg.moe:
+        h2, aux = moe_apply(p["moe"], apply_norm(p["ln2"], x, cfg.norm), cfg)
+    else:
+        h2 = mlp_apply(p["mlp"], apply_norm(p["ln2"], x, cfg.norm), cfg.act)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
     return x + h2, new_cache, aux
 
 
@@ -109,13 +123,18 @@ def _stack(p: Params, x: torch.Tensor, cfg, caches=None, remat: bool = False):
 
 
 def _embed_inputs(p: Params, cfg, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
-    # the dense family has no modality frontend (the VLM's patches: A8b)
-    return embed_lookup(p["embed"], batch["tokens"])
+    x = embed_lookup(p["embed"], batch["tokens"])
+    if cfg.frontend == "patches" and "patches" in batch:
+        pe = torch.einsum("bpd,de->bpe", batch["patches"].to(x.dtype), p["patch_proj"])
+        x = torch.cat([pe, x], dim=1)
+    return x
 
 
 def loss_fn(p: Params, cfg, batch: Dict[str, torch.Tensor], remat: bool = True):
     x = _embed_inputs(p, cfg, batch)
     x, _, aux = _stack(p, x, cfg, None, remat=remat)
+    if cfg.frontend == "patches" and "patches" in batch:
+        x = x[:, batch["patches"].shape[1]:]  # loss on text positions only
     logits = _logits(p, cfg, x)
     loss = softmax_xent(logits[:, :-1], batch["labels"][:, 1:], cfg.vocab)
     total = loss + 0.01 * aux

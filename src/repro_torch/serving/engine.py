@@ -149,7 +149,7 @@ class ServingEngine:
             raise ValueError(
                 f"ServingEngine serves dense-attention LMs (family='dense', "
                 f"frontend='none'); got family={self.cfg.family!r} "
-                f"frontend={self.cfg.frontend!r}.")
+                f"frontend={self.cfg.frontend!r}. Use WaveEngine for other families.")
         self._device = torch.device(config.device)
         if self._device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(

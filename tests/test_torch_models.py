@@ -125,6 +125,63 @@ def test_oplib_compiles_the_reference_program_and_units(act, bias, dtype):
         assert kind == "cuda" and [fn.kernel for fn in kernels] == ["contraction"]
 
 
+# rows the tile does not divide (the wave's prefills: 4 x 100 and 4 x 356
+# rows), in bf16, where tpu_v5e nests the tiles
+RAGGED = [(400, 1024, 2048, None, "bfloat16"), (400, 1024, 2048, "silu", "bfloat16"),
+          (1424, 512, 1024, None, "bfloat16")]
+
+
+@pytest.mark.parametrize("m,k,n,act,dtype", RAGGED)
+def test_oplib_ragged_rows_run_as_one_launch(m, k, n, act, dtype, backends):
+    """The boundary pass splits the rows into an interior piece and a
+    ragged edge whose constraint keeps the rows inside the buffer.  The
+    reference's Pallas backend refuses the unit (the windowed path takes
+    no nested tile: ``pallas_ok`` false, jnp runs it); the port lowers the
+    edge as the contraction over the rows that exist and joins the two
+    pieces into one launch over all m rows, held against the reference's
+    jnp backend as the other oplib cases are."""
+    from repro_torch.core.ir import Block
+
+    args = (m, k, n, dtype, "float32", act, False)
+    assert not j_oplib._compiled_linear(*args, "pallas_interpret").pallas_ok
+    op = t_oplib._compiled_linear(*args, "cuda")
+    pieces = [b for b in op.optimized.entry.stmts if isinstance(b, Block)]
+    assert len(pieces) == 2 and any("boundary" in b.tags for b in pieces)
+    assert set(op.block_backends.values()) == {"cuda"} and not op.block_reasons
+    ((_unit, kind, (fn,)),) = op.cuda_fn.steps
+    assert kind == "cuda" and fn.out_base == (0, 0) and fn.out_shape == (m, n)
+    (jx, jw, _jb), (tx, tw, _tb) = _linear_inputs(dtype, m=m, k=k, n=n)
+    j_oplib.set_backend("jnp")
+    t_oplib.set_backend("cuda")
+    _assert_close(t_oplib.linear(tx, tw, act=act), j_oplib.linear(jx, jw, act=act), dtype,
+                  f"ragged {m} rows")
+
+
+def test_c4_fused_group_with_ragged_rows_lowers_to_one_launch():
+    """ROADMAP C4's unit, ``O = gelu(0.5 * A @ B + b) + R`` at (130, 150,
+    260) under h100: the ragged rows' edge piece now lowers (it fell back
+    to torch), joined with the interior into one launch, equal to the
+    torch backend."""
+    from repro_torch.core import cache as t_cache
+    from repro_torch.core.frontend import TileProgram
+
+    m, n, k = 130, 150, 260
+    tp = TileProgram("c4")
+    tp.input("A", (m, k)); tp.input("B", (k, n)); tp.input("b", (n,)); tp.input("R", (m, n))
+    tp.temp("T", (m, n)); tp.output("O", (m, n))
+    tp.op("T[i, j] += 0.5 * A[i, c] * B[c, j]", name="mm")
+    tp.op("O[i, j] = gelu(T[i, j] + b[j]) + R[i, j]", name="epi")
+    prog = tp.build()
+    c, r = (api.jit(prog, api.get_config("h100"), be, use_disk=False,
+                    cache=t_cache.CompilationCache(use_disk=False)) for be in ("cuda", "torch"))
+    assert c.record.block_backends == {"mm+epi": "cuda"} and not c.record.fallback_reasons()
+    assert c.record.n_kernels == 1
+    g = torch.Generator().manual_seed(0)
+    arrays = {"A": torch.randn(m, k, generator=g), "B": torch.randn(k, n, generator=g),
+              "b": torch.randn(n, generator=g), "R": torch.randn(m, n, generator=g)}
+    _assert_close(c(arrays)["O"], r(arrays)["O"], "float32", "C4")
+
+
 def test_oplib_set_backend_refuses_unknown_names(backends):
     with pytest.raises(ValueError):
         t_oplib.set_backend("pallas")
