@@ -188,11 +188,14 @@ and prints no result):
    around each call), every ``oplib`` unit on ``cuda``; each projection
    at the prefill's and the decode's rows is held against its kernel's
    plain version (``BF16_RTOL``), and the logits between the backends as
-   in phase 5, the torch run taking the cuda run's expert choices
-   (``moe_apply(experts=)``): left free, the two backends' rounding flips
-   the router's near-ties in some token at every call (the 8th and 9th
-   experts' probabilities within ~1e-4), so the free runs' logits are
-   printed beside the held ones, not held.  The prefill time, the decode-step median (host clock with
+   in phase 5.  For qwen3-moe they are held between two untimed runs
+   that take the same expert choices (the torch run replays the cuda
+   run's, ``nn.moe.route`` patched): left free, the two backends'
+   rounding flips the router's near-ties in a few tokens (the 8th and 9th
+   experts' probabilities 5e-7 to 6e-4 apart), so the timed runs'
+   free logits are printed beside the held ones, not held.  Two ``torch``
+   runs that differ only in the projections' rounding part in the same
+   way (``scripts/moe_routing.py``).  The prefill time, the decode-step median (host clock with
    ``torch.cuda.synchronize()``), tokens/s, the peak of
    ``torch.cuda.max_memory_allocated()`` and the launches by path print
    beside the card's name and power limit.
@@ -996,23 +999,11 @@ def serve(torch, api, K, cfg, params, backend: str, new_tokens: int):
 
 
 def compare(runs, exact: bool) -> dict:
-    """Hold the cuda run against the torch run: per request, the logits
-    behind each token up to and including the first token where the two
-    differ agree within ``LOGIT_RTOL`` of the row's largest logit; with
+    """Hold the cuda run against the torch run (``_held_logits``); with
     ``exact`` the tokens must not differ at all."""
     (ta, la, _), (tb, lb, _) = runs["cuda"], runs["torch"]
-    out = {"max_logit_rel_err": 0.0, "compared": 0, "first_divergence": {}}
-    for uid in sorted(ta):
-        div = next((j for j, (x, y) in enumerate(zip(ta[uid], tb[uid])) if x != y), None)
-        out["first_divergence"][uid] = div
-        for j in range(len(ta[uid]) if div is None else div + 1):
-            a, b = la[uid, j], lb[uid, j]
-            rel = (a - b).abs().max().item() / b.abs().max().item()
-            out["max_logit_rel_err"] = max(out["max_logit_rel_err"], rel)
-            out["compared"] += 1
-            if not rel <= LOGIT_RTOL:
-                raise AssertionError(f"request {uid} token {j}: logits differ by {rel:.3e} "
-                                     f"of the largest (tolerance {LOGIT_RTOL})")
+    out = _held_logits(ta, tb, lambda u, j: la[u, j], lambda u, j: lb[u, j], "serve")
+    for uid, div in out["first_divergence"].items():
         if div is not None:
             # the torch run's gap between the two chosen tokens, over the
             # row's largest logit: a near-tie
@@ -1021,6 +1012,29 @@ def compare(runs, exact: bool) -> dict:
                 (b[tb[uid][div]] - b[ta[uid][div]]).item() / b.abs().max().item())
     if exact and any(d is not None for d in out["first_divergence"].values()):
         raise AssertionError(f"greedy tokens differ: cuda {ta} torch {tb}")
+    return out
+
+
+def _held_logits(ta, tb, la, lb, what: str, hold: bool = True) -> dict:
+    """Two runs' greedy tokens, ``ta`` / ``tb`` (request -> tokens), and
+    the logits behind them, ``la`` / ``lb`` ((request, j) -> the row behind
+    token j): per request, the logits up to and including the first token
+    where the two runs differ, each within ``LOGIT_RTOL`` of the row's
+    largest logit (without ``hold`` the difference is only measured).
+    Past that token the runs' inputs differ, so their logits are not
+    compared."""
+    out = {"max_logit_rel_err": 0.0, "compared": 0, "first_divergence": {}}
+    for uid in sorted(ta):
+        div = next((j for j, (x, y) in enumerate(zip(ta[uid], tb[uid])) if x != y), None)
+        out["first_divergence"][uid] = div
+        for j in range(len(ta[uid]) if div is None else div + 1):
+            a, b = la(uid, j), lb(uid, j)
+            rel = (a - b).abs().max().item() / b.abs().max().item()
+            out["max_logit_rel_err"] = max(out["max_logit_rel_err"], rel)
+            out["compared"] += 1
+            if hold and not rel <= LOGIT_RTOL:
+                raise AssertionError(f"{what} request {uid} token {j}: logits differ by "
+                                     f"{rel:.3e} of the largest (tolerance {LOGIT_RTOL})")
     return out
 
 
@@ -1295,6 +1309,7 @@ def model(torch, api, K, cfg, params) -> dict:
                 step_ms.append((time.perf_counter() - t0) * 1e3)
                 by_call.append({p: K.launches_by_path[p] - before[p] for p in before})
                 rows.append(logits[:, -1].float().cpu())
+            toks.append(logits[:, -1:].argmax(-1).int().cpu())
             runs[backend] = {"prefill_ms": prefill_ms, "decode_step_ms": step_ms,
                              "decode_step_ms_median": statistics.median(step_ms),
                              "tokens": torch.cat(toks, 1), "rows": rows,
@@ -1315,74 +1330,43 @@ def model(torch, api, K, cfg, params) -> dict:
     units, op_err = hold_projections(
         torch, K, cfg, ((MODEL_BATCH * MODEL_PROMPT, "tiled"), (MODEL_BATCH, "skinny")), "model")
     # logits up to each row's first differing token, as the serve phase
-    div = {}
-    worst = 0.0
-    ta, tb = cuda["tokens"], ref["tokens"]
-    for r in range(MODEL_BATCH):
-        diff = (ta[r] != tb[r]).nonzero()
-        first = int(diff[0]) if len(diff) else None
-        div[r] = first
-        for j in range(MODEL_STEPS + 1 if first is None else first + 1):
-            a, b = cuda["rows"][j][r, : cfg.vocab], ref["rows"][j][r, : cfg.vocab]
-            rel = (a - b).abs().max().item() / b.abs().max().item()
-            worst = max(worst, rel)
-            if not rel <= LOGIT_RTOL:
-                raise AssertionError(f"model row {r} call {j}: logits differ by {rel:.3e}")
+    ta, tb = ({r: run["tokens"][r].tolist() for r in range(MODEL_BATCH)} for run in (cuda, ref))
+    held = _held_logits(ta, tb, lambda r, j: cuda["rows"][j][r, : cfg.vocab],
+                        lambda r, j: ref["rows"][j][r, : cfg.vocab], "model")
     return {"layers": cfg.n_layers, "batch": MODEL_BATCH, "prompt": MODEL_PROMPT,
             "steps": MODEL_STEPS, "units": units, "ops_max_abs_err": op_err,
-            "max_abs_err": max(op_err.values()), "max_logit_rel_err": worst,
-            "first_divergence": div, "launches": cuda["launches"],
+            "max_abs_err": max(op_err.values()), "max_logit_rel_err": held["max_logit_rel_err"],
+            "first_divergence": held["first_divergence"], "launches": cuda["launches"],
             "launches_by_call": {"prefill": cuda["by_call"][0], "decode": cuda["by_call"][1]},
             **{f"{b}_{k}": runs[b][k] for b in runs
                for k in ("prefill_ms", "decode_step_ms_median", "decode_step_ms")}}
 
 
-def _held_logits(runs, a: str, b: str, what: str, hold: bool) -> tuple:
-    """Per request, the logits behind each token of run ``a`` against run
-    ``b`` up to and including the first token where the two differ, as the
-    serve phase compares them; with ``hold``, each within ``LOGIT_RTOL`` of
-    the row's largest logit.  Returns (the largest relative error, the
-    first differing token by request)."""
-    div, worst = {}, 0.0
-    for uid in sorted(runs[a]["tokens"]):
-        ta, tb = runs[a]["tokens"][uid], runs[b]["tokens"][uid]
-        first = next((j for j, (x, y) in enumerate(zip(ta, tb)) if x != y), None)
-        div[uid] = first
-        for j in range(len(ta) if first is None else first + 1):
-            ra, rb = runs[a]["rows"][j][uid], runs[b]["rows"][j][uid]
-            rel = (ra - rb).abs().max().item() / rb.abs().max().item()
-            worst = max(worst, rel)
-            if hold and not rel <= LOGIT_RTOL:
-                raise AssertionError(f"{what} request {uid} token {j}: logits differ by "
-                                     f"{rel:.3e} of the largest (tolerance {LOGIT_RTOL})")
-    return worst, div
-
-
 def wave(torch, api, K, cfg, max_len: int, new_tokens: int) -> dict:
     """Phase 11 for one model: seeded random weights drawn on the card, a
     layer at a time; the serve phase's prompts through
-    ``WaveEngine(model, WAVE_SLOTS, max_len)``, four times: ``oplib`` on
-    ``cuda`` (its expert choices recorded), on ``cuda`` again (timed and
-    counted), on ``torch`` replaying the first run's expert choices, and on
-    ``torch`` again (timed).  The first and third runs compile and load
-    what the timed ones call.  The engine gains no hook: the script wraps
-    the ``Model``'s ``prefill`` / ``decode_step``, recording each call's
-    launches by path, its time on the host clock (with
+    ``WaveEngine(model, WAVE_SLOTS, max_len)`` with ``oplib`` on ``cuda``
+    and again on ``torch``, each timed run after an untimed one that
+    compiles and loads what it calls.  The engine gains no hook: the
+    script wraps the ``Model``'s ``prefill`` / ``decode_step``, recording
+    each call's launches by path, its time on the host clock (with
     ``torch.cuda.synchronize()``) and the logits behind each greedy token.
     Every projection is one launch of the contraction kernel (4 a layer a
     call for MoE, 7 for a dense MLP): ``tiled`` on wgmma at prefill,
     ``skinny`` at decode, never ``general``; each is then held against its
     kernel's plain version at the prefill's and the decode's rows.
 
-    The logits are held (``LOGIT_RTOL``) between the two runs that take
-    the same expert choices.  Left free, the backends' rounding flips the
-    router's near-ties (the 8th and 9th experts within ~1e-4 of each
-    other's probability) in some token at every call, each flip moving
-    that token by one expert's share, so the free runs are compared and
-    printed, not held."""
+    Without a router the timed runs' logits are held (``_held_logits``).
+    A MoE model's untimed ``cuda`` run records each layer's expert choices
+    (``nn.moe.route`` patched) and the untimed ``torch`` run replays them,
+    and those two runs' logits are held.  Left free, the backends'
+    rounding flips the router's near-ties in some tokens (the 8th and 9th
+    experts' probabilities 5e-7 to 6e-4 apart), each flip moving that
+    token by one expert's share, so the timed runs are compared and
+    printed, not held (``scripts/moe_routing.py`` shows the same with two
+    ``torch`` runs that differ only in the projections' rounding)."""
     import numpy as np
     from repro_torch.core import oplib
-    from repro_torch.models import lm
     from repro_torch.nn import moe
 
     cuda = DEVICE == "cuda"
@@ -1398,24 +1382,32 @@ def wave(torch, api, K, cfg, max_len: int, new_tokens: int) -> dict:
     prompts = [rng.randint(1, cfg.vocab, size=p) for p in PROMPT_LENS]
     plen = max(PROMPT_LENS) + (cfg.frontend_len if cfg.frontend == "patches" else 0)
     routes: list = []  # the recording run's expert choices, call by call, layer by layer
-    real_moe = lm.moe_apply
+    real_route = moe.route
 
     def recording(p, x, c):
-        routes.append(moe.route(p, x, c)[1])
-        return real_moe(p, x, c)
+        probs, idx = real_route(p, x, c)
+        routes.append(idx)
+        return probs, idx
 
     def replaying(p, x, c):
-        return real_moe(p, x, c, experts=next(replay))
+        return real_route(p, x, c)[0], next(replay)
 
     replay = iter(())
+    # (run, backend, new tokens, the router in force); an untimed run
+    # without a router only compiles and loads, so 2 tokens do
+    if cfg.moe:
+        plan = (("cuda_routed", "cuda", new_tokens, recording), ("cuda", "cuda", new_tokens, None),
+                ("torch_replay", "torch", new_tokens, replaying),
+                ("torch", "torch", new_tokens, None))
+    else:
+        plan = (("cuda_warm", "cuda", 2, None), ("cuda", "cuda", new_tokens, None),
+                ("torch_warm", "torch", 2, None), ("torch", "torch", new_tokens, None))
     runs = {}
     old = oplib.get_backend()
     try:
-        for run, backend, moe_fn in (("cuda_routed", "cuda", recording), ("cuda", "cuda", None),
-                                     ("torch_replay", "torch", replaying),
-                                     ("torch", "torch", None)):
+        for run, backend, n_new, route_fn in plan:
             oplib.set_backend(backend)
-            if moe_fn is replaying:
+            if route_fn is replaying:
                 replay = iter(routes)
             rec = {"ms": [], "by_call": [], "rows": []}
 
@@ -1437,25 +1429,26 @@ def wave(torch, api, K, cfg, max_len: int, new_tokens: int) -> dict:
             engine = api.WaveEngine(model, WAVE_SLOTS, max_len, device=DEVICE)
             for uid, prompt in enumerate(prompts):
                 engine.submit(api.Request(uid=uid, prompt=prompt,
-                                          sampling=api.SamplingParams(max_new_tokens=new_tokens)))
+                                          sampling=api.SamplingParams(max_new_tokens=n_new)))
             _zero_counts(K)
             if cuda:
                 torch.cuda.reset_peak_memory_stats()
-            if cfg.moe and moe_fn is not None:
-                lm.moe_apply = moe_fn
+            if route_fn is not None:
+                moe.route = route_fn
             t0 = time.perf_counter()
             try:
                 done = engine.run(params)
                 _sync(torch)
             finally:
-                lm.moe_apply = real_moe
+                moe.route = real_route
             wall = time.perf_counter() - t0
             if sorted(r.uid for r in done) != list(range(len(PROMPT_LENS))) or any(
-                    not r.done or len(r.out_tokens) != new_tokens for r in done):
+                    not r.done or len(r.out_tokens) != n_new for r in done):
                 raise AssertionError(f"wave {cfg.name} {run}: finished "
                                      f"{[(r.uid, len(r.out_tokens)) for r in done]}")
             n_tok = sum(len(r.out_tokens) for r in done)
             runs[run] = {
+                "backend": backend,
                 "tokens": {r.uid: list(r.out_tokens) for r in done}, "rows": rec["rows"],
                 "by_call": rec["by_call"], "launches": K.launches,
                 "prefill_ms": rec["ms"][0], "decode_step_ms": rec["ms"][1:],
@@ -1466,20 +1459,29 @@ def wave(torch, api, K, cfg, max_len: int, new_tokens: int) -> dict:
                 "compile_log": engine.compile_log()}
     finally:
         oplib.set_backend(old)
-    if cfg.moe and next(replay, None) is not None:
+    if next(replay, None) is not None:
         raise AssertionError(f"wave {cfg.name}: the replay left recorded routes unused")
-    if runs["torch"]["launches"] or runs["torch_replay"]["launches"]:
-        raise AssertionError(f"wave {cfg.name}: the torch backend launched the kernel")
-    want = [{"skinny": 0, "tiled": per_call, "general": 0}] + \
-        [{"skinny": per_call, "tiled": 0, "general": 0}] * (new_tokens - 1)
-    for run in ("cuda_routed", "cuda"):
-        if runs[run]["by_call"] != want or runs[run]["launches"] != per_call * new_tokens:
-            raise AssertionError(f"wave {cfg.name} {run}: launches by call "
-                                 f"{runs[run]['by_call']}, want {want}")
+    for run, r in runs.items():
+        if r["backend"] == "torch":
+            if r["launches"]:
+                raise AssertionError(f"wave {cfg.name} {run}: the torch backend launched the kernel")
+            continue
+        calls = len(r["by_call"])
+        want = [{"skinny": 0, "tiled": per_call, "general": 0}] + \
+            [{"skinny": per_call, "tiled": 0, "general": 0}] * (calls - 1)
+        if r["by_call"] != want or r["launches"] != per_call * calls:
+            raise AssertionError(f"wave {cfg.name} {run}: launches by call {r['by_call']}, "
+                                 f"want {want}")
     units, op_err = hold_projections(
         torch, K, cfg, ((WAVE_SLOTS * plen, "tiled"), (WAVE_SLOTS, "skinny")), f"wave {cfg.name}")
-    worst, div = _held_logits(runs, "cuda_routed", "torch_replay", f"wave {cfg.name}", True)
-    free, free_div = _held_logits(runs, "cuda", "torch", f"wave {cfg.name}", not cfg.moe)
+
+    def held(a, b, hold):
+        return _held_logits(runs[a]["tokens"], runs[b]["tokens"],
+                            lambda u, j: runs[a]["rows"][j][u], lambda u, j: runs[b]["rows"][j][u],
+                            f"wave {cfg.name} {a} against {b}", hold)
+
+    free = held("cuda", "torch", not cfg.moe)
+    same = held("cuda_routed", "torch_replay", True) if cfg.moe else free
     del params
     if cuda:
         torch.cuda.empty_cache()
@@ -1487,8 +1489,10 @@ def wave(torch, api, K, cfg, max_len: int, new_tokens: int) -> dict:
             "slots": WAVE_SLOTS, "max_len": max_len, "prefill_rows": WAVE_SLOTS * plen,
             "new_tokens": new_tokens, "init_s": init_s, "weights_gb": weights_gb,
             "units": units, "ops_max_abs_err": op_err, "max_abs_err": max(op_err.values()),
-            "max_logit_rel_err": worst, "first_divergence": div,
-            "free_routing_max_logit_rel_err": free, "free_routing_first_divergence": free_div,
+            "max_logit_rel_err": same["max_logit_rel_err"],
+            "first_divergence": same["first_divergence"],
+            **({"free_routing_max_logit_rel_err": free["max_logit_rel_err"],
+                "free_routing_first_divergence": free["first_divergence"]} if cfg.moe else {}),
             "launches": runs["cuda"]["launches"],
             "launches_by_call": {"prefill": runs["cuda"]["by_call"][0],
                                  "decode": runs["cuda"]["by_call"][1]},

@@ -10,7 +10,7 @@ the layer never waits for the host."""
 from __future__ import annotations
 
 import math
-from typing import Optional, Tuple
+from typing import Tuple
 
 import torch
 import torch.nn.functional as F
@@ -48,14 +48,8 @@ def route(p: Params, x: torch.Tensor, cfg) -> Tuple[torch.Tensor, torch.Tensor]:
     return probs, torch.topk(probs, cfg.moe.top_k, dim=-1, sorted=True)[1]
 
 
-def moe_apply(p: Params, x: torch.Tensor, cfg, experts: Optional[torch.Tensor] = None
-              ) -> Tuple[torch.Tensor, torch.Tensor]:
+def moe_apply(p: Params, x: torch.Tensor, cfg) -> Tuple[torch.Tensor, torch.Tensor]:
     """x: (B, S, D).  Returns (out, aux_loss).
-
-    ``experts`` (t, k), when given, replaces the router's top-k choice
-    (the gates still come from this call's probabilities): two runs that
-    differ by rounding then take the same discrete routing, so their
-    outputs can be held to a tolerance.
 
     The JAX package pins the expert-major tensors' sharding here
     (``constrain``), the identity on one device: the multi-device slice
@@ -67,8 +61,6 @@ def moe_apply(p: Params, x: torch.Tensor, cfg, experts: Optional[torch.Tensor] =
 
     xt = x.reshape(t, d)
     probs, gate_idx = route(p, xt, cfg)
-    if experts is not None:
-        gate_idx = experts
     gate_vals = probs.gather(1, gate_idx)                     # (t, k)
     gate_vals = gate_vals / gate_vals.sum(dim=-1, keepdim=True)
 

@@ -148,22 +148,30 @@ def test_moe_apply_matches_reference(name, kw):
         assert not np.abs(got[gone]).any()
 
 
-def test_moe_apply_takes_given_experts():
-    """``experts=`` replaces the router's top-k (another run's routing):
-    the router's own choice gives the output bit for bit, and another
-    choice (each token's 2nd to (k+1)-th experts) the numpy dispatch of
-    that choice, gated by this call's probabilities."""
+def test_moe_apply_takes_given_experts(monkeypatch):
+    """``moe_apply`` takes its experts from the module's ``route``, looked
+    up at each call, so a harness that patches ``route`` replays another
+    run's routing: the router's own choice gives the output bit for bit,
+    and another choice (each token's 2nd to (k+1)-th experts) the numpy
+    dispatch of that choice, gated by this call's probabilities."""
     _jcfg, cfg = _cfgs("qwen3-moe-30b-a3b")
     jp = j_moe.moe_init(jax.random.PRNGKey(0), _jcfg, jnp.float32)
     tp = api.params_from_jax(jax.tree.map(np.asarray, jp), "cpu")
     x = torch.from_numpy(np.random.RandomState(1).randn(2, 16, cfg.d_model).astype(np.float32))
-    probs, own = t_moe.route(tp, x, cfg)
+    real = t_moe.route
+    probs, own = real(tp, x, cfg)
     assert own.shape == (32, cfg.moe.top_k)
     out, aux = t_moe.moe_apply(tp, x, cfg)
-    again, aux2 = t_moe.moe_apply(tp, x, cfg, experts=own)
+
+    def replaying(experts):
+        return lambda p, xt, c: (real(p, xt, c)[0], experts)
+
+    monkeypatch.setattr(t_moe, "route", replaying(own))
+    again, aux2 = t_moe.moe_apply(tp, x, cfg)
     assert torch.equal(out, again) and torch.equal(aux, aux2)
     other = torch.topk(probs, cfg.moe.top_k + 1, dim=-1).indices[:, 1:]
-    got, _ = t_moe.moe_apply(tp, x, cfg, experts=other)
+    monkeypatch.setattr(t_moe, "route", replaying(other))
+    got, _ = t_moe.moe_apply(tp, x, cfg)
     want, _keep = _np_dispatch(jp, x.numpy(), _jcfg, idx=other.numpy())
     _assert_close(got, want, 1e-5, "given experts")
     assert not torch.allclose(got, out)
