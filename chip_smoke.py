@@ -199,18 +199,47 @@ and prints no result):
    ``torch.cuda.synchronize()``), tokens/s, the peak of
    ``torch.cuda.max_memory_allocated()`` and the launches by path print
    beside the card's name and power limit.
+12. **families** — the hybrid, ssm and audio families through the same
+   wave (``WaveEngine(model, 4, 128)``, the serve phase's 4 prompts, 16
+   new tokens: one prefill of 4 x 100 rows and 15 decode steps), each
+   model's seeded random bf16 weights drawn on the card after the last
+   one's are freed: zamba2-2.7b at full width and depth (54 Mamba2
+   layers, d 2560, 80 SSD heads of 64, state 64; its one shared
+   attention + GLU block applied 9 times, each with its own KV cache) and
+   xlstm-125m (12 blocks, sLSTM at 5 and 11), each with ``oplib`` on
+   ``cuda`` and on ``torch``, held as in phase 11: every ``oplib`` unit
+   on ``cuda``, every projection one launch of the contraction kernel
+   (171 a call for zamba2, 56 for xlstm), ``tiled`` on wgmma at the
+   prefill and ``skinny`` at each decode step, ``general`` 0; each
+   projection at both row counts against its kernel's plain version
+   (``BF16_RTOL``); the logits behind each greedy token ``cuda`` against
+   ``torch`` (``LOGIT_RTOL``) up to each request's first differing token.
+   For zamba2 those are held between an untimed ``cuda`` run that keeps
+   every block's input and output and an untimed ``torch`` run that feeds
+   each block the kept input, where each block's output is held too
+   (``LOGIT_RTOL``): its 63 blocks have no residual path around a Mamba2
+   layer and amplify a rounding difference about 1.5 times a block, so
+   the free runs' logits part completely; they print beside the held
+   ones.
+   seamless-m4t-large-v2 (24 + 24 layers, d 1024, zero frames for the
+   encoder) serves on ``torch`` alone: its relu2 MLP has no Tile
+   intrinsic (ROADMAP C9), which the ``cuda`` backend must raise on its
+   ``w_up`` on the card; its logits must be finite.  Times, peak memory
+   and launches print as in phase 11.
 
-The run order is 1-6, 10, 11, 7, 9, 8: phase 10 reuses the serve phase's
-weights, which are freed before phase 11.
+The run order is 1-6, 10, 11, 12, 7, 9, 8: phase 10 reuses the serve
+phase's weights, which are freed before phase 11.
 
 Launch counts are read per path: every count is set to 0 just before the
 serve phase (path 1), before the sweep (path 2), before phase 8's calls
 of the entry points (path 3), before the ResNet layer (path 4), before
-phase 9 (path 5), before phase 10's timed calls (path 6) and before
-each of phase 11's timed waves (path 7), and read just after each; the
-contraction kernel's ``launches_by_path`` (skinny, tiled, general) is
-read the same way for the serve, sweep, tune, model and wave paths, and
-none of the serve, model and wave paths may launch the general loop; the windowed kernel's (igemm, general) for the sweep, ResNet and
+phase 9 (path 5), before phase 10's timed calls (path 6), before each
+of phase 11's timed waves (path 7) and before each of phase 12's (path
+8), and read just after each; the contraction kernel's
+``launches_by_path`` (skinny, tiled, general) is read the same way for
+the serve, sweep, tune, model, wave and families paths, and none of the
+serve, model, wave and families paths may launch the general loop;
+the windowed kernel's (igemm, general) for the sweep, ResNet and
 tune paths, the elementwise kernel's (vec, general) for the sweep and
 tune paths (and phase 4's units, from their rows), flash attention's and the GLA kernel's (wgmma,
 tf32x3, cuda_cores) for path 3, all in
@@ -276,6 +305,12 @@ RESNET_BATCH = 8
 WAVE_SLOTS = 4
 WAVE_MOE, WAVE_MOE_MAX_LEN = "qwen3-moe-30b-a3b", 128
 WAVE_VLM, WAVE_VLM_MAX_LEN, WAVE_VLM_LAYERS = "internvl2-26b", 384, 4
+# phase 12: the hybrid, ssm and audio families, each with the oplib
+# backends it serves on (seamless's relu2 MLP has no Tile intrinsic,
+# ROADMAP C9), and their KV window
+FAMILIES = (("zamba2-2.7b", ("cuda", "torch")), ("xlstm-125m", ("cuda", "torch")),
+            ("seamless-m4t-large-v2", ("torch",)))
+FAMILY_MAX_LEN = 128
 # every kernel (its source is csrc/<name>.cu), and those the compiler's
 # units launch (the sweep must reach each of these)
 KERNEL_MODULES = ("contraction", "elementwise", "windowed", "flash_attention", "gla")
@@ -1221,15 +1256,48 @@ def tune(torch, api, K) -> dict:
 
 
 def _model_ops(cfg):
-    """The (k, n, act) of the projections of one layer that go through
-    ``oplib``: q, k, v and o, then a dense GLU MLP's 3 (7 a layer); a MoE
-    layer's experts are plain ``torch.einsum``s, so 4 a layer."""
+    """The (k, n, act) of every projection of one call of ``cfg``'s model
+    that goes through ``oplib``, in order.  The lm family: q, k, v and o a
+    layer, then a dense GLU MLP's 3 (7 a layer; a MoE layer's experts are
+    plain ``torch.einsum``s, so 4).  The hybrid: a group's shared block
+    (7), then each of its Mamba2 layers' ``in_proj`` and ``out_proj``.
+    xLSTM: an mLSTM block's 5 (``up_proj``, ``wq``, ``wk``, ``wv``,
+    ``down_proj``), an sLSTM block's 3 (``w_gates``, ``w_up``,
+    ``w_down``); its gates are float32 ``einsum``s outside ``oplib``."""
     d, hd = cfg.d_model, cfg.hd
-    ops = [(d, cfg.n_heads * hd, None), (d, cfg.n_kv_heads * hd, None),
-           (d, cfg.n_kv_heads * hd, None), (cfg.n_heads * hd, d, None)]
+    block = [(d, cfg.n_heads * hd, None), (d, cfg.n_kv_heads * hd, None),
+             (d, cfg.n_kv_heads * hd, None), (cfg.n_heads * hd, d, None)]
     if not cfg.moe:
-        ops += [(d, cfg.d_ff, cfg.act.split("_")[0]), (d, cfg.d_ff, None), (cfg.d_ff, d, None)]
-    return ops
+        block += [(d, cfg.d_ff, cfg.act.split("_")[0]), (d, cfg.d_ff, None), (cfg.d_ff, d, None)]
+    if cfg.family == "hybrid":
+        per_group = cfg.hybrid.shared_attn_every
+        inner, ns = cfg.ssm.expand * d, cfg.ssm.d_state
+        mamba = [(d, 2 * inner + 2 * ns + inner // cfg.ssm.head_dim, None), (inner, d, None)]
+        return (block + mamba * per_group) * -(-cfg.n_layers // per_group)
+    if cfg.family == "ssm":
+        inner, dff = int(cfg.xlstm.proj_factor_mlstm * d), int(cfg.xlstm.proj_factor_slstm * d)
+        mlstm = [(d, 2 * inner, None)] + [(inner, inner, None)] * 3 + [(inner, d, None)]
+        slstm = [(d, 4 * d, None), (d, 2 * dff, None), (dff, d, None)]
+        return [op for i in range(cfg.n_layers)
+                for op in (slstm if i in cfg.xlstm.slstm_at else mlstm)]
+    return block * cfg.n_layers
+
+
+def projection_bound(cfg, m: int) -> dict:
+    """The least time the card could take for one call's projections
+    (``_model_ops``) at ``m`` rows: each weight and activation read once
+    and each output written once over the memory rate, or the products'
+    operations over the peak rate for ``cfg.dtype``, whichever is
+    larger."""
+    import torch
+
+    size = torch.empty((), dtype=getattr(torch, cfg.dtype)).element_size()
+    ops = _model_ops(cfg)
+    nbytes = size * sum(k * n + m * k + m * n for k, n, _act in ops)
+    flops = 2 * m * sum(k * n for k, n, _act in ops)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / PEAK_OPS[cfg.dtype] * 1e3
+    return {"rows": m, "bytes": nbytes, "flops": flops, "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
 def hold_projections(torch, K, cfg, cases, what: str):
@@ -1244,7 +1312,7 @@ def hold_projections(torch, K, cfg, cases, what: str):
     gen = torch.Generator(device=DEVICE).manual_seed(SEED)
     tdt = getattr(torch, cfg.dtype)
     for m, path in cases:
-        for k, n, act in _model_ops(cfg):
+        for k, n, act in dict.fromkeys(_model_ops(cfg)):
             op_name = f"{m}x{k}x{n}{'/' + act if act else ''}"
             op = oplib._compiled_linear(m, k, n, cfg.dtype, "float32", act, False, "cuda")
             if set(op.block_backends.values()) != {"cuda"} or op.block_reasons:
@@ -1279,7 +1347,7 @@ def model(torch, api, K, cfg, params) -> dict:
     mdl = api.build_model(cfg)
     batch = api.make_batch(cfg, "prefill", MODEL_BATCH, MODEL_PROMPT, seed=SEED, device=DEVICE)
     max_len = MODEL_PROMPT + MODEL_STEPS
-    per_call = len(_model_ops(cfg)) * cfg.n_layers
+    per_call = len(_model_ops(cfg))
     old = oplib.get_backend()
     runs = {}
     try:
@@ -1342,12 +1410,16 @@ def model(torch, api, K, cfg, params) -> dict:
                for k in ("prefill_ms", "decode_step_ms_median", "decode_step_ms")}}
 
 
-def wave(torch, api, K, cfg, max_len: int, new_tokens: int) -> dict:
-    """Phase 11 for one model: seeded random weights drawn on the card, a
-    layer at a time; the serve phase's prompts through
-    ``WaveEngine(model, WAVE_SLOTS, max_len)`` with ``oplib`` on ``cuda``
-    and again on ``torch``, each timed run after an untimed one that
-    compiles and loads what it calls.  The engine gains no hook: the
+def wave(torch, api, K, cfg, max_len: int, new_tokens: int,
+         backends=("cuda", "torch")) -> dict:
+    """Phases 11 and 12 for one model: seeded random weights drawn on the
+    card, a layer at a time; the serve phase's prompts through
+    ``WaveEngine(model, WAVE_SLOTS, max_len)`` with ``oplib`` on each of
+    ``backends`` (``cuda`` and ``torch``), each timed run after an untimed
+    one that compiles and loads what it calls.  A model served on
+    ``torch`` alone (seamless-m4t-large-v2, ROADMAP C9) must first be
+    refused by the ``cuda`` backend at its MLP (``_c9``), and its logits
+    must be finite.  The engine gains no hook: the
     script wraps the ``Model``'s ``prefill`` / ``decode_step``, recording
     each call's launches by path, its time on the host clock (with
     ``torch.cuda.synchronize()``) and the logits behind each greedy token.
@@ -1356,17 +1428,28 @@ def wave(torch, api, K, cfg, max_len: int, new_tokens: int) -> dict:
     ``skinny`` at decode, never ``general``; each is then held against its
     kernel's plain version at the prefill's and the decode's rows.
 
-    Without a router the timed runs' logits are held (``_held_logits``).
-    A MoE model's untimed ``cuda`` run records each layer's expert choices
-    (``nn.moe.route`` patched) and the untimed ``torch`` run replays them,
-    and those two runs' logits are held.  Left free, the backends'
-    rounding flips the router's near-ties in some tokens (the 8th and 9th
-    experts' probabilities 5e-7 to 6e-4 apart), each flip moving that
-    token by one expert's share, so the timed runs are compared and
-    printed, not held (``scripts/moe_routing.py`` shows the same with two
-    ``torch`` runs that differ only in the projections' rounding)."""
+    The timed runs' logits are held (``_held_logits``), but for two kinds
+    of model, whose untimed ``cuda`` run keeps what the untimed ``torch``
+    run then replays; their timed runs are compared and printed, not held.
+    A MoE model's ``cuda`` run keeps each layer's expert choices
+    (``nn.moe.route`` patched) and the ``torch`` run takes them, and those
+    two runs' logits are held: left free, the backends' rounding flips the
+    router's near-ties in some tokens (the 8th and 9th experts'
+    probabilities 5e-7 to 6e-4 apart), each flip moving that token by one
+    expert's share (``scripts/moe_routing.py`` shows the same with two
+    ``torch`` runs that differ only in the projections' rounding).  The
+    hybrid's ``cuda`` run keeps each block's input and output (the shared
+    block and every Mamba2 layer, ``models.hybrid._shared_block`` and
+    ``mamba2_apply`` patched; no residual runs around a Mamba2 layer, so a
+    block's output is the next one's input), and the ``torch`` run feeds
+    every block the kept input and holds its output against the kept one
+    within ``LOGIT_RTOL`` of the largest, then the logits: left free, 63
+    blocks without a residual path amplify a rounding difference about
+    1.5 times a block, so two runs that differ only in rounding part
+    completely (``scripts/hybrid_divergence.py``)."""
     import numpy as np
     from repro_torch.core import oplib
+    from repro_torch.models import hybrid
     from repro_torch.nn import moe
 
     cuda = DEVICE == "cuda"
@@ -1377,38 +1460,72 @@ def wave(torch, api, K, cfg, max_len: int, new_tokens: int) -> dict:
     _sync(torch)
     init_s = time.perf_counter() - t0
     weights_gb = torch.cuda.memory_allocated() / 1e9 if cuda else None
-    per_call = len(_model_ops(cfg)) * cfg.n_layers
+    per_call = len(_model_ops(cfg))
     rng = np.random.RandomState(SEED)
     prompts = [rng.randint(1, cfg.vocab, size=p) for p in PROMPT_LENS]
     plen = max(PROMPT_LENS) + (cfg.frontend_len if cfg.frontend == "patches" else 0)
-    routes: list = []  # the recording run's expert choices, call by call, layer by layer
+    # what the recording run keeps, call by call, layer by layer: a MoE
+    # layer's expert choices, or a hybrid block's (input, output)
+    kept: list = []
+    replay = iter(())
+    block_err = {"max": 0.0, "blocks": 0}
     real_route = moe.route
+    real_blocks = {name: getattr(hybrid, name) for name in ("_shared_block", "mamba2_apply")}
 
     def recording(p, x, c):
         probs, idx = real_route(p, x, c)
-        routes.append(idx)
+        kept.append(idx)
         return probs, idx
 
     def replaying(p, x, c):
         return real_route(p, x, c)[0], next(replay)
 
-    replay = iter(())
-    # (run, backend, new tokens, the router in force); an untimed run
-    # without a router only compiles and loads, so 2 tokens do
+    def block_recording(real):
+        def call(p, x, *a, **kw):
+            out = real(p, x, *a, **kw)
+            kept.append((x, out[0]))
+            return out
+        return call
+
+    def block_replaying(real):
+        def call(p, x, *a, **kw):
+            x, want = next(replay)
+            out = real(p, x, *a, **kw)
+            rel = ((out[0].float() - want.float()).abs().max() / want.float().abs().max()).item()
+            block_err["max"] = max(block_err["max"], rel)
+            block_err["blocks"] += 1
+            if not rel <= LOGIT_RTOL:
+                raise AssertionError(f"wave {cfg.name}: block {block_err['blocks'] - 1} of the "
+                                     f"replay differs by {rel:.3e} of its largest output "
+                                     f"(tolerance {LOGIT_RTOL})")
+            return out
+        return call
+
+    # (run, backend, new tokens, the functions patched in: {(module, name):
+    # function}); a replaying run replays what the recording run kept; an
+    # untimed run with nothing to keep only compiles and loads, so 2
+    # tokens do
+    rec_patch = replay_patch = None
     if cfg.moe:
-        plan = (("cuda_routed", "cuda", new_tokens, recording), ("cuda", "cuda", new_tokens, None),
-                ("torch_replay", "torch", new_tokens, replaying),
-                ("torch", "torch", new_tokens, None))
+        rec_patch, replay_patch = {(moe, "route"): recording}, {(moe, "route"): replaying}
+    elif cfg.family == "hybrid":
+        rec_patch, replay_patch = ({(hybrid, n): wrap(f) for n, f in real_blocks.items()}
+                                   for wrap in (block_recording, block_replaying))
+    if rec_patch:
+        plan = (("cuda_kept", "cuda", new_tokens, rec_patch), ("cuda", "cuda", new_tokens, {}),
+                ("torch_replay", "torch", new_tokens, replay_patch),
+                ("torch", "torch", new_tokens, {}))
     else:
-        plan = (("cuda_warm", "cuda", 2, None), ("cuda", "cuda", new_tokens, None),
-                ("torch_warm", "torch", 2, None), ("torch", "torch", new_tokens, None))
+        plan = tuple(run for b in backends
+                     for run in ((f"{b}_warm", b, 2, {}), (b, b, new_tokens, {})))
+    c9 = None if "cuda" in backends else _c9(torch, cfg, params, WAVE_SLOTS * plen)
     runs = {}
     old = oplib.get_backend()
     try:
-        for run, backend, n_new, route_fn in plan:
+        for run, backend, n_new, patch in plan:
             oplib.set_backend(backend)
-            if route_fn is replaying:
-                replay = iter(routes)
+            if patch is replay_patch:
+                replay = iter(kept)
             rec = {"ms": [], "by_call": [], "rows": []}
 
             def recorded(fn, rec=rec):
@@ -1433,14 +1550,16 @@ def wave(torch, api, K, cfg, max_len: int, new_tokens: int) -> dict:
             _zero_counts(K)
             if cuda:
                 torch.cuda.reset_peak_memory_stats()
-            if route_fn is not None:
-                moe.route = route_fn
+            real = {key: getattr(*key) for key in patch}
+            for (mod, name), fn in patch.items():
+                setattr(mod, name, fn)
             t0 = time.perf_counter()
             try:
                 done = engine.run(params)
                 _sync(torch)
             finally:
-                moe.route = real_route
+                for (mod, name), fn in real.items():
+                    setattr(mod, name, fn)
             wall = time.perf_counter() - t0
             if sorted(r.uid for r in done) != list(range(len(PROMPT_LENS))) or any(
                     not r.done or len(r.out_tokens) != n_new for r in done):
@@ -1460,7 +1579,8 @@ def wave(torch, api, K, cfg, max_len: int, new_tokens: int) -> dict:
     finally:
         oplib.set_backend(old)
     if next(replay, None) is not None:
-        raise AssertionError(f"wave {cfg.name}: the replay left recorded routes unused")
+        raise AssertionError(f"wave {cfg.name}: the replay left recorded items unused")
+    del kept
     for run, r in runs.items():
         if r["backend"] == "torch":
             if r["launches"]:
@@ -1472,6 +1592,21 @@ def wave(torch, api, K, cfg, max_len: int, new_tokens: int) -> dict:
         if r["by_call"] != want or r["launches"] != per_call * calls:
             raise AssertionError(f"wave {cfg.name} {run}: launches by call {r['by_call']}, "
                                  f"want {want}")
+    del params
+    if cuda:
+        torch.cuda.empty_cache()
+    out = {"model": cfg.name, "layers": cfg.n_layers, "d_model": cfg.d_model,
+           "slots": WAVE_SLOTS, "max_len": max_len, "prefill_rows": WAVE_SLOTS * plen,
+           "new_tokens": new_tokens, "init_s": init_s, "weights_gb": weights_gb,
+           "backends": list(backends),
+           **{f"{b}_{k}": runs[b][k] for b in backends
+              for k in ("prefill_ms", "decode_step_ms_median", "decode_step_ms", "wall_s",
+                        "tok_per_s", "max_memory_allocated_gb", "compile_log")}}
+    if c9 is not None:
+        rows = torch.stack([row for run in runs.values() for row in run["rows"]])
+        if not bool(torch.isfinite(rows).all()):
+            raise AssertionError(f"wave {cfg.name}: logits not finite")
+        return dict(out, c9=c9, launches=0, logits_finite=True)
     units, op_err = hold_projections(
         torch, K, cfg, ((WAVE_SLOTS * plen, "tiled"), (WAVE_SLOTS, "skinny")), f"wave {cfg.name}")
 
@@ -1480,25 +1615,44 @@ def wave(torch, api, K, cfg, max_len: int, new_tokens: int) -> dict:
                             lambda u, j: runs[a]["rows"][j][u], lambda u, j: runs[b]["rows"][j][u],
                             f"wave {cfg.name} {a} against {b}", hold)
 
-    free = held("cuda", "torch", not cfg.moe)
-    same = held("cuda_routed", "torch_replay", True) if cfg.moe else free
-    del params
-    if cuda:
-        torch.cuda.empty_cache()
-    return {"model": cfg.name, "layers": cfg.n_layers, "d_model": cfg.d_model,
-            "slots": WAVE_SLOTS, "max_len": max_len, "prefill_rows": WAVE_SLOTS * plen,
-            "new_tokens": new_tokens, "init_s": init_s, "weights_gb": weights_gb,
-            "units": units, "ops_max_abs_err": op_err, "max_abs_err": max(op_err.values()),
-            "max_logit_rel_err": same["max_logit_rel_err"],
-            "first_divergence": same["first_divergence"],
-            **({"free_routing_max_logit_rel_err": free["max_logit_rel_err"],
-                "free_routing_first_divergence": free["first_divergence"]} if cfg.moe else {}),
-            "launches": runs["cuda"]["launches"],
-            "launches_by_call": {"prefill": runs["cuda"]["by_call"][0],
-                                 "decode": runs["cuda"]["by_call"][1]},
-            **{f"{b}_{k}": runs[b][k] for b in ("cuda", "torch")
-               for k in ("prefill_ms", "decode_step_ms_median", "decode_step_ms", "wall_s",
-                         "tok_per_s", "max_memory_allocated_gb", "compile_log")}}
+    replayed = "torch_replay" in runs
+    free = held("cuda", "torch", not replayed)
+    same = held("cuda_kept", "torch_replay", True) if replayed else free
+    return dict(out, units=units, ops_max_abs_err=op_err, max_abs_err=max(op_err.values()),
+                max_logit_rel_err=same["max_logit_rel_err"],
+                first_divergence=same["first_divergence"],
+                **({"free_max_logit_rel_err": free["max_logit_rel_err"],
+                    "free_first_divergence": free["first_divergence"]} if replayed else {}),
+                **({"replay_blocks_held": block_err["blocks"],
+                    "replay_block_max_rel_err": block_err["max"]}
+                   if block_err["blocks"] else {}),
+                projection_bound={"prefill": projection_bound(cfg, WAVE_SLOTS * plen),
+                                  "decode": projection_bound(cfg, WAVE_SLOTS)},
+                launches=runs["cuda"]["launches"], launches_per_call=per_call,
+                launches_by_call={"prefill": runs["cuda"]["by_call"][0],
+                                  "decode": runs["cuda"]["by_call"][1]})
+
+
+def _c9(torch, cfg, params, rows: int) -> str:
+    """ROADMAP C9 on the card: the ``cuda`` backend refuses the
+    encoder-decoder's MLP (``act`` relu2 has no Tile intrinsic) with the
+    reference's ``ValueError``; returns its message."""
+    from repro_torch.core import oplib
+    from repro_torch.nn.core import linear
+
+    w_up = params["decoder"]["mlp"]["w_up"][0]
+    x = torch.zeros((rows, cfg.d_model), dtype=w_up.dtype, device=w_up.device)
+    old = oplib.get_backend()
+    oplib.set_backend("cuda")
+    try:
+        linear(x, w_up, act=cfg.act)
+    except ValueError as e:
+        if "unknown intrinsic 'relu2'" not in str(e):
+            raise
+        return str(e)
+    finally:
+        oplib.set_backend(old)
+    raise AssertionError(f"{cfg.name}: the cuda backend ran the {cfg.act} MLP (ROADMAP C9)")
 
 
 def _sdpa(torch, q, k, v, causal):
@@ -1791,8 +1945,8 @@ def _kernel_entry(name, source, replaces, launches, rows, err) -> dict:
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--layers", type=int, default=None,
-                    help="depth of llama3-8b and qwen3-moe-30b-a3b (default: full, 32 and 48; "
-                         "internvl2-26b runs at most 4)")
+                    help="depth of llama3-8b, qwen3-moe-30b-a3b and phase 12's models "
+                         "(default: each model's full depth; internvl2-26b runs at most 4)")
     ap.add_argument("--new-tokens", type=int, default=16)
     ap.add_argument("--reps", type=int, default=10, help="timed launches per unit")
     args = ap.parse_args()
@@ -1916,6 +2070,31 @@ def main() -> None:
               f"{json.dumps(w['launches_by_call'])}; steps "
               f"{json.dumps(w['cuda_decode_step_ms'])}; card {card}", flush=True)
 
+    # phase 12: the hybrid, ssm and audio families through the wave
+    # engine at full width and depth
+    fam = {}
+    for name, backends in FAMILIES:
+        fcfg = api.configs.get(name)
+        fcfg = dataclasses.replace(fcfg, n_layers=args.layers or fcfg.n_layers)
+        t0 = time.perf_counter()
+        fam[name] = w = wave(torch, api, K, fcfg, FAMILY_MAX_LEN, args.new_tokens, backends)
+        print(f"families: {name} {fcfg.n_layers} layers, d_model {fcfg.d_model}, WaveEngine "
+              f"{WAVE_SLOTS} slots, prompts {PROMPT_LENS}, {args.new_tokens} new tokens, oplib "
+              f"{' against '.join(backends)}, in {time.perf_counter() - t0:.1f} s; card {card}: "
+              + json.dumps({k: v for k, v in w.items() if not k.endswith("decode_step_ms")}),
+              flush=True)
+        for b in backends:
+            print(f"families: {name} [{b}] prefill {w[f'{b}_prefill_ms']:.3f} ms, decode step "
+                  f"median {w[f'{b}_decode_step_ms_median']:.3f} ms, "
+                  f"{w[f'{b}_tok_per_s']:.2f} tokens/s, peak "
+                  f"{w[f'{b}_max_memory_allocated_gb']:.2f} GB, host clock with "
+                  f"torch.cuda.synchronize(); steps {json.dumps(w[f'{b}_decode_step_ms'])}"
+                  + (f"; launches {w['launches_per_call']} a call, by call "
+                     f"{json.dumps(w['launches_by_call'])}, {w['launches']} in all"
+                     if b == "cuda" else "")
+                  + (f"; oplib torch only, cuda refused: {w['c9']}" if "c9" in w else "")
+                  + f"; card {card}", flush=True)
+
     sw = sweep(torch, api, K)
     v = sw["validation"]
     print(f"sweep: {SWEEP} in {sw['wall_s']:.1f} s; launches {json.dumps(sw['launches'])}; "
@@ -1968,15 +2147,20 @@ def main() -> None:
     contraction = _kernel_entry(
         "contraction", "src/repro_torch/csrc/contraction.cu", "src/repro/core/lower_pallas.py:979",
         serve_launches + sw["launches"]["contraction"] + md["launches"]
-        + sum(w["launches"] for w in wv.values()) + tn["launches"]["contraction"], decode,
+        + sum(w["launches"] for w in (*wv.values(), *fam.values()))
+        + tn["launches"]["contraction"], decode,
         max([r["max_abs_err"] for r in rows]
             + [r["max_abs_err"] for r in new_rows if r["kernel"] == ["contraction"]]
-            + [mm_err, md["max_abs_err"]] + [w["max_abs_err"] for w in wv.values()]))
+            + [mm_err, md["max_abs_err"]]
+            + [w["max_abs_err"] for w in (*wv.values(), *fam.values()) if "max_abs_err" in w]))
     contraction["general_ms"] = sum(r["general_ms"] for r in decode)
     contraction["launches_by_path"] = {"serve": runs["cuda"][2]["launches_by_path"],
                                        "sweep": sw["launches_by_path"],
                                        "model": md["launches_by_call"],
                                        "wave": {n: w["launches_by_call"] for n, w in wv.items()},
+                                       "families": {n: w["launches_by_call"]
+                                                    for n, w in fam.items()
+                                                    if "launches_by_call" in w},
                                        "tune": tn["launches_by_path"]}
     windowed = _kernel_entry(
         "windowed", "src/repro_torch/csrc/windowed.cu", "src/repro/core/lower_pallas.py:812",

@@ -1,12 +1,13 @@
 #!/usr/bin/env python3
-"""Where a call of an LM's own forward spends its time, on one NVIDIA card.
+"""Where a call of a model's own forward spends its time, on one NVIDIA card.
 
     python3 scripts/model_profile.py              # llama3-8b, 32 layers, one JSON line per call
     python3 scripts/model_profile.py --layers 4
     python3 scripts/model_profile.py --max-len 8192   # a long KV cache
     python3 scripts/model_profile.py --model qwen3-moe-30b-a3b --prompt 100 --max-len 128
+    python3 scripts/model_profile.py --model zamba2-2.7b --prompt 100 --max-len 128
 
-``chip_smoke.py``'s phases 10 and 11 without their checks: random bf16
+``chip_smoke.py``'s phases 10-12 without their checks: random bf16
 weights from a seeded generator (``--model``, at full width, its full
 depth unless ``--layers``), ``Model.prefill`` on 4 prompts of
 ``--prompt`` tokens (64 by default; 100 is phase 11's longest) and
@@ -19,7 +20,14 @@ kernels' intervals), the idle share between them, the number of kernel
 launches, and the device time by kernel group: the contraction kernel,
 other matrix products (cuBLAS: the LM head, and a MoE layer's experts),
 and the rest (norms, RoPE, masks, softmax, copies, the MoE dispatch's
-scatters), with the 8 kernels that take most of it.  The KV cache
+scatters), with the 8 kernels that take most of it.  Every
+``oplib.linear`` call of the model (its projections) runs inside a
+``torch.profiler.record_function`` range, which the profiler also shows
+on the card as the span of the kernels launched inside it, so the line
+also gives the device time of the kernels inside those spans, by the
+same groups (``projection_device_ms_by_group``): on ``torch`` the
+projections' cuBLAS time, apart from a MoE layer's experts and the LM
+head, which are ``einsum``s outside ``oplib``.  The KV cache
 holds ``--max-len`` rows (default 72, phase 10's), of which the decode
 step reads every one (its mask covers the rest).  The host
 time is taken under the profiler, which adds to it.  Exits non-zero
@@ -42,6 +50,45 @@ sys.path[:0] = [str(ROOT / "src"), str(ROOT)]
 CONTRACTION = ("contraction_kernel", "finish_kernel", "skinny_kernel", "ffma_kernel",
                "wgmma_kernel", "pack_kernel")
 LIBRARY = ("gemm", "gemv", "nvjet", "cutlass", "xmma", "cublas")
+# the record_function range around every projection, and the modules
+# whose ``linear`` is wrapped in it
+PROJECTION = "oplib.linear"
+LINEAR_MODULES = ("core", "attention", "moe", "ssm", "xlstm")
+
+
+def wrap_projections(torch):
+    """Run every ``linear`` of the model's layers inside a
+    ``PROJECTION`` range (the modules' own name, patched)."""
+    import importlib
+
+    from repro_torch.nn import core
+
+    real = core.linear
+
+    def linear(*a, **kw):
+        with torch.profiler.record_function(PROJECTION):
+            return real(*a, **kw)
+
+    for name in LINEAR_MODULES:
+        mod = importlib.import_module(f"repro_torch.nn.{name}")
+        if getattr(mod, "linear", None) is real:
+            mod.linear = linear
+
+
+def _projection_ms(spans, kernels) -> dict:
+    """Device time of the kernels that run inside a ``PROJECTION`` range's
+    span on the card (``spans``: sorted, disjoint (start, end)), by
+    group."""
+    import bisect
+
+    starts = [a for a, _b in spans]
+    out: dict = {}
+    for e in kernels:
+        i = bisect.bisect_right(starts, e.time_range.start) - 1
+        if i >= 0 and e.time_range.end <= spans[i][1]:
+            g = _group(e.name)
+            out[g] = out.get(g, 0.0) + (e.time_range.end - e.time_range.start) / 1e3
+    return out
 
 
 def _group(name: str) -> str:
@@ -77,8 +124,13 @@ def profile_call(torch, fn) -> dict:
         fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
-    kernels = [e for e in prof.events()
+    on_card = [e for e in prof.events()
                if str(getattr(e, "device_type", "")).endswith("CUDA") and e.time_range.end]
+    # a record_function range also shows on the card, as the span of the
+    # kernels launched inside it: not a kernel
+    kernels = [e for e in on_card if e.name != PROJECTION]
+    spans = sorted((e.time_range.start, e.time_range.end) for e in on_card
+                   if e.name == PROJECTION)
     by_group: dict = {}
     by_name: dict = {}
     for e in kernels:
@@ -93,15 +145,19 @@ def profile_call(torch, fn) -> dict:
     return {"host_ms": wall, "device_busy_ms": busy,
             "idle_share": max(0.0, 1.0 - busy / wall), "kernels": len(kernels),
             "device_ms_by_group": by_group,
+            "projection_device_ms_by_group": _projection_ms(spans, kernels),
             "top_kernels": [{"name": k, "launches": n, "ms": t} for k, (n, t) in top]}
 
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--model", default="llama3-8b", help="an lm-family config")
+    ap.add_argument("--model", default="llama3-8b", help="a config of the registry")
     ap.add_argument("--layers", type=int, default=None, help="depth (default: the model's)")
     ap.add_argument("--prompt", type=int, default=64, help="prompt tokens of each of 4 rows")
     ap.add_argument("--max-len", type=int, default=72, help="KV cache rows")
+    ap.add_argument("--backends", default="cuda,torch",
+                    help="oplib backends, in order (seamless-m4t-large-v2 runs on torch only: "
+                         "ROADMAP C9)")
     args = ap.parse_args()
     import dataclasses
 
@@ -115,16 +171,18 @@ def main() -> None:
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True, text=True,
                           timeout=60, check=True).stdout.strip().splitlines()[0]
+    wrap_projections(torch)
     cfg = api.configs.get(args.model)
     cfg = dataclasses.replace(cfg, n_layers=args.layers or cfg.n_layers)
     model = api.build_model(cfg)
     params = model.init(torch.Generator(device="cuda").manual_seed(0))
     batch = api.make_batch(cfg, "prefill", 4, args.prompt, seed=0)
-    for backend in ("cuda", "torch"):
+    for backend in args.backends.split(","):
         oplib.set_backend(backend)
         logits, cache = model.prefill(params, batch, model.init_cache(4, args.max_len))
         tok = logits[:, -1:].argmax(-1).int()
-        # decode_step donates the cache: every call writes the same row again
+        # decode_step donates the cache: every call writes the same row
+        # again (a recurrent state steps on)
         calls = {"prefill": lambda: model.prefill(params, batch,
                                                   model.init_cache(4, args.max_len)),
                  "decode_step": lambda: model.decode_step(params, cache, tok)}

@@ -15,7 +15,7 @@ Hardware & model configs:
     ``init_cache``), ``make_batch``
 Serving:
     ``ServingEngine``, ``WaveEngine`` (the wave baseline, and the one
-    serving path of the moe and vlm families), ``EngineConfig``,
+    serving path of every family but the dense one), ``EngineConfig``,
     ``Request``, ``SamplingParams``
 Exploration:
     ``explore`` (subpackage: ``run_sweep``, ``get_space``,

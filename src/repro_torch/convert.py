@@ -1,9 +1,12 @@
 """Carry parameters over from the JAX package.
 
-``params_from_jax(tree)`` takes the JAX package's ``lm.init_params`` tree,
-handed over as numpy arrays (``jax.tree.map(np.asarray, params)``), and
-returns this package's parameters — the same dict structure, with the
-per-layer tensors stacked the same way — as tensors on ``device``, the
+``params_from_jax(tree)`` takes the parameters of any model of the JAX
+package (its ``init_params`` tree: nested dicts, such as the hybrid's
+doubly stacked ``mamba``, xLSTM's ``layer_{i}`` and the encoder-decoder's
+stacked ``encoder`` and ``decoder``), handed over as numpy arrays
+(``jax.tree.map(np.asarray, params)``), and returns this package's
+parameters — the same dict structure, with the per-layer tensors stacked
+the same way — as tensors on ``device``, the
 card by default like every entry point of the port.  Without CUDA the
 default raises; a caller on the CPU passes ``"cpu"``.
 """

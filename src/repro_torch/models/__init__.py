@@ -1,1 +1,2 @@
-"""Model definitions.  Only the dense decoder-only LM is ported."""
+"""Model definitions: the lm family (dense, moe, vlm), the hybrid, the
+xLSTM LM and the encoder-decoder, as in the JAX package."""

@@ -1,7 +1,7 @@
 """Uniform model API: ``build_model(cfg)`` returns a ``Model`` with
-init / loss / prefill / decode_step / init_cache.  The dense, moe and vlm
-families (module ``lm``) are ported; hybrid, ssm and audio come with
-ROADMAP A8b-2.
+init / loss / prefill / decode_step / init_cache, dispatching on family
+as the JAX package does: dense, moe and vlm (``lm``), hybrid
+(``hybrid``), ssm (``xlstm_model``) and audio (``encdec``).
 
 Also provides ``input_specs(cfg, shape)`` (meta-device tensors standing in
 for every model input of a cell) and ``make_batch`` (small real batches
@@ -17,7 +17,7 @@ import torch
 
 from ..configs.base import ArchConfig, ShapeSpec
 from ..core.lower_torch import torch_dtype
-from . import lm
+from . import encdec, hybrid, lm, xlstm_model
 
 
 @dataclasses.dataclass
@@ -26,24 +26,40 @@ class Model:
     init: Callable[..., Any]  # init(generator, device="cuda") -> params
     loss: Callable[..., Any]  # loss(params, batch, remat=True) -> (total, metrics)
     # prefill(params, batch, cache) -> (logits, cache); decode_step(params,
-    # cache, tokens) -> (logits, cache).  Both donate the cache: its k and
-    # v buffers are written in place and returned (lm.attention).
+    # cache, tokens) -> (logits, cache).  Both donate the cache: its KV and
+    # recurrent-state buffers are written in place and returned.
     prefill: Callable[..., Any]
     decode_step: Callable[..., Any]
     init_cache: Callable[..., Any]  # init_cache(batch, max_len, dtype=None, device="cuda")
 
 
 def build_model(cfg: ArchConfig) -> Model:
-    if cfg.family not in ("dense", "moe", "vlm"):
-        raise ValueError(f"no model for family {cfg.family} in this package yet "
-                         "(ROADMAP A8b-2)")
+    if cfg.family in ("dense", "moe", "vlm"):
+        mod = lm
+    elif cfg.family == "hybrid":
+        mod = hybrid
+    elif cfg.family == "ssm" and cfg.xlstm is not None:
+        mod = xlstm_model
+    elif cfg.family == "audio" and cfg.enc_dec:
+        mod = encdec
+    else:
+        raise ValueError(f"no model for family {cfg.family}")
+
+    def init(gen: torch.Generator, device="cuda"):
+        """Random parameters from ``gen`` on ``device``: the card unless
+        the caller passes ``"cpu"``; without a card that raises."""
+        if torch.device(device).type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError("init: device 'cuda' but torch.cuda.is_available() is "
+                               "False; pass device='cpu' to draw the parameters onto the CPU")
+        return mod.init_params(cfg, gen, device)
+
     return Model(
         cfg=cfg,
-        init=lambda gen, device="cuda": lm.init_params(cfg, gen, device),
-        loss=lambda p, batch, remat=True: lm.loss_fn(p, cfg, batch, remat=remat),
-        prefill=lambda p, batch, cache: lm.prefill(p, cfg, batch, cache),
-        decode_step=lambda p, cache, tok: lm.decode_step(p, cfg, cache, tok),
-        init_cache=lambda batch, max_len, dtype=None, device="cuda": lm.init_cache(
+        init=init,
+        loss=lambda p, batch, remat=True: mod.loss_fn(p, cfg, batch, remat=remat),
+        prefill=lambda p, batch, cache: mod.prefill(p, cfg, batch, cache),
+        decode_step=lambda p, cache, tok: mod.decode_step(p, cfg, cache, tok),
+        init_cache=lambda batch, max_len, dtype=None, device="cuda": mod.init_cache(
             cfg, batch, max_len, torch_dtype(dtype or cfg.dtype), device),
     )
 

@@ -16,8 +16,8 @@ from ..nn.core import (Params, apply_norm, embed_init, embed_lookup, mlp_apply, 
                        norm_init, param_dtype, softmax_xent, unembed)
 from ..nn.moe import moe_apply, moe_init
 
-__all__ = ["init_params", "block_init", "block_apply", "layer", "loss_fn", "init_cache",
-           "prefill", "decode_step", "_logits", "embed_lookup", "unembed"]
+__all__ = ["init_params", "block_init", "block_apply", "layer", "stacked", "loss_fn",
+           "init_cache", "prefill", "decode_step", "_logits", "embed_lookup", "unembed"]
 
 
 def block_init(gen: torch.Generator, cfg, dtype, device=None) -> Params:
@@ -41,30 +41,35 @@ def _stack_into(dst, src, i: int):
         dst[i].copy_(src)
 
 
-def init_params(cfg, gen: torch.Generator, device="cuda") -> Params:
-    """Random parameters from ``gen`` (drawn on the generator's device),
-    stored on ``device`` (the card unless the caller passes ``"cpu"``) in
-    ``cfg.dtype``; a MoE router stays float32.  Layers are drawn one at a
-    time into the stacked tensors, so peak memory stays one layer above
-    the parameters.  The draws follow the JAX package's order of keys:
-    embed, blocks, unembed, then the VLM's ``patch_proj``."""
-    if torch.device(device).type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("init_params: device 'cuda' but torch.cuda.is_available() is "
-                           "False; pass device='cpu' to draw the parameters onto the CPU")
-    dtype = param_dtype(cfg)
-    embed = embed_init(gen, cfg.padded_vocab, cfg.d_model, dtype, device)
-    first = block_init(gen, cfg, dtype, device)
+def stacked(draw, n: int) -> Params:
+    """``n`` draws of a parameter dict (``draw()``), stacked along a new
+    leading axis: the first allocates the stacked tensors, each later one
+    is drawn and copied into its slice, so peak memory stays one draw
+    above the stack."""
+    first = draw()
 
     def alloc(t):
         if isinstance(t, dict):
             return {k: alloc(v) for k, v in t.items()}
-        out = torch.empty((cfg.n_layers, *t.shape), dtype=t.dtype, device=t.device)
+        out = torch.empty((n, *t.shape), dtype=t.dtype, device=t.device)
         out[0].copy_(t)
         return out
 
-    blocks = alloc(first)
-    for i in range(1, cfg.n_layers):
-        _stack_into(blocks, block_init(gen, cfg, dtype, device), i)
+    out = alloc(first)
+    for i in range(1, n):
+        _stack_into(out, draw(), i)
+    return out
+
+
+def init_params(cfg, gen: torch.Generator, device="cuda") -> Params:
+    """Random parameters from ``gen`` (drawn on the generator's device),
+    stored on ``device`` in ``cfg.dtype``; a MoE router stays float32.
+    Layers are drawn one at a time into the stacked tensors (``stacked``).
+    The draws follow the JAX package's order of keys: embed, blocks,
+    unembed, then the VLM's ``patch_proj``."""
+    dtype = param_dtype(cfg)
+    embed = embed_init(gen, cfg.padded_vocab, cfg.d_model, dtype, device)
+    blocks = stacked(lambda: block_init(gen, cfg, dtype, device), cfg.n_layers)
     p = {"embed": embed, "blocks": blocks,
          "final_norm": norm_init(cfg.d_model, cfg.norm, dtype, device)}
     if not cfg.tie_embeddings:
@@ -76,10 +81,11 @@ def init_params(cfg, gen: torch.Generator, device="cuda") -> Params:
     return p
 
 
-def layer(blocks: Params, i: int) -> Params:
-    """Layer ``i``'s parameters out of the stacked tensors (views)."""
+def layer(blocks: Params, *i: int) -> Params:
+    """Layer ``i``'s parameters (or cache) out of the stacked tensors
+    (views); ``layer(t, g, j)`` indexes two stacked axes."""
     if isinstance(blocks, dict):
-        return {k: layer(v, i) for k, v in blocks.items()}
+        return {k: layer(v, *i) for k, v in blocks.items()}
     return blocks[i]
 
 

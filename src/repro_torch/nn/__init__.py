@@ -1,3 +1,3 @@
 """Neural-network building blocks (plain functions on tensors; parameters
-are dicts of tensors): what the lm family (dense, moe, vlm) needs.  The
-SSM and xLSTM layers come with ROADMAP A8b-2."""
+are dicts of tensors): embeddings, norms, attention, the MLP, MoE, the
+Mamba2 (SSD) block, the xLSTM blocks and the chunked GLA they run on."""

@@ -1,7 +1,7 @@
-"""GQA attention with RoPE variants, qk-norm and a KV cache: parameter
-init, the causal mask, the reference attention ``mha`` (float32 scores)
-and the dense family's ``attention`` layer.  Cross-attention (``memory``)
-comes with the encoder-decoder family (ROADMAP A8b)."""
+"""GQA attention with RoPE variants, qk-norm, a KV cache and
+cross-attention: parameter init, the causal mask, the reference attention
+``mha`` (float32 scores) and the ``attention`` layer (self-attention, or
+cross-attention to an encoder's ``memory``)."""
 from __future__ import annotations
 
 from typing import Dict, Optional, Tuple
@@ -13,7 +13,9 @@ from .core import Params, apply_rope, dense_init, linear, rms_head_norm
 NEG_INF = -1e30
 
 
-def attn_init(gen: torch.Generator, cfg, dtype, device=None) -> Params:
+def attn_init(gen: torch.Generator, cfg, dtype, device=None, cross: bool = False) -> Params:
+    """q, k, v, o (and qk-norm scales).  ``cross`` is unused, as in the
+    JAX package: a cross-attention layer has the same parameters."""
     d, h, kv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
     p = {
         "wq": dense_init(gen, d, h * hd, dtype, device),
@@ -72,11 +74,15 @@ def attention(p: Params, x: torch.Tensor, cfg, *,
               mask: Optional[torch.Tensor] = None,
               causal: bool = True,
               cache: Optional[Dict[str, torch.Tensor]] = None,
+              memory: Optional[torch.Tensor] = None,
               impl: str = "xla") -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]]]:
-    """Self-attention.
+    """Self- or cross-attention.
 
     * training/prefill: ``cache=None`` (or fresh) — full sequence.
     * decode: ``cache`` holds (k, v, pos); x is (B, 1, D).
+    * cross-attention: ``memory`` (B, T, D) is the encoder output; k and v
+      come from it, with no RoPE and no cache, and ``mask`` goes to
+      ``mha`` as given.
 
     ``cache["pos"]`` is a 0-d int32 tensor (the current length): the new
     keys and values are written into the cache's own ``k`` and ``v``
@@ -93,12 +99,17 @@ def attention(p: Params, x: torch.Tensor, cfg, *,
     sm_scale = 1.0 / float(hd) ** 0.5
 
     q = _split_heads(linear(x, p["wq"]), h)
-    k = _split_heads(linear(x, p["wk"]), kvh)
-    v = _split_heads(linear(x, p["wv"]), kvh)
+    kv_src = memory if memory is not None else x
+    k = _split_heads(linear(kv_src, p["wk"]), kvh)
+    v = _split_heads(linear(kv_src, p["wv"]), kvh)
 
     if cfg.qk_norm:
         q = rms_head_norm(q, p["q_norm"])
         k = rms_head_norm(k, p["k_norm"])
+
+    if memory is not None:
+        out = mha(q, k, v, mask, sm_scale)
+        return linear(out.reshape(b, s, h * hd), p["wo"]), None
 
     steps = torch.arange(s, dtype=torch.int32, device=x.device)
     if positions is None:

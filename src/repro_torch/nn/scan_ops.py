@@ -1,8 +1,10 @@
 """Chunked gated linear attention in plain PyTorch: the twin of the JAX
-package's ``nn/scan_ops.py::chunked_gla_jnp`` (a loop over chunks, the
-same math), and the plain version of the GLA kernel
-(``kernels/mlstm_chunk``)."""
+package's ``nn/scan_ops.py`` — ``chunked_gla_torch`` (a loop over chunks,
+the same math as ``chunked_gla_jnp``; also the plain version of the GLA
+kernel, ``kernels/mlstm_chunk``) and ``gla_decode_step`` (one token)."""
 from __future__ import annotations
+
+from typing import Tuple
 
 import torch
 
@@ -57,3 +59,27 @@ def chunked_gla_torch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         outs.append(out)
     out = torch.stack(outs).transpose(0, 1).reshape(b, h, s, dv)
     return out.to(q.dtype)
+
+
+def gla_decode_step(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    log_decay: torch.Tensor, gain: torch.Tensor,
+                    state: Tuple[torch.Tensor, torch.Tensor], normalize: bool = True,
+                    scale: float = 1.0) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
+    """One token's state update, the twin of the JAX package's
+    ``gla_decode_step``: ``C = e^ld C + g k v^T``, ``n = e^ld n + g k`` in
+    float32, then ``q C`` (over ``max(|q n|, 1)`` when ``normalize``).
+    q/k: (B,H,Dk); v: (B,H,Dv); log_decay/gain: (B,H); state: (C
+    (B,H,Dk,Dv), n (B,H,Dk)).  Returns (out (B,H,Dv) in ``q.dtype``, the
+    new (C, n)); the state passed in is not written."""
+    C, nvec = state
+    dec = torch.exp(log_decay.float())[..., None, None]
+    g = gain.float()[..., None, None]
+    kf, vf = k.float(), v.float()
+    C = dec * C + g * (kf[..., :, None] * vf[..., None, :])
+    nvec = dec[..., 0] * nvec + g[..., 0] * kf
+    qf = q.float() * scale
+    out = torch.einsum("bhd,bhdp->bhp", qf, C)
+    if normalize:
+        denom = torch.clamp(torch.einsum("bhd,bhd->bh", qf, nvec).abs(), min=1.0)
+        out = out / denom[..., None]
+    return out.to(q.dtype), (C, nvec)

@@ -7,7 +7,10 @@ sequences are masked out; **the wave retires only when all of its
 sequences finish**, and only then is the next wave admitted — the slot
 bubbles this creates under mixed generation lengths are exactly what the
 continuous-batching :class:`~repro_torch.serving.engine.ServingEngine`
-removes.  It is the one serving path of the moe and vlm families.
+removes.  It is the one serving path of every family but the dense one
+(moe, vlm, hybrid, ssm, audio): the model's cache goes through as the
+model made it (a dict of stacked tensors, xLSTM's list of per-layer
+states, the encoder-decoder's ``memory`` that the prefill fills).
 
 The JAX package jits the model's ``prefill`` and ``decode_step``; here
 they run eagerly on ``device`` (``"cuda"`` by default; with no card that

@@ -1245,20 +1245,14 @@ def test_moe_apply_on_the_card_matches_the_cpu():
     assert abs(got_aux.item() - want_aux.item()) <= 1e-5
 
 
-@pytest.mark.cuda
-def test_wave_serves_qwen3_moe_on_the_card():
-    """A 2-layer qwen3-moe-30b-a3b at full width (bf16, seeded weights
-    drawn on the card) through ``WaveEngine`` on the card, ``oplib`` on
-    ``cuda`` and on ``torch``: every request finishes; the cuda run
-    launches the contraction kernel 4 times a layer a call, tiled at the
-    prefill (4 x 100 rows) and skinny at each decode step, never the
-    general loop; the torch run launches nothing; the first tokens'
-    logits agree within 5e-2 of the row's largest."""
+def _wave_calls(cfg, new_tokens: int = 4):
+    """The serve prompts (17, 40, 64, 100) through ``WaveEngine(model, 4,
+    128)`` on the card, seeded bf16 weights drawn there, ``oplib`` on
+    ``cuda`` and on ``torch``: per backend, each call's launches by path
+    and the logits behind its greedy tokens."""
     from repro_torch import api
     from repro_torch.core import oplib
 
-    _card()
-    cfg = _moe_cfg(n_layers=2)
     model = api.build_model(cfg)
     params = model.init(torch.Generator(device="cuda").manual_seed(0))
     rng = np.random.RandomState(0)
@@ -1285,17 +1279,142 @@ def test_wave_serves_qwen3_moe_on_the_card():
             engine = api.WaveEngine(wrapped, 4, 128)
             for uid, p in enumerate(prompts):
                 engine.submit(api.Request(uid=uid, prompt=p,
-                                          sampling=api.SamplingParams(max_new_tokens=4)))
+                                          sampling=api.SamplingParams(max_new_tokens=new_tokens)))
             done = engine.run(params)
             assert sorted(r.uid for r in done) == [0, 1, 2, 3]
-            assert all(len(r.out_tokens) == 4 for r in done)
+            assert all(len(r.out_tokens) == new_tokens for r in done)
             runs[backend] = calls
     finally:
         oplib.set_backend(old)
-    per_call = 4 * cfg.n_layers
+    return runs
+
+
+def _assert_wave_launches(runs, per_call, new_tokens: int = 4, free_logits: bool = True):
+    """Every projection one launch a call: tiled at the prefill, skinny at
+    each decode step, never the general loop; nothing on ``torch``; the
+    first tokens' logits finite and (``free_logits``) within 5e-2 of the
+    row's largest."""
     assert [c for c, _ in runs["cuda"]] == (
         [{"skinny": 0, "tiled": per_call, "general": 0}]
-        + [{"skinny": per_call, "tiled": 0, "general": 0}] * 3)
+        + [{"skinny": per_call, "tiled": 0, "general": 0}] * (new_tokens - 1))
     assert all(sum(c.values()) == 0 for c, _ in runs["torch"])
     a, b = runs["cuda"][0][1], runs["torch"][0][1]
-    assert ((a - b).abs().amax(-1) / b.abs().amax(-1)).max().item() <= 5e-2
+    assert torch.isfinite(a).all()
+    if free_logits:
+        assert ((a - b).abs().amax(-1) / b.abs().amax(-1)).max().item() <= 5e-2
+
+
+def _hold_hybrid_blocks(cfg):
+    """The hybrid's prefill (4 x 100 tokens) on ``cuda`` keeping every
+    block's input and output, then on ``torch`` feeding each block the
+    kept input: each block's output within 5e-2 of its largest element.
+    No residual runs around a Mamba2 layer, so a free run amplifies a
+    rounding difference about 1.5 times a block (chip_smoke phase 12)."""
+    from repro_torch import api
+    from repro_torch.core import oplib
+    from repro_torch.models import hybrid
+
+    model = api.build_model(cfg)
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    toks = torch.from_numpy(np.random.RandomState(0).randint(1, cfg.vocab, size=(4, 100)))
+    batch = {"tokens": toks.cuda()}
+    real = {n: getattr(hybrid, n) for n in ("_shared_block", "mamba2_apply")}
+    kept, errs = [], []
+
+    def keeping(fn):
+        def call(p, x, *a, **kw):
+            out = fn(p, x, *a, **kw)
+            kept.append((x, out[0]))
+            return out
+        return call
+
+    def replaying(fn):
+        def call(p, x, *a, **kw):
+            x, want = kept[len(errs)]
+            out = fn(p, x, *a, **kw)
+            errs.append(((out[0].float() - want.float()).abs().max()
+                         / want.float().abs().max()).item())
+            return out
+        return call
+
+    old = oplib.get_backend()
+    try:
+        for backend, wrap in (("cuda", keeping), ("torch", replaying)):
+            oplib.set_backend(backend)
+            for n, fn in real.items():
+                setattr(hybrid, n, wrap(fn))
+            model.prefill(params, batch, model.init_cache(4, 128))
+    finally:
+        oplib.set_backend(old)
+        for n, fn in real.items():
+            setattr(hybrid, n, fn)
+    groups = -(-cfg.n_layers // cfg.hybrid.shared_attn_every)
+    assert len(errs) == len(kept) == groups * (1 + cfg.hybrid.shared_attn_every)
+    assert max(errs) <= 5e-2, errs
+
+
+@pytest.mark.cuda
+def test_wave_serves_qwen3_moe_on_the_card():
+    """A 2-layer qwen3-moe-30b-a3b at full width (bf16, seeded weights
+    drawn on the card) through ``WaveEngine`` on the card, ``oplib`` on
+    ``cuda`` and on ``torch``: every request finishes; the cuda run
+    launches the contraction kernel 4 times a layer a call, tiled at the
+    prefill (4 x 100 rows) and skinny at each decode step, never the
+    general loop; the torch run launches nothing; the first tokens'
+    logits agree within 5e-2 of the row's largest."""
+    _card()
+    cfg = _moe_cfg(n_layers=2)
+    _assert_wave_launches(_wave_calls(cfg), 4 * cfg.n_layers)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [400, 4])
+def test_zamba2_ragged_in_proj_on_the_card(m):
+    """zamba2-2.7b's Mamba2 ``in_proj``, 2560 -> 10448 (2 * 5120 + 2 * 64
+    + 80: no multiple of a tile), bf16, at the wave's prefill rows (4 x
+    100) and decode rows: one launch (tiled on wgmma, or skinny) against
+    its plain version."""
+    from repro_torch.core import oplib
+
+    _card()
+    k, n = 2560, 10448
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    x = torch.randn(m, k, generator=gen, device="cuda").to(torch.bfloat16)
+    w = (torch.randn(k, n, generator=gen, device="cuda") * k ** -0.5).to(torch.bfloat16)
+    path = "tiled" if m == 400 else "skinny"
+    old = oplib.get_backend()
+    oplib.set_backend("cuda")
+    try:
+        before = dict(K.launches_by_path)
+        got = oplib.linear(x, w)
+        torch.cuda.synchronize()
+        ran = {p: K.launches_by_path[p] - before[p] for p in before}
+    finally:
+        oplib.set_backend(old)
+    assert ran == {**{p: 0 for p in ran}, path: 1}, ran
+    op = oplib._compiled_linear(m, k, n, "bfloat16", "float32", None, False, "cuda")
+    ((_unit, kind, (fn,)),) = op.cuda_fn.steps
+    assert kind == "cuda" and fn.out_shape == (m, n)
+    _assert_kernel_close(got, fn.plain({"X": x, "W": w}), f"zamba2 in_proj at {m} rows")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["zamba2-2.7b", "xlstm-125m"])
+def test_wave_serves_the_families_on_the_card(name):
+    """A 2-layer zamba2-2.7b (its one group: the shared block, then 6
+    Mamba2 layers, as the reference builds ceil(2 / 6) groups of 6) and a
+    2-layer xlstm-125m (an mLSTM and an sLSTM block) at full width, bf16,
+    through ``WaveEngine`` on the card as the qwen3-moe test runs it:
+    7 + 6 x 2 = 19 and 5 + 3 = 8 contraction launches a call.  xlstm's
+    first logits are held free; zamba2's 7 blocks are held one by one on
+    the same inputs (``_hold_hybrid_blocks``)."""
+    from repro_torch import configs
+
+    _card()
+    cfg = dataclasses.replace(configs.get(name), n_layers=2)
+    if cfg.xlstm:
+        cfg = dataclasses.replace(cfg, xlstm=dataclasses.replace(cfg.xlstm, slstm_at=(1,)))
+    _assert_wave_launches(_wave_calls(cfg), {"zamba2-2.7b": 19, "xlstm-125m": 8}[name],
+                          free_logits=cfg.family != "hybrid")
+    if cfg.family == "hybrid":
+        _hold_hybrid_blocks(cfg)

@@ -346,8 +346,13 @@ def test_init_cache_matches_reference_layout():
 
 
 def test_other_families_refuse_and_cite_the_roadmap():
+    """Every family of the registry builds now; a config whose family has
+    no model (an ssm config without ``xlstm``) is refused with the
+    reference's error."""
     import dataclasses
 
     cfg = dataclasses.replace(api.configs.get("llama3-8b"), family="ssm")
-    with pytest.raises(ValueError, match="A8b"):
-        api.build_model(cfg)
+    jcfg = dataclasses.replace(j_configs.get("llama3-8b"), family="ssm")
+    for build, c in ((api.build_model, cfg), (j_build, jcfg)):
+        with pytest.raises(ValueError, match="no model for family ssm"):
+            build(c)

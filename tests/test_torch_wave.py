@@ -5,9 +5,13 @@ with ``params_from_jax``) and the same requests go through the JAX
 ``WaveEngine`` (``jax.jit`` of the model, oplib on ``jnp``) and the
 port's ``WaveEngine(device="cpu")`` (eager, oplib on ``torch`` or on
 ``cuda``, whose kernels run their plain versions on CPU tensors), for a
-scaled llama3-8b, qwen3-moe-30b-a3b and internvl2-26b (zero patches in
-front of every prompt): prompts of mixed lengths, left-padded to each
-wave's longest, 2 slots.  Greedy tokens must be identical (float32), and
+scaled llama3-8b, qwen3-moe-30b-a3b, internvl2-26b (zero patches in
+front of every prompt), zamba2-2.7b, xlstm-125m (a list of per-layer
+states as the cache) and seamless-m4t-large-v2 (zero frames for the
+encoder; a ``memory: None`` cache that the prefill fills; on ``torch``
+only, as under ``cuda`` both packages raise on its relu2 MLP, ROADMAP
+C9): prompts of mixed lengths, left-padded to each wave's longest, 2
+slots.  Greedy tokens must be identical (float32), and
 the bucket records (``compile_log``: one per cold (slots, prompt length);
 ``cache_stats``: hits and misses) the same.  The port's batch-1 wave
 gives the port's ``ServingEngine`` tokens, as the reference's serving
@@ -30,7 +34,8 @@ from repro.serving import WaveEngine as JWave  # noqa: E402
 from repro_torch import api  # noqa: E402
 from repro_torch.core import oplib as t_oplib  # noqa: E402
 
-NAMES = ["llama3-8b", "qwen3-moe-30b-a3b", "internvl2-26b"]
+NAMES = ["llama3-8b", "qwen3-moe-30b-a3b", "internvl2-26b", "zamba2-2.7b", "xlstm-125m",
+         "seamless-m4t-large-v2"]
 # waves of 2: prompt lengths 11, 11 (a warm bucket), 17
 PLENS = [5, 11, 3, 11, 17, 8]
 SLOTS, MAX_LEN, NEW = 2, 48, 6
@@ -76,6 +81,19 @@ def test_wave_tokens_and_buckets_match_reference(models, name, backend, backends
     j_oplib.set_backend("jnp")
     t_oplib.set_backend(backend)
     prompts = _prompts(tm.cfg.vocab)
+    if backend == "cuda" and tm.cfg.act == "relu2":
+        # ROADMAP C9: seamless's relu2 MLP has no Tile intrinsic, so it
+        # serves on oplib's kernel backend in neither package (a model
+        # built afresh: jax.jit keeps the traces of the model's functions,
+        # which a torch case may have traced on jnp)
+        j_oplib.set_backend("pallas_interpret")
+        fresh = j_build(jm.cfg)
+        for eng, req, smp, params in ((JWave(fresh, SLOTS, MAX_LEN), JRequest, JSampling, jp),
+                                      (api.WaveEngine(tm, SLOTS, MAX_LEN, device="cpu"),
+                                       api.Request, api.SamplingParams, tp)):
+            with pytest.raises(ValueError, match="unknown intrinsic 'relu2'"):
+                _run(eng, req, smp, params, prompts)
+        return
     je = JWave(jm, SLOTS, MAX_LEN)
     te = api.WaveEngine(tm, SLOTS, MAX_LEN, device="cpu")
     want = _run(je, JRequest, JSampling, jp, prompts)
