@@ -254,6 +254,7 @@ version and the yardstick run.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import statistics
@@ -305,12 +306,13 @@ RESNET_BATCH = 8
 WAVE_SLOTS = 4
 WAVE_MOE, WAVE_MOE_MAX_LEN = "qwen3-moe-30b-a3b", 128
 WAVE_VLM, WAVE_VLM_MAX_LEN, WAVE_VLM_LAYERS = "internvl2-26b", 384, 4
-# phase 12: the hybrid, ssm and audio families, each with the oplib
-# backends it serves on (seamless's relu2 MLP has no Tile intrinsic,
-# ROADMAP C9), and their KV window
-FAMILIES = (("zamba2-2.7b", ("cuda", "torch")), ("xlstm-125m", ("cuda", "torch")),
-            ("seamless-m4t-large-v2", ("torch",)))
+# phase 12: the hybrid, ssm and audio families, and their KV window
+FAMILIES = ("zamba2-2.7b", "xlstm-125m", "seamless-m4t-large-v2")
 FAMILY_MAX_LEN = 128
+# the hybrid's blocks (``models/hybrid.py``): the shared block and a
+# Mamba2 layer; no residual runs around a Mamba2 layer, so each block's
+# output is the next one's input
+HYBRID_BLOCKS = ("_shared_block", "mamba2_apply")
 # every kernel (its source is csrc/<name>.cu), and those the compiler's
 # units launch (the sweep must reach each of these)
 KERNEL_MODULES = ("contraction", "elementwise", "windowed", "flash_attention", "gla")
@@ -1410,12 +1412,54 @@ def model(torch, api, K, cfg, params) -> dict:
                for k in ("prefill_ms", "decode_step_ms_median", "decode_step_ms")}}
 
 
-def wave(torch, api, K, cfg, max_len: int, new_tokens: int,
-         backends=("cuda", "torch")) -> dict:
+def oplib_backends(cfg) -> tuple:
+    """The ``oplib`` backends a model serves on: ``cuda`` and ``torch``,
+    or ``torch`` alone for a ``relu2`` MLP, which has no Tile intrinsic
+    (ROADMAP C9: seamless-m4t-large-v2, nemotron)."""
+    return ("torch",) if cfg.act == "relu2" else ("cuda", "torch")
+
+
+@contextlib.contextmanager
+def hybrid_blocks(kept: list, hold=None):
+    """Patch the hybrid's blocks (``HYBRID_BLOCKS`` of
+    ``repro_torch.models.hybrid``) while the body runs.  With no ``hold``
+    each call appends its ``(input, output)`` to ``kept``; with one, each
+    call takes the next kept input in place of its own and passes
+    ``(output, kept output)`` to ``hold``, and every kept pair must have
+    been used when the body ends."""
+    from repro_torch.models import hybrid
+
+    real = {n: getattr(hybrid, n) for n in HYBRID_BLOCKS}
+    items = iter(kept)
+
+    def wrap(fn):
+        def call(p, x, *a, **kw):
+            if hold is None:
+                out = fn(p, x, *a, **kw)
+                kept.append((x, out[0]))
+            else:
+                x, want = next(items)
+                out = fn(p, x, *a, **kw)
+                hold(out[0], want)
+            return out
+        return call
+
+    for n, fn in real.items():
+        setattr(hybrid, n, wrap(fn))
+    try:
+        yield
+        if hold is not None and next(items, None) is not None:
+            raise AssertionError("hybrid_blocks: the replay left kept blocks unused")
+    finally:
+        for n, fn in real.items():
+            setattr(hybrid, n, fn)
+
+
+def wave(torch, api, K, cfg, max_len: int, new_tokens: int) -> dict:
     """Phases 11 and 12 for one model: seeded random weights drawn on the
     card, a layer at a time; the serve phase's prompts through
     ``WaveEngine(model, WAVE_SLOTS, max_len)`` with ``oplib`` on each of
-    ``backends`` (``cuda`` and ``torch``), each timed run after an untimed
+    its backends (``oplib_backends``), each timed run after an untimed
     one that compiles and loads what it calls.  A model served on
     ``torch`` alone (seamless-m4t-large-v2, ROADMAP C9) must first be
     refused by the ``cuda`` backend at its MLP (``_c9``), and its logits
@@ -1439,17 +1483,15 @@ def wave(torch, api, K, cfg, max_len: int, new_tokens: int,
     expert's share (``scripts/moe_routing.py`` shows the same with two
     ``torch`` runs that differ only in the projections' rounding).  The
     hybrid's ``cuda`` run keeps each block's input and output (the shared
-    block and every Mamba2 layer, ``models.hybrid._shared_block`` and
-    ``mamba2_apply`` patched; no residual runs around a Mamba2 layer, so a
-    block's output is the next one's input), and the ``torch`` run feeds
-    every block the kept input and holds its output against the kept one
-    within ``LOGIT_RTOL`` of the largest, then the logits: left free, 63
-    blocks without a residual path amplify a rounding difference about
-    1.5 times a block, so two runs that differ only in rounding part
-    completely (``scripts/hybrid_divergence.py``)."""
+    block and every Mamba2 layer, ``hybrid_blocks``), and the ``torch``
+    run feeds every block the kept input and holds its output against the
+    kept one within ``LOGIT_RTOL`` of the largest, then the logits: left
+    free, 63 blocks without a residual path amplify a rounding difference
+    about 1.5 times a block, so two runs that differ only in rounding part
+    completely (``scripts/hybrid_divergence.py``; the JAX package's own
+    prefill parts the same way, ``tests/zamba2_reference_witness.py``)."""
     import numpy as np
     from repro_torch.core import oplib
-    from repro_torch.models import hybrid
     from repro_torch.nn import moe
 
     cuda = DEVICE == "cuda"
@@ -1467,65 +1509,60 @@ def wave(torch, api, K, cfg, max_len: int, new_tokens: int,
     # what the recording run keeps, call by call, layer by layer: a MoE
     # layer's expert choices, or a hybrid block's (input, output)
     kept: list = []
-    replay = iter(())
     block_err = {"max": 0.0, "blocks": 0}
-    real_route = moe.route
-    real_blocks = {name: getattr(hybrid, name) for name in ("_shared_block", "mamba2_apply")}
 
-    def recording(p, x, c):
-        probs, idx = real_route(p, x, c)
-        kept.append(idx)
-        return probs, idx
+    @contextlib.contextmanager
+    def routes(replay: bool):
+        real_route, items = moe.route, iter(kept)
 
-    def replaying(p, x, c):
-        return real_route(p, x, c)[0], next(replay)
+        def route(p, x, c):
+            probs, idx = real_route(p, x, c)
+            if replay:
+                return probs, next(items)
+            kept.append(idx)
+            return probs, idx
 
-    def block_recording(real):
-        def call(p, x, *a, **kw):
-            out = real(p, x, *a, **kw)
-            kept.append((x, out[0]))
-            return out
-        return call
+        moe.route = route
+        try:
+            yield
+        finally:
+            moe.route = real_route
+        if replay and next(items, None) is not None:
+            raise AssertionError(f"wave {cfg.name}: the replay left recorded routes unused")
 
-    def block_replaying(real):
-        def call(p, x, *a, **kw):
-            x, want = next(replay)
-            out = real(p, x, *a, **kw)
-            rel = ((out[0].float() - want.float()).abs().max() / want.float().abs().max()).item()
-            block_err["max"] = max(block_err["max"], rel)
-            block_err["blocks"] += 1
-            if not rel <= LOGIT_RTOL:
-                raise AssertionError(f"wave {cfg.name}: block {block_err['blocks'] - 1} of the "
-                                     f"replay differs by {rel:.3e} of its largest output "
-                                     f"(tolerance {LOGIT_RTOL})")
-            return out
-        return call
+    def block_held(out, want):
+        rel = ((out.float() - want.float()).abs().max() / want.float().abs().max()).item()
+        block_err["max"] = max(block_err["max"], rel)
+        block_err["blocks"] += 1
+        if not rel <= LOGIT_RTOL:
+            raise AssertionError(f"wave {cfg.name}: block {block_err['blocks'] - 1} of the "
+                                 f"replay differs by {rel:.3e} of its largest output "
+                                 f"(tolerance {LOGIT_RTOL})")
 
-    # (run, backend, new tokens, the functions patched in: {(module, name):
-    # function}); a replaying run replays what the recording run kept; an
-    # untimed run with nothing to keep only compiles and loads, so 2
-    # tokens do
-    rec_patch = replay_patch = None
+    # (run, backend, new tokens, what is patched in while it runs); a
+    # replaying run replays what the recording run kept; an untimed run
+    # with nothing to keep only compiles and loads, so 2 tokens do
+    keep = replay_with = None
     if cfg.moe:
-        rec_patch, replay_patch = {(moe, "route"): recording}, {(moe, "route"): replaying}
+        keep, replay_with = lambda: routes(False), lambda: routes(True)
     elif cfg.family == "hybrid":
-        rec_patch, replay_patch = ({(hybrid, n): wrap(f) for n, f in real_blocks.items()}
-                                   for wrap in (block_recording, block_replaying))
-    if rec_patch:
-        plan = (("cuda_kept", "cuda", new_tokens, rec_patch), ("cuda", "cuda", new_tokens, {}),
-                ("torch_replay", "torch", new_tokens, replay_patch),
-                ("torch", "torch", new_tokens, {}))
+        keep, replay_with = lambda: hybrid_blocks(kept), lambda: hybrid_blocks(kept, block_held)
+    backends = oplib_backends(cfg)
+    if keep:
+        plan = (("cuda_kept", "cuda", new_tokens, keep),
+                ("cuda", "cuda", new_tokens, contextlib.nullcontext),
+                ("torch_replay", "torch", new_tokens, replay_with),
+                ("torch", "torch", new_tokens, contextlib.nullcontext))
     else:
         plan = tuple(run for b in backends
-                     for run in ((f"{b}_warm", b, 2, {}), (b, b, new_tokens, {})))
+                     for run in ((f"{b}_warm", b, 2, contextlib.nullcontext),
+                                 (b, b, new_tokens, contextlib.nullcontext)))
     c9 = None if "cuda" in backends else _c9(torch, cfg, params, WAVE_SLOTS * plen)
     runs = {}
     old = oplib.get_backend()
     try:
         for run, backend, n_new, patch in plan:
             oplib.set_backend(backend)
-            if patch is replay_patch:
-                replay = iter(kept)
             rec = {"ms": [], "by_call": [], "rows": []}
 
             def recorded(fn, rec=rec):
@@ -1550,16 +1587,10 @@ def wave(torch, api, K, cfg, max_len: int, new_tokens: int,
             _zero_counts(K)
             if cuda:
                 torch.cuda.reset_peak_memory_stats()
-            real = {key: getattr(*key) for key in patch}
-            for (mod, name), fn in patch.items():
-                setattr(mod, name, fn)
             t0 = time.perf_counter()
-            try:
+            with patch():
                 done = engine.run(params)
                 _sync(torch)
-            finally:
-                for (mod, name), fn in real.items():
-                    setattr(mod, name, fn)
             wall = time.perf_counter() - t0
             if sorted(r.uid for r in done) != list(range(len(PROMPT_LENS))) or any(
                     not r.done or len(r.out_tokens) != n_new for r in done):
@@ -1578,8 +1609,6 @@ def wave(torch, api, K, cfg, max_len: int, new_tokens: int,
                 "compile_log": engine.compile_log()}
     finally:
         oplib.set_backend(old)
-    if next(replay, None) is not None:
-        raise AssertionError(f"wave {cfg.name}: the replay left recorded items unused")
     del kept
     for run, r in runs.items():
         if r["backend"] == "torch":
@@ -2073,17 +2102,18 @@ def main() -> None:
     # phase 12: the hybrid, ssm and audio families through the wave
     # engine at full width and depth
     fam = {}
-    for name, backends in FAMILIES:
+    for name in FAMILIES:
         fcfg = api.configs.get(name)
         fcfg = dataclasses.replace(fcfg, n_layers=args.layers or fcfg.n_layers)
         t0 = time.perf_counter()
-        fam[name] = w = wave(torch, api, K, fcfg, FAMILY_MAX_LEN, args.new_tokens, backends)
+        fam[name] = w = wave(torch, api, K, fcfg, FAMILY_MAX_LEN, args.new_tokens)
         print(f"families: {name} {fcfg.n_layers} layers, d_model {fcfg.d_model}, WaveEngine "
               f"{WAVE_SLOTS} slots, prompts {PROMPT_LENS}, {args.new_tokens} new tokens, oplib "
-              f"{' against '.join(backends)}, in {time.perf_counter() - t0:.1f} s; card {card}: "
+              f"{' against '.join(w['backends'])}, in {time.perf_counter() - t0:.1f} s; "
+              f"card {card}: "
               + json.dumps({k: v for k, v in w.items() if not k.endswith("decode_step_ms")}),
               flush=True)
-        for b in backends:
+        for b in w["backends"]:
             print(f"families: {name} [{b}] prefill {w[f'{b}_prefill_ms']:.3f} ms, decode step "
                   f"median {w[f'{b}_decode_step_ms_median']:.3f} ms, "
                   f"{w[f'{b}_tok_per_s']:.2f} tokens/s, peak "

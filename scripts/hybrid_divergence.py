@@ -4,31 +4,30 @@ on one NVIDIA card: ``oplib`` on ``cuda`` against ``torch``, and, as
 witnesses that run no kernel of the port, two ``torch`` prefills that
 differ only in the projections' rounding or only in the gelu's form.
 
-    python3 scripts/hybrid_divergence.py              # zamba2-2.7b, 54 layers
-    python3 scripts/hybrid_divergence.py --layers 12
+    python3 scripts/hybrid_divergence.py
 
-Seeded random bf16 weights and the wave's prefill (``chip_smoke.py``'s
-phase 12: the serve phase's 4 prompts left-padded to 100 tokens), one
-``Model.prefill`` a run.  Four runs: ``cuda``; ``torch``;
+zamba2-2.7b at full width and depth (54 Mamba2 layers): seeded random
+bf16 weights and the wave's prefill (``chip_smoke.py``'s phase 12: the
+serve phase's 4 prompts left-padded to 100 tokens), one
+``Model.prefill`` a run. Four runs: ``cuda``; ``torch``;
 ``torch_split``, the torch backend with each projection summed in
 float32 over the two halves of K, rounded to bf16 once, then its
 activation (the same products, another order of the sums: a rounding
 difference, as the kernel's against cuBLAS's); and ``torch_erf``, the
-torch backend with the shared block's gate in gelu's erf form (the Stripe
-intrinsic that the ``cuda`` backend runs) instead of the tanh form.  Each
-run records every block's output (the shared block's 9 applications and
-the 54 Mamba2 layers, in order: no residual runs around a Mamba2 layer,
-so a block's output is the next block's input).  One JSON line a pair,
-against ``torch``: each block's largest difference over the largest
-element of ``torch``'s output, the final logits' the same way, and the
-growth a block ((d_j / d_i)^(1 / (j - i)) from the first block whose
-difference d_i is not 0 to the last, j, whose difference is under 0.3).
+torch backend with the shared block's gate in gelu's erf form (the
+Stripe intrinsic that the ``cuda`` backend runs) instead of the tanh
+form. Each run records every block's output
+(``chip_smoke.hybrid_blocks``: the shared block's 9 applications and the
+54 Mamba2 layers, in order: no residual runs around a Mamba2 layer, so a
+block's output is the next block's input). One JSON line a pair, against
+``torch``: each block's largest difference over the largest element of
+``torch``'s output, the final logits' the same way, and the growth a
+block (``growth_a_block``).
 Exits non-zero without a card.
 """
 from __future__ import annotations
 
 import argparse
-import dataclasses
 import json
 import sys
 from pathlib import Path
@@ -67,42 +66,42 @@ def _set(obj, name, value):
 def _run(torch, model, params, batch, backend, patches):
     """One prefill with ``patches`` ([(object, name, value)]) in force;
     returns every block's output and the logits, as float32."""
+    from chip_smoke import hybrid_blocks
     from repro_torch.core import oplib
-    from repro_torch.models import hybrid
 
-    outs = []
-
-    def recording(fn):
-        def call(*a, **kw):
-            out = fn(*a, **kw)
-            outs.append(out[0].float())
-            return out
-        return call
-
-    patches = patches + [(hybrid, n, recording(getattr(hybrid, n)))
-                         for n in ("_shared_block", "mamba2_apply")]
+    kept = []
     saved = [(obj, name, _set(obj, name, value)) for obj, name, value in patches]
     old = oplib.get_backend()
     oplib.set_backend(backend)
     try:
-        logits, _ = model.prefill(params, batch, model.init_cache(SLOTS, 128))
-        torch.cuda.synchronize()
+        with hybrid_blocks(kept):
+            logits, _ = model.prefill(params, batch, model.init_cache(SLOTS, 128))
+            torch.cuda.synchronize()
     finally:
         for obj, name, value in reversed(saved):
             _set(obj, name, value)
         oplib.set_backend(old)
-    return outs, logits.float()
+    return [out.float() for _, out in kept], logits.float()
 
 
 def _rel(a, b) -> float:
     return ((a - b).abs().max() / b.abs().max()).item()
 
 
+def growth_a_block(per_block):
+    """(d_j / d_i)^(1 / (j - i)) from the first block whose difference d_i
+    is not 0 to the last, j, whose difference is under 0.3; None if there
+    is no such pair."""
+    first = next((i for i, d in enumerate(per_block) if d > 0), None)
+    last = max((i for i, d in enumerate(per_block) if 0 < d <= 0.3 and i > (first or 0)),
+               default=None)
+    if first is None or last is None:
+        return None
+    return (per_block[last] / per_block[first]) ** (1 / (last - first))
+
+
 def main() -> None:
-    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--model", default="zamba2-2.7b", help="a hybrid config")
-    ap.add_argument("--layers", type=int, default=None, help="depth (default: the model's)")
-    args = ap.parse_args()
+    argparse.ArgumentParser(description=__doc__.split("\n\n")[0]).parse_args()
     import numpy as np
     import torch
     import torch.nn.functional as F
@@ -112,10 +111,7 @@ def main() -> None:
     from repro_torch import api
     from repro_torch.nn import attention, core, ssm
 
-    cfg = api.configs.get(args.model)
-    if cfg.family != "hybrid":
-        sys.exit(f"hybrid_divergence: {cfg.name} is not a hybrid")
-    cfg = dataclasses.replace(cfg, n_layers=args.layers or cfg.n_layers)
+    cfg = api.configs.get("zamba2-2.7b")
     model = api.build_model(cfg)
     params = model.init(torch.Generator(device="cuda").manual_seed(0))
     rng = np.random.RandomState(0)
@@ -135,15 +131,10 @@ def main() -> None:
     for name in ("cuda", "torch_split", "torch_erf"):
         outs, logits = runs[name]
         per_block = [_rel(a, b) for a, b in zip(outs, ref_outs)]
-        # the first nonzero difference and the last under 0.3 after it
-        first = next((i for i, d in enumerate(per_block) if d > 0), None)
-        last = max((i for i, d in enumerate(per_block) if 0 < d <= 0.3 and i > (first or 0)),
-                   default=None)
-        growth = (None if first is None or last is None
-                  else (per_block[last] / per_block[first]) ** (1 / (last - first)))
         print(json.dumps({"pair": f"{name} against torch", "model": cfg.name,
                           "layers": cfg.n_layers, "blocks": len(per_block),
-                          "logits_rel": _rel(logits, ref_logits), "growth_a_block": growth,
+                          "logits_rel": _rel(logits, ref_logits),
+                          "growth_a_block": growth_a_block(per_block),
                           "block_rel": per_block}), flush=True)
 
 

@@ -12,7 +12,9 @@ weights from a seeded generator (``--model``, at full width, its full
 depth unless ``--layers``), ``Model.prefill`` on 4 prompts of
 ``--prompt`` tokens (64 by default; 100 is phase 11's longest) and
 ``Model.decode_step`` at batch 4, with ``oplib`` on ``cuda`` (every
-projection one launch of the contraction kernel) and on ``torch``.  Each
+projection one launch of the contraction kernel) and on ``torch``, or on
+``torch`` alone for a ``relu2`` MLP (``chip_smoke.oplib_backends``,
+ROADMAP C9).  Each
 call runs once untimed, then under ``torch.profiler`` (CPU and CUDA
 activities): the line gives the call's host-clock time (with
 ``torch.cuda.synchronize()``), the card's busy time (the union of its
@@ -155,9 +157,6 @@ def main() -> None:
     ap.add_argument("--layers", type=int, default=None, help="depth (default: the model's)")
     ap.add_argument("--prompt", type=int, default=64, help="prompt tokens of each of 4 rows")
     ap.add_argument("--max-len", type=int, default=72, help="KV cache rows")
-    ap.add_argument("--backends", default="cuda,torch",
-                    help="oplib backends, in order (seamless-m4t-large-v2 runs on torch only: "
-                         "ROADMAP C9)")
     args = ap.parse_args()
     import dataclasses
 
@@ -165,6 +164,7 @@ def main() -> None:
 
     if not torch.cuda.is_available():
         sys.exit("model_profile: needs an NVIDIA card")
+    import chip_smoke
     from repro_torch import api
     from repro_torch.core import oplib
 
@@ -177,7 +177,7 @@ def main() -> None:
     model = api.build_model(cfg)
     params = model.init(torch.Generator(device="cuda").manual_seed(0))
     batch = api.make_batch(cfg, "prefill", 4, args.prompt, seed=0)
-    for backend in args.backends.split(","):
+    for backend in chip_smoke.oplib_backends(cfg):
         oplib.set_backend(backend)
         logits, cache = model.prefill(params, batch, model.init_cache(4, args.max_len))
         tok = logits[:, -1:].argmax(-1).int()

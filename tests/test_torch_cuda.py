@@ -1305,51 +1305,43 @@ def _assert_wave_launches(runs, per_call, new_tokens: int = 4, free_logits: bool
 
 
 def _hold_hybrid_blocks(cfg):
-    """The hybrid's prefill (4 x 100 tokens) on ``cuda`` keeping every
-    block's input and output, then on ``torch`` feeding each block the
-    kept input: each block's output within 5e-2 of its largest element.
-    No residual runs around a Mamba2 layer, so a free run amplifies a
-    rounding difference about 1.5 times a block (chip_smoke phase 12)."""
+    """The hybrid's prefill (4 x 100 tokens) and one decode step on
+    ``cuda``, keeping every block's input and output, then on ``torch``
+    feeding each block the kept input (``chip_smoke.hybrid_blocks``): each
+    block's output within 5e-2 of its largest element.  No residual runs
+    around a Mamba2 layer, so a free run amplifies a rounding difference
+    about 1.5 times a block (chip_smoke phase 12)."""
+    import sys
+    from pathlib import Path
+
+    root = str(Path(__file__).resolve().parents[1])
+    if root not in sys.path:
+        sys.path.insert(0, root)
+    from chip_smoke import hybrid_blocks
     from repro_torch import api
     from repro_torch.core import oplib
-    from repro_torch.models import hybrid
 
     model = api.build_model(cfg)
     params = model.init(torch.Generator(device="cuda").manual_seed(0))
-    toks = torch.from_numpy(np.random.RandomState(0).randint(1, cfg.vocab, size=(4, 100)))
-    batch = {"tokens": toks.cuda()}
-    real = {n: getattr(hybrid, n) for n in ("_shared_block", "mamba2_apply")}
+    rng = np.random.RandomState(0)
+    batch = {"tokens": torch.from_numpy(rng.randint(1, cfg.vocab, size=(4, 100))).cuda()}
+    step = torch.from_numpy(rng.randint(1, cfg.vocab, size=(4, 1))).cuda()
     kept, errs = [], []
 
-    def keeping(fn):
-        def call(p, x, *a, **kw):
-            out = fn(p, x, *a, **kw)
-            kept.append((x, out[0]))
-            return out
-        return call
-
-    def replaying(fn):
-        def call(p, x, *a, **kw):
-            x, want = kept[len(errs)]
-            out = fn(p, x, *a, **kw)
-            errs.append(((out[0].float() - want.float()).abs().max()
-                         / want.float().abs().max()).item())
-            return out
-        return call
+    def held(out, want):
+        errs.append(((out.float() - want.float()).abs().max() / want.float().abs().max()).item())
 
     old = oplib.get_backend()
     try:
-        for backend, wrap in (("cuda", keeping), ("torch", replaying)):
+        for backend, hold in (("cuda", None), ("torch", held)):
             oplib.set_backend(backend)
-            for n, fn in real.items():
-                setattr(hybrid, n, wrap(fn))
-            model.prefill(params, batch, model.init_cache(4, 128))
+            with hybrid_blocks(kept, hold):
+                _, cache = model.prefill(params, batch, model.init_cache(4, 128))
+                model.decode_step(params, cache, step)
     finally:
         oplib.set_backend(old)
-        for n, fn in real.items():
-            setattr(hybrid, n, fn)
     groups = -(-cfg.n_layers // cfg.hybrid.shared_attn_every)
-    assert len(errs) == len(kept) == groups * (1 + cfg.hybrid.shared_attn_every)
+    assert len(errs) == len(kept) == 2 * groups * (1 + cfg.hybrid.shared_attn_every)
     assert max(errs) <= 5e-2, errs
 
 
@@ -1407,7 +1399,8 @@ def test_wave_serves_the_families_on_the_card(name):
     through ``WaveEngine`` on the card as the qwen3-moe test runs it:
     7 + 6 x 2 = 19 and 5 + 3 = 8 contraction launches a call.  xlstm's
     first logits are held free; zamba2's 7 blocks are held one by one on
-    the same inputs (``_hold_hybrid_blocks``)."""
+    the same inputs, at the prefill and one decode step
+    (``_hold_hybrid_blocks``)."""
     from repro_torch import configs
 
     _card()
