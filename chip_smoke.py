@@ -227,15 +227,41 @@ and prints no result):
    ``w_up`` on the card; its logits must be finite.  Times, peak memory
    and launches print as in phase 11.
 
-The run order is 1-6, 10, 11, 12, 7, 9, 8: phase 10 reuses the serve
+13. **training** — after phase 12, every earlier model freed (the memory
+   still allocated prints first), with ``oplib`` on ``torch``: the
+   hand-written kernels have no backward (ROADMAP C11), so the phase
+   must launch none of them.  (a) ``Trainer`` on llama3-8b at full width
+   and ``TRAIN_LAYERS`` of its 32 layers, bf16 weights, ``TRAIN_BATCH`` x
+   ``TRAIN_SEQ`` tokens a step, ``TRAIN_STEPS`` steps of AdamW (``TRAIN_OPT``),
+   remat on: each step's loss, grad norm, lr and time (host clock after
+   ``torch.cuda.synchronize()``), the median of steps 2 on, tokens/s, the
+   model-FLOPs share (6 x the matrix parameters x tokens plus causal
+   attention, over the step time, against 989 TFLOP/s bf16 dense; remat's
+   recompute not counted) and ``max_memory_allocated``; every loss and
+   norm finite, the last loss below the first.  (b) the same initial
+   weights upcast to float32 on the same first batch: the bf16 loss
+   within ``BF16_LOSS_RTOL`` and grad norm within ``BF16_GNORM_RTOL``.  (c)
+   each of the 10 configs at ``scaled()`` (float32): one step on the card
+   against the CPU from the same weights and batch (``STEP_LOSS_RTOL``,
+   ``STEP_GRAD_RTOL``).  (d) the reference test's tiny llama3-8b, 12
+   steps, a checkpoint every 4, a fault at step 6 under
+   ``run_with_restarts``: steps 10-12 against the uninterrupted run (bit
+   for bit, else ``RESUME_RTOL``).  (e) xlstm-125m at full size
+   (``XLSTM_BATCH`` x ``XLSTM_SEQ``, ``XLSTM_STEPS`` steps): step times,
+   peak memory, finite losses.  (f) ``oplib.linear`` on ``cuda``,
+   ``flash_attention`` and ``chunked_gla`` on card tensors that require
+   grad, and a ``Trainer`` under ``cuda``, must raise.
+
+The run order is 1-6, 10, 11, 12, 13, 7, 9, 8: phase 10 reuses the serve
 phase's weights, which are freed before phase 11.
 
 Launch counts are read per path: every count is set to 0 just before the
 serve phase (path 1), before the sweep (path 2), before phase 8's calls
 of the entry points (path 3), before the ResNet layer (path 4), before
 phase 9 (path 5), before phase 10's timed calls (path 6), before each
-of phase 11's timed waves (path 7) and before each of phase 12's (path
-8), and read just after each; the contraction kernel's
+of phase 11's timed waves (path 7), before each of phase 12's (path
+8) and before phase 13 (path 9, which must launch none), and read just
+after each; the contraction kernel's
 ``launches_by_path`` (skinny, tiled, general) is read the same way for
 the serve, sweep, tune, model, wave and families paths, and none of the
 serve, model, wave and families paths may launch the general loop;
@@ -257,9 +283,11 @@ import argparse
 import contextlib
 import dataclasses
 import json
+import math
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -328,9 +356,25 @@ ZAMBA2_SSD = (2, 80, 4096, 64)
 # the GLA cases run in the models' type and again in float32 on the same
 # values, where RTOL holds the kernel at the same widths
 GLA_DTYPES = ("bfloat16", "float32")
-# where phases 4 and 7 put their tensors (a rehearsal on the CPU sets
+# where phases 4, 7 and 13 put their tensors (a rehearsal on the CPU sets
 # "cpu": the kernels' plain versions then run, and nothing is launched)
 DEVICE = "cuda"
+# phase 13: llama3-8b at full width and TRAIN_LAYERS of its 32 layers (the
+# 32 need ~96 GB of weights, gradients and AdamW state: ZeRO-1 over chips,
+# ROADMAP A9), TRAIN_BATCH x TRAIN_SEQ tokens a step for TRAIN_STEPS steps;
+# then xlstm-125m at full size, the reference example's --full preset
+TRAIN_MODEL, TRAIN_LAYERS, TRAIN_SEQ, TRAIN_BATCH, TRAIN_STEPS = "llama3-8b", 8, 1024, 4, 8
+TRAIN_OPT = dict(lr=1e-3, warmup_steps=2, total_steps=TRAIN_STEPS)
+XLSTM_TRAIN, XLSTM_SEQ, XLSTM_BATCH, XLSTM_STEPS = "xlstm-125m", 512, 8, 4
+XLSTM_OPT = dict(lr=3e-4, warmup_steps=20, total_steps=XLSTM_STEPS)
+# (b) the bf16 step against the same weights upcast to float32: the first
+# loss and the gradient norm, relative
+BF16_LOSS_RTOL, BF16_GNORM_RTOL = 1e-2, 5e-2
+# (c) one float32 step on the card against the CPU: the loss, relative, and
+# each gradient leaf against (1 + the leaf's largest |g|)
+STEP_LOSS_RTOL, STEP_GRAD_RTOL = 1e-5, 1e-4
+# (d) the reference test's resume tolerance where the card is not bit-exact
+RESUME_RTOL = 1e-6
 
 
 def _fail(msg: str) -> None:
@@ -1954,6 +1998,274 @@ def check_attention_kernels(torch, timer) -> dict:
             "gla_launches_by_path": gla_by_path, "rows": rows, "max_abs_err": worst}
 
 
+# ------------------------------------------------------------- training
+def step_grads(api, cfg, params, batch) -> tuple:
+    """One train step without the update (the ``Trainer``'s
+    ``loss_and_grads``, remat on): the loss and the gradients in the
+    trees' leaf order."""
+    from repro_torch.train.loop import loss_and_grads
+
+    loss, grads = loss_and_grads(api.build_model(cfg), params, batch)
+    return float(loss), grads
+
+
+def card_against_cpu(torch, api, name: str) -> dict:
+    """Phase 13 (c) for one config at ``scaled()`` (float32): one train
+    step on the card and on the CPU from the same weights and batch; the
+    loss within STEP_LOSS_RTOL, each gradient leaf within STEP_GRAD_RTOL x
+    (1 + its largest |g|)."""
+    from repro_torch import tree as T
+
+    cfg = api.configs.get(name).scaled()
+    cpu = api.build_model(cfg).init(torch.Generator().manual_seed(SEED), device="cpu")
+    pairs, _ = T.flatten_with_path(cpu)
+    card = T.tree_map(lambda t: t.to(DEVICE), cpu)
+    got = {dev: step_grads(api, cfg, params,
+                           api.make_batch(cfg, "train", 2, 32, seed=1, device=dev))
+           for dev, params in (("cpu", cpu), (DEVICE, card))}
+    loss_err = abs(got[DEVICE][0] - got["cpu"][0]) / abs(got["cpu"][0])
+    worst, where = 0.0, ""
+    for (path, _), a, b in zip(pairs, got[DEVICE][1], got["cpu"][1]):
+        err = float((a.cpu() - b).abs().max()) / (1.0 + float(b.abs().max()))
+        if err >= worst:
+            worst, where = err, T.key_path(path)
+    if not (loss_err <= STEP_LOSS_RTOL and worst <= STEP_GRAD_RTOL):
+        raise AssertionError(f"train step {name}: card against CPU, loss {loss_err:.3e} "
+                             f"(<= {STEP_LOSS_RTOL}), gradient {worst:.3e} at {where} "
+                             f"(<= {STEP_GRAD_RTOL})")
+    return {"config": name, "loss": got[DEVICE][0],
+            "loss_rel_err": loss_err, "grad_err": worst, "worst_leaf": where,
+            "leaves": len(pairs)}
+
+
+def _tiny_llama(api):
+    """The reference test's tiny llama3-8b (tests/test_train_fault.py)."""
+    return api.configs.get("llama3-8b").scaled(n_layers=2, d_model=32, n_heads=2,
+                                               n_kv_heads=2, d_ff=64, vocab=64,
+                                               head_dim=16, vocab_pad_multiple=16)
+
+
+def fault_resume(torch, api, workdir: Path, device: str = DEVICE) -> dict:
+    """Phase 13 (d): 12 steps of the tiny llama3-8b, a checkpoint every 4,
+    uninterrupted and again with a fault at step 6 under
+    ``run_with_restarts``; steps 10-12 of the resumed run against the
+    uninterrupted one, bit for bit where the card gives it, else within
+    RESUME_RTOL."""
+    from repro_torch.train.loop import FaultInjector, run_with_restarts
+
+    cfg = _tiny_llama(api)
+
+    def make(d):
+        return lambda: api.Trainer(
+            api.build_model(cfg), api.adamw.AdamWConfig(lr=1e-3, warmup_steps=2,
+                                                        total_steps=12),
+            api.DataConfig(vocab=cfg.vocab, seq_len=16, global_batch=4),
+            api.TrainConfig(steps=12, ckpt_dir=str(workdir / d), ckpt_every=4, log_every=1),
+            gen=torch.Generator(device=device).manual_seed(0), device=device)
+
+    ref = run_with_restarts(make("a"))
+    out = run_with_restarts(make("b"), fault=FaultInjector(fail_at_step=6))
+    if out["restarts"] != 1 or ref["restarts"] != 0:
+        raise AssertionError(f"fault resume: restarts {out['restarts']}, {ref['restarts']}")
+    want = {h["step"]: h["loss"] for h in ref["history"]}
+    got = {h["step"]: h["loss"] for h in out["history"]}
+    rows = [(s, got[s], want[s]) for s in (10, 11, 12)]
+    bit_equal = all(a == b for _, a, b in rows)
+    worst = max(abs(a - b) / abs(b) for _, a, b in rows)
+    if worst > RESUME_RTOL:
+        raise AssertionError(f"fault resume: steps 10-12 {rows} differ by {worst:.3e} "
+                             f"(> {RESUME_RTOL})")
+    return {"resumed_losses": [a for _, a, _ in rows], "uninterrupted": [b for _, _, b in rows],
+            "bit_equal": bit_equal, "max_rel_err": worst, "restarts": out["restarts"]}
+
+
+def c11_refusals(torch, api, device: str = DEVICE) -> list:
+    """Phase 13 (f): ``oplib.linear`` on the ``cuda`` backend,
+    ``flash_attention`` and ``chunked_gla`` on tensors that require grad,
+    and a ``Trainer`` under the ``cuda`` backend, each must raise
+    ``KernelAutogradError`` (ROADMAP C11) before any launch."""
+    from repro_torch.core import oplib
+    from repro_torch.kernels._build import KernelAutogradError
+    from repro_torch.kernels.flash_attention.kernel import flash_attention
+    from repro_torch.kernels.mlstm_chunk.kernel import chunked_gla
+
+    gen = torch.Generator(device=device).manual_seed(SEED)
+
+    def randn(*shape, grad=False):
+        t = torch.randn(shape, generator=gen, device=device)
+        return t.requires_grad_(True) if grad else t
+
+    q, k, v = randn(1, 2, 64, 64, grad=True), randn(1, 2, 64, 64), randn(1, 2, 64, 64)
+    cfg = _tiny_llama(api)
+    calls = {
+        "oplib.linear": lambda: oplib.linear(randn(8, 64), randn(64, 32, grad=True)),
+        "flash_attention": lambda: flash_attention(q, k, v),
+        "chunked_gla": lambda: chunked_gla(q, k, v, -randn(1, 2, 64).abs(),
+                                           randn(1, 2, 64).abs(), chunk=64),
+        "Trainer": lambda: api.Trainer(api.build_model(cfg), api.adamw.AdamWConfig(),
+                                       api.DataConfig(vocab=cfg.vocab, seq_len=8,
+                                                      global_batch=2),
+                                       api.TrainConfig(steps=1), device=device),
+    }
+    raised = []
+    old = oplib.get_backend()
+    oplib.set_backend("cuda")
+    try:
+        for name, call in calls.items():
+            try:
+                call()
+            except KernelAutogradError as e:
+                if "C11" not in str(e):
+                    raise
+                raised.append(name)
+            else:
+                raise AssertionError(f"C11: {name} did not raise under autograd")
+    finally:
+        oplib.set_backend(old)
+    return raised
+
+
+def _matmul_params(params) -> int:
+    """The parameters that enter a matrix product: the stacked block
+    matrices (three axes) and the unembedding."""
+    n = sum(t.numel() for t in params["blocks"].values() for t in
+            (t.values() if isinstance(t, dict) else [t]) if t.dim() == 3)
+    return n + params["unembed" if "unembed" in params else "embed"].numel()
+
+
+def _model_flops(cfg, params, batch: int, seq: int) -> float:
+    """6 x matrix parameters x tokens, plus causal attention's
+    ``QK^T`` and ``PV`` (forward and backward: 6 B Hq S^2 hd a layer);
+    remat's recompute is not counted."""
+    attn = 6 * batch * cfg.n_heads * seq * seq * cfg.hd * cfg.n_layers
+    return 6.0 * _matmul_params(params) * batch * seq + attn
+
+
+def train(torch, api, card: str, layers: int | None) -> dict:
+    """Phase 13: training on the card (see the module docstring)."""
+    from repro_torch import tree as T
+    from repro_torch.data.pipeline import TokenStream
+
+    out = {"memory_at_start_gb": torch.cuda.memory_allocated() / 1e9}
+    print(f"train: {out['memory_at_start_gb']:.3f} GB allocated on the card at the "
+          f"start of phase 13; card {card}", flush=True)
+    torch.cuda.reset_peak_memory_stats()
+
+    # (a) llama3-8b at full width
+    full = api.configs.get(TRAIN_MODEL)
+    cfg = dataclasses.replace(full, n_layers=min(TRAIN_LAYERS, layers or TRAIN_LAYERS))
+    data = api.DataConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH)
+    t0 = time.perf_counter()
+    trainer = api.Trainer(api.build_model(cfg), api.adamw.AdamWConfig(**TRAIN_OPT), data,
+                          api.TrainConfig(steps=TRAIN_STEPS, log_every=1),
+                          gen=torch.Generator(device=DEVICE).manual_seed(SEED), device=DEVICE)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in T.leaves(trainer.params))
+    flops = _model_flops(cfg, trainer.params, TRAIN_BATCH, TRAIN_SEQ)
+    print(f"train: {cfg.name} {cfg.n_layers} of {full.n_layers} layers, d_model "
+          f"{cfg.d_model}, {cfg.dtype} weights, {n_params / 1e9:.3f} B parameters "
+          f"({_matmul_params(trainer.params) / 1e9:.3f} B in matrix products), init "
+          f"{time.perf_counter() - t0:.1f} s, {torch.cuda.memory_allocated() / 1e9:.2f} GB "
+          f"allocated; {TRAIN_BATCH} x {TRAIN_SEQ} tokens a step; card {card}", flush=True)
+    try:
+        hist = trainer.run()["history"]
+    finally:
+        trainer.pipeline.close()
+    for h in hist:
+        print(f"train: {cfg.name} step {h['step']} loss {h['loss']:.6f} grad_norm "
+              f"{h['grad_norm']:.6f} lr {h['lr']:.6e} {h['dt'] * 1e3:.3f} ms (host clock "
+              f"after torch.cuda.synchronize()); card {card}", flush=True)
+    losses = [h["loss"] for h in hist]
+    norms = [h["grad_norm"] for h in hist]
+    if not all(math.isfinite(x) for x in losses + norms):
+        raise AssertionError(f"train: non-finite loss or grad norm: {losses} {norms}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"train: step {len(losses)}'s loss {losses[-1]} is not below "
+                             f"step 1's {losses[0]}")
+    med = statistics.median(h["dt"] for h in hist[1:])
+    a = {"config": cfg.name, "layers": cfg.n_layers, "tokens_per_step": TRAIN_BATCH * TRAIN_SEQ,
+         "losses": losses, "grad_norms": norms, "lrs": [h["lr"] for h in hist],
+         "step_ms": [h["dt"] * 1e3 for h in hist], "step_ms_median_2_on": med * 1e3,
+         "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / med, "model_tflop_per_step": flops / 1e12,
+         "model_flops_share": flops / med / PEAK_OPS["bfloat16"],
+         "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9}
+    out["llama"] = a
+    print(f"train: {cfg.name} step median (steps 2-{TRAIN_STEPS}) {a['step_ms_median_2_on']:.3f}"
+          f" ms, {a['tokens_per_s']:.1f} tokens/s, {a['model_tflop_per_step']:.2f} model TFLOP "
+          f"a step, model-FLOPs share {a['model_flops_share']:.4f} of {PEAK_OPS['bfloat16'] / 1e12:.0f}"
+          f" TFLOP/s bf16 dense, peak {a['max_memory_allocated_gb']:.2f} GB "
+          f"(max_memory_allocated); card {card}", flush=True)
+    del trainer
+    torch.cuda.empty_cache()
+
+    # (b) the first bf16 step against the same weights in float32
+    params = api.build_model(cfg).init(torch.Generator(device=DEVICE).manual_seed(SEED),
+                                       device=DEVICE)
+    params = T.tree_map(lambda t: t.float(), params)
+    batch = {k: torch.from_numpy(v).to(DEVICE) for k, v in TokenStream(data).batch_at(0).items()}
+    loss32, grads32 = step_grads(api, dataclasses.replace(cfg, dtype="float32"), params,
+                                 batch)
+    gnorm32 = float(api.adamw.global_norm(grads32))
+    del params, grads32, batch
+    torch.cuda.empty_cache()
+    b = {"loss_bf16": losses[0], "loss_f32": loss32, "grad_norm_bf16": norms[0],
+         "grad_norm_f32": gnorm32, "loss_gap": abs(losses[0] - loss32) / abs(loss32),
+         "grad_norm_gap": abs(norms[0] - gnorm32) / gnorm32}
+    out["bf16_vs_f32"] = b
+    print(f"train: bf16 step 1 against float32 on the same weights and batch: loss "
+          f"{b['loss_bf16']:.6f} / {b['loss_f32']:.6f} (gap {b['loss_gap']:.3e}, hold "
+          f"{BF16_LOSS_RTOL}), grad norm {b['grad_norm_bf16']:.6f} / {b['grad_norm_f32']:.6f} "
+          f"(gap {b['grad_norm_gap']:.3e}, hold {BF16_GNORM_RTOL}); card {card}", flush=True)
+    if not (b["loss_gap"] <= BF16_LOSS_RTOL and b["grad_norm_gap"] <= BF16_GNORM_RTOL):
+        raise AssertionError(f"train: the bf16 step parts from float32: {b}")
+
+    # (c) one float32 step of every config, card against CPU
+    out["card_vs_cpu"] = rows = [card_against_cpu(torch, api, n) for n in api.configs.names()]
+    for r in rows:
+        print("  train step " + json.dumps(r), flush=True)
+    print(f"train: {len(rows)} configs at scaled(), float32, one step on the card against the "
+          f"CPU: loss within {STEP_LOSS_RTOL} relative (worst "
+          f"{max(r['loss_rel_err'] for r in rows):.3e}), each gradient leaf within "
+          f"{STEP_GRAD_RTOL} x (1 + max|g|) (worst {max(r['grad_err'] for r in rows):.3e})",
+          flush=True)
+
+    # (d) fault recovery
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as d:
+        out["fault_resume"] = fr = fault_resume(torch, api, Path(d), DEVICE)
+    print("train: fault at step 6 of 12, a checkpoint every 4, run_with_restarts: "
+          + json.dumps(fr), flush=True)
+
+    # (e) xlstm-125m at full size
+    xcfg = api.configs.get(XLSTM_TRAIN)
+    xcfg = dataclasses.replace(xcfg, n_layers=layers or xcfg.n_layers)
+    torch.cuda.reset_peak_memory_stats()
+    xtr = api.Trainer(api.build_model(xcfg), api.adamw.AdamWConfig(**XLSTM_OPT),
+                      api.DataConfig(vocab=xcfg.vocab, seq_len=XLSTM_SEQ,
+                                     global_batch=XLSTM_BATCH),
+                      api.TrainConfig(steps=XLSTM_STEPS, log_every=1),
+                      gen=torch.Generator(device=DEVICE).manual_seed(SEED), device=DEVICE)
+    try:
+        xh = xtr.run()["history"]
+    finally:
+        xtr.pipeline.close()
+    del xtr
+    x = {"config": xcfg.name, "layers": xcfg.n_layers, "losses": [h["loss"] for h in xh],
+         "grad_norms": [h["grad_norm"] for h in xh], "step_ms": [h["dt"] * 1e3 for h in xh],
+         "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9}
+    if not all(math.isfinite(v) for v in x["losses"] + x["grad_norms"]):
+        raise AssertionError(f"train: {xcfg.name} non-finite: {x}")
+    out["xlstm"] = x
+    print(f"train: {xcfg.name} {xcfg.n_layers} layers (sLSTM at {list(xcfg.xlstm.slstm_at)}), "
+          f"{XLSTM_BATCH} x {XLSTM_SEQ} tokens a step: " + json.dumps(x) + f"; card {card}",
+          flush=True)
+
+    # (f) C11 on the card
+    out["c11_raised"] = c11_refusals(torch, api, DEVICE)
+    print(f"train: C11 on the card, raised KernelAutogradError: {out['c11_raised']}", flush=True)
+    return out
+
+
 def _pick(rows, prefix):
     return [r for r in rows if r["unit"].startswith(prefix)]
 
@@ -2124,6 +2436,21 @@ def main() -> None:
                      if b == "cuda" else "")
                   + (f"; oplib torch only, cuda refused: {w['c9']}" if "c9" in w else "")
                   + f"; card {card}", flush=True)
+
+    # phase 13: training on the card, on oplib's torch backend: it must
+    # launch none of the kernels, which have no backward (ROADMAP C11)
+    mods = _kernel_modules()
+    _zero_counts(*mods.values())
+    t0 = time.perf_counter()
+    train(torch, api, card, args.layers)
+    train_launches = {name: mod.launches for name, mod in mods.items()}
+    if any(train_launches.values()):
+        raise AssertionError(f"phase 13 launched kernels: {train_launches}")
+    print(f"train: phase 13 in {time.perf_counter() - t0:.1f} s launched none of the six "
+          f"kernels ({json.dumps(train_launches)}; stripe_matmul rides on contraction): "
+          f"the train step differentiates through oplib's torch backend, since the "
+          f"hand-written kernels have no backward (ROADMAP C11), as the reference's Pallas "
+          f"kernels have none", flush=True)
 
     sw = sweep(torch, api, K)
     v = sw["validation"]

@@ -29,6 +29,11 @@ Observability:
 Kernels:
     ``matmul``, ``matmul_ref`` (the Stripe-compiled matmul),
     ``choose_block_sizes`` (flash attention's blocks under ``h100``)
+Training:
+    ``adamw`` (``AdamWConfig``, ``apply_updates``, ...), ``TrainConfig``,
+    ``Trainer`` (on the card unless ``device="cpu"``; on ``oplib``'s
+    ``torch`` backend, since the kernels have no backward: ROADMAP C11),
+    ``DataConfig``
 Reliability:
     ``faults`` (fault-injection module), ``FaultPlan``, ``InjectedFault``
 Conversion:
@@ -42,6 +47,7 @@ from .core import CompiledProgram, TileProgram, compile_cached, stripe_jit
 from .core.driver import compile_with_tilings
 from .core.hwconfig import HardwareConfig, get_config
 from .core.oplib import get_backend, linear, set_backend
+from .data.pipeline import DataConfig
 from .explore import (dominating_baseline, get_space, measure_candidates, pareto_front,
                       run_sweep)
 from .explore.hillclimb import roofline_hillclimb
@@ -49,8 +55,10 @@ from .explore.workloads import get_workloads
 from .kernels.flash_attention.ops import choose_block_sizes
 from .kernels.stripe_matmul.ops import matmul, matmul_ref
 from .models.build import build_model, make_batch
+from .optim import adamw
 from .reliability import FaultPlan, InjectedFault, faults
 from .serving import EngineConfig, Request, SamplingParams, ServingEngine, WaveEngine
+from .train.loop import TrainConfig, Trainer
 from .tune import TuningDB, fit_calibration, measure_interleaved, set_calibration
 
 jit = stripe_jit
@@ -66,5 +74,6 @@ __all__ = [
     "explore", "get_workloads", "roofline_hillclimb", "run_sweep", "get_space",
     "pareto_front", "dominating_baseline",
     "matmul", "matmul_ref", "choose_block_sizes",
+    "adamw", "TrainConfig", "Trainer", "DataConfig",
     "faults", "FaultPlan", "InjectedFault", "params_from_jax",
 ]

@@ -1577,6 +1577,7 @@ def lower_program_hybrid(prog: Program, pipeline_depth: int = 2,
     unit_times: Dict[str, float] = {}
 
     def run(arrays: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        _build.refuse_autograd("lower_program_hybrid", *arrays.values())
         env: Dict[str, torch.Tensor] = {k: torch.as_tensor(v) for k, v in arrays.items()}
         for u, kind, obj in steps:
             if profile:

@@ -31,6 +31,7 @@ from .ir import Program
 from .lower_cuda import UnsupportedCuda, lower_program_hybrid
 from .lower_torch import _J_UNARY, lower_program_torch
 from .passes import compile_program
+from ..kernels import _build
 
 BACKENDS = ("torch", "cuda")
 
@@ -116,7 +117,9 @@ def linear(x: torch.Tensor, w: torch.Tensor, bias: Optional[torch.Tensor] = None
 
     On the torch backend this is a plain einsum; on the cuda backend it
     runs the Stripe-generated fused kernel (``act`` is the Stripe
-    intrinsic: ``gelu`` is the exact erf form, as in the JAX package).
+    intrinsic: ``gelu`` is the exact erf form, as in the JAX package),
+    which has no backward: under autograd, with an input that requires
+    grad, it raises ``KernelAutogradError`` (ROADMAP C11).
     """
     lead = x.shape[:-1]
     k = x.shape[-1]
@@ -133,6 +136,7 @@ def linear(x: torch.Tensor, w: torch.Tensor, bias: Optional[torch.Tensor] = None
         if act is not None:
             out = _J_UNARY[act](out)
         return out.reshape(*lead, n)
+    _build.refuse_autograd("oplib.linear on the cuda backend", x, w, bias)
     op = _compiled_linear(m, k, n, _dtype_name(x.dtype),
                           _dtype_name(bias.dtype) if bias is not None else "float32",
                           act, bias is not None, backend)

@@ -58,6 +58,25 @@ class KernelLaunchError(RuntimeError):
     """A kernel launch was refused (cudaGetLastError() != 0)."""
 
 
+class KernelAutogradError(ValueError):
+    """A hand-written kernel was called where autograd would differentiate
+    it (ROADMAP C11).  The kernels have no backward, as the JAX package's
+    Pallas kernels have none: a kernel's output on the card would carry no
+    gradient, and its plain version on the CPU would differentiate where
+    the reference raises."""
+
+
+def refuse_autograd(where: str, *tensors) -> None:
+    """Raise :class:`KernelAutogradError` if autograd is on and any of
+    ``tensors`` (non-tensors are ignored) requires grad."""
+    if torch.is_grad_enabled() and any(
+            isinstance(t, torch.Tensor) and t.requires_grad for t in tensors):
+        raise KernelAutogradError(
+            f"{where}: the hand-written kernels have no backward (ROADMAP C11), and an "
+            f"input requires grad with autograd on; train on oplib's 'torch' backend, or "
+            f"call under torch.no_grad()")
+
+
 def _nvcc() -> str:
     found = shutil.which("nvcc")
     if found:

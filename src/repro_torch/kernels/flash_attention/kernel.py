@@ -493,6 +493,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``path``: None takes :func:`path_of`'s choice; ``"cuda_cores"`` forces
     the CUDA-core kernel, to time it against the wgmma or tf32x3 one on
     the same inputs."""
+    _build.refuse_autograd("flash_attention", q, k, v)
     if path not in (None, "cuda_cores"):
         raise ValueError(f"path is None (the rule's choice) or 'cuda_cores', not {path!r}")
     sm_scale, block_q, block_k = _resolve(q, k, v, sm_scale, block_q, block_k)

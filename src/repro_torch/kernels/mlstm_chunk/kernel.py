@@ -431,6 +431,7 @@ def chunked_gla(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``path``: None takes :func:`path_of`'s choice; ``"cuda_cores"`` forces
     the CUDA-core kernel, to time it against the wgmma or tf32x3 path on
     the same inputs."""
+    _build.refuse_autograd("chunked_gla", q, k, v, log_decay, gain)
     if path not in (None, "cuda_cores"):
         raise ValueError(f"path is None (the rule's choice) or 'cuda_cores', not {path!r}")
     chunk = _resolve(q, k, v, log_decay, gain, chunk)
@@ -445,6 +446,7 @@ def chunked_gla(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def mlstm_chunk(q, k, v, i_gate, f_gate, chunk: Optional[int] = None) -> torch.Tensor:
     """xLSTM mLSTM: decay = sigmoid(f), gain = exp(i) (i pre-clamped at 8),
     normalized output, q scaled by Dk^-1/2."""
+    _build.refuse_autograd("mlstm_chunk", q, k, v, i_gate, f_gate)
     dk = q.shape[-1]
     log_decay = F.logsigmoid(f_gate)
     gain = torch.exp(torch.clamp(i_gate, max=8.0))

@@ -13,6 +13,7 @@ from typing import Optional
 
 import torch
 
+from .. import _build
 from ..mlstm_chunk.kernel import chunked_gla
 
 
@@ -21,6 +22,7 @@ def ssd_chunk(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
               chunk: Optional[int] = None) -> torch.Tensor:
     """x: (Bt, H, S, P); dt: (Bt, H, S) positive; A: (H,) negative;
     B/C: (Bt, H, S, N).  Returns (Bt, H, S, P)."""
+    _build.refuse_autograd("ssd_chunk", x, dt, A, B, C, D)
     log_decay = dt * A[None, :, None]
     y = chunked_gla(C, B, x, log_decay, dt, chunk=chunk, normalize=False, scale=1.0)
     if D is not None:

@@ -18,7 +18,7 @@ import torch
 from ..nn.attention import attention, attn_init, init_kv_cache
 from ..nn.core import (Params, apply_norm, embed_init, embed_lookup, mlp_apply, mlp_init,
                        norm_init, param_dtype, softmax_xent, unembed)
-from .lm import layer, stacked
+from .lm import layer, rematted, stacked
 
 
 def _enc_block_init(gen, cfg, dtype, device):
@@ -56,13 +56,18 @@ def init_params(cfg, gen: torch.Generator, device="cuda") -> Params:
     }
 
 
+def _enc_block(pi: Params, x: torch.Tensor, cfg) -> torch.Tensor:
+    h, _ = attention(pi["attn"], apply_norm(pi["ln1"], x, cfg.norm), cfg, causal=False)
+    x = x + h
+    return x + mlp_apply(pi["mlp"], apply_norm(pi["ln2"], x, cfg.norm), cfg.act)
+
+
 def encode(p: Params, cfg, frames: torch.Tensor, remat: bool = False) -> torch.Tensor:
+    """The encoder; ``remat`` recomputes each layer in the backward pass."""
     x = torch.einsum("bsd,de->bse", frames.to(p["frame_proj"].dtype), p["frame_proj"])
+    block = rematted(_enc_block, remat)
     for i in range(cfg.n_enc_layers):
-        pi = layer(p["encoder"], i)
-        h, _ = attention(pi["attn"], apply_norm(pi["ln1"], x, cfg.norm), cfg, causal=False)
-        x = x + h
-        x = x + mlp_apply(pi["mlp"], apply_norm(pi["ln2"], x, cfg.norm), cfg.act)
+        x = block(layer(p["encoder"], i), x, cfg)
     return apply_norm(p["enc_norm"], x, cfg.norm)
 
 
@@ -80,11 +85,12 @@ def _dec_block(pi: Params, x: torch.Tensor, cfg, memory: torch.Tensor, cache):
 def decode_stack(p: Params, cfg, x: torch.Tensor, memory: torch.Tensor, caches=None,
                  remat: bool = False):
     """Every decoder layer in turn; each writes its slice of the stacked
-    KV caches in place and its new ``pos``.  ``remat`` only matters under
-    autograd (training, ROADMAP A8c)."""
+    KV caches in place and its new ``pos``.  ``remat`` recomputes each
+    layer in the backward pass."""
+    block = rematted(_dec_block, remat)
     for i in range(cfg.n_layers):
         cache_i = None if caches is None else layer(caches, i)
-        x, new_cache = _dec_block(layer(p["decoder"], i), x, cfg, memory, cache_i)
+        x, new_cache = block(layer(p["decoder"], i), x, cfg, memory, cache_i)
         if caches is not None:
             caches["pos"][i].copy_(new_cache["pos"])
     return x, caches

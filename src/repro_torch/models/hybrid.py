@@ -20,7 +20,7 @@ from ..nn.attention import attention, attn_init, init_kv_cache
 from ..nn.core import (Params, apply_norm, embed_init, embed_lookup, mlp_apply, mlp_init,
                        norm_init, param_dtype, softmax_xent, unembed)
 from ..nn.ssm import mamba2_apply, mamba2_init, mamba2_init_state
-from .lm import layer, stacked
+from .lm import layer, rematted, stacked
 
 
 def _n_groups(cfg) -> int:
@@ -60,18 +60,25 @@ def _shared_block(p: Params, x: torch.Tensor, cfg, cache):
     return x, new_cache
 
 
+def _group(shared: Params, mamba: Params, x: torch.Tensor, cfg, caches, g: int):
+    """Group ``g``: the shared block, then its Mamba2 layers."""
+    attn_cache = None if caches is None else layer(caches["attn"], g)
+    x, new_attn = _shared_block(shared, x, cfg, attn_cache)
+    if caches is not None:
+        caches["attn"]["pos"][g].copy_(new_attn["pos"])
+    for j in range(cfg.hybrid.shared_attn_every):
+        state = None if caches is None else layer(caches["mamba"], g, j)
+        x, _ = mamba2_apply(layer(mamba, j), x, cfg, state=state)
+    return x
+
+
 def _forward(p: Params, cfg, x: torch.Tensor, caches=None, remat: bool = False):
-    """Every group in turn: the shared block, then its Mamba2 layers.
-    ``remat`` only matters under autograd (training, ROADMAP A8c)."""
-    groups, per_group = _n_groups(cfg), cfg.hybrid.shared_attn_every
-    for g in range(groups):
-        attn_cache = None if caches is None else layer(caches["attn"], g)
-        x, new_attn = _shared_block(p["shared"], x, cfg, attn_cache)
-        if caches is not None:
-            caches["attn"]["pos"][g].copy_(new_attn["pos"])
-        for j in range(per_group):
-            state = None if caches is None else layer(caches["mamba"], g, j)
-            x, _ = mamba2_apply(layer(p["mamba"], g, j), x, cfg, state=state)
+    """Every group in turn.  ``remat`` recomputes each group in the
+    backward pass, as the reference's ``jax.checkpoint`` of its group
+    body."""
+    group = rematted(_group, remat)
+    for g in range(_n_groups(cfg)):
+        x = group(p["shared"], layer(p["mamba"], g), x, cfg, caches, g)
     return x, caches
 
 

@@ -3,21 +3,26 @@ the layer stack, the loss, prefill and decode.
 
 Per-layer parameters are stacked along a leading layer axis, as in the
 JAX package's ``params["blocks"]``; the stack is a Python loop over the
-layers (the JAX package scans them), each layer's parameters a view.
-Training (where ``remat`` matters) comes with ROADMAP A8c."""
+layers (the JAX package scans them), each layer's parameters a view, so
+the gradient of a layer reaches the stacked tensor.  Under ``remat`` (the
+train step) each layer runs under ``torch.utils.checkpoint``, as the
+reference wraps its scan body in ``jax.checkpoint``."""
 from __future__ import annotations
 
-from typing import Any, Dict
+import functools
+from typing import Any, Callable, Dict
 
 import torch
+import torch.utils.checkpoint
 
 from ..nn.attention import attention, attn_init, init_kv_cache
 from ..nn.core import (Params, apply_norm, embed_init, embed_lookup, mlp_apply, mlp_init,
                        norm_init, param_dtype, softmax_xent, unembed)
 from ..nn.moe import moe_apply, moe_init
 
-__all__ = ["init_params", "block_init", "block_apply", "layer", "stacked", "loss_fn",
-           "init_cache", "prefill", "decode_step", "_logits", "embed_lookup", "unembed"]
+__all__ = ["init_params", "block_init", "block_apply", "layer", "stacked", "rematted",
+           "loss_fn", "init_cache", "prefill", "decode_step", "_logits", "embed_lookup",
+           "unembed"]
 
 
 def block_init(gen: torch.Generator, cfg, dtype, device=None) -> Params:
@@ -89,6 +94,15 @@ def layer(blocks: Params, *i: int) -> Params:
     return blocks[i]
 
 
+def rematted(fn: Callable, remat: bool) -> Callable:
+    """``fn`` itself, or under ``remat`` ``fn`` run through
+    ``torch.utils.checkpoint`` (its activations dropped after the forward
+    pass and recomputed in the backward): the twin of ``jax.checkpoint``."""
+    if not remat:
+        return fn
+    return functools.partial(torch.utils.checkpoint.checkpoint, fn, use_reentrant=False)
+
+
 def _logits(p: Params, cfg, x: torch.Tensor) -> torch.Tensor:
     x = apply_norm(p["final_norm"], x, cfg.norm)
     w = p["embed"] if cfg.tie_embeddings else p["unembed"]
@@ -114,12 +128,13 @@ def _stack(p: Params, x: torch.Tensor, cfg, caches=None, remat: bool = False):
     ``attention``), and those buffers come back with the new positions.
     The JAX package pins the activations' sharding here (``constrain``),
     the identity on one device: the multi-device slice (ROADMAP A9) brings
-    it.  ``remat`` only matters under autograd (training, A8c)."""
+    it.  ``remat`` recomputes each layer in the backward pass."""
     auxs = []
     new = []
+    block = rematted(block_apply, remat)
     for i in range(cfg.n_layers):
         cache_i = None if caches is None else {k: v[i] for k, v in caches.items()}
-        x, new_cache, aux = block_apply(layer(p["blocks"], i), x, cfg, cache_i)
+        x, new_cache, aux = block(layer(p["blocks"], i), x, cfg, cache_i)
         auxs.append(aux)
         new.append(new_cache)
     aux = torch.stack(auxs).sum()

@@ -13,6 +13,7 @@ from ..nn.core import (Params, apply_norm, embed_init, embed_lookup, norm_init, 
                        softmax_xent, unembed)
 from ..nn.xlstm import (mlstm_block_apply, mlstm_block_init, mlstm_init_state,
                         slstm_block_apply, slstm_block_init, slstm_init_state)
+from .lm import rematted
 
 
 def _kinds(cfg) -> List[str]:
@@ -33,13 +34,14 @@ def init_params(cfg, gen: torch.Generator, device="cuda") -> Params:
 
 def _forward(p: Params, cfg, x: torch.Tensor, states: Optional[List] = None,
              remat: bool = False):
-    """Every block in turn.  ``remat`` only matters under autograd
-    (training, ROADMAP A8c)."""
+    """Every block in turn.  ``remat`` recomputes each block's core (not
+    its norm) in the backward pass, as the reference's ``jax.checkpoint``
+    around it."""
     for i, kind in enumerate(_kinds(cfg)):
         lp = p[f"layer_{i}"]
         st = states[i] if states is not None else None
         xin = apply_norm(lp["ln"], x, cfg.norm)
-        fn = mlstm_block_apply if kind == "mlstm" else slstm_block_apply
+        fn = rematted(mlstm_block_apply if kind == "mlstm" else slstm_block_apply, remat)
         out, _ = fn(lp["core"], xin, cfg, state=st)
         x = x + out
     return x, states

@@ -1304,6 +1304,19 @@ def _assert_wave_launches(runs, per_call, new_tokens: int = 4, free_logits: bool
         assert ((a - b).abs().amax(-1) / b.abs().amax(-1)).max().item() <= 5e-2
 
 
+def _chip_smoke():
+    """The repository's ``chip_smoke`` module (its phase helpers)."""
+    import sys
+    from pathlib import Path
+
+    root = str(Path(__file__).resolve().parents[1])
+    if root not in sys.path:
+        sys.path.insert(0, root)
+    import chip_smoke
+
+    return chip_smoke
+
+
 def _hold_hybrid_blocks(cfg):
     """The hybrid's prefill (4 x 100 tokens) and one decode step on
     ``cuda``, keeping every block's input and output, then on ``torch``
@@ -1311,13 +1324,7 @@ def _hold_hybrid_blocks(cfg):
     block's output within 5e-2 of its largest element.  No residual runs
     around a Mamba2 layer, so a free run amplifies a rounding difference
     about 1.5 times a block (chip_smoke phase 12)."""
-    import sys
-    from pathlib import Path
-
-    root = str(Path(__file__).resolve().parents[1])
-    if root not in sys.path:
-        sys.path.insert(0, root)
-    from chip_smoke import hybrid_blocks
+    hybrid_blocks = _chip_smoke().hybrid_blocks
     from repro_torch import api
     from repro_torch.core import oplib
 
@@ -1411,3 +1418,52 @@ def test_wave_serves_the_families_on_the_card(name):
                           free_logits=cfg.family != "hybrid")
     if cfg.family == "hybrid":
         _hold_hybrid_blocks(cfg)
+
+
+# ------------------------------------------------------------- training
+def _train_names():
+    from repro_torch import configs
+
+    return configs.names()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", _train_names())
+def test_train_step_on_the_card_matches_the_cpu(name):
+    """chip_smoke phase 13 (c): one float32 train step of the config at
+    ``scaled()`` on the card against the CPU, from the same weights and
+    batch: the loss within 1e-5 relative, each gradient leaf within
+    1e-4 x (1 + its largest |g|) (``chip_smoke.card_against_cpu`` raises
+    past them)."""
+    from repro_torch import api
+
+    _card()
+    cs = _chip_smoke()
+    row = cs.card_against_cpu(torch, api, name)
+    assert row["loss_rel_err"] <= cs.STEP_LOSS_RTOL and row["grad_err"] <= cs.STEP_GRAD_RTOL
+
+
+@pytest.mark.cuda
+def test_fault_recovery_on_the_card(tmp_path):
+    """chip_smoke phase 13 (d): a fault at step 6 of 12, a checkpoint
+    every 4: steps 10-12 resume within 1e-6 of the uninterrupted run."""
+    from repro_torch import api
+
+    _card()
+    cs = _chip_smoke()
+    out = cs.fault_resume(torch, api, tmp_path, "cuda")
+    assert out["restarts"] == 1 and out["max_rel_err"] <= cs.RESUME_RTOL
+
+
+@pytest.mark.cuda
+def test_kernels_refuse_autograd_on_the_card():
+    """chip_smoke phase 13 (f), ROADMAP C11: ``oplib.linear`` on ``cuda``,
+    ``flash_attention`` and ``chunked_gla`` on card tensors that require
+    grad, and a ``Trainer`` under ``cuda``, raise before any launch."""
+    from repro_torch import api
+
+    _card()
+    K.launches = 0
+    assert _chip_smoke().c11_refusals(torch, api, "cuda") == [
+        "oplib.linear", "flash_attention", "chunked_gla", "Trainer"]
+    assert K.launches == 0
