@@ -252,7 +252,34 @@ and prints no result):
    ``flash_attention`` and ``chunked_gla`` on card tensors that require
    grad, and a ``Trainer`` under ``cuda``, must raise.
 
-The run order is 1-6, 10, 11, 12, 13, 7, 9, 8: phase 10 reuses the serve
+14. **multi-device** — ``MESH_RANKS`` ranks emulated on the one card
+   (``Mesh(["cuda:0"] * 4, ("x",))``: one host thread a rank, their
+   launches on the card's one stream, so the times are the emulation's,
+   not an interconnect's).  (a) the programs of the mesh tests at
+   published widths through ``api.jit(..., backend="cuda", mesh=...)``
+   (``MESH_FFN``, ``MESH_DOWN``, ``MESH_CONV``, ``MESH_HALO``, ``MESH_MLP2``
+   under ``MESH_SLOW``): each plan's collectives must be the expected ones
+   with no fallback; each output is held against the single-device
+   compile on the card within ``MESH_RTOL * (1 + max|single|)`` and
+   printed bit-equal or not; the collective call sites of one call
+   (``mesh_lower.count_collectives``) must equal the plan's
+   (``expected_primitive_counts_from_record``); every unit of every
+   segment must be on ``cuda`` (none sent to torch by the per-unit
+   legality check) and the unit kernels' launches of each case must be
+   exactly ranks x the segments' launches (``n_cuda``), never 0; each
+   case is timed in turns with the single-device compile (CUDA events)
+   and by the host clock.  (b) the collective library at llama3-8b's
+   widths: both ring matmuls against the gather-then-multiply baseline,
+   ``sp_decode_attention`` against ``full_decode_attention_ref``
+   (``SP_DECODE``), ``pipeline_apply`` over 4 stages against the
+   sequential loop, ``zero1_update`` on one layer's float32 parameters,
+   each rank given a different share of the gradient (``zero1_shares``),
+   against ``adamw.apply_updates`` on their sum, ``compressed_psum`` with error
+   feedback (two rounds, each the rank-order sum of the dequantized
+   shards bit for bit).  (c) ``stripe_jit(mesh=8)`` on a machine with
+   fewer cards must raise.
+
+The run order is 1-6, 10, 11, 12, 13, 7, 9, 8, 14: phase 10 reuses the serve
 phase's weights, which are freed before phase 11.
 
 Launch counts are read per path: every count is set to 0 just before the
@@ -260,8 +287,8 @@ serve phase (path 1), before the sweep (path 2), before phase 8's calls
 of the entry points (path 3), before the ResNet layer (path 4), before
 phase 9 (path 5), before phase 10's timed calls (path 6), before each
 of phase 11's timed waves (path 7), before each of phase 12's (path
-8) and before phase 13 (path 9, which must launch none), and read just
-after each; the contraction kernel's
+8), before phase 13 (path 9, which must launch none) and before phase
+14's mesh calls (path 10), and read just after each; the contraction kernel's
 ``launches_by_path`` (skinny, tiled, general) is read the same way for
 the serve, sweep, tune, model, wave and families paths, and none of the
 serve, model, wave and families paths may launch the general loop;
@@ -360,8 +387,8 @@ GLA_DTYPES = ("bfloat16", "float32")
 # "cpu": the kernels' plain versions then run, and nothing is launched)
 DEVICE = "cuda"
 # phase 13: llama3-8b at full width and TRAIN_LAYERS of its 32 layers (the
-# 32 need ~96 GB of weights, gradients and AdamW state: ZeRO-1 over chips,
-# ROADMAP A9), TRAIN_BATCH x TRAIN_SEQ tokens a step for TRAIN_STEPS steps;
+# 32 need ~96 GB of weights, gradients and AdamW state, more than one card
+# holds), TRAIN_BATCH x TRAIN_SEQ tokens a step for TRAIN_STEPS steps;
 # then xlstm-125m at full size, the reference example's --full preset
 TRAIN_MODEL, TRAIN_LAYERS, TRAIN_SEQ, TRAIN_BATCH, TRAIN_STEPS = "llama3-8b", 8, 1024, 4, 8
 TRAIN_OPT = dict(lr=1e-3, warmup_steps=2, total_steps=TRAIN_STEPS)
@@ -375,6 +402,31 @@ BF16_LOSS_RTOL, BF16_GNORM_RTOL = 1e-2, 5e-2
 STEP_LOSS_RTOL, STEP_GRAD_RTOL = 1e-5, 1e-4
 # (d) the reference test's resume tolerance where the card is not bit-exact
 RESUME_RTOL = 1e-6
+# phase 14: MESH_RANKS ranks emulated on the one card.  (a) the mesh tests'
+# programs (tests/test_mesh_lowering.py) at published widths: ffn at
+# llama3-8b's (m, d_model, d_ff); its down projection (m, d_ff, d_model) one
+# row and one column short of (256, 4096), the smallest change that makes
+# the plan a psum (the planner splits a divisible output dim instead);
+# ResNet-50 conv2_x 3x3 (56 x 56, 64 -> 64), whose plan splits the output
+# channels, and the same with 63 output channels, the smallest change that
+# makes it a halo split; mlp2 at llama3-8b's FFN widths, 12 rows, under the
+# reference test's slow copy of the config (links at 1e7 B/s, compute at
+# 1e8 FLOP/s), where the ring wins.  Each held against the single-device
+# compile on the card within MESH_RTOL * (1 + max|single|).
+MESH_RANKS = 4
+MESH_FFN = (256, 4096, 14336)
+MESH_DOWN = (255, 14336, 4095)
+MESH_CONV = (56, 56, 64, 64)
+MESH_HALO = (56, 56, 64, 63)
+MESH_MLP2 = (12, 4096, 14336, 4096)
+MESH_SLOW = dict(ici_link_bw=1e7, peak_flops=1e8)
+MESH_RTOL = 1e-5
+# (b) the collective library at llama3-8b's widths: the ring matmuls'
+# rows; decode attention (B, Hq, Hkv, D, cached positions); the pipeline
+# (microbatches, rows a microbatch; one d_model x d_model stage a rank)
+RING_ROWS = 1024
+SP_DECODE = (4, 32, 8, 128, 8192)
+PIPE_MICRO, PIPE_ROWS = 8, 64
 
 
 def _fail(msg: str) -> None:
@@ -2266,6 +2318,359 @@ def train(torch, api, card: str, layers: int | None) -> dict:
     return out
 
 
+# ------------------------------------------------------------ multi-device
+def _mesh_programs(api):
+    """Phase 14 (a)'s programs, built by the port's frontend: name ->
+    (program, config)."""
+    T = api.TileProgram
+    h100 = api.get_config("h100")
+
+    def ffn(m, k, n):
+        tp = T("ffn")
+        tp.input("X", (m, k), "float32"); tp.input("W", (k, n), "float32")
+        tp.input("B", (n,), "float32"); tp.output("O", (m, n), "float32")
+        tp.temp("T", (m, n), "float32"); tp.temp("U", (m, n), "float32")
+        tp.op("T[i, j] += X[i, c] * W[c, j]", name="mm")
+        tp.op("U[i, j] = T[i, j] + B[j]", name="bias")
+        tp.op("O[i, j] = gelu(U[i, j])", name="act")
+        return tp.build()
+
+    def matmul(m, k, n):
+        tp = T("down")
+        tp.input("X", (m, k), "float32"); tp.input("W", (k, n), "float32")
+        tp.output("O", (m, n), "float32")
+        tp.op("O[i, j] += X[i, c] * W[c, j]", name="mm")
+        return tp.build()
+
+    def conv(x, y, c, k):
+        tp = T("conv")
+        tp.input("I", (x, y, c), "float32"); tp.input("F", (3, 3, c, k), "float32")
+        tp.output("O", (x, y, k), "float32")
+        tp.op("O[x, y, k] += I[x + i - 1, y + j - 1, c] * F[i, j, c, k]", name="conv")
+        return tp.build()
+
+    def mlp2(m, c, h, f):
+        tp = T("mlp2")
+        tp.input("X", (m, c), "float32"); tp.input("W1", (c, h), "float32")
+        tp.input("W2", (h, f), "float32"); tp.output("O", (m, f), "float32")
+        tp.temp("H", (m, h), "float32")
+        tp.op("H[i, h] += X[i, c] * W1[c, h]", name="mm1")
+        tp.op("O[i, f] += H[i, h] * W2[h, f]", name="mm2")
+        return tp.build()
+
+    return {"ffn": (ffn(*MESH_FFN), h100),
+            "down_psum": (matmul(*MESH_DOWN), h100),
+            "conv2_x": (conv(*MESH_CONV), h100),
+            "conv2_x_halo": (conv(*MESH_HALO), h100),
+            "mlp2_ring": (mlp2(*MESH_MLP2), dataclasses.replace(h100, **MESH_SLOW))}
+
+
+# what each case's plan must do: its collectives, in the plan's order
+MESH_PLANS = {"ffn": ["all_gather"], "down_psum": ["psum"], "conv2_x": ["all_gather"],
+              "conv2_x_halo": ["halo", "all_gather"], "mlp2_ring": ["ring_matmul"]}
+
+
+def _rank_device() -> str:
+    return "cuda:0" if DEVICE == "cuda" else DEVICE
+
+
+def _counts(mods) -> dict:
+    return {k: (m.launches, dict(m.launches_by_path)) for k, m in mods.items()}
+
+
+def _counts_since(before: dict, mods) -> dict:
+    out = {}
+    for k, m in mods.items():
+        n0, p0 = before[k]
+        out[k] = {"launches": m.launches - n0,
+                  "by_path": {p: v - p0.get(p, 0) for p, v in m.launches_by_path.items()}}
+    return out
+
+
+def _host_ms(torch, fn, reps: int) -> float:
+    """Median host-clock time of ``fn`` ending in a synchronize."""
+    fn()
+    _sync(torch)
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        _sync(torch)
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def mesh_cases(torch, api, timer, reps: int) -> dict:
+    """Phase 14 (a): the mesh tests' programs through ``api.jit(...,
+    backend="cuda", mesh=Mesh(["cuda:0"] * MESH_RANKS))``, the unit
+    kernels' counts set to 0 just before the five calls (path 10) and read
+    just after.  ``DEVICE = "cpu"`` rehearses it on CPU ranks."""
+    from repro_torch.core import cache as stripe_cache
+    from repro_torch.core import mesh_lower
+    from repro_torch.parallel.spmd import Mesh
+
+    mods = {k: _kernel_modules()[k] for k in UNIT_KERNELS}
+    mesh = Mesh([_rank_device()] * MESH_RANKS, ("x",))
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 14)
+    cases = {}
+    for name, (prog, hw) in _mesh_programs(api).items():
+        cache = stripe_cache.CompilationCache(use_disk=False)
+        t0 = time.perf_counter()
+        meshed = api.jit(prog, hw, "cuda", cache=cache, use_disk=False, mesh=mesh)
+        compile_s = time.perf_counter() - t0
+        single = api.jit(prog, hw, "cuda", cache=cache, use_disk=False)
+        info = meshed.record.mesh
+        if "fallback" in info:
+            raise AssertionError(f"phase 14 {name}: the mesh compile fell back: {info}")
+        ops = [c["collective"] for c in info["collectives"]]
+        if ops != MESH_PLANS[name]:
+            raise AssertionError(f"phase 14 {name}: plan collectives {ops}, expected "
+                                 f"{MESH_PLANS[name]}")
+        env = {k: torch.randn(prog.buffers[k].shape, generator=gen, device=DEVICE)
+               for k in prog.inputs}
+        cases[name] = dict(prog=prog, meshed=meshed, single=single, env=env,
+                           row={"case": name, "shape": {k: list(prog.buffers[k].shape)
+                                                        for k in (*prog.inputs, *prog.outputs)},
+                                "config": hw.name + (" (slow copy)" if name == "mlp2_ring" else ""),
+                                "splits": info["splits"], "collectives": ops,
+                                "collective_bytes": info["collective_bytes"],
+                                "overlapped": info["overlapped"],
+                                "segments": [{"name": s["name"], "backend": s["backend"],
+                                              "n_kernels": s["n_kernels"]}
+                                             for s in info["segments"]],
+                                "block_backends": meshed.record.block_backends,
+                                "compile_s": compile_s})
+    # the main path: every count to 0, one call of each case, counts read
+    _zero_counts(*mods.values())
+    outs = {}
+    for name, c in cases.items():
+        before = _counts(mods)
+        outs[name] = c["meshed"](c["env"])
+        _sync(torch)
+        c["row"]["launches"] = _counts_since(before, mods)
+    total = {k: {"launches": m.launches, "by_path": dict(m.launches_by_path)}
+             for k, m in mods.items()}
+    for name, c in cases.items():
+        row, meshed = c["row"], c["meshed"]
+        # a unit the per-unit legality check sent to torch launches nothing;
+        # a segment all of whose units went there has backend "torch"
+        # every unit of every segment runs on a kernel: a unit the per-unit
+        # legality check sent to torch fails the phase
+        segs = meshed.record.mesh["segments"]
+        torch_units = {u: meshed.record.block_fallbacks.get(u, "")
+                       for u, b in meshed.record.block_backends.items() if b != "cuda"}
+        if torch_units or any(s["backend"] != "cuda" for s in segs):
+            raise AssertionError(f"phase 14 {name}: units off the kernels: {torch_units}, "
+                                 f"segments {[(s['name'], s['backend']) for s in segs]}")
+        per_rank = sum(s["n_cuda"] for s in segs)
+        launched = sum(v["launches"] for v in row["launches"].values())
+        row["launches_expected"] = MESH_RANKS * per_rank
+        if DEVICE != "cuda":
+            pass  # a rehearsal on CPU ranks runs the plain versions: nothing launches
+        elif per_rank == 0 or launched != MESH_RANKS * per_rank:
+            raise AssertionError(f"phase 14 {name}: {launched} launches, expected "
+                                 f"{MESH_RANKS} ranks x {per_rank} a rank")
+        want = c["single"](c["env"])["O"]
+        got = outs[name]["O"]
+        row["max_abs_err"] = _close(torch, got, want, f"phase 14 {name} mesh against single",
+                                    MESH_RTOL)
+        row["bit_equal"] = bool(torch.equal(got, want))
+        counted = mesh_lower.count_collectives(meshed, c["env"])
+        expected = mesh_lower.expected_primitive_counts_from_record(meshed.record.mesh)
+        if counted != expected:
+            raise AssertionError(f"phase 14 {name}: collective sites {dict(counted)}, "
+                                 f"the plan's {expected}")
+        row["collective_sites"] = dict(counted)
+        row["collective_trips"] = counted.trips
+        row["ms"], row["single_ms"] = timer.turns(lambda: meshed(c["env"]),
+                                                  lambda: c["single"](c["env"]))
+        row["host_ms"] = _host_ms(torch, lambda: meshed(c["env"]), reps)
+        row["single_host_ms"] = _host_ms(torch, lambda: c["single"](c["env"]), reps)
+    if DEVICE == "cuda" and min(total[k]["launches"] for k in ("contraction", "windowed")) \
+            < MESH_RANKS:
+        raise AssertionError(f"phase 14: the contraction and windowed kernels must run on "
+                             f"every rank: {total}")
+    return {"rows": [c["row"] for c in cases.values()], "launches": total}
+
+
+def zero1_shares(torch, gen, shape, n: int):
+    """``n`` different gradient shares of ``shape`` stacked on a leading
+    axis, and their sum: random multiples of 2**-22 below 2**-10, the
+    last share the gradient less the others, so the sum in any order is
+    exact and a reduce-scatter that does not sum the ranks' shares
+    misses the gradient AdamW takes."""
+    dev = gen.device
+    g = torch.randint(-2 ** 12, 2 ** 12, shape, generator=gen, device=dev)
+    parts = [torch.randint(-2 ** 12, 2 ** 12, shape, generator=gen, device=dev)
+             for _ in range(n - 1)]
+    parts.append(g - sum(parts))
+    unit = 2.0 ** -22
+    return torch.stack(parts).to(torch.float32) * unit, g.to(torch.float32) * unit
+
+
+def collective_library(torch, api, timer) -> dict:
+    """Phase 14 (b): the collective algorithms at llama3-8b's widths on
+    ``MESH_RANKS`` ranks of the one card, each against its single-device
+    reference."""
+    from functools import partial
+
+    from repro_torch.optim import compress, zero1
+    from repro_torch.parallel import collective_matmul as cm
+    from repro_torch.parallel import pipeline, sp_attention, spmd
+    from repro_torch.parallel.spmd import Mesh, P
+
+    cfg = api.configs.get("llama3-8b")
+    d, ff = cfg.d_model, cfg.d_ff
+    n = MESH_RANKS
+    mesh = Mesh([_rank_device()] * n, ("x",))
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 15)
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device=DEVICE) * scale
+
+    out = {}
+    # both ring matmuls against the unoverlapped gather-then-multiply
+    row_specs = (P("x", None), P(None, "x"))
+    x, w = randn(RING_ROWS, d), randn(d, ff, scale=d ** -0.5)
+    ag = spmd.shard_map(partial(cm.ring_allgather_matmul, axis="x"), mesh, row_specs,
+                        P(None, "x"))
+    base = spmd.shard_map(partial(cm.allgather_matmul_baseline, axis="x"), mesh, row_specs,
+                          P(None, "x"))
+    err = _close(torch, ag(x, w), base(x, w), "ring_allgather_matmul against the baseline")
+    ms, base_ms = timer.turns(lambda: ag(x, w), lambda: base(x, w))
+    out["ring_allgather_matmul"] = {"x": [RING_ROWS, d], "w": [d, ff], "max_abs_err": err,
+                                    "ms": ms, "baseline_ms": base_ms}
+    x2, w2 = randn(RING_ROWS, ff), randn(ff, d, scale=ff ** -0.5)
+    rs = spmd.shard_map(partial(cm.ring_matmul_reduce_scatter, axis="x"), mesh,
+                        (P(None, "x"), P("x", None)), P(None, "x"))
+    err = _close(torch, rs(x2, w2), base(x2, w2),
+                 "ring_matmul_reduce_scatter against the baseline")
+    ms, base_ms = timer.turns(lambda: rs(x2, w2), lambda: base(x2, w2))
+    out["ring_matmul_reduce_scatter"] = {"x": [RING_ROWS, ff], "w": [ff, d],
+                                         "max_abs_err": err, "ms": ms, "baseline_ms": base_ms}
+    del x, w, x2, w2
+
+    # sequence-parallel decode attention over the KV positions
+    b, hq, hkv, hd, s = SP_DECODE
+    q = randn(b, hq, hd)
+    k = randn(b, s, hkv, hd).repeat_interleave(hq // hkv, dim=2)
+    v = randn(b, s, hkv, hd).repeat_interleave(hq // hkv, dim=2)
+    valid = torch.tensor([s, s - s // 3, s // 2 + 1, 1], dtype=torch.int32, device=DEVICE)
+    scale = hd ** -0.5
+
+    def sp_body(q, k, v, valid):
+        s_loc = k.shape[1]
+        start = spmd.axis_index("x") * s_loc
+        return sp_attention.sp_decode_attention(q, k, v, torch.clamp(valid - start, 0, s_loc),
+                                                scale, axis="x")
+
+    sp = spmd.shard_map(sp_body, mesh, (P(), P(None, "x"), P(None, "x"), P()), P())
+    full = lambda: sp_attention.full_decode_attention_ref(q, k, v, valid, scale)  # noqa: E731
+    err = _close(torch, sp(q, k, v, valid), full(), "sp_decode_attention against full")
+    ms, full_ms = timer.turns(lambda: sp(q, k, v, valid), full)
+    out["sp_decode_attention"] = {"B_Hq_Hkv_D_S": list(SP_DECODE), "valid": valid.tolist(),
+                                  "max_abs_err": err, "ms": ms, "full_ms": full_ms}
+    del q, k, v
+
+    # the pipeline over MESH_RANKS stages of one d x d layer each
+    ws = randn(n, d, d, scale=d ** -0.5)
+    micro = randn(PIPE_MICRO, PIPE_ROWS, d)
+    pipe = spmd.shard_map(
+        lambda w, m: pipeline.pipeline_apply(lambda p, h: torch.tanh(h @ p), w[0], m, axis="x"),
+        mesh, (P("x"), P()), P())
+
+    def sequential():
+        h = micro
+        for i in range(n):
+            h = torch.tanh(h @ ws[i])
+        return h
+
+    err = _close(torch, pipe(ws, micro), sequential(), "pipeline_apply against the loop")
+    ms, seq_ms = timer.turns(lambda: pipe(ws, micro), sequential)
+    out["pipeline_apply"] = {"stages": n, "micro": [PIPE_MICRO, PIPE_ROWS, d],
+                             "bubble_fraction": pipeline.bubble_fraction(n, PIPE_MICRO),
+                             "max_abs_err": err, "ms": ms, "sequential_ms": seq_ms}
+    del ws, micro
+
+    # ZeRO-1 on one llama3-8b layer's float32 parameters against AdamW
+    shapes = {"wq": (d, cfg.n_heads * cfg.head_dim), "wk": (d, cfg.n_kv_heads * cfg.head_dim),
+              "wv": (d, cfg.n_kv_heads * cfg.head_dim), "wo": (cfg.n_heads * cfg.head_dim, d),
+              "w_gate": (d, ff), "w_up": (d, ff), "w_down": (ff, d),
+              "attn_norm": (d,), "mlp_norm": (d,)}
+    params = {k_: randn(*sh, scale=0.02) for k_, sh in shapes.items()}
+    shares, grads = {}, {}
+    for k_, sh in shapes.items():
+        shares[k_], grads[k_] = zero1_shares(torch, gen, sh, n)
+    ocfg = api.adamw.AdamWConfig(lr=1e-3, warmup_steps=0)
+    specs = {"m": P("x"), "v": P("x"), "step": P()}
+
+    def z_body(p, sh, st):  # each rank's block of the leading axis is its share
+        return zero1.zero1_update(p, {k_: v_[0] for k_, v_ in sh.items()}, st, ocfg, "x")
+
+    z = spmd.shard_map(z_body, mesh, (P(), P("x"), specs), (P(), specs, P()))
+    state = zero1.zero1_init_state(params, n)
+    t0 = time.perf_counter()
+    zp, zs, zinfo = z(params, shares, state)
+    _sync(torch)
+    z_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    ap, _, ainfo = api.adamw.apply_updates(params, grads, api.adamw.init_state(params), ocfg)
+    _sync(torch)
+    a_ms = (time.perf_counter() - t0) * 1e3
+    err = max(_close(torch, zp[k_], ap[k_], f"zero1 {k_} against adamw") for k_ in shapes)
+    _close(torch, zinfo["grad_norm"], ainfo["grad_norm"], "zero1 grad norm against adamw")
+    out["zero1_update"] = {"params": sum(p.numel() for p in params.values()),
+                           "state_per_rank": sum(m.numel() for m in zs["m"].values()) // n,
+                           "max_abs_err": err,
+                           "bit_equal": all(torch.equal(zp[k_], ap[k_]) for k_ in shapes),
+                           "host_ms": z_ms, "adamw_host_ms": a_ms}
+    del params, grads, shares, state, zp, zs, ap
+
+    # compressed_psum with error feedback: two rounds of w_gate's gradient
+    g = randn(n, d * ff // 8, scale=0.1)
+    cp = spmd.shard_map(lambda x_, r: compress.compressed_psum(x_, "x", r), mesh,
+                        (P("x"), P("x")), (P("x"), P("x")))
+    res = torch.zeros_like(g)
+    want = g.sum(0, keepdim=True).expand_as(g)
+    sums = []
+    for rnd in range(2):
+        vals = g + res
+        deq = [compress.dequantize_int8(*compress.quantize_int8(vals[r:r + 1]),
+                                        (1, g.shape[1]), torch.float32) for r in range(n)]
+        exact = deq[0].clone()
+        for dq in deq[1:]:
+            exact = exact + dq
+        got, res = cp(g, res)
+        if not torch.equal(got, exact.expand_as(g)):
+            raise AssertionError(f"compressed_psum round {rnd}: not the rank-order sum of "
+                                 "the dequantized shards")
+        sums.append(got)
+    err1 = (sums[0] - want).abs().max().item()
+    err2 = (sums[0] + sums[1] - 2 * want).abs().max().item()
+    if not (err1 < 0.05 and err2 <= 2 * err1 + 1e-6):
+        raise AssertionError(f"compressed_psum: error {err1} then {err2} over two rounds")
+    out["compressed_psum"] = {"shape": list(g.shape), "round1_err": err1,
+                              "two_round_err": err2,
+                              "ratio": compress.compression_ratio(g.shape[1:])}
+    return out
+
+
+def mesh_without_cards(api) -> str:
+    """Phase 14 (c): ``mesh=8`` on a machine with fewer cards must raise,
+    never run on the CPU."""
+    import torch
+
+    if torch.cuda.device_count() >= 8:
+        return "skipped: the machine has 8 cards"
+    prog, hw = _mesh_programs(api)["ffn"]
+    try:
+        api.jit(prog, hw, "cuda", mesh=8)
+    except ValueError as e:
+        return str(e)
+    raise AssertionError("phase 14: stripe_jit(mesh=8) ran on a machine with "
+                         f"{torch.cuda.device_count()} card(s)")
+
+
 def _pick(rows, prefix):
     return [r for r in rows if r["unit"].startswith(prefix)]
 
@@ -2493,6 +2898,24 @@ def main() -> None:
     for r in attn["rows"]:
         print("  unit " + json.dumps(r), flush=True)
 
+    # phase 14: the multi-device compile path and the collective library,
+    # MESH_RANKS ranks emulated on the one card
+    t0 = time.perf_counter()
+    mesh = mesh_cases(torch, api, timer, args.reps)
+    print(f"mesh: {len(mesh['rows'])} programs through api.jit(..., 'cuda', mesh=Mesh(['cuda:0'] "
+          f"* {MESH_RANKS})), each held against its single-device compile within "
+          f"{MESH_RTOL}*(1+max|single|); launches {json.dumps(mesh['launches'])}; times of "
+          f"{MESH_RANKS} ranks on one card are the emulation's (one stream, the ranks' host "
+          f"threads), not an interconnect's; card {card}", flush=True)
+    for r in mesh["rows"]:
+        print("  mesh " + json.dumps(r), flush=True)
+    lib = collective_library(torch, api, timer)
+    for name, r in lib.items():
+        print(f"  collective {name}: " + json.dumps(r), flush=True)
+    print(f"mesh: stripe_jit(mesh=8) on {torch.cuda.device_count()} card(s) raised: "
+          f"{mesh_without_cards(api)}", flush=True)
+    print(f"mesh: phase 14 in {time.perf_counter() - t0:.1f} s", flush=True)
+
     decode = _pick(rows, "decode/")
     ew = [r for r in new_rows if r["kernel"] == ["elementwise"]]
     conv = _pick(new_rows, f"h100/resnet50_conv2_3x3_b{RESNET_BATCH}_float32")
@@ -2505,7 +2928,7 @@ def main() -> None:
         "contraction", "src/repro_torch/csrc/contraction.cu", "src/repro/core/lower_pallas.py:979",
         serve_launches + sw["launches"]["contraction"] + md["launches"]
         + sum(w["launches"] for w in (*wv.values(), *fam.values()))
-        + tn["launches"]["contraction"], decode,
+        + tn["launches"]["contraction"] + mesh["launches"]["contraction"]["launches"], decode,
         max([r["max_abs_err"] for r in rows]
             + [r["max_abs_err"] for r in new_rows if r["kernel"] == ["contraction"]]
             + [mm_err, md["max_abs_err"]]
@@ -2518,15 +2941,18 @@ def main() -> None:
                                        "families": {n: w["launches_by_call"]
                                                     for n, w in fam.items()
                                                     if "launches_by_call" in w},
-                                       "tune": tn["launches_by_path"]}
+                                       "tune": tn["launches_by_path"],
+                                       "mesh": mesh["launches"]["contraction"]["by_path"]}
     windowed = _kernel_entry(
         "windowed", "src/repro_torch/csrc/windowed.cu", "src/repro/core/lower_pallas.py:812",
-        sw["launches"]["windowed"] + rn["launches"] + tn["launches"]["windowed"], conv,
+        sw["launches"]["windowed"] + rn["launches"] + tn["launches"]["windowed"]
+        + mesh["launches"]["windowed"]["launches"], conv,
         max(r["max_abs_err"] for r in new_rows if r["kernel"] == ["windowed"]))
     windowed["general_ms"] = sum(r["general_ms"] for r in conv)
     windowed["launches_by_path"] = {"sweep": sw["windowed_launches_by_path"],
                                     "resnet": rn["launches_by_path"],
-                                    "tune": tn["windowed_launches_by_path"]}
+                                    "tune": tn["windowed_launches_by_path"],
+                                    "mesh": mesh["launches"]["windowed"]["by_path"]}
     # flash: llama3-8b's bf16 prefill attention at S 4096 (wgmma), the
     # CUDA-core design's time beside it; launches: phase 8's path
     flash = _kernel_entry("flash_attention", "src/repro_torch/csrc/flash_attention.cu",
@@ -2570,7 +2996,8 @@ def main() -> None:
     # phase 4's units
     elementwise = _kernel_entry("elementwise", "src/repro_torch/csrc/elementwise.cu",
                                 "src/repro/core/lower_pallas.py:1097",
-                                sw["launches"]["elementwise"] + tn["launches"]["elementwise"],
+                                sw["launches"]["elementwise"] + tn["launches"]["elementwise"]
+                                + mesh["launches"]["elementwise"]["launches"],
                                 ew,
                                 max(r["max_abs_err"] for r in ew))
     elementwise["general_ms"] = sum(r["general_ms"] for r in ew)
@@ -2581,6 +3008,7 @@ def main() -> None:
     elementwise["launches_by_path"] = {
         "sweep": sw["elementwise_launches_by_path"],
         "tune": tn["elementwise_launches_by_path"],
+        "mesh": mesh["launches"]["elementwise"]["by_path"],
         "phase4": {p: phase4.count(p) for p in ("vec", "general")}}
     elementwise["empty_kernel_ms"] = empty_ms
     summary = {"kernels": [

@@ -5,6 +5,11 @@
 Compile:
     ``jit`` (= ``stripe_jit``), ``compile`` (= ``compile_cached``),
     ``TileProgram``, ``CompiledProgram``, ``compile_with_tilings``
+Multi-device:
+    ``Mesh`` (``parallel.spmd.Mesh``: explicit devices, one a rank);
+    ``jit(..., mesh=)`` takes a device count, a mesh shape tuple (the
+    machine's first cards) or a ``Mesh`` (``Mesh(["cuda:0"] * 4, ("x",))``
+    runs four ranks on one card)
 Op library:
     ``set_backend`` / ``get_backend`` (``"torch"`` or ``"cuda"``: how the
     models' projections run), ``linear``
@@ -56,6 +61,7 @@ from .kernels.flash_attention.ops import choose_block_sizes
 from .kernels.stripe_matmul.ops import matmul, matmul_ref
 from .models.build import build_model, make_batch
 from .optim import adamw
+from .parallel.spmd import Mesh
 from .reliability import FaultPlan, InjectedFault, faults
 from .serving import EngineConfig, Request, SamplingParams, ServingEngine, WaveEngine
 from .train.loop import TrainConfig, Trainer
@@ -67,7 +73,7 @@ compile = compile_cached  # noqa: A001 - deliberate: api.compile, never bare
 __all__ = [
     "jit", "compile", "stripe_jit", "compile_cached", "TileProgram",
     "CompiledProgram", "compile_with_tilings", "set_backend", "get_backend", "linear",
-    "get_config", "HardwareConfig", "configs", "build_model", "make_batch",
+    "get_config", "HardwareConfig", "configs", "Mesh", "build_model", "make_batch",
     "tune", "TuningDB", "fit_calibration", "set_calibration", "measure_interleaved",
     "obs", "measure_candidates",
     "ServingEngine", "WaveEngine", "EngineConfig", "Request", "SamplingParams",

@@ -24,8 +24,11 @@ it means "ran in Pallas interpret mode", here "the kernels' plain versions
 ran" (no tensor of the call on the card).  ``stripe_jit(device=)`` names
 where the program's tensors will live and so which slot it replays.
 
-The multi-device path (``mesh=``) is not ported yet and raises
-``NotImplementedError``.
+``mesh=`` routes a compile through the multi-device path
+(:func:`_stripe_jit_mesh`): the shard planner cuts the program into
+shard-local segments, each compiled through this same single-device
+pipeline, and ``mesh_lower.emit`` stitches them inside
+``parallel.spmd.shard_map`` with the plan's explicit collectives.
 """
 from __future__ import annotations
 
@@ -101,6 +104,13 @@ class CompileRecord:
     # "replay" (caller-supplied tilings via ``compile_with_tilings``).
     decision_source: str = "analytic"
     tuned: Dict[str, Any] = dataclasses.field(default_factory=dict)
+    # Multi-device provenance (``stripe_jit(..., mesh=)``): mesh shape /
+    # axis / device count, the shard plan's split decisions, the emitted
+    # collectives with their modelled bytes and overlap choices, and a
+    # per-segment summary (each segment is its own cached single-device
+    # compile).  ``{"fallback": reason, ...}`` when the partitioner found
+    # no legal split and the program compiled single-device instead.
+    mesh: Dict[str, Any] = dataclasses.field(default_factory=dict)
 
     def fusion_decisions(self) -> List[Dict]:
         """Accepted/rejected merges recorded by the fusion pass."""
@@ -163,13 +173,6 @@ def _as_program(fn_or_contraction, tensors=None, out=None, ranges=None, name="op
         raise TypeError(f"cannot compile {type(obj).__name__}; "
                         "expected Program, TileProgram, contraction str, or a callable producing one")
     return obj
-
-
-def _not_ported(mesh, hw: HardwareConfig) -> None:
-    if mesh is not None or getattr(hw, "mesh_devices", lambda: 1)() > 1:
-        raise NotImplementedError(
-            "stripe_jit(mesh=...) is not ported yet: the multi-device slice "
-            "(ROADMAP A9) brings it")
 
 
 def plain_versions_ran(arrays: Mapping[str, Any]) -> bool:
@@ -484,16 +487,36 @@ def stripe_jit(fn_or_contraction: Union[Program, TileProgram, str, Callable],
     ``"cuda"``.  With ``profile=True`` the first warm call (see
     ``_attach_profiling``) also records its measurement back into the DB,
     under the slot of that call's tensors.
-    ``mesh`` is not ported yet and raises ``NotImplementedError``.
+    ``mesh`` routes the compile through the multi-device path: a device
+    count, a mesh shape tuple (both take the machine's first cards, and
+    raise when there are too few), or a ``parallel.spmd.Mesh`` with
+    explicit devices (``Mesh(["cuda:0"] * 4, ("x",))`` runs four ranks on
+    one card) — the partitioner shards the program over the mesh, each
+    shard-local segment compiles through this same single-device
+    pipeline, and the segments are stitched inside ``shard_map`` with
+    explicit collectives; the mesh's devices, not ``device``, then name
+    where the segments' tensors live.  A mesh the partitioner cannot shard
+    falls back to a single-device compile with ``record.mesh["fallback"]``
+    carrying the reason.
     """
     if backend not in BACKENDS:
         raise ValueError(f"unknown backend {backend!r}; expected one of {BACKENDS}")
     if device not in ("cuda", "cpu"):
         raise ValueError(f"unknown device {device!r}; expected 'cuda' or 'cpu'")
-    _not_ported(mesh, hw)
-    interpret = device == "cpu"
     if cache is None:
         cache = _cache.get_default_cache()
+    if mesh is None and getattr(hw, "mesh_devices", lambda: 1)() > 1:
+        mesh = hw.mesh  # the config carries a mesh spec: compile for it
+    if mesh is not None:
+        from . import mesh_lower
+
+        resolved = mesh_lower.resolve_mesh(mesh)
+        if resolved is not None:
+            return _stripe_jit_mesh(
+                fn_or_contraction, hw, backend, resolved,
+                tensors=tensors, out=out, ranges=ranges, cache=cache,
+                workers=workers, use_disk=use_disk, profile=profile, tune=tune)
+    interpret = device == "cpu"
     with obs_trace.span("compile.stripe_jit", backend=backend, hw=hw.name,
                         profile=profile) as csp:
         t0 = time.perf_counter()
@@ -601,6 +624,175 @@ def stripe_jit(fn_or_contraction: Union[Program, TileProgram, str, Callable],
             })
         csp.set(cache="disk" if record.disk_hit else "miss",
                 backend_used=low.backend, decision=record.decision_source)
+        return compiled
+
+
+def _single_device_hw(hw: HardwareConfig) -> HardwareConfig:
+    """The per-shard view of a meshed config: same machine model, no
+    mesh (so segment compiles never re-enter the mesh path) and no
+    partition pass (segments are already shard-local)."""
+    if not getattr(hw, "mesh", ()) and not any(
+            name == "partition" for name, _ in hw.passes):
+        return hw
+    return dataclasses.replace(
+        hw, mesh=(),
+        passes=tuple((n, p) for n, p in hw.passes if n != "partition"))
+
+
+def _stripe_jit_mesh(fn_or_contraction, hw: HardwareConfig, backend: str,
+                     resolved, *, tensors=None, out=None, ranges=None,
+                     cache: Optional[_cache.CompilationCache] = None,
+                     workers: Optional[int] = None, use_disk: bool = True,
+                     profile: bool = False,
+                     tune: Union[None, bool, Any] = None) -> CompiledProgram:
+    """The multi-device compile path behind ``stripe_jit(..., mesh=)``.
+
+    The shard planner picks one split per block (output, reduction,
+    halo, or ring-overlap — by modelled cost) and cuts the program into
+    shard-local *segments*; each segment compiles through the ordinary
+    cached single-device ``stripe_jit`` (per-block hybrid cuda/torch
+    composer, tuning DB, quarantine — everything), and
+    :func:`~repro_torch.core.mesh_lower.emit` stitches the compiled
+    segments inside ``shard_map`` with the plan's explicit collectives.
+    A program the planner cannot shard falls back to the single-device
+    compile, recording the reason in ``record.mesh["fallback"]``.
+    """
+    from .mesh_lower import emit
+    from .shardplan import UnsupportedMesh, plan_program
+
+    mesh, axis, shape = resolved
+    n = mesh.size
+    hw_inner = _single_device_hw(hw)
+    # where the segments' tensors live picks the tuning DB's slot
+    device = "cuda" if any(d.type == "cuda" for d in mesh.flat_devices()) else "cpu"
+    interpret = device == "cpu"
+    with obs_trace.span("compile.stripe_jit_mesh", backend=backend,
+                        hw=hw.name, mesh="x".join(map(str, shape))) as csp:
+        t0 = time.perf_counter()
+        prog = _as_program(fn_or_contraction, tensors=tensors, out=out,
+                           ranges=ranges)
+        try:
+            faults.check("compile.stripe_jit_mesh", backend=backend, n=n)
+            plan = plan_program(prog, n, hw, shape)
+        except Exception as e:
+            if not isinstance(e, UnsupportedMesh):
+                # planner crash / injected fault: degrade, don't fail
+                e = UnsupportedMesh(f"mesh planning crashed: {e!r}")
+            compiled = stripe_jit(prog, hw_inner, backend, cache=cache,
+                                  workers=workers, use_disk=use_disk,
+                                  profile=profile, tune=tune, device=device)
+            rec = dataclasses.replace(
+                compiled.record,
+                mesh={"fallback": str(e), "shape": list(shape),
+                      "axis": axis, "n_devices": n})
+            csp.set(fallback=str(e)[:200])
+            return CompiledProgram(compiled.program, compiled._fn,
+                                   compiled.hw, rec)
+
+        ir_fp = ir_fingerprint(prog)
+        hw_fp = hw.fingerprint()
+        tune_db = _resolve_tune(tune, cache)
+        key = _cache.content_key(
+            "stripe_jit_mesh", DRIVER_VERSION, _cache.CACHE_VERSION, _cache.PORT_TAG,
+            ir_fp, hw_fp, backend, bool(interpret), bool(profile),
+            list(shape), axis, n, [str(d) for d in mesh.flat_devices()],
+            _calibration_fp(hw_fp),
+        )
+        # the outer memory cache is bypassed under tuning: segment keys
+        # fold in their tuned candidate ids, so a DB update must be able
+        # to re-stitch fresh segment artifacts
+        if tune_db is None:
+            with obs_trace.span("cache.probe", level="memory") as sp:
+                hit = cache.get_memory(key)
+                sp.set(hit=hit is not None)
+            if isinstance(hit, CompiledProgram):
+                rec = dataclasses.replace(
+                    hit.record, cache_hit=True, disk_hit=False,
+                    compile_time_s=time.perf_counter() - t0)
+                csp.set(cache="memory", backend_used=rec.backend)
+                return CompiledProgram(hit.program, hit._fn, hit.hw, rec)
+
+        segments = plan.build_segments(prog)
+        compiled_segs = [
+            stripe_jit(seg.program, hw_inner, backend, cache=cache,
+                       workers=workers, use_disk=use_disk, profile=False,
+                       tune=tune, device=device)
+            for seg in segments]
+        fn = emit(prog, plan, segments, compiled_segs, mesh, axis)
+
+        # merge segment provenance into the whole-program record
+        pass_trace: List = []
+        block_backends: Dict[str, str] = {}
+        block_fallbacks: Dict[str, str] = {}
+        tilings: Dict[str, Dict[str, int]] = {}
+        groups: List[List[str]] = []
+        n_kernels = 0
+        backend_used = "reference"
+        seg_summaries = []
+        for seg, c in zip(segments, compiled_segs):
+            r = c.record
+            pass_trace.extend(r.pass_trace)
+            block_backends.update(r.block_backends)
+            block_fallbacks.update(r.block_fallbacks)
+            tilings.update(r.tilings)
+            groups.extend(r.groups)
+            n_kernels += r.n_kernels
+            if r.backend == "cuda" or (r.backend == "torch"
+                                       and backend_used != "cuda"):
+                backend_used = r.backend
+            # the segment's kernel launches a call: its units on cuda
+            n_cuda = (r.n_kernels - sum(1 for b in r.block_backends.values() if b != "cuda")
+                      if r.backend == "cuda" else 0)
+            seg_summaries.append({
+                "name": seg.program.entry.name, "key": r.key,
+                "backend": r.backend, "n_kernels": r.n_kernels, "n_cuda": n_cuda,
+                "cache_hit": r.cache_hit, "disk_hit": r.disk_hit,
+                "decision_source": r.decision_source,
+            })
+        pass_trace.append(("partition", {"mesh": list(shape), "axis": axis},
+                           plan.report(scale_compute=False)))
+        mesh_info = {
+            "shape": list(shape), "axis": axis, "n_devices": n,
+            "seed": plan.seed, "splits": plan.splits(),
+            "collectives": [c.to_json() for c in plan.collectives],
+            "collective_bytes": plan.collective_bytes(),
+            "comm_s": plan.comm_s, "compute_s": plan.compute_s,
+            "overlapped": [c.buffer for c in plan.collectives if c.overlap],
+            "segments": seg_summaries,
+        }
+        record = CompileRecord(
+            key=key, backend=backend_used, hw_name=hw.name,
+            cache_hit=False, disk_hit=False,
+            compile_time_s=time.perf_counter() - t0,
+            tilings=tilings, pass_trace=pass_trace,
+            n_kernels=n_kernels, groups=groups,
+            block_backends=block_backends, block_fallbacks=block_fallbacks,
+            profiled=bool(profile), ir_fingerprint=ir_fp,
+            hw_fingerprint=hw_fp,
+            decision_source=("tuned" if any(
+                s["decision_source"] == "tuned" for s in seg_summaries)
+                else "analytic"),
+            mesh=mesh_info,
+        )
+        if profile:
+            record.predicted_latency_s = {"<program>": plan.cost_s}
+            fn = _attach_profiling(
+                _Lowered(fn, backend_used), record, cache,
+                tune_db=tune_db, requested_backend=backend)
+        compiled = CompiledProgram(prog, fn, hw, record)
+        if tune_db is None:
+            cache.put_memory(key, compiled)
+        if use_disk:
+            cache.put_disk(key, {
+                "mesh": mesh_info, "tilings": tilings,
+                "hw": hw.name, "backend": backend_used,
+                "compile_time_s": record.compile_time_s,
+                "n_kernels": n_kernels, "groups": groups,
+                "segments": seg_summaries,
+            })
+        csp.set(cache="miss", backend_used=backend_used,
+                n_segments=len(segments),
+                collective_bytes=mesh_info["collective_bytes"])
         return compiled
 
 

@@ -138,6 +138,12 @@ def _grid_ref(ref: Refinement, grid_ranges: Mapping[str, int],
                     raise UnsupportedCuda(f"offset base {e.const} in {e}")
             dim_vars.append(v)
             dims.append(DimSpec(v, c, e.const, size))
+        elif allow_halo and all(v in grid_ranges and c > 0 for v, c in e.terms):
+            # a window the tiler split (``2*i + 8*x - 1``: a 3-tap window
+            # tiled 2 + 1 beside an 8-row output tile): no one grid var
+            # addresses the dim; the windowed emitter flattens the sum
+            dim_vars.append(None)
+            dims.append(DimSpec(None, 0, e.const, size))
         else:
             raise UnsupportedCuda(f"unsupported offset {e}")
     return GridRef(ref=ref, block_shape=tuple(ref.shape),
@@ -1114,12 +1120,95 @@ def _joined(a: Callable, b: Callable, buffers: Mapping[str, TensorDecl]) -> Opti
     return fn
 
 
+def _least(a: WK.Affine, out_ext: Sequence[int], red_lo: Sequence[int],
+           red_hi: Sequence[int]) -> int:
+    """The least value of ``a`` over a box: output variables over their
+    whole extent, reduction variable j over [red_lo[j], red_hi[j]]."""
+    const, oc, rc = a
+    return (const + sum(min(0, c * (e - 1)) for c, e in zip(oc, out_ext))
+            + sum(min(c * lo, c * hi) for c, lo, hi in zip(rc, red_lo, red_hi)))
+
+
+def _joined_windowed(a: Callable, b: Callable,
+                     buffers: Mapping[str, TensorDecl]) -> Optional[Callable]:
+    """One launch for two windowed pieces of one unit that cover one
+    output region and split one reduction variable into consecutive
+    ranges, ``b``'s right after ``a``'s (a window the tiler cut 2 + 1,
+    whose last tap the boundary pass split off); None when they do not.
+    The joined launch keeps every constraint of both pieces: each must
+    hold on the whole of the other piece's range, or be the other's too."""
+    if a.kernel != "windowed" or b.kernel != "windowed" or a.out_buf != b.out_buf \
+            or a.out_base != b.out_base:
+        return None
+    pa, pb = a.plan, b.plan
+    same = ("out_vars", "out_ext", "out_dim", "out_coef", "out_shape", "lhs", "rhs",
+            "n_sides", "consts", "scale", "out_dtype")
+    if any(getattr(pa, f) != getattr(pb, f) for f in same) \
+            or sorted(pa.red_vars) != sorted(pb.red_vars) \
+            or [(i.buf, i.shape, i.dtype) for i in pa.ins] != \
+               [(i.buf, i.shape, i.dtype) for i in pb.ins]:
+        return None
+    perm = [pb.red_vars.index(v) for v in pa.red_vars]
+
+    def in_a(x: WK.Affine) -> WK.Affine:  # b's affine, its variables in a's order
+        return (x[0], x[1], tuple(x[2][j] for j in perm))
+
+    b_ext = [pb.red_ext[j] for j in perm]
+    a_dims = [d for i in pa.ins for d in i.dims]
+    b_dims = [in_a(d) for i in pb.ins for d in i.dims]
+    if any(x[1:] != y[1:] for x, y in zip(a_dims, b_dims)):
+        return None
+    for r, (ea, eb) in enumerate(zip(pa.red_ext, b_ext)):
+        if all(y[0] - x[0] == ea * x[2][r] for x, y in zip(a_dims, b_dims)) \
+                and any(x[2][r] for x in a_dims) \
+                and all(e1 == e2 for j, (e1, e2) in enumerate(zip(pa.red_ext, b_ext)) if j != r):
+            break
+    else:
+        return None
+
+    def shifted(x: WK.Affine) -> WK.Affine:  # b's constraint in the joined variables
+        x = in_a(x)
+        return (x[0] - x[2][r] * ea, x[1], x[2])
+
+    a_cons, b_cons = list(pa.constraints), [shifted(c) for c in pb.constraints]
+    n = len(pa.red_ext)
+    a_lo, a_hi = [0] * n, [e - 1 for e in pa.red_ext]
+    b_lo, b_hi = list(a_lo), list(a_hi)
+    b_lo[r], b_hi[r] = ea, ea + eb - 1
+    if any(c not in b_cons and _least(c, pa.out_ext, b_lo, b_hi) < 0 for c in a_cons) \
+            or any(c not in a_cons and _least(c, pa.out_ext, a_lo, a_hi) < 0 for c in b_cons):
+        return None
+    red_ext = list(pa.red_ext)
+    red_ext[r] = ea + eb
+    cons = a_cons + [c for c in b_cons if c not in a_cons]
+    # a constraint over the joined variable alone ("2 - i >= 0": the tiler's
+    # 2 + 2 over a 3-tap window) shortens its range instead of masking it
+    for c in list(cons):
+        k, rc = c[0], c[2][r]
+        if rc < 0 and k >= 0 and not any(c[1]) and not any(
+                x for j, x in enumerate(c[2]) if j != r):
+            red_ext[r] = min(red_ext[r], k // -rc + 1)
+            cons.remove(c)
+    taps = set(pa.taps) | set(pb.taps)
+    plan = dataclasses.replace(
+        pa, red_ext=tuple(red_ext), taps=tuple(v for v in pa.red_vars if v in taps),
+        constraints=tuple(cons), _cparams={})
+    if plan.n_tracked() > WK.MAXQ:
+        return None
+    fn = _windowed_fn(plan, buffers, a.out_base)
+    fn.out_buf = a.out_buf
+    return fn
+
+
 def _join_pieces(fns: List[Callable], buffers: Mapping[str, TensorDecl]) -> List[Callable]:
-    """Join a unit's contraction pieces (``_joined``) while any two meet."""
+    """Join a unit's contraction pieces (``_joined``) and windowed pieces
+    (``_joined_windowed``) while any two meet."""
     fns = list(fns)
     while True:
         pair = next(((i, j, f) for i in range(len(fns)) for j in range(len(fns))
-                     if i != j for f in [_joined(fns[i], fns[j], buffers)] if f is not None),
+                     if i != j for f in [_joined(fns[i], fns[j], buffers)
+                                         or _joined_windowed(fns[i], fns[j], buffers)]
+                     if f is not None),
                     None)
         if pair is None:
             return fns
@@ -1309,6 +1398,13 @@ def _emit_windowed(plan: WindowedPlan, outer: Block, buffers: Mapping[str, Tenso
                    (max(len(p) for p in progs), K.MAXP, "program length"),
                    (len(pf.consts), K.MAXC, "constants"), (len(out_shape), K.MAXD, "output rank"),
                    (max(K.stack_depth(p) for p in progs), K.MAXSTACK, "stack depth")])
+    return _windowed_fn(wplan, buffers, base)
+
+
+def _windowed_fn(wplan: WK.WinPlan, buffers: Mapping[str, TensorDecl],
+                 base: Tuple[int, ...]) -> Callable:
+    """The launch of ``wplan``, writing its region at ``base``."""
+    out_shape = wplan.out_shape
 
     def arrays_of(arrays):
         return [_as_input(arrays[i.buf], buffers[i.buf]) for i in wplan.ins]
@@ -1320,7 +1416,7 @@ def _emit_windowed(plan: WindowedPlan, outer: Block, buffers: Mapping[str, Tenso
         return WK.windowed_plain(wplan, arrays_of(arrays), getattr(fn, "out_clip", out_shape))
 
     fn.out_shape = out_shape
-    fn.out_dtype = torch_dtype(out_dtype)
+    fn.out_dtype = torch_dtype(wplan.out_dtype)
     fn.out_base = base
     fn.in_bufs = [i.buf for i in wplan.ins]
     fn.plan = wplan

@@ -19,8 +19,8 @@ pass.  This subsystem turns that property into an engine:
   (predicted latency x arena pressure x kernels launched), JSON +
   markdown.
 
-``mesh-sweep`` is not ported yet and raises ``NotImplementedError``
-(ROADMAP A9).
+``mesh-sweep`` scores device-mesh shapes through the partition pass's
+shard plan (ROADMAP A9a), touching no device.
 
 CLI::
 

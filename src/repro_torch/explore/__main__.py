@@ -12,8 +12,8 @@ nothing about the card's time).  ``--measure N`` (the measure mode)
 times up to N candidate tilings per workload on the same backend and
 device and records every measurement in the tuning DB under
 ``--tune-db`` (default: the compilation-cache dir), in the slot of
-``--device``.  The ``mesh-sweep`` space is not ported yet and exits with
-an error.  Prints the markdown report and writes ``explore_report.json`` +
+``--device``.  ``mesh-sweep`` scores device-mesh shapes through the
+partition pass and touches no device.  Prints the markdown report and writes ``explore_report.json`` +
 ``explore_report.md`` under ``--out``.  The sweep's compilation cache
 lives under ``--cache-dir`` (default ``<out>/cache``; honors
 ``$STRIPE_CACHE_DIR`` only when passed explicitly) so exploration never
@@ -26,7 +26,7 @@ import sys
 
 from .report import to_markdown, write_report
 from .runner import run_sweep
-from .space import BUILTIN_SPACES, NOT_PORTED, _fmt, get_space
+from .space import BUILTIN_SPACES, _fmt, get_space
 from .workloads import CORPORA
 
 
@@ -41,8 +41,6 @@ def _space_epilog() -> str:
         for a in sp.axes:
             vals = ", ".join(_fmt(v) for v in a.values)
             lines.append(f"    {a.path} = {{{vals}}} (default {_fmt(a.default)})")
-    for name, why in sorted(NOT_PORTED.items()):
-        lines.append(f"  {name}: {why}")
     return "\n".join(lines)
 
 
@@ -87,7 +85,7 @@ def main(argv=None) -> int:
 
     try:
         space = get_space(args.space)
-    except (KeyError, NotImplementedError) as e:
+    except KeyError as e:
         ap.error(str(e))
     cache_dir = args.cache_dir or f"{args.out}/cache"
 

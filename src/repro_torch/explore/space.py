@@ -271,21 +271,30 @@ def h100_sweep() -> SearchSpace:
         ))
 
 
+def mesh_sweep() -> SearchSpace:
+    """Multi-device co-design on the TPU v5e, as the JAX package's: device-mesh
+    shapes (the partition pass's shard plan prices the collectives
+    analytically — no devices are touched) crossed with interconnect
+    bandwidth and the pipeline depth.  The sweep's Pareto front trades
+    predicted latency against per-device communication bytes."""
+    return SearchSpace(
+        name="mesh-sweep", base="tpu_v5e",
+        axes=(
+            Axis("mesh", ((1,), (2,), (4,), (8,), (2, 2), (2, 4)),
+                 default=(1,)),
+            Axis("ici_link_bw", (50e9, 100e9, 25e9), default=50e9),
+            Axis("pipeline_depth", (2, 1, 3), default=2),
+        ))
+
+
 BUILTIN_SPACES: Dict[str, Callable[[], SearchSpace]] = {
     "tpu-sweep": tpu_sweep,
     "h100-sweep": h100_sweep,
     "cacheline-sweep": cacheline_sweep,
+    "mesh-sweep": mesh_sweep,
 }
-
-# Spaces of the JAX package that need a part of it this package lacks.
-NOT_PORTED: Dict[str, str] = {
-    "mesh-sweep": "the multi-device compile path is not yet ported (ROADMAP A9)",
-}
-
 
 def get_space(name: str) -> SearchSpace:
-    if name in NOT_PORTED:
-        raise NotImplementedError(f"search space {name!r}: {NOT_PORTED[name]}")
     try:
         return BUILTIN_SPACES[name]()
     except KeyError:

@@ -470,7 +470,7 @@ def windowed_plain(plan: WinPlan, ins: Sequence[torch.Tensor],
         views = []
         for t, inp, lows in zip(padded, plan.ins, pad_lo):
             pstr = _row_strides(t.shape)
-            offset = 0
+            offset = t.storage_offset()  # an input may be a view into a larger tensor
             strides = [0] * len(names)
             for (a, st, lo) in zip(inp.dims, pstr, lows):
                 c = coefs(a)

@@ -127,8 +127,8 @@ def _stack(p: Params, x: torch.Tensor, cfg, caches=None, remat: bool = False):
     its slice of the stacked buffers in place (donated, see
     ``attention``), and those buffers come back with the new positions.
     The JAX package pins the activations' sharding here (``constrain``),
-    the identity on one device: the multi-device slice (ROADMAP A9) brings
-    it.  ``remat`` recomputes each layer in the backward pass."""
+    the identity on one device: the GSPMD half of the multi-device slice
+    (ROADMAP A9b) brings it.  ``remat`` recomputes each layer in the backward pass."""
     auxs = []
     new = []
     block = rematted(block_apply, remat)

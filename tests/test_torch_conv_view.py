@@ -79,12 +79,16 @@ def _windowed_fns(compiled):
 def test_windowed_units_take_their_paths(name, hw, fuse):
     c = _compiled(name, hw, fuse)
     fns = _windowed_fns(c)
+    window = "1:i"
     if name == "resnet_b1_float32" and hw == "tpu_v5e":
-        # the reference's tiling there gives an offset neither package's
-        # windowed path takes (lower_pallas.py refuses it the same way)
-        assert not fns and c.record.backend == "torch"
-        assert "unsupported offset" in c.record.fallback_reasons()["op0"]
-        return
+        # the reference's tiling there cuts the 3-tap window 2 + 2, an
+        # input offset (``2*i + 32*x - 1``) that lower_pallas.py refuses;
+        # the port takes it: the boundary pass's two pieces of each output
+        # region join into one launch over the 3 taps (``_joined_windowed``)
+        assert c.record.block_backends == {"op0": "cuda"} and len(fns) == 2
+        window = "1:i_t"
+        for fn in fns:
+            assert fn.plan.red_ext[fn.plan.red_vars.index(window)] == 3
     assert fns, c.record.fallback_reasons()
     for fn in fns:
         plan, view = fn.plan, WK.conv_view(fn.plan)
@@ -106,7 +110,7 @@ def test_windowed_units_take_their_paths(name, hw, fuse):
         # the input (slot 0) is A; N is the output-channel variable k, K
         # walks c, then the taps j (fastest) and i; M every other variable
         assert view.a == 0 and plan.out_vars[view.n].split(":")[1].startswith("k")
-        assert [plan.red_vars[t] for t in view.taps] == ["1:j", "1:i"]
+        assert [plan.red_vars[t] for t in view.taps] == ["1:j", window]
         assert sorted(view.m_vars + (view.n,)) == [i for i, e in enumerate(plan.out_ext)
                                                    if e > 1]
         assert view.M == plan.output_points() // view.N

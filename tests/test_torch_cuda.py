@@ -226,6 +226,17 @@ def test_windowed_igemm_ragged_convs_on_the_card(shape, dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("k", [8, 16])
+def test_windowed_split_window_joined_on_the_card(k):
+    """56 x 56 x 64 -> k under h100, whose tiling cuts the 3-tap window
+    2 + 1 (ResNet-50 conv2_x's channel shard on 4 ranks): one launch a
+    region over the 3 taps, on igemm, against plain."""
+    _card()
+    paths = _windowed_paths_against_plain(_conv_program(1, 56, 56, 64, k, "float32"))
+    assert paths == ["igemm", "igemm"]
+
+
+@pytest.mark.cuda
 def test_windowed_refused_plan_runs_general_on_the_card():
     """fig4's int8 conv has 8 channels (8 bytes, not a 16-byte copy): the
     view refuses it, with its reason, and the general loop runs it."""
@@ -1467,3 +1478,72 @@ def test_kernels_refuse_autograd_on_the_card():
     assert _chip_smoke().c11_refusals(torch, api, "cuda") == [
         "oplib.linear", "flash_attention", "chunked_gla", "Trainer"]
     assert K.launches == 0
+
+
+# --------------------------------------------------------- multi-device
+# chip_smoke phase 14's programs at small widths whose plans keep their
+# kinds on 4 ranks: a row split, a psum, a channel split, a halo split and
+# (under the slow copy of h100) the ring
+SMALL_MESH = dict(MESH_FFN=(256, 64, 128), MESH_DOWN=(15, 256, 31), MESH_CONV=(16, 12, 8, 8),
+                  MESH_HALO=(16, 12, 8, 7), MESH_MLP2=(12, 64, 512, 64))
+
+
+@pytest.mark.cuda
+def test_mesh_cases_on_four_ranks_of_the_card(monkeypatch):
+    """chip_smoke phase 14 (a) at small widths on ``Mesh(["cuda:0"] * 4)``:
+    each plan's collectives as expected, no fallback, each output within
+    1e-5 x (1 + max|single|) of the single-device ``cuda`` compile, the
+    collective call sites equal to the plan's, the unit kernels launched
+    ranks x segments' launches (``chip_smoke.mesh_cases`` raises past
+    any of these)."""
+    from repro_torch import api
+
+    _card()
+    cs = _chip_smoke()
+    for k, v in SMALL_MESH.items():
+        monkeypatch.setattr(cs, k, v)
+    out = cs.mesh_cases(torch, api, cs._Timer(torch, 2), 2)
+    rows = {r["case"]: r for r in out["rows"]}
+    assert set(rows) == set(cs.MESH_PLANS)
+    assert out["launches"]["contraction"]["launches"] >= 3 * cs.MESH_RANKS
+    assert out["launches"]["windowed"]["launches"] >= 2 * cs.MESH_RANKS
+    assert rows["conv2_x_halo"]["collective_sites"] == {"ppermute": 2, "all_gather": 1}
+    assert rows["mlp2_ring"]["collective_trips"]["ppermute"] == cs.MESH_RANKS - 1
+
+
+@pytest.mark.cuda
+def test_collective_library_on_four_ranks_of_the_card(monkeypatch):
+    """chip_smoke phase 14 (b) at small widths: both ring matmuls, decode
+    attention, the pipeline, ZeRO-1 against AdamW and ``compressed_psum``
+    on four ranks of the card, each against its single-device reference."""
+    from repro_torch import api
+
+    _card()
+    cs = _chip_smoke()
+    monkeypatch.setattr(cs, "RING_ROWS", 64)
+    monkeypatch.setattr(cs, "SP_DECODE", (4, 8, 2, 64, 1024))
+    monkeypatch.setattr(cs, "PIPE_MICRO", 4)
+    small = dataclasses.replace(api.configs.get("llama3-8b"), d_model=256, d_ff=512,
+                                n_heads=4, n_kv_heads=2, head_dim=64)
+    monkeypatch.setattr(api.configs, "get", lambda name: small)
+    out = cs.collective_library(torch, api, cs._Timer(torch, 2))
+    assert set(out) == {"ring_allgather_matmul", "ring_matmul_reduce_scatter",
+                        "sp_decode_attention", "pipeline_apply", "zero1_update",
+                        "compressed_psum"}
+
+
+@pytest.mark.cuda
+def test_a_mesh_count_beyond_the_cards_raises_on_the_card():
+    """``resolve_mesh(8)`` on a machine with fewer cards raises, naming the
+    explicit devices that emulate them; it never runs on the CPU."""
+    from repro_torch import api
+    from repro_torch.core import mesh_lower
+
+    _card()
+    n = torch.cuda.device_count() + 1
+    if n <= 8:
+        with pytest.raises(ValueError, match="explicit devices"):
+            mesh_lower.resolve_mesh(8)
+    with pytest.raises(ValueError, match=f"needs {n} devices"):
+        mesh_lower.resolve_mesh(n)
+    assert "CUDA device" in _chip_smoke().mesh_without_cards(api) or n > 8

@@ -194,12 +194,20 @@ def test_h100_sweep_mirrors_tpu_sweep():
 
 
 def test_what_is_not_ported_refuses_clearly(tmp_path):
+    """Every space of the JAX package is ported (``mesh-sweep`` since the
+    multi-device slice, ROADMAP A9a): an unknown name is refused with the
+    list of spaces, by ``get_space`` and by the CLI."""
     from repro_torch.explore.__main__ import main
 
-    with pytest.raises(NotImplementedError, match="A9"):
-        t_space("mesh-sweep")
+    from repro.explore.space import BUILTIN_SPACES as j_spaces
+    from repro_torch.explore.space import BUILTIN_SPACES as t_spaces
+
+    assert set(t_spaces) >= set(j_spaces)
+    assert t_space("mesh-sweep").name == "mesh-sweep"
+    with pytest.raises(KeyError, match="mesh-sweep"):
+        t_space("no-such-sweep")
     with pytest.raises(SystemExit) as exc:
-        main(["--space", "mesh-sweep", "--out", str(tmp_path / "o")])
+        main(["--space", "no-such-sweep", "--out", str(tmp_path / "o")])
     assert exc.value.code != 0
 
 

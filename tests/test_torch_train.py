@@ -225,8 +225,22 @@ def test_int8_compression_is_bit_exact(case):
 
 
 def test_compressed_psum_waits_for_a9():
-    with pytest.raises(NotImplementedError, match="A9"):
+    """``compressed_psum`` is ported with the multi-device slice (ROADMAP
+    A9a): a collective, it runs inside ``parallel.spmd.shard_map`` (held
+    against the reference's in ``tests/test_torch_parallel.py``) and,
+    like ``jax.lax.psum``, refuses to run outside one."""
+    from repro_torch.parallel import spmd
+
+    with pytest.raises(NameError, match="shard_map"):
         t_compress.compressed_psum(torch.ones(4), "data")
+    x = torch.linspace(-1, 1, 8)
+    fn = spmd.shard_map(lambda v: t_compress.compressed_psum(v, "data"),
+                        spmd.Mesh(["cpu"] * 2, ("data",)),
+                        in_specs=(spmd.P(),), out_specs=(spmd.P(), spmd.P()))
+    summed, residual = fn(x)
+    q, s = t_compress.quantize_int8(x)
+    deq = t_compress.dequantize_int8(q, s, x.shape, torch.float32)
+    assert torch.equal(summed, deq + deq) and torch.equal(residual, x - deq)
 
 
 # --------------------------------------------------------- data pipeline

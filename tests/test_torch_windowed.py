@@ -112,6 +112,53 @@ def test_paper_conv_lowers_to_the_windowed_kernel(name):
     _hold(got, jc(ins)["O"], execute_reference(src, ins)["O"], exact=name == "fig4_conv")
 
 
+# ------------------------------------------------------- a split window
+def _j_config(name):
+    """The reference's ``HardwareConfig`` with the port's config's values
+    (the reference has no ``h100``)."""
+    import dataclasses
+
+    from repro.core import hwconfig as jh
+
+    t = t_hw(name)
+    return jh.HardwareConfig(**{
+        f.name: getattr(t, f.name) for f in dataclasses.fields(t)
+        if f.name not in ("mem_units", "stencils")},
+        mem_units=tuple(jh.MemoryUnit(**dataclasses.asdict(m)) for m in t.mem_units),
+        stencils=tuple(jh.ComputeStencil(**dataclasses.asdict(c)) for c in t.stencils))
+
+
+@pytest.mark.parametrize("hw,k", [("h100", 8), ("h100", 16), ("tpu_v5e", 64)])
+def test_a_split_window_joins_into_one_launch_a_region(hw, k):
+    """A 56 x 56 x 64 conv whose tiling cuts the 3-tap window 2 + 1 (the
+    channel shard of ResNet-50 conv2_x on 4 ranks under h100, and the whole
+    layer under tpu_v5e): the reference's windowed emitter refuses the
+    input offset (``2*i + 8*x - 1``) and runs the unit on ``jnp``; the port
+    takes it, joins the boundary pass's two pieces of each output region
+    into one launch over the 3 taps, which takes the igemm path, and
+    matches the reference's ``jnp`` backend at the file's float32
+    tolerance."""
+    jprog = _conv_prog(j_single, 56, 56, 64, k, 3)
+    tprog = _conv_prog(t_single, 56, 56, 64, k, 3)
+    src = copy.deepcopy(jprog)
+    jrec = j_jit(copy.deepcopy(jprog), _j_config(hw), backend="pallas", interpret=True,
+                 use_disk=False).record
+    assert jrec.block_backends == {"op0": "jnp"}
+    assert "unsupported offset" in jrec.fallback_reasons()["op0"]
+    tc = _port(tprog, hw)
+    assert list(tc.record.tilings.values())[0]["i"] == 2
+    assert tc.record.block_backends == {"op0": "cuda"} and tc.record.fallback_reasons() == {}
+    assert _kernels(tc) == ["windowed", "windowed"] and tc.record.n_kernels == 2
+    for _u, _kind, fns in tc._fn.steps:
+        for fn in fns:
+            plan = fn.plan
+            assert [e for v, e in zip(plan.red_vars, plan.red_ext) if v.startswith("1:i")] == [3]
+            assert WK.plan_path(plan) == "igemm", WK.refusal(plan)
+    ins = _conv_inputs(src)
+    want = j_jit(src, _j_config(hw), backend="jnp", use_disk=False)(ins)["O"]
+    np.testing.assert_allclose(_run_port(tc, ins)["O"], np.asarray(want), rtol=1e-4, atol=1e-4)
+
+
 # ----------------------------------------------------- partition properties
 @settings(max_examples=4, deadline=None)
 @given(st.integers(5, 10), st.integers(4, 9), st.integers(1, 2),
