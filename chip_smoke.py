@@ -278,17 +278,40 @@ and prints no result):
    feedback (two rounds, each the rank-order sum of the dequantized
    shards bit for bit).  (c) ``stripe_jit(mesh=8)`` on a machine with
    fewer cards must raise.
+15. **sharded step** — the LM family's train, prefill and decode steps
+   with their collectives placed by hand (``parallel/sharded.py``: what
+   the JAX package leaves to GSPMD), ranks emulated on the one card.
+   (a) ``sharded_loss_and_grads`` on 8 ranks, ``(2, 4)`` ``('data',
+   'model')``, float32 on oplib's ``torch`` backend (no kernel has a
+   backward), of llama3-8b, chatglm3-6b (KV heads cut over 'model') and
+   qwen3-moe-30b-a3b (experts on 'model', their D on 'data', a capacity
+   that drops tokens) at full width and cut depth (``SHARD_LAYERS``),
+   against the single-device ``loss_and_grads``: the loss within rtol
+   ``SHARD_LOSS_RTOL``, each gradient leaf within ``SHARD_GRAD_RTOL`` x
+   (1 + max); then one ``sharded_train_step`` against ``apply_updates_``
+   (each parameter within ``SHARD_PARAM_RTOL`` x (1 + max)).  (b)
+   ``sharded_prefill`` and ``MODEL_STEPS`` ``sharded_decode_step`` calls of
+   llama3-8b at full width and depth, bf16, oplib on ``cuda``, on ``(1,
+   4)``, then batch 1 on ``(2, 2)`` (the cache's sequence on 'data'), the
+   contraction kernel's launches counted per rank (a unit the legality
+   check sends to torch is recorded with its reason) and the logits held
+   within ``LOGIT_RTOL`` of the row's largest against the single-device
+   ``Model`` on the same tokens.  (c) a checkpoint saved from ``(2, 4)``
+   restored onto ``(1, 4)`` bit-equal.  Times (CUDA events and host
+   clock, one call each; training's second call) beside the single-device
+   ones, peak memory, and rank 0's collectives by kind and bytes.
 
-The run order is 1-6, 10, 11, 12, 13, 7, 9, 8, 14: phase 10 reuses the serve
-phase's weights, which are freed before phase 11.
+The run order is 1-6, 10, 11, 12, 13, 7, 9, 8, 14, 15: phase 10 reuses the
+serve phase's weights, which are freed before phase 11.
 
 Launch counts are read per path: every count is set to 0 just before the
 serve phase (path 1), before the sweep (path 2), before phase 8's calls
 of the entry points (path 3), before the ResNet layer (path 4), before
 phase 9 (path 5), before phase 10's timed calls (path 6), before each
 of phase 11's timed waves (path 7), before each of phase 12's (path
-8), before phase 13 (path 9, which must launch none) and before phase
-14's mesh calls (path 10), and read just after each; the contraction kernel's
+8), before phase 13 (path 9, which must launch none), before phase
+14's mesh calls (path 10) and before each of phase 15's sharded serving
+runs (path 11), and read just after each; the contraction kernel's
 ``launches_by_path`` (skinny, tiled, general) is read the same way for
 the serve, sweep, tune, model, wave and families paths, and none of the
 serve, model, wave and families paths may launch the general loop;
@@ -427,6 +450,31 @@ MESH_RTOL = 1e-5
 RING_ROWS = 1024
 SP_DECODE = (4, 32, 8, 128, 8192)
 PIPE_MICRO, PIPE_ROWS = 8, 64
+# phase 15: the LM family's sharded step (parallel/sharded.py), ranks
+# emulated on the one card.  (a) sharded_loss_and_grads against the
+# single-device loss_and_grads, float32, oplib on torch (no kernel has a
+# backward: ROADMAP C11), SHARD_BATCH x SHARD_SEQ tokens on SHARD_MESH
+# ('data', 'model'): llama3-8b, chatglm3-6b (2 KV heads, cut over 'model')
+# and qwen3-moe-30b-a3b (experts on 'model', their D on 'data'; capacity
+# factor SHARD_MOE_CAPACITY, the mean load, so tokens drop) at full width,
+# the depth cut to SHARD_LAYERS so that the meshed state and the
+# single-device reference fit in 80 GB together; then one
+# sharded_train_step (the default AdamWConfig) against apply_updates_ at
+# SHARD_STEP_LAYERS.  (b) llama3-8b served at full width and depth, bf16,
+# oplib on cuda, on SHARD_SERVE_MESH: MODEL_BATCH x MODEL_PROMPT tokens and
+# MODEL_STEPS decode steps against the single-device Model; then batch 1
+# on SHARD_SP_MESH (the cache's sequence on 'data') at SHARD_SP_LAYERS.
+# (c) restore(shardings=) of llama3-8b at SHARD_CKPT_LAYERS layer, bf16.
+SHARD_MESH = (2, 4)
+SHARD_BATCH, SHARD_SEQ = 8, 128
+SHARD_LAYERS = {"llama3-8b": 3, "chatglm3-6b": 4, "qwen3-moe-30b-a3b": 1}
+SHARD_STEP_LAYERS = 1
+SHARD_MOE_CAPACITY = 1.0
+SHARD_LOSS_RTOL, SHARD_GRAD_RTOL, SHARD_PARAM_RTOL = 2e-4, 1e-4, 1e-5
+SHARD_SERVE_MESH, SHARD_SP_MESH, SHARD_SP_LAYERS, SHARD_MAX_LEN = (1, 4), (2, 2), 8, 128
+SHARD_CKPT_LAYERS = 1
+# a rank that never reaches a collective fails the call within this time
+SHARD_TIMEOUT = 120.0
 
 
 def _fail(msg: str) -> None:
@@ -2671,6 +2719,404 @@ def mesh_without_cards(api) -> str:
                          f"{torch.cuda.device_count()} card(s)")
 
 
+# ------------------------------------------------------- the sharded step
+def _card_mesh(shape):
+    import numpy as np
+    from repro_torch.parallel.spmd import Mesh
+
+    n = shape[0] * shape[1]
+    return Mesh(np.array([_rank_device()] * n, dtype=object).reshape(shape), ("data", "model"))
+
+
+def _timed(torch, fn) -> tuple:
+    """``fn()`` once: its result, its CUDA-event ms (the ranks launch on
+    the card's default stream, as the caller does) and its host ms, the
+    card synchronized around it."""
+    _sync(torch)
+    if DEVICE == "cuda":
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+    t0 = time.perf_counter()
+    out = fn()
+    if DEVICE == "cuda":
+        b.record()
+    _sync(torch)
+    host = (time.perf_counter() - t0) * 1e3
+    return out, (a.elapsed_time(b) if DEVICE == "cuda" else None), host
+
+
+@contextlib.contextmanager
+def collective_census():
+    """Count rank 0's collectives of the sharded step inside the block, by
+    kind, with the bytes each sends (its input): yields the dict that
+    fills."""
+    from repro_torch import tree as T
+    from repro_torch.parallel import spmd
+
+    out: dict = {}
+    saved = {name: getattr(spmd, name) for name in ("psum", "pmax", "all_gather",
+                                                     "psum_scatter")}
+
+    def counted(name, fn):
+        def call(x, *a, **kw):
+            if spmd.current_rank() == 0:
+                row = out.setdefault(name, {"calls": 0, "bytes": 0})
+                row["calls"] += 1
+                row["bytes"] += sum(t.numel() * t.element_size() for t in T.leaves(x))
+            return fn(x, *a, **kw)
+        return call
+
+    for name, fn in saved.items():
+        setattr(spmd, name, counted(name, fn))
+    try:
+        yield out
+    finally:
+        for name, fn in saved.items():
+            setattr(spmd, name, fn)
+
+
+def _free(torch) -> None:
+    """Collect what an earlier case left (its autograd graphs hold
+    reference cycles) and return the card's cached blocks."""
+    import gc
+
+    gc.collect()
+    if DEVICE == "cuda":
+        torch.cuda.empty_cache()
+
+
+def _peak_reset(torch) -> None:
+    if DEVICE == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+
+
+def _peak_gb(torch):
+    return torch.cuda.max_memory_allocated() / 1e9 if DEVICE == "cuda" else None
+
+
+def _tree_gb(tree) -> float:
+    """Bytes of a tree's tensors; a placed leaf's, summed over its shards."""
+    from repro_torch import tree as T
+    from repro_torch.parallel.spmd import Placed
+
+    n = 0
+    for leaf in T.leaves(tree):
+        for t in (leaf.shards if isinstance(leaf, Placed) else [leaf]):
+            n += t.numel() * t.element_size()
+    return n / 1e9
+
+
+def _leaf_err(got, want) -> float:
+    got, want = got.detach().float(), want.detach().float()
+    return float((got - want).abs().max() / (1.0 + want.abs().max()))
+
+
+def _moe_drops(cfg, calls) -> int:
+    """The (token, choice) pairs the capacity drops, over the recorded
+    routing calls of one forward."""
+    e, k = cfg.moe.n_experts, cfg.moe.top_k
+    out = 0
+    for idx in calls:
+        cap = max(int(math.ceil(cfg.moe.capacity_factor * idx.shape[0] * k / e)), 4)
+        counts = idx.reshape(-1).bincount(minlength=e)
+        out += int((counts - cap).clamp(min=0).sum())
+    return out
+
+
+def shard_train_case(torch, api, name: str, layers: int, shape=SHARD_MESH) -> dict:
+    """Phase 15 (a): ``sharded_loss_and_grads`` of ``name`` (full width,
+    ``layers`` deep, float32) on ``shape`` against the single-device
+    ``loss_and_grads`` on the same weights and batch."""
+    from repro_torch import tree as T
+    from repro_torch.nn import moe as moe_mod
+    from repro_torch.parallel import sharded
+    from repro_torch.train.loop import loss_and_grads
+
+    cfg = api.configs.get(name)
+    kw = {"n_layers": layers, "dtype": "float32"}
+    if cfg.moe:
+        kw["moe"] = dataclasses.replace(cfg.moe, capacity_factor=SHARD_MOE_CAPACITY)
+    cfg = dataclasses.replace(cfg, **kw)
+    model = api.build_model(cfg)
+    _peak_reset(torch)
+    start = torch.cuda.memory_allocated() / 1e9 if DEVICE == "cuda" else None
+    params = model.init(torch.Generator(device=DEVICE).manual_seed(SEED + 15), device=DEVICE)
+    batch = api.make_batch(cfg, "train", SHARD_BATCH, SHARD_SEQ, seed=SEED, device=DEVICE)
+    mesh = _card_mesh(shape)
+    placed = sharded.place_params(mesh, params)
+    routed, route = [], moe_mod.route
+
+    def recorded(p, x, c):
+        probs, idx = route(p, x, c)
+        routed.append(idx.detach())
+        return probs, idx
+
+    moe_mod.route = recorded
+    try:
+        (loss, grads), single_cold, _ = _timed(
+            torch, lambda: loss_and_grads(model, params, batch, remat=False))
+    finally:
+        moe_mod.route = route
+    with collective_census() as census:
+        (sloss, sgrads), cold, _ = _timed(torch, lambda: sharded.sharded_loss_and_grads(
+            model, mesh, placed, batch, timeout=SHARD_TIMEOUT))
+    errs = {T.key_path(path): _leaf_err(g, want) for (path, _), g, want in
+            zip(T.flatten_with_path(params)[0], sgrads, grads)}
+    del grads, sgrads
+    # the times: a second call of each (the first pays the card's warm-up)
+    _, single_ev, single_host = _timed(torch, lambda: loss_and_grads(model, params, batch,
+                                                                     remat=False)[0])
+    _, ev, host = _timed(torch, lambda: sharded.sharded_loss_and_grads(
+        model, mesh, placed, batch, timeout=SHARD_TIMEOUT)[0])
+    row = {"config": name, "layers": layers, "mesh": list(shape), "dtype": "float32",
+           "tokens": SHARD_BATCH * SHARD_SEQ, "loss": float(loss), "sharded_loss": float(sloss),
+           "loss_rel_err": abs(float(sloss) - float(loss)) / abs(float(loss)),
+           "single_gb": _tree_gb(params) * 2, "meshed_gb": _tree_gb(placed) * 2,
+           "single_ms": single_ev, "single_host_ms": single_host, "sharded_ms": ev,
+           "sharded_host_ms": host, "single_first_ms": single_cold, "sharded_first_ms": cold,
+           "memory_at_start_gb": start, "peak_gb": _peak_gb(torch),
+           "collectives_rank0": census}
+    if cfg.moe:
+        row["capacity_factor"] = cfg.moe.capacity_factor
+        row["dropped_pairs"] = _moe_drops(cfg, routed)
+        if row["dropped_pairs"] == 0:
+            raise AssertionError(f"phase 15 {name}: the capacity dropped no token")
+    row["grad_err"] = max(errs.values())
+    row["grad_err_by_leaf"] = errs
+    if row["loss_rel_err"] > SHARD_LOSS_RTOL or row["grad_err"] > SHARD_GRAD_RTOL:
+        raise AssertionError(f"phase 15 {name} on {shape}: the sharded loss or gradients part "
+                             f"from one device: {row}")
+    return row
+
+
+def shard_step_case(torch, api, layers: int = SHARD_STEP_LAYERS, shape=SHARD_MESH) -> dict:
+    """Phase 15 (a): one ``sharded_train_step`` of llama3-8b (full width,
+    float32) on ``shape`` against ``adamw.apply_updates_`` on one device,
+    in that order of memory: the placed state first, the single step in
+    place, its gradients freed, then the sharded step."""
+    from repro_torch import tree as T
+    from repro_torch.parallel import sharded
+    from repro_torch.parallel import sharding as shd
+    from repro_torch.train.loop import loss_and_grads
+
+    cfg = dataclasses.replace(api.configs.get("llama3-8b"), n_layers=layers, dtype="float32")
+    model = api.build_model(cfg)
+    ocfg = api.adamw.AdamWConfig()
+    _peak_reset(torch)
+    params = model.init(torch.Generator(device=DEVICE).manual_seed(SEED + 16), device=DEVICE)
+    batch = api.make_batch(cfg, "train", SHARD_BATCH, SHARD_SEQ, seed=SEED, device=DEVICE)
+    mesh = _card_mesh(shape)
+    placed = sharded.place_params(mesh, params)
+    pstate = sharded.place_opt_state(mesh, api.adamw.init_state(params))
+    state = api.adamw.init_state(params)
+
+    def single():
+        loss, grads = loss_and_grads(model, params, batch, remat=False)
+        return api.adamw.apply_updates_(params, T.unflatten(T.flatten(params)[1], grads),
+                                        state, ocfg)
+
+    info, single_ev, single_host = _timed(torch, single)
+    del state
+    sinfo, ev, host = _timed(torch, lambda: sharded.sharded_train_step(
+        model, mesh, placed, pstate, batch, ocfg, timeout=SHARD_TIMEOUT))
+    errs = [_leaf_err(shd.assemble(a), b) for a, b in zip(T.leaves(placed), T.leaves(params))]
+    row = {"config": cfg.name, "layers": layers, "mesh": list(shape), "dtype": "float32",
+           "grad_norm": float(info["grad_norm"]), "sharded_grad_norm": float(sinfo["grad_norm"]),
+           "lr": float(sinfo["lr"]), "param_err": max(errs),
+           "meshed_gb": _tree_gb(placed) + _tree_gb(pstate),
+           "single_ms": single_ev, "single_host_ms": single_host, "sharded_ms": ev,
+           "sharded_host_ms": host, "peak_gb": _peak_gb(torch)}
+    gap = abs(row["sharded_grad_norm"] - row["grad_norm"]) / row["grad_norm"]
+    if row["param_err"] > SHARD_PARAM_RTOL or gap > SHARD_GRAD_RTOL:
+        raise AssertionError(f"phase 15: the sharded AdamW step parts from one device: {row}")
+    return row
+
+
+def _row_held(a, b, vocab: int) -> float:
+    """max |a - b| over each row of logits, over the row's largest |b|."""
+    a, b = a[..., :vocab].float(), b[..., :vocab].float()
+    return float(((a - b).abs().amax(dim=-1) / b.abs().amax(dim=-1)).max())
+
+
+def shard_serve_case(torch, api, K, cfg, params, shape, batch_size: int, prompt: int,
+                     steps: int) -> dict:
+    """Phase 15 (b): ``sharded_prefill`` and ``steps`` ``sharded_decode_step`` calls
+    (greedy) on ``shape`` with oplib on cuda, its B1 launches counted
+    (every count set to 0 just before, read just after; per rank from
+    ``oplib.launches_by_rank``); then the single-device ``Model`` on the
+    same tokens, each step's logits held within LOGIT_RTOL of the row's
+    largest."""
+    from repro_torch.core import oplib
+    from repro_torch.parallel import sharded
+
+    model = api.build_model(cfg)
+    mesh = _card_mesh(shape)
+    placed = sharded.place_params(mesh, params)
+    batch = api.make_batch(cfg, "prefill", batch_size, prompt, seed=SEED, device=DEVICE)
+    old = oplib.get_backend()
+    oplib.set_backend("cuda")
+    try:
+        scache = sharded.init_cache(model, mesh, batch_size, SHARD_MAX_LEN)
+        mods = _kernel_modules()
+        _zero_counts(*mods.values())
+        oplib.launches_by_rank.clear()
+        oplib.rank_fallbacks.clear()
+        with collective_census() as pre_census:
+            (slog, scache), pre_ev, pre_host = _timed(
+                torch, lambda: sharded.sharded_prefill(model, mesh, placed, batch, scache,
+                                                       timeout=SHARD_TIMEOUT))
+        pre_paths = dict(K.launches_by_path)
+        pre_ranks = {r: dict(c) for r, c in oplib.launches_by_rank.items()}
+        logits, toks, dec_ev, dec_host = [slog], [], [], []
+        for j in range(steps):
+            toks.append(logits[-1][:, -1:, :cfg.vocab].argmax(dim=-1).to(torch.int32))
+            with collective_census() as census:
+                (lg, scache), e, h = _timed(torch, lambda: sharded.sharded_decode_step(
+                    model, mesh, placed, scache, toks[-1], timeout=SHARD_TIMEOUT))
+            logits.append(lg)
+            dec_ev.append(e)
+            dec_host.append(h)
+        counts = {name: mod.launches for name, mod in mods.items()}
+        by_path = dict(K.launches_by_path)
+        ranks = {r: dict(c) for r, c in oplib.launches_by_rank.items()}
+        # the single-device Model on the same tokens
+        cache = model.init_cache(batch_size, SHARD_MAX_LEN, device=DEVICE)
+        (lg, cache), s_pre_ev, s_pre_host = _timed(torch, lambda: model.prefill(params, batch,
+                                                                                 cache))
+        held = [_row_held(logits[0], lg, cfg.vocab)]
+        s_dec_ev, s_dec_host = [], []
+        for j in range(steps):
+            (lg, cache), e, h = _timed(torch, lambda: model.decode_step(params, cache, toks[j]))
+            held.append(_row_held(logits[j + 1], lg, cfg.vocab))
+            s_dec_ev.append(e)
+            s_dec_host.append(h)
+    finally:
+        oplib.set_backend(old)
+    per_rank = 7 * cfg.n_layers
+    row = {"config": cfg.name, "layers": cfg.n_layers, "mesh": list(shape), "dtype": cfg.dtype,
+           "batch": batch_size, "prompt": prompt, "decode_steps": steps,
+           "cache_spec": [list(e) if isinstance(e, tuple) else e for e in scache["k"].spec],
+           "held_max": max(held), "held_by_call": held,
+           "prefill_ms": pre_ev, "prefill_host_ms": pre_host,
+           "single_prefill_ms": s_pre_ev, "single_prefill_host_ms": s_pre_host,
+           "decode_step_ms_median": _median(dec_ev), "decode_step_host_ms_median":
+               statistics.median(dec_host),
+           "single_decode_step_ms_median": _median(s_dec_ev),
+           "single_decode_step_host_ms_median": statistics.median(s_dec_host),
+           "launches": counts, "contraction_by_path": {
+               "prefill": pre_paths,
+               "decode": {p: by_path[p] - pre_paths.get(p, 0) for p in by_path}},
+           "launches_by_rank": {str(r): c for r, c in sorted(ranks.items())},
+           "torch_units": dict(oplib.rank_fallbacks),
+           "collectives_rank0": {"prefill": pre_census, "decode_step": census},
+           "prefill_launches_by_rank": {str(r): c for r, c in sorted(pre_ranks.items())},
+           "meshed_gb": _tree_gb(placed) + _tree_gb(scache)}
+    if row["held_max"] > LOGIT_RTOL:
+        raise AssertionError(f"phase 15 serving on {shape}: logits part from one device: "
+                             f"{held}")
+    if DEVICE == "cuda":
+        # every projection a launch, but a unit the legality check sent to
+        # torch (recorded, with its reason, in ``torch_units``)
+        want = per_rank * (1 + steps)
+        got = {r: sum(v for k, v in c.items() if k.startswith("contraction/"))
+               + c.get("torch_units", 0) for r, c in ranks.items()}
+        if sorted(got) != list(range(mesh.size)) or any(n != want for n in got.values()) \
+                or by_path.get("general", 0):
+            raise AssertionError(f"phase 15 serving on {shape}: B1 launches and torch units by "
+                                 f"rank {got}, expected {want} on each of {mesh.size} ranks and "
+                                 f"none on the general loop ({by_path}; {ranks})")
+    return row
+
+
+def _median(xs):
+    xs = [x for x in xs if x is not None]
+    return statistics.median(xs) if xs else None
+
+
+def shard_restore_case(torch, api, workdir: Path) -> dict:
+    """Phase 15 (c): a checkpoint saved from SHARD_MESH restores onto
+    SHARD_SERVE_MESH bit-equal."""
+    from repro_torch import tree as T
+    from repro_torch.parallel import sharded
+    from repro_torch.parallel import sharding as shd
+    from repro_torch.train import checkpoint as ckpt
+
+    cfg = dataclasses.replace(api.configs.get("llama3-8b"), n_layers=SHARD_CKPT_LAYERS)
+    params = api.build_model(cfg).init(torch.Generator(device=DEVICE).manual_seed(SEED + 17),
+                                       device=DEVICE)
+    src, dst = _card_mesh(SHARD_MESH), _card_mesh(SHARD_SERVE_MESH)
+    placed = sharded.place_params(src, params)
+    _, _, save_host = _timed(torch, lambda: ckpt.save(str(workdir), 1, {"params": placed}))
+    sh = shd.make_sharding(dst, shd.param_specs(params, dict(dst.shape)))
+    (step, out), _, restore_host = _timed(torch, lambda: ckpt.restore(
+        str(workdir), {"params": params}, shardings={"params": sh}))
+    equal = all(torch.equal(shd.assemble(a), b) for a, b in zip(T.leaves(out["params"]),
+                                                                T.leaves(params)))
+    row = {"config": cfg.name, "layers": cfg.n_layers, "dtype": cfg.dtype,
+           "gb": _tree_gb(params), "saved_from": list(SHARD_MESH),
+           "restored_onto": list(SHARD_SERVE_MESH), "step": step, "bit_equal": equal,
+           "save_host_ms": save_host, "restore_host_ms": restore_host}
+    if not equal or step != 1:
+        raise AssertionError(f"phase 15: restore(shardings=) is not bit-equal: {row}")
+    return row
+
+
+def sharded_phase(torch, api, K, card: str, layers: int | None) -> dict:
+    """Phase 15: (a), (b) and (c) (see the module docstring)."""
+    out = {"train": [], "memory_at_start_gb": (torch.cuda.memory_allocated() / 1e9
+                                               if DEVICE == "cuda" else None)}
+    print(f"sharded: {out['memory_at_start_gb']} GB allocated on the card at the start of "
+          f"phase 15; card {card}", flush=True)
+    for name, depth in SHARD_LAYERS.items():
+        depth = min(depth, layers or depth)
+        _free(torch)
+        t0 = time.perf_counter()
+        row = shard_train_case(torch, api, name, depth)
+        row["wall_s"] = time.perf_counter() - t0
+        out["train"].append(row)
+        print("  sharded loss " + json.dumps({k: v for k, v in row.items()
+                                               if k != "grad_err_by_leaf"}), flush=True)
+    _free(torch)
+    t0 = time.perf_counter()
+    out["step"] = shard_step_case(torch, api)
+    out["step"]["wall_s"] = time.perf_counter() - t0
+    print("  sharded step " + json.dumps(out["step"]), flush=True)
+    _free(torch)
+    # (b) llama3-8b at full width and depth, bf16
+    full = api.configs.get("llama3-8b")
+    cfg = dataclasses.replace(full, n_layers=layers or full.n_layers)
+    t0 = time.perf_counter()
+    params = api.build_model(cfg).init(torch.Generator(device=DEVICE).manual_seed(SEED),
+                                       device=DEVICE)
+    _sync(torch)
+    print(f"  sharded serve: {cfg.name} {cfg.n_layers} layers drawn in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    sp = dataclasses.replace(cfg, n_layers=min(SHARD_SP_LAYERS, cfg.n_layers))
+    sp_params = dict(params, blocks={k: {n: t[:sp.n_layers] for n, t in v.items()}
+                                     if isinstance(v, dict) else v[:sp.n_layers]
+                                     for k, v in params["blocks"].items()})
+    out["serve"] = []
+    for c, p, shape, b in ((cfg, params, SHARD_SERVE_MESH, MODEL_BATCH),
+                           (sp, sp_params, SHARD_SP_MESH, 1)):
+        t0 = time.perf_counter()
+        row = shard_serve_case(torch, api, K, c, p, shape, b, MODEL_PROMPT, MODEL_STEPS)
+        row["wall_s"] = time.perf_counter() - t0
+        out["serve"].append(row)
+        print("  sharded serve " + json.dumps(row), flush=True)
+    del params, sp_params
+    _free(torch)
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as d:
+        out["restore"] = shard_restore_case(torch, api, Path(d))
+    print("  sharded restore " + json.dumps(out["restore"]), flush=True)
+    launches = {}
+    for row in out["serve"]:
+        for name, n in row["launches"].items():
+            launches[name] = launches.get(name, 0) + n
+    out["launches"] = launches
+    return out
+
+
 def _pick(rows, prefix):
     return [r for r in rows if r["unit"].startswith(prefix)]
 
@@ -2916,6 +3362,15 @@ def main() -> None:
           f"{mesh_without_cards(api)}", flush=True)
     print(f"mesh: phase 14 in {time.perf_counter() - t0:.1f} s", flush=True)
 
+    # phase 15: the LM family's sharded step (what the JAX package leaves
+    # to GSPMD), ranks emulated on the one card
+    t0 = time.perf_counter()
+    shard = sharded_phase(torch, api, K, card, args.layers)
+    print(f"sharded: phase 15 in {time.perf_counter() - t0:.1f} s; launches "
+          f"{json.dumps(shard['launches'])}; the times of {SHARD_MESH[0] * SHARD_MESH[1]} or "
+          f"{SHARD_SERVE_MESH[1]} ranks on one card are the emulation's (one stream, the "
+          f"ranks' host threads), not NVLink's; card {card}", flush=True)
+
     decode = _pick(rows, "decode/")
     ew = [r for r in new_rows if r["kernel"] == ["elementwise"]]
     conv = _pick(new_rows, f"h100/resnet50_conv2_3x3_b{RESNET_BATCH}_float32")
@@ -2928,7 +3383,8 @@ def main() -> None:
         "contraction", "src/repro_torch/csrc/contraction.cu", "src/repro/core/lower_pallas.py:979",
         serve_launches + sw["launches"]["contraction"] + md["launches"]
         + sum(w["launches"] for w in (*wv.values(), *fam.values()))
-        + tn["launches"]["contraction"] + mesh["launches"]["contraction"]["launches"], decode,
+        + tn["launches"]["contraction"] + mesh["launches"]["contraction"]["launches"]
+        + shard["launches"]["contraction"], decode,
         max([r["max_abs_err"] for r in rows]
             + [r["max_abs_err"] for r in new_rows if r["kernel"] == ["contraction"]]
             + [mm_err, md["max_abs_err"]]
@@ -2942,11 +3398,15 @@ def main() -> None:
                                                     for n, w in fam.items()
                                                     if "launches_by_call" in w},
                                        "tune": tn["launches_by_path"],
-                                       "mesh": mesh["launches"]["contraction"]["by_path"]}
+                                       "mesh": mesh["launches"]["contraction"]["by_path"],
+                                       "sharded": {f"{r['mesh'][0]}x{r['mesh'][1]}": {
+                                           "by_path": r["contraction_by_path"],
+                                           "by_rank": r["launches_by_rank"]}
+                                           for r in shard["serve"]}}
     windowed = _kernel_entry(
         "windowed", "src/repro_torch/csrc/windowed.cu", "src/repro/core/lower_pallas.py:812",
         sw["launches"]["windowed"] + rn["launches"] + tn["launches"]["windowed"]
-        + mesh["launches"]["windowed"]["launches"], conv,
+        + mesh["launches"]["windowed"]["launches"] + shard["launches"]["windowed"], conv,
         max(r["max_abs_err"] for r in new_rows if r["kernel"] == ["windowed"]))
     windowed["general_ms"] = sum(r["general_ms"] for r in conv)
     windowed["launches_by_path"] = {"sweep": sw["windowed_launches_by_path"],
@@ -2997,7 +3457,8 @@ def main() -> None:
     elementwise = _kernel_entry("elementwise", "src/repro_torch/csrc/elementwise.cu",
                                 "src/repro/core/lower_pallas.py:1097",
                                 sw["launches"]["elementwise"] + tn["launches"]["elementwise"]
-                                + mesh["launches"]["elementwise"]["launches"],
+                                + mesh["launches"]["elementwise"]["launches"]
+                                + shard["launches"]["elementwise"],
                                 ew,
                                 max(r["max_abs_err"] for r in ew))
     elementwise["general_ms"] = sum(r["general_ms"] for r in ew)

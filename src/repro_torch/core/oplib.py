@@ -21,6 +21,7 @@ from __future__ import annotations
 
 import functools
 import os
+import threading
 from typing import Callable, Dict, Optional
 
 import torch
@@ -32,6 +33,10 @@ from .lower_cuda import UnsupportedCuda, lower_program_hybrid
 from .lower_torch import _J_UNARY, lower_program_torch
 from .passes import compile_program
 from ..kernels import _build
+from ..kernels import contraction as _contraction
+from ..kernels import elementwise as _elementwise
+from ..kernels import windowed as _windowed
+from ..parallel import spmd
 
 BACKENDS = ("torch", "cuda")
 
@@ -47,6 +52,27 @@ def set_backend(name: str) -> None:
 
 def get_backend() -> str:
     return _BACKEND
+
+
+# The ranks of a sharded call (``parallel/sharded.py``: one host thread a
+# rank) share the compiled ops, whose kernel launches fill launch records
+# kept on their plans, and the kernels' launch counters: one rank at a
+# time compiles or runs an op on the host (its launches are asynchronous,
+# so the card still overlaps them).
+_LOCK = threading.Lock()
+# the unit kernels' launches by rank of a shard_map call, by kernel and
+# path ("contraction/skinny", "elementwise", ...), and the units the
+# per-unit legality check sent to torch ("torch_units"), since the caller
+# last cleared it; ``rank_fallbacks`` holds each such unit's reason
+launches_by_rank: Dict[int, Dict[str, int]] = {}
+rank_fallbacks: Dict[str, str] = {}
+
+
+def _launch_counts() -> Dict[str, int]:
+    out = {f"contraction/{p}": n for p, n in _contraction.launches_by_path.items()}
+    out["elementwise"] = _elementwise.launches
+    out["windowed"] = _windowed.launches
+    return out
 
 
 class CompiledOp:
@@ -137,11 +163,25 @@ def linear(x: torch.Tensor, w: torch.Tensor, bias: Optional[torch.Tensor] = None
             out = _J_UNARY[act](out)
         return out.reshape(*lead, n)
     _build.refuse_autograd("oplib.linear on the cuda backend", x, w, bias)
-    op = _compiled_linear(m, k, n, _dtype_name(x.dtype),
-                          _dtype_name(bias.dtype) if bias is not None else "float32",
-                          act, bias is not None, backend)
     arrays = {"X": x.reshape(m, k), "W": w}
     if bias is not None:
         arrays["B"] = bias
-    out = op(arrays)["O"]
+    rank = spmd.current_rank()
+    with _LOCK:
+        op = _compiled_linear(m, k, n, _dtype_name(x.dtype),
+                              _dtype_name(bias.dtype) if bias is not None else "float32",
+                              act, bias is not None, backend)
+        before = _launch_counts() if rank is not None else None
+        out = op(arrays)["O"]
+        if rank is not None:
+            mine = launches_by_rank.setdefault(rank, {})
+            for key, count in _launch_counts().items():
+                if count != before[key]:
+                    mine[key] = mine.get(key, 0) + count - before[key]
+            off = ({u: op.block_reasons.get(u, "") for u, b in op.block_backends.items()
+                    if b != "cuda"} if op.cuda_fn is not None else dict(op.block_reasons))
+            if off:
+                mine["torch_units"] = mine.get("torch_units", 0) + len(off)
+                for unit, why in off.items():
+                    rank_fallbacks[f"linear {m}x{k}x{n} act={act} {unit}"] = why
     return out.reshape(*lead, n)

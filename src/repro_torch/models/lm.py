@@ -19,6 +19,7 @@ from ..nn.attention import attention, attn_init, init_kv_cache
 from ..nn.core import (Params, apply_norm, embed_init, embed_lookup, mlp_apply, mlp_init,
                        norm_init, param_dtype, softmax_xent, unembed)
 from ..nn.moe import moe_apply, moe_init
+from ..parallel.constrain import constrain
 
 __all__ = ["init_params", "block_init", "block_apply", "layer", "stacked", "rematted",
            "loss_fn", "init_cache", "prefill", "decode_step", "_logits", "embed_lookup",
@@ -103,38 +104,64 @@ def rematted(fn: Callable, remat: bool) -> Callable:
     return functools.partial(torch.utils.checkpoint.checkpoint, fn, use_reentrant=False)
 
 
-def _logits(p: Params, cfg, x: torch.Tensor) -> torch.Tensor:
+def _logits(p: Params, cfg, x: torch.Tensor, dist=None) -> torch.Tensor:
+    """Logits over the (padded) vocabulary; in a rank of the sharded step,
+    over the rank's block of it."""
     x = apply_norm(p["final_norm"], x, cfg.norm)
     w = p["embed"] if cfg.tie_embeddings else p["unembed"]
+    if dist is not None:
+        x = dist.enter(x)
     return unembed(x, w, cfg.tie_embeddings)
 
 
-def block_apply(p: Params, x: torch.Tensor, cfg, cache=None):
-    h, new_cache = attention(p["attn"], apply_norm(p["ln1"], x, cfg.norm), cfg,
-                             causal=True, cache=cache)
-    x = x + h
-    if cfg.moe:
-        h2, aux = moe_apply(p["moe"], apply_norm(p["ln2"], x, cfg.norm), cfg)
+def block_apply(p: Params, x: torch.Tensor, cfg, cache=None, dist=None):
+    """One layer.  ``dist`` is a rank of the sharded step
+    (``parallel/sharded.py``), None on one device: the attention and the
+    MLP then run on the rank's shards of their weights, between the
+    step's collectives."""
+    xn = apply_norm(p["ln1"], x, cfg.norm)
+    if dist is None:
+        h, new_cache = attention(p["attn"], xn, cfg, causal=True, cache=cache)
     else:
-        h2 = mlp_apply(p["mlp"], apply_norm(p["ln2"], x, cfg.norm), cfg.act)
+        h, new_cache = dist.attention(p["attn"], xn, cfg, cache)
+    x = x + h
+    xn = apply_norm(p["ln2"], x, cfg.norm)
+    if cfg.moe:
+        h2, aux = moe_apply(p["moe"], xn, cfg, dist=dist)
+    else:
+        h2 = (mlp_apply(p["mlp"], xn, cfg.act) if dist is None
+              else dist.region(mlp_apply, p["mlp"], xn, cfg.act))
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
     return x + h2, new_cache, aux
 
 
-def _stack(p: Params, x: torch.Tensor, cfg, caches=None, remat: bool = False):
+def _global(dist, x: torch.Tensor):
+    """The global shape of the layer stack's activations (the rank's
+    batch block, the whole batch's size), None on one device."""
+    return None if dist is None else dist.stream_shape(x)
+
+
+def _stack(p: Params, x: torch.Tensor, cfg, caches=None, remat: bool = False, dist=None):
     """Every layer in turn.  ``caches`` holds the stacked per-layer KV
     caches (``init_cache``): each layer writes its keys and values into
     its slice of the stacked buffers in place (donated, see
     ``attention``), and those buffers come back with the new positions.
-    The JAX package pins the activations' sharding here (``constrain``),
-    the identity on one device: the GSPMD half of the multi-device slice
-    (ROADMAP A9b) brings it.  ``remat`` recomputes each layer in the backward pass."""
+    The activations' sharding is pinned here (``constrain``: the identity
+    on one device, a check in a rank of the sharded step), as the JAX
+    package pins it.  ``remat`` recomputes each layer in the backward pass."""
     auxs = []
     new = []
     block = rematted(block_apply, remat)
     for i in range(cfg.n_layers):
-        cache_i = None if caches is None else {k: v[i] for k, v in caches.items()}
-        x, new_cache, aux = block(layer(p["blocks"], i), x, cfg, cache_i)
+        # one constrain site a path, as the JAX package's two scan bodies
+        # (with and without caches) have
+        if caches is not None:
+            x = constrain(x, ("pod", "data"), None, None, shape=_global(dist, x))
+            cache_i = {k: v[i] for k, v in caches.items()}
+        else:
+            x = constrain(x, ("pod", "data"), None, None, shape=_global(dist, x))
+            cache_i = None
+        x, new_cache, aux = block(layer(p["blocks"], i), x, cfg, cache_i, dist)
         auxs.append(aux)
         new.append(new_cache)
     aux = torch.stack(auxs).sum()
@@ -143,21 +170,29 @@ def _stack(p: Params, x: torch.Tensor, cfg, caches=None, remat: bool = False):
     return x, dict(caches, pos=torch.stack([c["pos"] for c in new])), aux
 
 
-def _embed_inputs(p: Params, cfg, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
-    x = embed_lookup(p["embed"], batch["tokens"])
+def _embed(p: Params, tokens: torch.Tensor, dist) -> torch.Tensor:
+    return embed_lookup(p["embed"], tokens) if dist is None else dist.embed(p["embed"], tokens)
+
+
+def _embed_inputs(p: Params, cfg, batch: Dict[str, torch.Tensor], dist=None) -> torch.Tensor:
+    x = _embed(p, batch["tokens"], dist)
     if cfg.frontend == "patches" and "patches" in batch:
         pe = torch.einsum("bpd,de->bpe", batch["patches"].to(x.dtype), p["patch_proj"])
+        if dist is not None:
+            pe = dist.columns(pe)  # the rank's d_model columns, gathered
         x = torch.cat([pe, x], dim=1)
-    return x
+    # keep the activations batch-sharded through the stack
+    return constrain(x, ("pod", "data"), None, None, shape=_global(dist, x))
 
 
-def loss_fn(p: Params, cfg, batch: Dict[str, torch.Tensor], remat: bool = True):
-    x = _embed_inputs(p, cfg, batch)
-    x, _, aux = _stack(p, x, cfg, None, remat=remat)
+def loss_fn(p: Params, cfg, batch: Dict[str, torch.Tensor], remat: bool = True, dist=None):
+    x = _embed_inputs(p, cfg, batch, dist)
+    x, _, aux = _stack(p, x, cfg, None, remat=remat, dist=dist)
     if cfg.frontend == "patches" and "patches" in batch:
         x = x[:, batch["patches"].shape[1]:]  # loss on text positions only
-    logits = _logits(p, cfg, x)
-    loss = softmax_xent(logits[:, :-1], batch["labels"][:, 1:], cfg.vocab)
+    logits = _logits(p, cfg, x, dist)
+    xent = softmax_xent if dist is None else dist.xent
+    loss = xent(logits[:, :-1], batch["labels"][:, 1:], cfg.vocab)
     total = loss + 0.01 * aux
     return total, {"loss": loss, "aux": aux}
 
@@ -167,15 +202,15 @@ def init_cache(cfg, batch: int, max_len: int, dtype, device="cuda") -> Any:
     return {k: v.expand((cfg.n_layers, *v.shape)).clone() for k, v in one.items()}
 
 
-def prefill(p: Params, cfg, batch: Dict[str, torch.Tensor], cache):
-    x = _embed_inputs(p, cfg, batch)
-    x, new_caches, _ = _stack(p, x, cfg, cache)
-    logits = _logits(p, cfg, x[:, -1:])
+def prefill(p: Params, cfg, batch: Dict[str, torch.Tensor], cache, dist=None):
+    x = _embed_inputs(p, cfg, batch, dist)
+    x, new_caches, _ = _stack(p, x, cfg, cache, dist=dist)
+    logits = _logits(p, cfg, x[:, -1:], dist)
     return logits, new_caches
 
 
-def decode_step(p: Params, cfg, cache, tokens: torch.Tensor):
+def decode_step(p: Params, cfg, cache, tokens: torch.Tensor, dist=None):
     """tokens: (B, 1)."""
-    x = embed_lookup(p["embed"], tokens)
-    x, new_caches, _ = _stack(p, x, cfg, cache)
-    return _logits(p, cfg, x), new_caches
+    x = _embed(p, tokens, dist)
+    x, new_caches, _ = _stack(p, x, cfg, cache, dist=dist)
+    return _logits(p, cfg, x, dist), new_caches

@@ -24,7 +24,10 @@ def param_dtype(cfg) -> torch.dtype:
 
 
 def _normal(gen: torch.Generator, shape, scale: float, dtype, device) -> torch.Tensor:
-    """N(0, scale^2) samples drawn on the generator's device, then moved."""
+    """N(0, scale^2) samples drawn on the generator's device, then moved;
+    on the ``meta`` device, the shape and type alone (nothing is drawn)."""
+    if device is not None and torch.device(device).type == "meta":
+        return torch.empty(shape, dtype=dtype, device="meta")
     out = torch.randn(shape, generator=gen, dtype=torch.float32, device=gen.device)
     return (out * scale).to(device=device, dtype=dtype)
 

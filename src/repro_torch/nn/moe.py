@@ -15,6 +15,7 @@ from typing import Tuple
 import torch
 import torch.nn.functional as F
 
+from ..parallel.constrain import constrain
 from .core import Params, _normal, dense_init
 
 
@@ -48,16 +49,24 @@ def route(p: Params, x: torch.Tensor, cfg) -> Tuple[torch.Tensor, torch.Tensor]:
     return probs, torch.topk(probs, cfg.moe.top_k, dim=-1, sorted=True)[1]
 
 
-def moe_apply(p: Params, x: torch.Tensor, cfg) -> Tuple[torch.Tensor, torch.Tensor]:
+def moe_apply(p: Params, x: torch.Tensor, cfg, dist=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """x: (B, S, D).  Returns (out, aux_loss).
 
-    The JAX package pins the expert-major tensors' sharding here
-    (``constrain``), the identity on one device: the GSPMD half of the
-    multi-device slice (ROADMAP A9b) brings it."""
+    ``dist`` is a rank of the sharded step (``parallel/sharded.py``), None
+    on one device.  A rank routes its own tokens, keeps the layer's
+    semantics global (the capacity from the global token count, each
+    token's position in its expert counted in the global token order, the
+    auxiliary loss from the global means), and runs its own experts on
+    their capacity rows; the step's collectives sit at the hooks.  The
+    expert-major tensors' sharding is pinned here (``constrain``), as the
+    JAX package pins it."""
+    if dist is not None:
+        x = dist.enter_moe(x)
     b, s, d = x.shape
     e, k = cfg.moe.n_experts, cfg.moe.top_k
     t = b * s
-    cap = max(int(math.ceil(cfg.moe.capacity_factor * t * k / e)), 4)
+    t_all = t if dist is None else dist.moe_tokens(t)
+    cap = max(int(math.ceil(cfg.moe.capacity_factor * t_all * k / e)), 4)
 
     xt = x.reshape(t, d)
     probs, gate_idx = route(p, xt, cfg)
@@ -65,43 +74,68 @@ def moe_apply(p: Params, x: torch.Tensor, cfg) -> Tuple[torch.Tensor, torch.Tens
     gate_vals = gate_vals / gate_vals.sum(dim=-1, keepdim=True)
 
     # load-balancing auxiliary loss (Switch): E * sum(frac_tokens * frac_prob)
-    me = probs.mean(dim=0)
-    ce = _one_hot(gate_idx[:, 0], e, torch.float32).mean(dim=0)
-    aux = e * torch.sum(me * ce)
+    top1 = _one_hot(gate_idx[:, 0], e, torch.float32)
+    if dist is None:
+        me = probs.mean(dim=0)
+        ce = top1.mean(dim=0)
+        aux = e * torch.sum(me * ce)
+    else:
+        aux = dist.moe_aux(probs, top1, t_all)
 
     # position of each (token, choice) within its expert's capacity, in
     # token-major, choice-minor order
     eid = gate_idx.reshape(-1)                                   # (t*k,)
-    pos = torch.cumsum(_one_hot(eid, e, torch.int32), dim=0) - 1  # running count
+    onehot = _one_hot(eid, e, torch.int32)
+    pos = torch.cumsum(onehot, dim=0) - 1                        # running count
+    if dist is not None:
+        pos = pos + dist.moe_offsets(onehot.sum(dim=0))          # the ranks before
     pos_in_e = pos.gather(1, eid[:, None])[:, 0]
     keep = pos_in_e < cap
-    slot = torch.where(keep, eid * cap + pos_in_e, e * cap)     # overflow slot e*cap
+    e0, el = (0, e) if dist is None else dist.moe_experts(e)
+    if dist is not None:
+        keep = keep & (eid >= e0) & (eid < e0 + el)              # this rank's experts
+    slot = torch.where(keep, (eid - e0) * cap + pos_in_e, el * cap)  # overflow slot
 
-    # scatter tokens into (e*cap+1, d), compute experts, gather back
+    # scatter tokens into (el*cap+1, d), compute experts, gather back
     src = xt.repeat_interleave(k, dim=0)                          # (t*k, d)
-    buf = torch.zeros((e * cap + 1, d), dtype=x.dtype, device=x.device).index_add_(
+    buf = torch.zeros((el * cap + 1, d), dtype=x.dtype, device=x.device).index_add_(
         0, slot, src * keep[:, None].to(x.dtype))
-    h = buf[: e * cap].reshape(e, cap, d)
+    h = buf[: el * cap].reshape(el, cap, d)
+    w = p
+    if dist is not None:
+        h = dist.moe_dispatch(h)
+        w = dist.moe_weights(p)
+    # EP: the expert-major tensors sharded on 'model'
+    h = constrain(h, "model", "data", None, shape=(e, cap, d))
     if cfg.act.endswith("_glu"):
         a = cfg.act.split("_")[0]
         act_fn = F.silu if a == "silu" else (lambda z: F.gelu(z, approximate="tanh"))
-        g = act_fn(torch.einsum("ecd,edf->ecf", h, p["w_gate"]))
-        u = torch.einsum("ecd,edf->ecf", h, p["w_up"])
-        o = torch.einsum("ecf,efd->ecd", g * u, p["w_down"])
+        g = act_fn(torch.einsum("ecd,edf->ecf", h, w["w_gate"]))
+        u = torch.einsum("ecd,edf->ecf", h, w["w_up"])
+        o = torch.einsum("ecf,efd->ecd", g * u, w["w_down"])
     else:
-        u = torch.square(torch.relu(torch.einsum("ecd,edf->ecf", h, p["w_up"])))
-        o = torch.einsum("ecf,efd->ecd", u, p["w_down"])
-    flat = torch.cat([o.reshape(e * cap, d), torch.zeros((1, d), dtype=o.dtype, device=o.device)])
+        u = torch.square(torch.relu(torch.einsum("ecd,edf->ecf", h, w["w_up"])))
+        o = torch.einsum("ecf,efd->ecd", u, w["w_down"])
+    o = constrain(o, "model", "data", None, shape=(e, cap, d))
+    if dist is not None:
+        o = dist.moe_collect(o)
+    flat = torch.cat([o.reshape(el * cap, d), torch.zeros((1, d), dtype=o.dtype, device=o.device)])
     # combine: weight in expert-major layout, then one scatter-add back to
     # token-major (t, d); empty slots go to the sink row t.  On the card
     # the adds are atomic, k of them a token in no fixed order, so a bf16
     # output may differ by a rounding step from run to run.
-    w_buf = torch.zeros((e * cap + 1,), dtype=torch.float32, device=x.device).index_add_(
+    w_buf = torch.zeros((el * cap + 1,), dtype=torch.float32, device=x.device).index_add_(
         0, slot, gate_vals.reshape(-1) * keep)
-    ow = flat * w_buf[:, None].to(flat.dtype)                     # (e*cap+1, d)
+    ow = flat * w_buf[:, None].to(flat.dtype)                     # (el*cap+1, d)
     tok_ids = torch.arange(t, device=x.device).repeat_interleave(k)  # (t*k,)
-    tok_of_slot = torch.full((e * cap + 1,), -1, dtype=torch.int64, device=x.device).scatter_reduce_(
+    tok_of_slot = torch.full((el * cap + 1,), -1, dtype=torch.int64, device=x.device).scatter_reduce_(
         0, slot, torch.where(keep, tok_ids, -1), "amax", include_self=True)
     dest = torch.where(tok_of_slot >= 0, tok_of_slot, t)
     out = torch.zeros((t + 1, d), dtype=flat.dtype, device=x.device).index_add_(0, dest, ow)[:t]
-    return out.reshape(b, s, d), aux
+    if dist is not None:
+        out = dist.reduce(out)
+    out = constrain(out, ("data",), None, shape=(t_all, d))
+    out = out.reshape(b, s, d)
+    if dist is not None:
+        out = dist.leave_moe(out)
+    return out, aux

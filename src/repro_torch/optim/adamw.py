@@ -16,7 +16,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
@@ -63,13 +63,15 @@ def global_norm(tree: Any) -> torch.Tensor:
 
 
 @torch.no_grad()
-def apply_updates_(params: Any, grads: Any, state: Dict[str, Any], cfg: AdamWConfig
-                   ) -> Dict[str, torch.Tensor]:
+def apply_updates_(params: Any, grads: Any, state: Dict[str, Any], cfg: AdamWConfig,
+                   gnorm: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
     """One AdamW step in place: each parameter, ``state["m"]`` and
     ``state["v"]`` leaf is overwritten and ``state["step"]`` replaced.
-    Returns ``{"grad_norm", "lr"}`` (0-d tensors)."""
+    ``gnorm`` is the gradients' global norm where the caller holds only
+    shards of them (``parallel/sharded.py``); by default the norm of
+    ``grads``.  Returns ``{"grad_norm", "lr"}`` (0-d tensors)."""
     step = state["step"] + 1
-    gnorm = global_norm(grads)
+    gnorm = global_norm(grads) if gnorm is None else gnorm
     scale = torch.clamp(cfg.clip_norm / (gnorm + 1e-9), max=1.0)
     lr = lr_at(cfg, step)
     sf = step.to(torch.float32)

@@ -7,8 +7,13 @@
 * :mod:`.collective_matmul` — the ring all-gather and reduce-scatter
   matmuls;
 * :mod:`.sp_attention` — sequence-parallel decode attention;
-* :mod:`.pipeline` — GPipe-style pipeline parallelism.
-
-``sharding.py`` and ``constrain.py`` (what the JAX package leaves to
-GSPMD) come with the next multi-device slice (ROADMAP A9b).
+* :mod:`.pipeline` — GPipe-style pipeline parallelism;
+* :mod:`.sharding` — the partition specs of params, optimizer state,
+  batches and caches (a copy of the reference's rules), and their
+  placement: each leaf cut once into per-rank shards;
+* :mod:`.constrain` — ``constrain``: the identity off a mesh, a check of
+  the rank's value inside ``shard_map``;
+* :mod:`.sharded` — the LM family's train, prefill and decode steps with
+  their collectives placed by hand (what the JAX package leaves to
+  GSPMD).
 """

@@ -48,8 +48,8 @@ import torch
 
 from .. import tree as T
 
-__all__ = ["Mesh", "P", "shard_map", "psum", "pmax", "psum_scatter", "all_gather",
-           "ppermute", "axis_index", "axis_size", "site", "recording", "ambient_mesh",
+__all__ = ["Mesh", "P", "Placed", "shard_map", "psum", "pmax", "psum_scatter", "all_gather",
+           "ppermute", "axis_index", "axis_size", "current_rank", "site", "recording", "ambient_mesh",
            "RankAborted", "CollectiveTimeout", "DEFAULT_TIMEOUT_S"]
 
 # how long a rank waits in one collective for the others (seconds)
@@ -125,6 +125,41 @@ class P(tuple):
 
     def __repr__(self) -> str:
         return f"P{tuple(self)!r}"
+
+
+class Placed:
+    """A global value already cut into one shard a rank, each on its rank's
+    device (``parallel.sharding.place``): :func:`shard_map` hands a rank
+    its shard as it is, without the cut and copy it makes of a plain
+    tensor on every call, so a rank that writes its shard in place (an
+    optimizer step, a KV cache) writes the placed value."""
+
+    __slots__ = ("mesh", "spec", "shards", "shape", "dtype")
+
+    def __init__(self, mesh: "Mesh", spec: "P", shards: List[torch.Tensor], shape, dtype):
+        self.mesh = mesh
+        self.spec = P(*spec)
+        self.shards = shards
+        self.shape = torch.Size(shape)
+        self.dtype = dtype
+
+    def shard(self, mesh: "Mesh", rank: int, spec: "P") -> torch.Tensor:
+        if mesh is not self.mesh:
+            raise ValueError(f"shard_map: a value placed on {self.mesh} passed to a call on {mesh}")
+        if _trim(spec) != _trim(self.spec):
+            raise ValueError(f"shard_map: a value placed as {self.spec} passed with in_spec {spec}")
+        return self.shards[rank]
+
+    def __repr__(self) -> str:
+        return f"Placed({tuple(self.shape)}, {self.dtype}, {self.spec})"
+
+
+def _trim(spec) -> tuple:
+    """A spec without its trailing whole dims (``P('x', None) == P('x')``)."""
+    out = list(spec)
+    while out and out[-1] is None:
+        out.pop()
+    return tuple(out)
 
 
 _ambient = threading.local()
@@ -369,6 +404,12 @@ def in_shard_map() -> bool:
     return getattr(_local, "ctx", None) is not None
 
 
+def current_rank() -> Optional[int]:
+    """The flat rank of the calling thread inside ``shard_map``, else None."""
+    ctx = getattr(_local, "ctx", None)
+    return None if ctx is None else ctx.rank
+
+
 # --------------------------------------------------------------------------
 # shard_map
 # --------------------------------------------------------------------------
@@ -397,10 +438,18 @@ def _map_spec(fn: Callable, value: Any, spec: Any) -> Any:
 
 def _shard(mesh: Mesh, rank: int, leaf: Any, spec: P) -> Any:
     device = mesh.flat_devices()[rank]
+    if isinstance(leaf, Placed):
+        return leaf.shard(mesh, rank, spec)
     if not isinstance(leaf, torch.Tensor):
         if any(_spec_axes(e) for e in spec):
             raise TypeError(f"shard_map: cannot split a {type(leaf).__name__} by {spec}")
         return leaf
+    return block_of(mesh, rank, leaf, spec).to(device).contiguous()
+
+
+def block_of(mesh: Mesh, rank: int, leaf: torch.Tensor, spec: P) -> torch.Tensor:
+    """Rank ``rank``'s block of the global tensor ``leaf`` under ``spec``: a
+    view of ``leaf``, where it lies."""
     coords = mesh.coords(rank)
     out = leaf
     for d, entry in enumerate(spec):
@@ -415,7 +464,7 @@ def _shard(mesh: Mesh, rank: int, leaf: Any, spec: P) -> Any:
                              f"over {axes} ({n} ranks)")
         size = out.shape[d] // n
         out = out.narrow(d, _index_in(mesh, coords, axes) * size, size)
-    return out.to(device).contiguous()
+    return out
 
 
 def _assemble(mesh: Mesh, values: List[Any], spec: P) -> Any:
@@ -450,7 +499,8 @@ def shard_map(body: Callable, mesh: Mesh, in_specs: Any, out_specs: Any, *,
 
     The returned callable takes global values: ``in_specs`` (one spec a
     positional argument, each a ``P`` or a tree prefix of ``P``) cuts each
-    into this rank's shard on its device; ``out_specs`` (a tree prefix of
+    into this rank's shard on its device (a :class:`Placed` leaf gives
+    the rank its shard as it is); ``out_specs`` (a tree prefix of
     ``body``'s result) puts the global results together on the mesh's
     first device (``P()``: rank 0's value, the others assumed equal, as
     with ``check_rep=False``).  Grad mode is the caller's.  ``timeout``

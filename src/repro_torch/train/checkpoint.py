@@ -11,12 +11,13 @@ the other's checkpoints:
   array (``V2``) of its bits: numpy has no bfloat16;
 * **atomic**: written to ``<dir>/tmp.<step>`` then renamed, so a crash
   mid-save never corrupts the latest checkpoint;
+* **mesh-elastic**: a placed tree (``parallel.sharding.place``) is saved
+  unsharded, and ``restore(shardings=)`` places each named tree onto
+  whatever mesh the new job uses;
 * **retention**: keeps the newest ``keep`` checkpoints.
 
 ``restore`` reads a ``V2`` leaf back as bfloat16 bits where ``like`` is
-bfloat16; the reference's ``astype`` raises there (ROADMAP C12).  Restore
-onto another mesh (``shardings=``) waits for the GSPMD half of the
-multi-device slice (ROADMAP A9b).
+bfloat16; the reference's ``astype`` raises there (ROADMAP C12).
 """
 from __future__ import annotations
 
@@ -30,14 +31,18 @@ import numpy as np
 import torch
 
 from .. import tree as T
+from ..parallel import sharding as shd
+from ..parallel.spmd import Placed
 
 _BF16_BITS = np.dtype("V2")
 
 
 def _to_numpy(leaf: Any) -> np.ndarray:
     """A leaf as the reference's ``np.asarray`` gives it (bfloat16 as the
-    ``V2`` array of its bits); CPU tensors are copied, since the trainer
-    updates its tensors in place."""
+    ``V2`` array of its bits; a placed leaf whole); CPU tensors are
+    copied, since the trainer updates its tensors in place."""
+    if isinstance(leaf, Placed):
+        leaf = shd.assemble(leaf)
     if isinstance(leaf, torch.Tensor):
         t = leaf.detach().to("cpu", copy=True)
         if t.dtype == torch.bfloat16:
@@ -116,14 +121,17 @@ def restore(ckpt_dir: str, like: Dict[str, Any], step: Optional[int] = None,
             shardings: Optional[Dict[str, Any]] = None, device="cuda"
             ) -> Tuple[int, Dict[str, Any]]:
     """Restore into the structure of ``like`` (trees of tensors, numpy
-    arrays or meta tensors: only each leaf's dtype is read) as tensors on
-    ``device``: the card unless the caller passes ``"cpu"``; without a
-    card that raises."""
-    if shardings:
-        raise NotImplementedError("restore(shardings=): elastic restore onto a mesh is not "
-                                  "yet ported (ROADMAP A9b)")
+    arrays, meta tensors or placed values: only each leaf's dtype is read)
+    as tensors on ``device``: the card unless the caller passes
+    ``"cpu"``; without a card that raises.  ``shardings`` maps tree names
+    to trees of ``parallel.sharding.Sharding`` (``make_sharding``): those
+    trees are placed with them instead, one shard a rank on the rank's
+    device (``sharding.place``), which is what makes restore
+    mesh-elastic."""
+    shardings = shardings or {}
     device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
+    placed_only = all(shardings.get(name) is not None for name in like)
+    if device.type == "cuda" and not torch.cuda.is_available() and not placed_only:
         raise RuntimeError("restore: device 'cuda' but torch.cuda.is_available() is False; "
                            "pass device='cpu' to restore onto the CPU")
     step = step if step is not None else latest_step(ckpt_dir)
@@ -144,8 +152,11 @@ def restore(ckpt_dir: str, like: Dict[str, Any], step: Optional[int] = None,
         if len(leaves) != len(like_leaves):
             raise ValueError(f"{name}: checkpoint has {len(leaves)} leaves, expected "
                              f"{len(like_leaves)}")
-        out[name] = T.unflatten(treedef, [_leaf(saved, _torch_dtype(want), device)
-                                          for saved, want in zip(leaves, like_leaves)])
+        sharded = shardings.get(name) is not None
+        restored = T.unflatten(treedef, [_leaf(saved, _torch_dtype(want),
+                                               "cpu" if sharded else device)
+                                         for saved, want in zip(leaves, like_leaves)])
+        out[name] = shd.place(restored, shardings[name]) if sharded else restored
     return step, out
 
 

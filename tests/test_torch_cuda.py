@@ -1547,3 +1547,76 @@ def test_a_mesh_count_beyond_the_cards_raises_on_the_card():
     with pytest.raises(ValueError, match=f"needs {n} devices"):
         mesh_lower.resolve_mesh(n)
     assert "CUDA device" in _chip_smoke().mesh_without_cards(api) or n > 8
+
+
+def _small_shard(monkeypatch):
+    """chip_smoke's phase 15 at scaled() widths (2 layers, float32): the
+    same helpers, the same holds; every sharded call limited to 60 s, well
+    under the 300 s a collective waits by default."""
+    from repro_torch import api
+
+    cs = _chip_smoke()
+    get = api.configs.get
+    monkeypatch.setattr(api.configs, "get", lambda name: get(name).scaled(vocab=256))
+    for k, v in {"SHARD_BATCH": 8, "SHARD_SEQ": 16, "SHARD_TIMEOUT": 60.0,
+                 "SHARD_MAX_LEN": 32}.items():
+        monkeypatch.setattr(cs, k, v)
+    return cs, api
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["llama3-8b", "chatglm3-6b", "qwen3-moe-30b-a3b"])
+def test_sharded_loss_and_grads_on_eight_ranks_of_the_card(monkeypatch, name):
+    """``sharded_loss_and_grads`` on ``Mesh(["cuda:0"] * 8)`` (2, 4)
+    against the single-device ``loss_and_grads`` on ``cuda:0``: the loss
+    within rtol 2e-4, each gradient leaf within 1e-4 x (1 + max), the MoE
+    with tokens dropped.  Every collective runs on the rank threads: one
+    inside autograd would wait on the card's single backward thread until
+    the call's time limit."""
+    _card()
+    cs, api = _small_shard(monkeypatch)
+    row = cs.shard_train_case(torch, api, name, 2)
+    assert row["loss_rel_err"] <= cs.SHARD_LOSS_RTOL and row["grad_err"] <= cs.SHARD_GRAD_RTOL
+    assert row.get("dropped_pairs", 1) > 0
+
+
+@pytest.mark.cuda
+def test_sharded_train_step_on_eight_ranks_of_the_card(monkeypatch):
+    """One ``sharded_train_step`` on (2, 4) ranks of the card against
+    ``apply_updates_`` on one device: each parameter within 1e-5 x (1 +
+    max)."""
+    _card()
+    cs, api = _small_shard(monkeypatch)
+    assert cs.shard_step_case(torch, api, 2)["param_err"] <= cs.SHARD_PARAM_RTOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,batch", [((1, 4), 4), ((2, 2), 1)])
+def test_sharded_decode_launches_the_contraction_kernel_on_every_rank(monkeypatch, shape,
+                                                                       batch):
+    """Sharded prefill and 3 decode steps with oplib on ``cuda``: every
+    rank launches 7 contraction kernels a layer a call on its shards (none
+    on the general loop), counted per rank, but for a unit the legality
+    check sends to torch and records (at one row a rank, the fused gate
+    and silu: ROADMAP C17); the logits within 5e-2 of the row's largest of
+    the single-device ``Model`` on the same tokens."""
+    _card()
+    cs, api = _small_shard(monkeypatch)
+    from repro_torch.kernels import contraction as K
+
+    cfg = api.configs.get("llama3-8b")
+    params = api.build_model(cfg).init(torch.Generator(device="cuda").manual_seed(0))
+    row = cs.shard_serve_case(torch, api, K, cfg, params, shape, batch, 8, 3)
+    assert len(row["launches_by_rank"]) == shape[0] * shape[1]
+    units = sum(c.get("torch_units", 0) for c in row["launches_by_rank"].values())
+    assert row["launches"]["contraction"] + units == shape[0] * shape[1] * 7 * cfg.n_layers * 4
+    assert units == 0 or all("not a grid index" in why for why in row["torch_units"].values())
+
+
+@pytest.mark.cuda
+def test_restore_with_shardings_on_the_card(monkeypatch, tmp_path):
+    """A checkpoint saved from (2, 4) ranks of the card restores onto
+    (1, 4) bit-equal."""
+    _card()
+    cs, api = _small_shard(monkeypatch)
+    assert cs.shard_restore_case(torch, api, tmp_path)["bit_equal"]

@@ -393,10 +393,21 @@ def test_bf16_checkpoint_restores_exact_bits_c12(tmp_path):
 
 
 def test_checkpoint_restore_defaults_to_the_card_and_shardings_wait_for_a9(tmp_path):
+    """Restore defaults to the card; since A9b ``shardings=`` places a tree
+    on a mesh (``tests/test_torch_sharding.py`` holds it across meshes),
+    and a sharding tree of anything but ``Sharding`` leaves is refused."""
+    from repro_torch.parallel import sharding as t_shd
+    from repro_torch.parallel.spmd import Mesh, P, Placed
+
     t_ckpt.save(str(tmp_path), 1, {"params": {"w": torch.ones(2)}})
     like = {"params": {"w": torch.zeros(2)}}
-    with pytest.raises(NotImplementedError, match="A9"):
+    with pytest.raises(TypeError, match="Sharding"):
         t_ckpt.restore(str(tmp_path), like, shardings={"params": {"w": object()}}, device="cpu")
+    mesh = Mesh(["cpu"] * 2, ("x",))
+    _, out = t_ckpt.restore(str(tmp_path), like,
+                            shardings={"params": t_shd.make_sharding(mesh, {"w": P("x")})})
+    assert isinstance(out["params"]["w"], Placed)
+    assert torch.equal(t_shd.assemble(out["params"])["w"], torch.ones(2))
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             t_ckpt.restore(str(tmp_path), like)
