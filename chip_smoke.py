@@ -300,9 +300,31 @@ and prints no result):
    restored onto ``(1, 4)`` bit-equal.  Times (CUDA events and host
    clock, one call each; training's second call) beside the single-device
    ones, peak memory, and rank 0's collectives by kind and bytes.
+16. **sharded step of the other families** — phase 15's step for the
+   hybrid, ssm and audio families (``sharded.FAMILIES``), ranks emulated
+   on the one card.  (a) ``sharded_loss_and_grads`` on ``(2, 4)``,
+   float32, ``torch``, ``SHARD_BATCH`` x ``SHARD_SEQ`` tokens (seamless's
+   frames as many), against the single-device ``loss_and_grads`` with
+   phase 15's holds: zamba2-2.7b at full width and the depth of
+   ``FAMILY_SHARD_LAYERS`` (whole groups of 6), xlstm-125m at full size,
+   seamless-m4t-large-v2 with its encoder and decoder cut alike; then one
+   ``sharded_train_step`` of zamba2 at one group against
+   ``apply_updates_``.  (b) sharded serving, bf16, ``MODEL_BATCH`` x
+   ``MODEL_PROMPT`` tokens and ``MODEL_STEPS`` decode steps on ``(1, 4)``:
+   zamba2-2.7b at all 54 layers and xlstm-125m whole with oplib on
+   ``cuda`` (B1 counted per rank, as in phase 15), seamless-m4t-large-v2 at
+   full depth on ``torch`` (ROADMAP C9); then zamba2 at
+   ``FAMILY_SP_LAYERS`` at batch 1 on ``(2, 2)`` (the attention cache's
+   positions on 'data', the recurrent states replicated over it).  The
+   logits are held within ``LOGIT_RTOL`` of the row's largest against the
+   single-device ``Model`` on the same tokens, but zamba2's: its free
+   difference prints beside a replay in which every block of the sharded
+   run takes the single-device run's input and its output is held
+   (``hybrid_blocks``, as phase 12 does: ROADMAP C10), then the replay's
+   logits.  Times, peaks and rank 0's collectives print as in phase 15.
 
-The run order is 1-6, 10, 11, 12, 13, 7, 9, 8, 14, 15: phase 10 reuses the
-serve phase's weights, which are freed before phase 11.
+The run order is 1-6, 10, 11, 12, 13, 7, 9, 8, 14, 15, 16: phase 10 reuses
+the serve phase's weights, which are freed before phase 11.
 
 Launch counts are read per path: every count is set to 0 just before the
 serve phase (path 1), before the sweep (path 2), before phase 8's calls
@@ -310,8 +332,9 @@ of the entry points (path 3), before the ResNet layer (path 4), before
 phase 9 (path 5), before phase 10's timed calls (path 6), before each
 of phase 11's timed waves (path 7), before each of phase 12's (path
 8), before phase 13 (path 9, which must launch none), before phase
-14's mesh calls (path 10) and before each of phase 15's sharded serving
-runs (path 11), and read just after each; the contraction kernel's
+14's mesh calls (path 10), before each of phase 15's sharded serving
+runs (path 11) and before each of phase 16's (path 12), and read just
+after each; the contraction kernel's
 ``launches_by_path`` (skinny, tiled, general) is read the same way for
 the serve, sweep, tune, model, wave and families paths, and none of the
 serve, model, wave and families paths may launch the general loop;
@@ -475,6 +498,17 @@ SHARD_SERVE_MESH, SHARD_SP_MESH, SHARD_SP_LAYERS, SHARD_MAX_LEN = (1, 4), (2, 2)
 SHARD_CKPT_LAYERS = 1
 # a rank that never reaches a collective fails the call within this time
 SHARD_TIMEOUT = 120.0
+# phase 16: the hybrid, ssm and audio families' sharded step.  (a) the
+# depth of each (zamba2 in whole groups of 6; seamless's encoder and
+# decoder alike), cut so that the meshed state and the single-device
+# reference fit in 80 GB; zamba2 at one group besides: its float32
+# gradients part from one device by about 1.7x a block without a residual
+# path (ROADMAP C10; scripts/sharded_depth.py), so a deeper stack would
+# fail the hold on rounding alone.  The AdamW step's zamba2 at one group.
+# (b) zamba2's depth at batch 1 on SHARD_SP_MESH.
+FAMILY_SHARD_LAYERS = {"zamba2-2.7b": 6, "xlstm-125m": 12, "seamless-m4t-large-v2": 12}
+FAMILY_STEP_LAYERS = 6
+FAMILY_SP_LAYERS = 12
 
 
 def _fail(msg: str) -> None:
@@ -1570,11 +1604,13 @@ def hybrid_blocks(kept: list, hold=None):
     each call appends its ``(input, output)`` to ``kept``; with one, each
     call takes the next kept input in place of its own and passes
     ``(output, kept output)`` to ``hold``, and every kept pair must have
-    been used when the body ends."""
+    been used when the body ends.  Each rank of a sharded call (which
+    holds the whole batch, replicated) replays every kept pair itself."""
     from repro_torch.models import hybrid
+    from repro_torch.parallel import spmd
 
     real = {n: getattr(hybrid, n) for n in HYBRID_BLOCKS}
-    items = iter(kept)
+    items: dict = {}
 
     def wrap(fn):
         def call(p, x, *a, **kw):
@@ -1582,7 +1618,8 @@ def hybrid_blocks(kept: list, hold=None):
                 out = fn(p, x, *a, **kw)
                 kept.append((x, out[0]))
             else:
-                x, want = next(items)
+                mine = items.setdefault(spmd.current_rank(), iter(kept))
+                x, want = next(mine)
                 out = fn(p, x, *a, **kw)
                 hold(out[0], want)
             return out
@@ -1592,7 +1629,8 @@ def hybrid_blocks(kept: list, hold=None):
         setattr(hybrid, n, wrap(fn))
     try:
         yield
-        if hold is not None and next(items, None) is not None:
+        if hold is not None and (not items or any(next(it, None) is not None
+                                                   for it in items.values())):
             raise AssertionError("hybrid_blocks: the replay left kept blocks unused")
     finally:
         for n, fn in real.items():
@@ -2823,10 +2861,12 @@ def _moe_drops(cfg, calls) -> int:
     return out
 
 
-def shard_train_case(torch, api, name: str, layers: int, shape=SHARD_MESH) -> dict:
-    """Phase 15 (a): ``sharded_loss_and_grads`` of ``name`` (full width,
-    ``layers`` deep, float32) on ``shape`` against the single-device
-    ``loss_and_grads`` on the same weights and batch."""
+def shard_train_case(torch, api, name: str, layers: int, shape=SHARD_MESH,
+                     phase: int = 15) -> dict:
+    """Phases 15 and 16 (a): ``sharded_loss_and_grads`` of ``name`` (full
+    width, ``layers`` deep, an encoder-decoder's encoder too, float32) on
+    ``shape`` against the single-device ``loss_and_grads`` on the same
+    weights and batch."""
     from repro_torch import tree as T
     from repro_torch.nn import moe as moe_mod
     from repro_torch.parallel import sharded
@@ -2834,6 +2874,8 @@ def shard_train_case(torch, api, name: str, layers: int, shape=SHARD_MESH) -> di
 
     cfg = api.configs.get(name)
     kw = {"n_layers": layers, "dtype": "float32"}
+    if cfg.enc_dec:
+        kw["n_enc_layers"] = layers
     if cfg.moe:
         kw["moe"] = dataclasses.replace(cfg.moe, capacity_factor=SHARD_MOE_CAPACITY)
     cfg = dataclasses.replace(cfg, **kw)
@@ -2880,26 +2922,27 @@ def shard_train_case(torch, api, name: str, layers: int, shape=SHARD_MESH) -> di
         row["capacity_factor"] = cfg.moe.capacity_factor
         row["dropped_pairs"] = _moe_drops(cfg, routed)
         if row["dropped_pairs"] == 0:
-            raise AssertionError(f"phase 15 {name}: the capacity dropped no token")
+            raise AssertionError(f"phase {phase} {name}: the capacity dropped no token")
     row["grad_err"] = max(errs.values())
     row["grad_err_by_leaf"] = errs
     if row["loss_rel_err"] > SHARD_LOSS_RTOL or row["grad_err"] > SHARD_GRAD_RTOL:
-        raise AssertionError(f"phase 15 {name} on {shape}: the sharded loss or gradients part "
-                             f"from one device: {row}")
+        raise AssertionError(f"phase {phase} {name} on {shape}: the sharded loss or gradients "
+                             f"part from one device: {row}")
     return row
 
 
-def shard_step_case(torch, api, layers: int = SHARD_STEP_LAYERS, shape=SHARD_MESH) -> dict:
-    """Phase 15 (a): one ``sharded_train_step`` of llama3-8b (full width,
-    float32) on ``shape`` against ``adamw.apply_updates_`` on one device,
-    in that order of memory: the placed state first, the single step in
-    place, its gradients freed, then the sharded step."""
+def shard_step_case(torch, api, layers: int = SHARD_STEP_LAYERS, shape=SHARD_MESH,
+                    name: str = "llama3-8b", phase: int = 15) -> dict:
+    """Phases 15 and 16 (a): one ``sharded_train_step`` of ``name`` (full
+    width, float32) on ``shape`` against ``adamw.apply_updates_`` on one
+    device, in that order of memory: the placed state first, the single
+    step in place, its gradients freed, then the sharded step."""
     from repro_torch import tree as T
     from repro_torch.parallel import sharded
     from repro_torch.parallel import sharding as shd
     from repro_torch.train.loop import loss_and_grads
 
-    cfg = dataclasses.replace(api.configs.get("llama3-8b"), n_layers=layers, dtype="float32")
+    cfg = dataclasses.replace(api.configs.get(name), n_layers=layers, dtype="float32")
     model = api.build_model(cfg)
     ocfg = api.adamw.AdamWConfig()
     _peak_reset(torch)
@@ -2928,7 +2971,8 @@ def shard_step_case(torch, api, layers: int = SHARD_STEP_LAYERS, shape=SHARD_MES
            "sharded_host_ms": host, "peak_gb": _peak_gb(torch)}
     gap = abs(row["sharded_grad_norm"] - row["grad_norm"]) / row["grad_norm"]
     if row["param_err"] > SHARD_PARAM_RTOL or gap > SHARD_GRAD_RTOL:
-        raise AssertionError(f"phase 15: the sharded AdamW step parts from one device: {row}")
+        raise AssertionError(f"phase {phase} {name}: the sharded AdamW step parts from one "
+                             f"device: {row}")
     return row
 
 
@@ -2938,14 +2982,29 @@ def _row_held(a, b, vocab: int) -> float:
     return float(((a - b).abs().amax(dim=-1) / b.abs().amax(dim=-1)).max())
 
 
+def _kv_spec(cache):
+    """The placed KV cache's spec (an xLSTM, which has none: its first
+    state's), as a list."""
+    from repro_torch import tree as T
+
+    pairs = T.flatten_with_path(cache)[0]
+    leaf = next((leaf for path, leaf in pairs if path[-1] == "k"), pairs[0][1])
+    return [list(e) if isinstance(e, tuple) else e for e in leaf.spec]
+
+
 def shard_serve_case(torch, api, K, cfg, params, shape, batch_size: int, prompt: int,
-                     steps: int) -> dict:
-    """Phase 15 (b): ``sharded_prefill`` and ``steps`` ``sharded_decode_step`` calls
-    (greedy) on ``shape`` with oplib on cuda, its B1 launches counted
-    (every count set to 0 just before, read just after; per rank from
-    ``oplib.launches_by_rank``); then the single-device ``Model`` on the
-    same tokens, each step's logits held within LOGIT_RTOL of the row's
-    largest."""
+                     steps: int, backend: str = "cuda", phase: int = 15) -> dict:
+    """Phases 15 and 16 (b): ``sharded_prefill`` and ``steps``
+    ``sharded_decode_step`` calls (greedy) on ``shape`` with oplib on
+    ``backend``, B1's launches counted on ``cuda`` (every count set to 0
+    just before, read just after; per rank from ``oplib.launches_by_rank``):
+    one launch a projection of ``_model_ops`` a rank a call; then the
+    single-device ``Model`` on the same tokens, each step's logits held
+    within LOGIT_RTOL of the row's largest.  The hybrid's free logits are
+    printed, not held (ROADMAP C10): the single-device run is repeated
+    keeping each block's input and output, and a sharded replay feeds each
+    rank's blocks those inputs, holding every block's output and then the
+    logits (``hybrid_blocks``)."""
     from repro_torch.core import oplib
     from repro_torch.parallel import sharded
 
@@ -2954,7 +3013,8 @@ def shard_serve_case(torch, api, K, cfg, params, shape, batch_size: int, prompt:
     placed = sharded.place_params(mesh, params)
     batch = api.make_batch(cfg, "prefill", batch_size, prompt, seed=SEED, device=DEVICE)
     old = oplib.get_backend()
-    oplib.set_backend("cuda")
+    oplib.set_backend(backend)
+    _peak_reset(torch)
     try:
         scache = sharded.init_cache(model, mesh, batch_size, SHARD_MAX_LEN)
         mods = _kernel_modules()
@@ -2979,24 +3039,63 @@ def shard_serve_case(torch, api, K, cfg, params, shape, batch_size: int, prompt:
         counts = {name: mod.launches for name, mod in mods.items()}
         by_path = dict(K.launches_by_path)
         ranks = {r: dict(c) for r, c in oplib.launches_by_rank.items()}
-        # the single-device Model on the same tokens
-        cache = model.init_cache(batch_size, SHARD_MAX_LEN, device=DEVICE)
-        (lg, cache), s_pre_ev, s_pre_host = _timed(torch, lambda: model.prefill(params, batch,
-                                                                                 cache))
-        held = [_row_held(logits[0], lg, cfg.vocab)]
-        s_dec_ev, s_dec_host = [], []
-        for j in range(steps):
-            (lg, cache), e, h = _timed(torch, lambda: model.decode_step(params, cache, toks[j]))
-            held.append(_row_held(logits[j + 1], lg, cfg.vocab))
-            s_dec_ev.append(e)
-            s_dec_host.append(h)
+        cache_spec = _kv_spec(scache)
+        meshed_gb = _tree_gb(placed) + _tree_gb(scache)
+        del scache
+
+        def single(kept=None):
+            """The single-device Model on ``toks`` (each hybrid block's input
+            and output appended to ``kept``): its logits, call by call."""
+            cache = model.init_cache(batch_size, SHARD_MAX_LEN, device=DEVICE)
+            with hybrid_blocks(kept) if kept is not None else contextlib.nullcontext():
+                (lg, cache), pre_t, pre_h = _timed(torch, lambda: model.prefill(params, batch,
+                                                                                cache))
+                out, dec_t, dec_h = [lg], [], []
+                for j in range(steps):
+                    (lg, cache), e, h = _timed(torch, lambda: model.decode_step(params, cache,
+                                                                                toks[j]))
+                    out.append(lg)
+                    dec_t.append(e)
+                    dec_h.append(h)
+            return out, pre_t, pre_h, dec_t, dec_h
+
+        # the hybrid's single run keeps each block's input and output
+        kept = [] if cfg.family == "hybrid" else None
+        ref, s_pre_ev, s_pre_host, s_dec_ev, s_dec_host = single(kept)
+        held = [_row_held(a, b, cfg.vocab) for a, b in zip(logits, ref)]
+        replay = {}
+        if kept is not None:
+            # C10: the free logits part; hold each block on the same input
+            blocks = {"max": 0.0, "blocks": 0}
+
+            def block_held(out, want):
+                rel = ((out.float() - want.float()).abs().max()
+                       / want.float().abs().max()).item()
+                blocks["max"] = max(blocks["max"], rel)
+                blocks["blocks"] += 1
+                if not rel <= LOGIT_RTOL:
+                    raise AssertionError(f"phase {phase} {cfg.name} on {shape}: a block of the "
+                                         f"replay differs by {rel:.3e} of its largest output")
+
+            rcache = sharded.init_cache(model, mesh, batch_size, SHARD_MAX_LEN)
+            with hybrid_blocks(kept, block_held):
+                rl, rcache = sharded.sharded_prefill(model, mesh, placed, batch, rcache,
+                                                     timeout=SHARD_TIMEOUT)
+                rlogits = [rl]
+                for j in range(steps):
+                    rl, rcache = sharded.sharded_decode_step(model, mesh, placed, rcache,
+                                                             toks[j], timeout=SHARD_TIMEOUT)
+                    rlogits.append(rl)
+            del rcache, kept
+            replay = {"free_held_max": max(held), "free_held_by_call": held,
+                      "blocks_held": blocks["blocks"], "block_err_max": blocks["max"]}
+            held = [_row_held(a, b, cfg.vocab) for a, b in zip(rlogits, ref)]
     finally:
         oplib.set_backend(old)
-    per_rank = 7 * cfg.n_layers
+    per_rank = len(_model_ops(cfg)) if backend == "cuda" else 0
     row = {"config": cfg.name, "layers": cfg.n_layers, "mesh": list(shape), "dtype": cfg.dtype,
-           "batch": batch_size, "prompt": prompt, "decode_steps": steps,
-           "cache_spec": [list(e) if isinstance(e, tuple) else e for e in scache["k"].spec],
-           "held_max": max(held), "held_by_call": held,
+           "backend": backend, "batch": batch_size, "prompt": prompt, "decode_steps": steps,
+           "cache_spec": cache_spec, "held_max": max(held), "held_by_call": held, **replay,
            "prefill_ms": pre_ev, "prefill_host_ms": pre_host,
            "single_prefill_ms": s_pre_ev, "single_prefill_host_ms": s_pre_host,
            "decode_step_ms_median": _median(dec_ev), "decode_step_host_ms_median":
@@ -3010,11 +3109,11 @@ def shard_serve_case(torch, api, K, cfg, params, shape, batch_size: int, prompt:
            "torch_units": dict(oplib.rank_fallbacks),
            "collectives_rank0": {"prefill": pre_census, "decode_step": census},
            "prefill_launches_by_rank": {str(r): c for r, c in sorted(pre_ranks.items())},
-           "meshed_gb": _tree_gb(placed) + _tree_gb(scache)}
+           "meshed_gb": meshed_gb, "peak_gb": _peak_gb(torch)}
     if row["held_max"] > LOGIT_RTOL:
-        raise AssertionError(f"phase 15 serving on {shape}: logits part from one device: "
-                             f"{held}")
-    if DEVICE == "cuda":
+        raise AssertionError(f"phase {phase} {cfg.name} serving on {shape}: logits part from "
+                             f"one device: {held}")
+    if DEVICE == "cuda" and backend == "cuda":
         # every projection a launch, but a unit the legality check sent to
         # torch (recorded, with its reason, in ``torch_units``)
         want = per_rank * (1 + steps)
@@ -3022,9 +3121,12 @@ def shard_serve_case(torch, api, K, cfg, params, shape, batch_size: int, prompt:
                + c.get("torch_units", 0) for r, c in ranks.items()}
         if sorted(got) != list(range(mesh.size)) or any(n != want for n in got.values()) \
                 or by_path.get("general", 0):
-            raise AssertionError(f"phase 15 serving on {shape}: B1 launches and torch units by "
-                                 f"rank {got}, expected {want} on each of {mesh.size} ranks and "
-                                 f"none on the general loop ({by_path}; {ranks})")
+            raise AssertionError(f"phase {phase} {cfg.name} serving on {shape}: B1 launches and "
+                                 f"torch units by rank {got}, expected {want} on each of "
+                                 f"{mesh.size} ranks and none on the general loop ({by_path}; "
+                                 f"{ranks})")
+    if backend != "cuda" and any(counts.values()):
+        raise AssertionError(f"phase {phase} {cfg.name} on {backend} launched {counts}")
     return row
 
 
@@ -3109,6 +3211,55 @@ def sharded_phase(torch, api, K, card: str, layers: int | None) -> dict:
     with tempfile.TemporaryDirectory(dir=ROOT / "build") as d:
         out["restore"] = shard_restore_case(torch, api, Path(d))
     print("  sharded restore " + json.dumps(out["restore"]), flush=True)
+    launches = {}
+    for row in out["serve"]:
+        for name, n in row["launches"].items():
+            launches[name] = launches.get(name, 0) + n
+    out["launches"] = launches
+    return out
+
+
+def family_phase(torch, api, K, card: str, layers: int | None) -> dict:
+    """Phase 16: (a) and (b) (see the module docstring)."""
+    out = {"train": [], "serve": [], "memory_at_start_gb": (torch.cuda.memory_allocated() / 1e9
+                                                            if DEVICE == "cuda" else None)}
+    print(f"sharded families: {out['memory_at_start_gb']} GB allocated on the card at the start "
+          f"of phase 16; card {card}", flush=True)
+    for name, depth in FAMILY_SHARD_LAYERS.items():
+        depth = min(depth, layers or depth)
+        _free(torch)
+        t0 = time.perf_counter()
+        row = shard_train_case(torch, api, name, depth, phase=16)
+        row["wall_s"] = time.perf_counter() - t0
+        out["train"].append(row)
+        print("  sharded loss " + json.dumps({k: v for k, v in row.items()
+                                               if k != "grad_err_by_leaf"}), flush=True)
+    _free(torch)
+    t0 = time.perf_counter()
+    out["step"] = shard_step_case(torch, api, min(FAMILY_STEP_LAYERS, layers or 6),
+                                  name="zamba2-2.7b", phase=16)
+    out["step"]["wall_s"] = time.perf_counter() - t0
+    print("  sharded step " + json.dumps(out["step"]), flush=True)
+    # (b) serving, bf16, at full width
+    sp_layers = min(FAMILY_SP_LAYERS, layers or FAMILY_SP_LAYERS)
+    cases = [(name, None, SHARD_SERVE_MESH, MODEL_BATCH) for name in FAMILIES] + [
+        ("zamba2-2.7b", sp_layers, SHARD_SP_MESH, 1)]
+    for name, depth, shape, b in cases:
+        _free(torch)
+        full = api.configs.get(name)
+        depth = depth or layers or full.n_layers
+        kw = {"n_layers": depth, **({"n_enc_layers": depth} if full.enc_dec else {})}
+        cfg = dataclasses.replace(full, **kw)
+        t0 = time.perf_counter()
+        params = api.build_model(cfg).init(torch.Generator(device=DEVICE).manual_seed(SEED),
+                                           device=DEVICE)
+        row = shard_serve_case(torch, api, K, cfg, params, shape, b, MODEL_PROMPT, MODEL_STEPS,
+                               backend=oplib_backends(cfg)[0], phase=16)
+        row["wall_s"] = time.perf_counter() - t0
+        del params
+        out["serve"].append(row)
+        print("  sharded serve " + json.dumps(row), flush=True)
+    _free(torch)
     launches = {}
     for row in out["serve"]:
         for name, n in row["launches"].items():
@@ -3371,6 +3522,13 @@ def main() -> None:
           f"{SHARD_SERVE_MESH[1]} ranks on one card are the emulation's (one stream, the "
           f"ranks' host threads), not NVLink's; card {card}", flush=True)
 
+    # phase 16: the hybrid, ssm and audio families' sharded step
+    t0 = time.perf_counter()
+    fam_shard = family_phase(torch, api, K, card, args.layers)
+    print(f"sharded families: phase 16 in {time.perf_counter() - t0:.1f} s; launches "
+          f"{json.dumps(fam_shard['launches'])}; ranks on one card, as phase 15; card {card}",
+          flush=True)
+
     decode = _pick(rows, "decode/")
     ew = [r for r in new_rows if r["kernel"] == ["elementwise"]]
     conv = _pick(new_rows, f"h100/resnet50_conv2_3x3_b{RESNET_BATCH}_float32")
@@ -3384,7 +3542,7 @@ def main() -> None:
         serve_launches + sw["launches"]["contraction"] + md["launches"]
         + sum(w["launches"] for w in (*wv.values(), *fam.values()))
         + tn["launches"]["contraction"] + mesh["launches"]["contraction"]["launches"]
-        + shard["launches"]["contraction"], decode,
+        + shard["launches"]["contraction"] + fam_shard["launches"]["contraction"], decode,
         max([r["max_abs_err"] for r in rows]
             + [r["max_abs_err"] for r in new_rows if r["kernel"] == ["contraction"]]
             + [mm_err, md["max_abs_err"]]
@@ -3402,11 +3560,18 @@ def main() -> None:
                                        "sharded": {f"{r['mesh'][0]}x{r['mesh'][1]}": {
                                            "by_path": r["contraction_by_path"],
                                            "by_rank": r["launches_by_rank"]}
-                                           for r in shard["serve"]}}
+                                           for r in shard["serve"]},
+                                       "sharded_families": {
+                                           f"{r['config']} {r['mesh'][0]}x{r['mesh'][1]}": {
+                                               "by_path": r["contraction_by_path"],
+                                               "by_rank": r["launches_by_rank"]}
+                                           for r in fam_shard["serve"]
+                                           if r["backend"] == "cuda"}}
     windowed = _kernel_entry(
         "windowed", "src/repro_torch/csrc/windowed.cu", "src/repro/core/lower_pallas.py:812",
         sw["launches"]["windowed"] + rn["launches"] + tn["launches"]["windowed"]
-        + mesh["launches"]["windowed"]["launches"] + shard["launches"]["windowed"], conv,
+        + mesh["launches"]["windowed"]["launches"] + shard["launches"]["windowed"]
+        + fam_shard["launches"]["windowed"], conv,
         max(r["max_abs_err"] for r in new_rows if r["kernel"] == ["windowed"]))
     windowed["general_ms"] = sum(r["general_ms"] for r in conv)
     windowed["launches_by_path"] = {"sweep": sw["windowed_launches_by_path"],
@@ -3458,7 +3623,8 @@ def main() -> None:
                                 "src/repro/core/lower_pallas.py:1097",
                                 sw["launches"]["elementwise"] + tn["launches"]["elementwise"]
                                 + mesh["launches"]["elementwise"]["launches"]
-                                + shard["launches"]["elementwise"],
+                                + shard["launches"]["elementwise"]
+                                + fam_shard["launches"]["elementwise"],
                                 ew,
                                 max(r["max_abs_err"] for r in ew))
     elementwise["general_ms"] = sum(r["general_ms"] for r in ew)

@@ -8,7 +8,16 @@ Python loops (the reference scans them).
 The cache is ``{"kv": (n_layers, ...), "memory": None}``; ``prefill``
 fills ``memory``.  The decoder's KV caches are donated (written in place,
 ``nn/attention.py``).  Cross-attention recomputes k and v of ``memory`` at
-every call, as the reference does."""
+every call, as the reference does.
+
+``dist`` is a rank of the sharded step (``parallel/sharded.py``), None on
+one device: ``frame_proj``'s output, split over ``d_model``, is then
+gathered before it joins the stream; every attention (the encoder's
+non-causal one, the decoder's causal one, and cross-attention, whose K
+and V come from ``memory`` through the rank's ``wk`` / ``wv`` heads) and
+every MLP is a tensor-parallel region on the rank's heads and columns;
+the LayerNorms (with their biases) and ``relu2`` run local; the lookup,
+the logits and the loss are vocabulary-parallel."""
 from __future__ import annotations
 
 from typing import Any, Dict
@@ -16,8 +25,9 @@ from typing import Any, Dict
 import torch
 
 from ..nn.attention import attention, attn_init, init_kv_cache
-from ..nn.core import (Params, apply_norm, embed_init, embed_lookup, mlp_apply, mlp_init,
-                       norm_init, param_dtype, softmax_xent, unembed)
+from ..nn.core import (Params, apply_norm, embed_init, mlp_apply, mlp_init, norm_init,
+                       param_dtype, softmax_xent, unembed)
+from . import lm
 from .lm import layer, rematted, stacked
 
 
@@ -56,57 +66,74 @@ def init_params(cfg, gen: torch.Generator, device="cuda") -> Params:
     }
 
 
-def _enc_block(pi: Params, x: torch.Tensor, cfg) -> torch.Tensor:
-    h, _ = attention(pi["attn"], apply_norm(pi["ln1"], x, cfg.norm), cfg, causal=False)
+def _attend(p: Params, xn: torch.Tensor, cfg, dist, causal: bool, cache=None, memory=None):
+    if dist is None:
+        return attention(p, xn, cfg, causal=causal, cache=cache, memory=memory)
+    return dist.attention(p, xn, cfg, cache, causal=causal, memory=memory)
+
+
+def _mlp(p: Params, xn: torch.Tensor, cfg, dist) -> torch.Tensor:
+    if dist is None:
+        return mlp_apply(p, xn, cfg.act)
+    return dist.region(mlp_apply, p, xn, cfg.act)
+
+
+def _enc_block(pi: Params, x: torch.Tensor, cfg, dist=None) -> torch.Tensor:
+    h, _ = _attend(pi["attn"], apply_norm(pi["ln1"], x, cfg.norm), cfg, dist, causal=False)
     x = x + h
-    return x + mlp_apply(pi["mlp"], apply_norm(pi["ln2"], x, cfg.norm), cfg.act)
+    return x + _mlp(pi["mlp"], apply_norm(pi["ln2"], x, cfg.norm), cfg, dist)
 
 
-def encode(p: Params, cfg, frames: torch.Tensor, remat: bool = False) -> torch.Tensor:
+def encode(p: Params, cfg, frames: torch.Tensor, remat: bool = False, dist=None) -> torch.Tensor:
     """The encoder; ``remat`` recomputes each layer in the backward pass."""
     x = torch.einsum("bsd,de->bse", frames.to(p["frame_proj"].dtype), p["frame_proj"])
+    if dist is not None:
+        x = dist.columns(x, cfg.d_model)  # the rank's d_model columns, gathered
     block = rematted(_enc_block, remat)
     for i in range(cfg.n_enc_layers):
-        x = block(layer(p["encoder"], i), x, cfg)
+        x = block(layer(p["encoder"], i), x, cfg, dist)
     return apply_norm(p["enc_norm"], x, cfg.norm)
 
 
-def _dec_block(pi: Params, x: torch.Tensor, cfg, memory: torch.Tensor, cache):
-    h, new_cache = attention(pi["self_attn"], apply_norm(pi["ln1"], x, cfg.norm), cfg,
-                             causal=True, cache=cache)
+def _dec_block(pi: Params, x: torch.Tensor, cfg, memory: torch.Tensor, cache, dist=None):
+    h, new_cache = _attend(pi["self_attn"], apply_norm(pi["ln1"], x, cfg.norm), cfg, dist,
+                           causal=True, cache=cache)
     x = x + h
-    h, _ = attention(pi["cross_attn"], apply_norm(pi["ln_x"], x, cfg.norm), cfg,
-                     memory=memory, causal=False)
+    h, _ = _attend(pi["cross_attn"], apply_norm(pi["ln_x"], x, cfg.norm), cfg, dist,
+                   causal=False, memory=memory)
     x = x + h
-    x = x + mlp_apply(pi["mlp"], apply_norm(pi["ln2"], x, cfg.norm), cfg.act)
+    x = x + _mlp(pi["mlp"], apply_norm(pi["ln2"], x, cfg.norm), cfg, dist)
     return x, new_cache
 
 
 def decode_stack(p: Params, cfg, x: torch.Tensor, memory: torch.Tensor, caches=None,
-                 remat: bool = False):
+                 remat: bool = False, dist=None):
     """Every decoder layer in turn; each writes its slice of the stacked
     KV caches in place and its new ``pos``.  ``remat`` recomputes each
     layer in the backward pass."""
     block = rematted(_dec_block, remat)
     for i in range(cfg.n_layers):
         cache_i = None if caches is None else layer(caches, i)
-        x, new_cache = block(layer(p["decoder"], i), x, cfg, memory, cache_i)
+        x, new_cache = block(layer(p["decoder"], i), x, cfg, memory, cache_i, dist)
         if caches is not None:
             caches["pos"][i].copy_(new_cache["pos"])
     return x, caches
 
 
-def _logits(p: Params, cfg, x: torch.Tensor) -> torch.Tensor:
+def _logits(p: Params, cfg, x: torch.Tensor, dist=None) -> torch.Tensor:
     x = apply_norm(p["final_norm"], x, cfg.norm)
+    if dist is not None:
+        x = dist.enter(x)
     return unembed(x, p["unembed"], False)
 
 
-def loss_fn(p: Params, cfg, batch: Dict[str, torch.Tensor], remat: bool = True):
-    memory = encode(p, cfg, batch["frames"], remat=remat)
-    x = embed_lookup(p["embed"], batch["tokens"])
-    x, _ = decode_stack(p, cfg, x, memory, None, remat=remat)
-    logits = _logits(p, cfg, x)
-    loss = softmax_xent(logits[:, :-1], batch["labels"][:, 1:], cfg.vocab)
+def loss_fn(p: Params, cfg, batch: Dict[str, torch.Tensor], remat: bool = True, dist=None):
+    memory = encode(p, cfg, batch["frames"], remat=remat, dist=dist)
+    x = lm._embed(p, batch["tokens"], dist)
+    x, _ = decode_stack(p, cfg, x, memory, None, remat=remat, dist=dist)
+    logits = _logits(p, cfg, x, dist)
+    xent = softmax_xent if dist is None else dist.xent
+    loss = xent(logits[:, :-1], batch["labels"][:, 1:], cfg.vocab)
     return loss, {"loss": loss}
 
 
@@ -116,15 +143,15 @@ def init_cache(cfg, batch: int, max_len: int, dtype, device="cuda") -> Any:
             "memory": None}
 
 
-def prefill(p: Params, cfg, batch: Dict[str, torch.Tensor], cache):
+def prefill(p: Params, cfg, batch: Dict[str, torch.Tensor], cache, dist=None):
     """Runs the encoder on frames and prefills the decoder with tokens."""
-    memory = encode(p, cfg, batch["frames"])
-    x = embed_lookup(p["embed"], batch["tokens"])
-    x, new_kv = decode_stack(p, cfg, x, memory, cache["kv"])
-    return _logits(p, cfg, x[:, -1:]), {"kv": new_kv, "memory": memory}
+    memory = encode(p, cfg, batch["frames"], dist=dist)
+    x = lm._embed(p, batch["tokens"], dist)
+    x, new_kv = decode_stack(p, cfg, x, memory, cache["kv"], dist=dist)
+    return _logits(p, cfg, x[:, -1:], dist), {"kv": new_kv, "memory": memory}
 
 
-def decode_step(p: Params, cfg, cache, tokens: torch.Tensor):
-    x = embed_lookup(p["embed"], tokens)
-    x, new_kv = decode_stack(p, cfg, x, cache["memory"], cache["kv"])
-    return _logits(p, cfg, x), {"kv": new_kv, "memory": cache["memory"]}
+def decode_step(p: Params, cfg, cache, tokens: torch.Tensor, dist=None):
+    x = lm._embed(p, tokens, dist)
+    x, new_kv = decode_stack(p, cfg, x, cache["memory"], cache["kv"], dist=dist)
+    return _logits(p, cfg, x, dist), {"kv": new_kv, "memory": cache["memory"]}

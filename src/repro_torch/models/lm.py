@@ -179,7 +179,7 @@ def _embed_inputs(p: Params, cfg, batch: Dict[str, torch.Tensor], dist=None) -> 
     if cfg.frontend == "patches" and "patches" in batch:
         pe = torch.einsum("bpd,de->bpe", batch["patches"].to(x.dtype), p["patch_proj"])
         if dist is not None:
-            pe = dist.columns(pe)  # the rank's d_model columns, gathered
+            pe = dist.columns(pe, cfg.d_model)  # the rank's d_model columns, gathered
         x = torch.cat([pe, x], dim=1)
     # keep the activations batch-sharded through the stack
     return constrain(x, ("pod", "data"), None, None, shape=_global(dist, x))

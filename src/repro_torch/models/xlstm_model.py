@@ -2,17 +2,21 @@
 mixed mLSTM / sLSTM residual blocks, unrolled (12 layers), parameters
 ``layer_{i}`` and a tied unembedding.  The cache is a list of per-layer
 state dicts, donated: each block writes its new state into the buffers
-it came in (``nn/xlstm.py``)."""
+it came in (``nn/xlstm.py``).  ``dist`` is a rank of the sharded step
+(``parallel/sharded.py``), None on one device: each block's core is then a
+tensor-parallel region (``nn/xlstm.py``), and the lookup, the tied
+logits and the loss are vocabulary-parallel."""
 from __future__ import annotations
 
 from typing import Any, Dict, List, Optional
 
 import torch
 
-from ..nn.core import (Params, apply_norm, embed_init, embed_lookup, norm_init, param_dtype,
-                       softmax_xent, unembed)
+from ..nn.core import (Params, apply_norm, embed_init, norm_init, param_dtype, softmax_xent,
+                       unembed)
 from ..nn.xlstm import (mlstm_block_apply, mlstm_block_init, mlstm_init_state,
                         slstm_block_apply, slstm_block_init, slstm_init_state)
+from . import lm
 from .lm import rematted
 
 
@@ -33,7 +37,7 @@ def init_params(cfg, gen: torch.Generator, device="cuda") -> Params:
 
 
 def _forward(p: Params, cfg, x: torch.Tensor, states: Optional[List] = None,
-             remat: bool = False):
+             remat: bool = False, dist=None):
     """Every block in turn.  ``remat`` recomputes each block's core (not
     its norm) in the backward pass, as the reference's ``jax.checkpoint``
     around it."""
@@ -42,21 +46,24 @@ def _forward(p: Params, cfg, x: torch.Tensor, states: Optional[List] = None,
         st = states[i] if states is not None else None
         xin = apply_norm(lp["ln"], x, cfg.norm)
         fn = rematted(mlstm_block_apply if kind == "mlstm" else slstm_block_apply, remat)
-        out, _ = fn(lp["core"], xin, cfg, state=st)
+        out, _ = fn(lp["core"], xin, cfg, state=st, dist=dist)
         x = x + out
     return x, states
 
 
-def _logits(p: Params, cfg, x: torch.Tensor) -> torch.Tensor:
+def _logits(p: Params, cfg, x: torch.Tensor, dist=None) -> torch.Tensor:
     x = apply_norm(p["final_norm"], x, cfg.norm)
+    if dist is not None:
+        x = dist.enter(x)
     return unembed(x, p["embed"], True)
 
 
-def loss_fn(p: Params, cfg, batch: Dict[str, torch.Tensor], remat: bool = True):
-    x = embed_lookup(p["embed"], batch["tokens"])
-    x, _ = _forward(p, cfg, x, None, remat=remat)
-    logits = _logits(p, cfg, x)
-    loss = softmax_xent(logits[:, :-1], batch["labels"][:, 1:], cfg.vocab)
+def loss_fn(p: Params, cfg, batch: Dict[str, torch.Tensor], remat: bool = True, dist=None):
+    x = lm._embed(p, batch["tokens"], dist)
+    x, _ = _forward(p, cfg, x, None, remat=remat, dist=dist)
+    logits = _logits(p, cfg, x, dist)
+    xent = softmax_xent if dist is None else dist.xent
+    loss = xent(logits[:, :-1], batch["labels"][:, 1:], cfg.vocab)
     return loss, {"loss": loss}
 
 
@@ -65,13 +72,13 @@ def init_cache(cfg, batch: int, max_len: int, dtype, device="cuda") -> Any:
             else slstm_init_state(cfg, batch, device) for kind in _kinds(cfg)]
 
 
-def prefill(p: Params, cfg, batch: Dict[str, torch.Tensor], cache):
-    x = embed_lookup(p["embed"], batch["tokens"])
-    x, new_states = _forward(p, cfg, x, cache)
-    return _logits(p, cfg, x[:, -1:]), new_states
+def prefill(p: Params, cfg, batch: Dict[str, torch.Tensor], cache, dist=None):
+    x = lm._embed(p, batch["tokens"], dist)
+    x, new_states = _forward(p, cfg, x, cache, dist=dist)
+    return _logits(p, cfg, x[:, -1:], dist), new_states
 
 
-def decode_step(p: Params, cfg, cache, tokens: torch.Tensor):
-    x = embed_lookup(p["embed"], tokens)
-    x, new_states = _forward(p, cfg, x, cache)
-    return _logits(p, cfg, x), new_states
+def decode_step(p: Params, cfg, cache, tokens: torch.Tensor, dist=None):
+    x = lm._embed(p, tokens, dist)
+    x, new_states = _forward(p, cfg, x, cache, dist=dist)
+    return _logits(p, cfg, x, dist), new_states

@@ -5,7 +5,20 @@ The SSD runs on ``chunked_gla_torch`` and ``gla_decode_step`` (plain
 PyTorch), as the reference runs it on ``chunked_gla_jnp``: the GLA kernel
 (``kernels/mlstm_chunk``) is not on the model path.  A state passed to
 ``mamba2_apply`` is donated: its buffers are written in place with the
-new state and returned, so the caller must not use it again."""
+new state and returned, so the caller must not use it again.
+
+In a rank of the sharded step (``dist``, ``parallel/sharded.py``) a
+Mamba2 layer is one tensor-parallel region, laid out the same way in
+training, prefill and decode: the stream enters it (f); ``in_proj``'s
+output, whose column blocks straddle ``z | xin | B | C | dt``, is gathered
+whole over 'model' (its adjoint a reduce-scatter), as is ``conv_w``; the
+conv, the SSD and the gated norm then run on every head, so the norm's
+mean of squares needs no collective; ``out_proj`` is row-parallel, each
+rank's block of ``y`` times its rows, summed over 'model' (g).  Every
+rank's gradient in the region is partial, so the replicated ``A_log``,
+``D``, ``dt_bias`` and ``norm_scale`` are summed over 'model'.  The
+state comes in whole (the step re-lays the cache's layout out around the
+call) and leaves whole."""
 from __future__ import annotations
 
 from typing import Dict, Optional, Tuple
@@ -46,9 +59,11 @@ def _gated_rmsnorm(x: torch.Tensor, z: torch.Tensor, scale: torch.Tensor,
     return (xf * nrm * scale.float()).to(z.dtype)
 
 
-def _project(p: Params, x: torch.Tensor, cfg):
+def _project(p: Params, x: torch.Tensor, cfg, dist=None):
     inner, nh, ns = mamba2_dims(cfg)
     zxbcdt = linear(x, p["in_proj"])
+    if dist is not None:
+        zxbcdt = dist.whole(zxbcdt, -1, 2 * inner + 2 * ns + nh)
     return torch.split(zxbcdt, [inner, inner, ns, ns, nh], dim=-1)  # z, xin, B, C, dt
 
 
@@ -61,18 +76,22 @@ def _donate(state: Dict[str, torch.Tensor],
 
 
 def mamba2_apply(p: Params, x: torch.Tensor, cfg, chunk: int = 256,
-                 state: Optional[Dict[str, torch.Tensor]] = None
+                 state: Optional[Dict[str, torch.Tensor]] = None, dist=None
                  ) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]]]:
     """x: (B, S, D).  With ``state`` given (prefill, or one-token decode)
     the new state is written into its buffers (donated) and returned."""
     b, s, d = x.shape
     inner, nh, ns = mamba2_dims(cfg)
     hd = cfg.ssm.head_dim
-    z, xin, B, C, dt = _project(p, x, cfg)
+    conv_w = p["conv_w"]
+    if dist is not None:
+        x = dist.enter(x)
+        conv_w = dist.whole(conv_w, 1, inner + 2 * ns)
+    z, xin, B, C, dt = _project(p, x, cfg, dist)
 
     conv_in = torch.cat([xin, B, C], dim=-1)
     conv_state = state["conv"] if state is not None else None
-    conv_out, new_conv = causal_conv1d(conv_in, p["conv_w"], conv_state)
+    conv_out, new_conv = causal_conv1d(conv_in, conv_w, conv_state)
     conv_out = F.silu(conv_out)
     xin, B, C = torch.split(conv_out, [inner, ns, ns], dim=-1)
 
@@ -100,7 +119,7 @@ def mamba2_apply(p: Params, x: torch.Tensor, cfg, chunk: int = 256,
     y = (y + p["D"][None, :, None, None] * xh).to(x.dtype)
     y = y.transpose(1, 2).reshape(b, s, inner)
     y = _gated_rmsnorm(y, z, p["norm_scale"])
-    out = linear(y, p["out_proj"])
+    out = linear(y, p["out_proj"]) if dist is None else dist.rows(y, p["out_proj"], inner)
     if state is None:
         return out, None
     return out, _donate(state, {"conv": new_conv, "C": new_ssm[0], "n": new_ssm[1]})

@@ -5,7 +5,31 @@ sequential loop with exponential gating and a max stabiliser).
 The mLSTM runs on ``chunked_gla_torch`` and ``gla_decode_step``, as the
 reference runs it on ``chunked_gla_jnp``: the GLA kernel is not on the
 model path.  A state passed to either block is donated: its buffers are
-written in place with the new state and returned."""
+written in place with the new state and returned.
+
+In a rank of the sharded step (``dist``, ``parallel/sharded.py``) each
+block is one tensor-parallel region (f at its input, g after its last,
+row-parallel projection; every gradient inside is partial, so its
+replicated parameters are summed over 'model'), laid out the same way in
+training, prefill and decode:
+
+* mLSTM: ``up_proj``'s output, whose halves ``xin | z`` fall on
+  different ranks, and ``conv_w`` are gathered whole (adjoint: a
+  reduce-scatter), so ``cx`` is whole where ``wq`` / ``wk`` / ``wv`` and
+  the gates read it.  Where the heads divide over 'model' the column
+  blocks of ``wq`` / ``wk`` / ``wv`` are whole heads and each rank runs
+  the GLA on its own; else the three are gathered whole and every rank
+  runs all heads.  ``down_proj`` takes the rank's channels (or its row
+  block of all of them), summed over 'model'.  A state of the rank's heads
+  is joined over 'model' before it is written.
+* sLSTM: ``w_gates``, ``r_gates`` and ``w_up`` are gathered whole once a
+  call (a rank holds one gate of every head, and the recurrence needs all
+  four at every step), so the time loop holds no collective; ``w_down``
+  is row-parallel (a whole one, whose rows do not divide over 'model',
+  cut into near-equal row blocks).
+
+States come in whole (the step re-lays the cache's layout out around the
+call)."""
 from __future__ import annotations
 
 from typing import Dict, Optional
@@ -45,45 +69,63 @@ def mlstm_block_init(gen: torch.Generator, cfg, dtype, device=None) -> Params:
 
 
 def mlstm_block_apply(p: Params, x: torch.Tensor, cfg, chunk: int = 256,
-                      state: Optional[Dict[str, torch.Tensor]] = None):
+                      state: Optional[Dict[str, torch.Tensor]] = None, dist=None):
     b, s, d = x.shape
     inner, nh, hd = mlstm_dims(cfg)
+    conv_w, (wq, wk, wv), h0, hl = p["conv_w"], (p["wq"], p["wk"], p["wv"]), 0, nh
+    if dist is not None:
+        x = dist.enter(x)
     up = linear(x, p["up_proj"])
+    if dist is not None:
+        up = dist.whole(up, -1, 2 * inner)
+        conv_w = dist.whole(conv_w, 1, inner)
+        (wq, wk, wv), h0, hl = dist.head_split((wq, wk, wv), nh, inner)
     xin, z = torch.chunk(up, 2, dim=-1)
 
     conv_state = state["conv"] if state is not None else None
-    cx, new_conv = causal_conv1d(xin, p["conv_w"], conv_state)
+    cx, new_conv = causal_conv1d(xin, conv_w, conv_state)
     cx = F.silu(cx)
 
     def heads(t):
-        return t.reshape(b, s, nh, hd).transpose(1, 2)
+        return t.reshape(b, s, hl, hd).transpose(1, 2)
 
-    q, k, v = heads(linear(cx, p["wq"])), heads(linear(cx, p["wk"])), heads(linear(xin, p["wv"]))
-    # the gates in float32, outside oplib, as in the reference
+    q, k, v = heads(linear(cx, wq)), heads(linear(cx, wk)), heads(linear(xin, wv))
+    # the gates (of heads h0 .. h0 + hl: all of them on one device) in
+    # float32, outside oplib, as in the reference
     cxf = cx.float()
-    ig = (torch.einsum("bsi,ih->bsh", cxf, p["w_igate"]) + p["b_igate"]).transpose(1, 2)
-    fg = (torch.einsum("bsi,ih->bsh", cxf, p["w_fgate"]) + p["b_fgate"]).transpose(1, 2)
+    mine = slice(h0, h0 + hl)
+    ig = (torch.einsum("bsi,ih->bsh", cxf, p["w_igate"][:, mine])
+          + p["b_igate"][mine]).transpose(1, 2)
+    fg = (torch.einsum("bsi,ih->bsh", cxf, p["w_fgate"][:, mine])
+          + p["b_fgate"][mine]).transpose(1, 2)
     log_decay = F.logsigmoid(fg)
     gain = torch.exp(torch.clamp(ig, max=8.0))
     scale = float(hd) ** -0.5
 
-    new_state = None
+    st = None
     if state is None or s > 1:
         h = chunked_gla_torch(q, k, v, log_decay, gain, chunk=chunk, normalize=True, scale=scale)
         if state is not None:
             _, st = _final_state(q, k, v, log_decay, gain)
-            new_state = _donate(state, {"conv": new_conv, "C": st[0], "n": st[1]})
     else:
         h, st = gla_decode_step(q[:, :, 0], k[:, :, 0], v[:, :, 0], log_decay[:, :, 0],
-                                gain[:, :, 0], (state["C"], state["n"]), normalize=True,
-                                scale=scale)
+                                gain[:, :, 0], (state["C"][:, mine], state["n"][:, mine]),
+                                normalize=True, scale=scale)
         h = h[:, :, None, :]
+    new_state = None
+    if state is not None:
+        if dist is not None:
+            st = tuple(dist.join_heads(t, nh) for t in st)
         new_state = _donate(state, {"conv": new_conv, "C": st[0], "n": st[1]})
 
-    h = h.transpose(1, 2).reshape(b, s, inner)
-    h = h + p["skip_scale"] * cx
-    h = h * F.silu(z)
-    return linear(h, p["down_proj"]), new_state
+    # this rank's channels (every channel on one device)
+    ch = slice(h0 * hd, (h0 + hl) * hd)
+    h = h.transpose(1, 2).reshape(b, s, hl * hd)
+    h = h + p["skip_scale"][ch] * cx[..., ch]
+    h = h * F.silu(z[..., ch])
+    if dist is None:
+        return linear(h, p["down_proj"]), new_state
+    return dist.rows(h, p["down_proj"], inner), new_state
 
 
 def mlstm_init_state(cfg, batch: int, dtype, device="cuda") -> Dict[str, torch.Tensor]:
@@ -112,14 +154,21 @@ def slstm_block_init(gen: torch.Generator, cfg, dtype, device=None) -> Params:
 
 
 def slstm_block_apply(p: Params, x: torch.Tensor, cfg,
-                      state: Optional[Dict[str, torch.Tensor]] = None):
+                      state: Optional[Dict[str, torch.Tensor]] = None, dist=None):
     """Sequential sLSTM with exponential gating and max-stabilizer: a
     Python loop over the time steps, ``h, c, n, m`` in float32 on the
     tensors' device (no host sync inside the loop)."""
     b, s, d = x.shape
     nh = cfg.xlstm.n_heads
     hd = d // nh
-    wx = (linear(x, p["w_gates"]) + p["b_gates"]).float()  # (b,s,4d)
+    w_gates, r_gates, w_up = p["w_gates"], p["r_gates"], p["w_up"]
+    dff = int(cfg.xlstm.proj_factor_slstm * d)
+    if dist is not None:
+        x = dist.enter(x)
+        w_gates = dist.whole(w_gates, 1, 4 * d)
+        r_gates = dist.whole(r_gates, 2, 4 * hd)
+        w_up = dist.whole(w_up, 1, 2 * dff)
+    wx = (linear(x, w_gates) + p["b_gates"]).float()  # (b,s,4d)
     wx = wx.reshape(b, s, 4, nh, hd)
 
     if state is None:
@@ -128,7 +177,7 @@ def slstm_block_apply(p: Params, x: torch.Tensor, cfg,
     else:
         h, c, n, m = state["h"], state["c"], state["n"], state["m"]
 
-    r = p["r_gates"].float()  # (nh, hd, 4hd)
+    r = r_gates.float()  # (nh, hd, 4hd)
     hs = []
     for t in range(s):
         rec = torch.einsum("bhd,hdk->bhk", h, r).reshape(b, nh, 4, hd).transpose(1, 2)
@@ -146,8 +195,9 @@ def slstm_block_apply(p: Params, x: torch.Tensor, cfg,
     out_h = torch.stack(hs, dim=1).reshape(b, s, d).to(x.dtype)
 
     # GLU FFN (proj factor 4/3)
-    a, g2 = torch.chunk(linear(out_h, p["w_up"]), 2, dim=-1)
-    out = linear(F.gelu(a, approximate="tanh") * g2, p["w_down"])
+    a, g2 = torch.chunk(linear(out_h, w_up), 2, dim=-1)
+    hh = F.gelu(a, approximate="tanh") * g2
+    out = linear(hh, p["w_down"]) if dist is None else dist.rows(hh, p["w_down"], dff)
     new_state = None
     if state is not None:
         new_state = _donate(state, {"h": h, "c": c, "n": n, "m": m})

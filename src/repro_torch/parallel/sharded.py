@@ -1,15 +1,17 @@
-"""The sharded step of the LM family (dense, moe, vlm): the port's twin of
-GSPMD partitioning ``jax.jit(fn)`` under ``in_shardings``.
+"""The sharded step of every model family: the port's twin of GSPMD
+partitioning ``jax.jit(fn)`` under ``in_shardings``.
 
 The JAX package shards a train, prefill or decode step by handing
 ``jax.jit`` the specs of ``parallel/sharding.py`` and letting GSPMD place
 every collective (hinted by ``constrain`` in ``models/lm.py`` and
 ``nn/moe.py``).  The port has no partitioner, so this module places them
 by hand: each rank of :func:`~.spmd.shard_map` runs the port's own
-``models/lm.py`` and ``nn/`` functions on its shards (one copy of the
-model code; on one device its hooks are absent and nothing changes),
-with a :class:`Rank` passed as ``dist`` that puts a collective wherever
-the specs split a tensor:
+``models/`` and ``nn/`` functions on its shards (one copy of the model
+code; on one device its hooks are absent and nothing changes), with a
+:class:`Rank` passed as ``dist`` that puts a collective wherever the
+specs split a tensor.  :data:`FAMILIES` says where each family keeps its
+parameters and its cache (:class:`Family`); a family it does not name
+raises.  The LM family (dense, moe, vlm; ``models/lm.py``):
 
 * column-parallel projections (``wq``, ``wk``, ``wv``, ``w_gate``,
   ``w_up``) run local, on a per-rank view of the config (heads and
@@ -39,6 +41,41 @@ the specs split a tensor:
   ``sp_attention.sp_decode_attention`` does) and each new K/V position
   is written by the rank that holds it.
 
+The other families reuse those hooks and add a region per recurrent
+block (``Rank.whole``, ``rows``, ``head_split``):
+
+* hybrid (zamba2, ``models/hybrid.py``): the shared block is an LM layer
+  (its attention and MLP on the rank's heads and columns, a KV cache per
+  group); a Mamba2 layer (``nn/ssm.py``) gathers ``in_proj``'s output
+  and ``conv_w`` whole over 'model', runs the conv, the SSD and the gated
+  norm on every head, and ends in the row-parallel ``out_proj`` and a
+  ``psum``;
+* ssm (xLSTM, ``models/xlstm_model.py``, ``nn/xlstm.py``): an mLSTM
+  block gathers ``up_proj``'s output and ``conv_w``, runs the GLA on the
+  rank's heads where they divide over 'model' (else gathers ``wq`` /
+  ``wk`` / ``wv`` and runs all), and ends in ``down_proj``; an sLSTM block
+  gathers ``w_gates``, ``r_gates`` and ``w_up`` once a call, runs the
+  recurrence with every gate on the rank (no collective in its time
+  loop), and ends in ``w_down``; the embedding is tied;
+* audio (the encoder-decoder, ``models/encdec.py``): ``frame_proj``'s
+  output is gathered as ``patch_proj``'s; the encoder's attention is
+  non-causal; cross-attention's K / V come from ``memory`` (which enters
+  each region as the stream does) through the rank's ``wk`` / ``wv``.
+
+In each recurrent region every gradient is partial (its f at the input,
+its g after the last projection), so its replicated parameters
+(``A_log``, ``D``, ``dt_bias``, ``norm_scale``, the gates' weights and
+biases, ``skip_scale``) are summed over 'model' and its gathers' adjoints
+reduce-scatter.  ``cache_specs`` lays the recurrent states out with
+'model' on their last dim that divides and 'data' on the first dim as
+long as the batch (where the batch divides); a rank computes with the
+batch as the stream's and every other dim whole, so each serving call
+re-lays them out at its entry (gathers) and writes its block back at
+its exit (:meth:`Rank.states_in`, :meth:`Rank.states_out`).  An
+encoder-decoder's prefill places ``memory`` in the cache (the reference
+has no spec for it): batch on 'data' where the batch divides, else
+replicated.
+
 The backward keeps every collective on the rank threads.  On the card
 PyTorch runs the backward of every rank of one device on one autograd
 thread, where a collective inside a ``torch.autograd.Function`` would
@@ -65,7 +102,7 @@ from typing import Any, Dict, Optional, Sequence, Tuple
 import torch
 
 from .. import tree as T
-from ..models import lm
+from ..models import encdec, hybrid, lm, xlstm_model
 from ..nn.attention import NEG_INF, _gqa_scores, _gqa_values, attention
 from ..nn.core import apply_rope, linear, rms_head_norm
 from ..optim import adamw
@@ -73,17 +110,51 @@ from . import sharding as shd
 from . import spmd
 from .spmd import Mesh, P, Placed
 
-__all__ = ["Rank", "sharded_loss", "sharded_loss_and_grads", "sharded_train_step",
-           "sharded_prefill", "sharded_decode_step", "place_params", "place_opt_state",
-           "init_cache", "DP"]
+__all__ = ["Rank", "Family", "FAMILIES", "sharded_loss", "sharded_loss_and_grads",
+           "sharded_train_step", "sharded_prefill", "sharded_decode_step", "place_params",
+           "place_opt_state", "init_cache", "DP"]
 
 # the data-parallel axes of the step (the reference's tests shard the
 # batch on ('data',))
 DP = ("data",)
 _AXES = ("data", "model")
-# parameters inside a tensor-parallel region (after the step's f): a
-# replicated one gets a partial gradient on every 'model' rank
-_REGIONS = ("attn", "mlp", "moe")
+
+
+@dataclasses.dataclass(frozen=True)
+class Family:
+    """Where a model family keeps what the sharded step reads.
+
+    ``attn`` / ``mlp`` / ``moe``: the path of one layer's attention, MLP
+    and MoE parameters in the tree (every attention and MLP of the family
+    has the same shapes, so the same specs), under ``stack`` leading
+    stacked-layer dims.  ``regions``: the keys of the tensor-parallel
+    regions (between the step's f and g), where a replicated parameter
+    gets a partial gradient on every 'model' rank.  ``kv``: the cache's
+    path to the dict holding ``k``, ``v`` and ``pos``; ``states``: the
+    cache's path to the recurrent states, whose batch dim is
+    ``state_batch``; ``memory``: the cache holds the encoder's output."""
+    module: Any
+    regions: Tuple[str, ...]
+    attn: Optional[Tuple[str, ...]] = None
+    mlp: Optional[Tuple[str, ...]] = None
+    moe: Optional[Tuple[str, ...]] = None
+    stack: int = 0
+    kv: Optional[Tuple[str, ...]] = None
+    states: Optional[Tuple[str, ...]] = None
+    state_batch: int = 0
+    memory: bool = False
+
+
+_LM = Family(lm, ("attn", "mlp", "moe"), attn=("blocks", "attn"), mlp=("blocks", "mlp"),
+             moe=("blocks", "moe"), stack=1, kv=())
+FAMILIES = {
+    "dense": _LM, "moe": _LM, "vlm": _LM,
+    "hybrid": Family(hybrid, ("attn", "mlp", "mamba"), attn=("shared", "attn"),
+                     mlp=("shared", "mlp"), kv=("attn",), states=("mamba",), state_batch=2),
+    "ssm": Family(xlstm_model, ("core",), states=()),
+    "audio": Family(encdec, ("attn", "self_attn", "cross_attn", "mlp"), attn=("encoder", "attn"),
+                    mlp=("encoder", "mlp"), stack=1, kv=("kv",), memory=True),
+}
 
 
 def _size(mesh: Mesh, axes) -> int:
@@ -107,6 +178,24 @@ def _named(spec) -> set:
     return {a for e in spec for a in _axes_of(e)}
 
 
+def _at(tree: Any, path: Optional[Tuple[str, ...]]) -> Any:
+    """The subtree at ``path`` (None where a key is missing)."""
+    if path is None:
+        return None
+    for key in path:
+        if not isinstance(tree, dict) or key not in tree:
+            return None
+        tree = tree[key]
+    return tree
+
+
+def _layer_specs(pspecs: Any, path, stack: int) -> Any:
+    """One layer's specs: the subtree at ``path`` without its ``stack``
+    leading stacked-layer dims."""
+    sub = _at(pspecs, path)
+    return None if sub is None else shd.map_specs(lambda s: P(*tuple(s)[stack:]), sub)
+
+
 def _check_mesh(mesh: Mesh) -> None:
     extra = [a for a in mesh.axis_names if a not in _AXES]
     if extra:
@@ -123,7 +212,7 @@ class Rank:
     is its plain collective."""
 
     def __init__(self, mesh: Mesh, pspecs: Any, dp: bool, train: bool = False,
-                 kv_spec: Optional[P] = None, pos0: int = 0):
+                 kv_spec: Optional[P] = None, pos0: int = 0, family: Family = _LM):
         self.mesh = mesh
         self.m = mesh.shape.get("model", 1)
         self.mi = spmd.axis_index("model") if self.m > 1 else 0
@@ -133,12 +222,12 @@ class Rank:
         self.tape = [] if train else None
         self.kv_spec = kv_spec
         self.pos0 = pos0
-        blocks = pspecs["blocks"]
-        self.attn_specs = blocks["attn"]
-        self.mlp_specs = blocks.get("mlp")
-        self.moe_specs = blocks.get("moe")
+        self.regions = family.regions
+        # one layer's specs (the stacked dims dropped)
+        self.attn_specs = _layer_specs(pspecs, family.attn, family.stack)
+        self.mlp_specs = _layer_specs(pspecs, family.mlp, family.stack)
+        self.moe_specs = _layer_specs(pspecs, family.moe, family.stack)
         self.embed_split = "model" in _split(pspecs["embed"], 0)
-        self.patch_split = "patch_proj" in pspecs and "model" in _split(pspecs["patch_proj"], 1)
         self._moe_slice = None
         self._cap_cut = False
 
@@ -224,7 +313,7 @@ class Rank:
             axes = []
             if "data" not in named and self.dp:
                 axes.append("data")
-            if "model" not in named and any(r in path for r in _REGIONS):
+            if "model" not in named and any(r in path for r in self.regions):
                 axes.append("model")
             axes = tuple(a for a in _AXES if a in axes and self.mesh.shape.get(a, 1) > 1)
             if axes:
@@ -270,10 +359,11 @@ class Rank:
         x = table[idx.clamp(0, vl - 1)] * mine[..., None].to(table.dtype)
         return self.reduce(x)
 
-    def columns(self, pe: torch.Tensor) -> torch.Tensor:
-        """``patch_proj``'s output, split over ``d_model``, gathered over
-        'model' before it joins the replicated stream."""
-        if not self.patch_split:
+    def columns(self, pe: torch.Tensor, full: int) -> torch.Tensor:
+        """A stub frontend's output (``patch_proj``, ``frame_proj``), split
+        over ``d_model`` (``full`` wide), gathered over 'model' before it
+        joins the replicated stream."""
+        if pe.shape[-1] == full:
             return pe
         return self._gather(pe, ("model",), pe.ndim - 1, partial=False)
 
@@ -282,7 +372,7 @@ class Rank:
         rank's column / row blocks between f and g.  Weights the specs
         leave whole run on 'model' rank 0 alone."""
         x = self.enter(x)
-        if self.m > 1 and "model" not in _split(self.mlp_specs["w_down"], 1):
+        if self.m > 1 and "model" not in _split(self.mlp_specs["w_down"], 0):
             return self.reduce(fn(p, x, *args) if self.mi == 0 else torch.zeros_like(x))
         return self.reduce(fn(p, x, *args))
 
@@ -314,7 +404,7 @@ class Rank:
     def _heads(self, cfg):
         """(this rank's first q head, its q heads, the KV heads they use)."""
         h, kv = cfg.n_heads, cfg.n_kv_heads
-        if self.m == 1 or "model" not in _split(self.attn_specs["wq"], 2):
+        if self.m == 1 or "model" not in _split(self.attn_specs["wq"], 1):
             return 0, h, 0, kv
         if h % self.m:
             raise NotImplementedError(f"{cfg.name}: {h} q heads do not split over "
@@ -326,23 +416,28 @@ class Rank:
             raise NotImplementedError(f"{cfg.name}: {hl} q heads a rank, {g} a KV head")
         return h0, hl, h0 // g, max(hl // g, 1)
 
-    def attention(self, p, xn: torch.Tensor, cfg, cache=None):
+    def attention(self, p, xn: torch.Tensor, cfg, cache=None, causal: bool = True,
+                  memory: Optional[torch.Tensor] = None):
+        """Self-attention (``causal`` or not), or cross-attention to
+        ``memory`` (the encoder's output, replicated over 'model' like the
+        stream: it enters the region too), on the rank's heads."""
         if cache is not None:
             return self._cached_attention(p, xn, cfg, cache)
         hd = cfg.hd
         h0, hl, kv0, kvl = self._heads(cfg)
         x = self.enter(xn)
+        mem = None if memory is None else self.enter(memory)
         if hl == cfg.n_heads and self.m > 1:
             # the specs leave the attention whole: 'model' rank 0 runs it
             if self.mi:
                 return self.reduce(torch.zeros_like(x)), None
-            out, _ = attention(p, x, cfg, causal=True)
+            out, _ = attention(p, x, cfg, causal=causal, memory=mem)
             return self.reduce(out), None
         q = dict(p)
         for name in ("wk", "wv"):
             w = p[name]
             base = 0
-            if "model" in _split(self.attn_specs[name], 2):
+            if "model" in _split(self.attn_specs[name], 1):
                 if cfg.n_kv_heads % self.m:
                     # the column split cuts the KV heads: gather them whole
                     w = self._gather(w, ("model",), 1, partial=True)
@@ -350,7 +445,7 @@ class Rank:
                     base = kv0
             q[name] = w.narrow(1, (kv0 - base) * hd, kvl * hd)
         local = dataclasses.replace(cfg, n_heads=hl, n_kv_heads=kvl, head_dim=hd)
-        out, _ = attention(q, x, local, causal=True)
+        out, _ = attention(q, x, local, causal=causal, memory=mem)
         return self.reduce(out), None
 
     def _layout(self) -> Tuple[Tuple[str, ...], ...]:
@@ -364,9 +459,9 @@ class Rank:
         q = linear(xn, p["wq"])
         k = linear(xn, p["wk"])
         v = linear(xn, p["wv"])
-        if model and "model" in _split(self.attn_specs["wq"], 2):
+        if model and "model" in _split(self.attn_specs["wq"], 1):
             q = spmd.all_gather(q, "model", axis=2, tiled=True)
-        if model and "model" in _split(self.attn_specs["wk"], 2):
+        if model and "model" in _split(self.attn_specs["wk"], 1):
             k, v = (spmd.all_gather(t, "model", axis=2, tiled=True) for t in (k, v))
         q, k, v = q.reshape(b, s, h, hd), k.reshape(b, s, kv, hd), v.reshape(b, s, kv, hd)
         if cfg.qk_norm:
@@ -429,6 +524,104 @@ class Rank:
             out = spmd.all_gather(out, kv_ax, axis=2, tiled=True)
         return out.to(q.dtype)
 
+    # ----------------------------------------------------- recurrent regions
+    def whole(self, t: torch.Tensor, dim: int, full: int) -> torch.Tensor:
+        """``t`` whole along ``dim`` (``full`` wide) inside a tensor-parallel
+        region: a column block of a weight or of a projection's output,
+        split over 'model' by the specs, is gathered, and its adjoint
+        reduce-scatters (the region's gradient is partial)."""
+        if t.shape[dim] == full:
+            return t
+        return self._gather(t, ("model",), dim % t.ndim, partial=True)
+
+    def rows(self, h: torch.Tensor, w: torch.Tensor, full: int) -> torch.Tensor:
+        """g after a row-parallel projection: ``h``'s channels (``full``
+        in all; ``h`` holds them whole, or this rank's block of them) times
+        ``w``'s rows (whole, or the rank's row block), summed over 'model'.
+        Where both are whole (the rows do not divide over 'model'), each
+        rank takes a near-equal block of them."""
+        nh, nw = h.shape[-1], w.shape[0]
+        if self.m == 1:
+            return linear(h, w)
+        if nh == full and nw == full:
+            lo, hi = full * self.mi // self.m, full * (self.mi + 1) // self.m
+            out = linear(h[..., lo:hi], w[lo:hi])
+        elif nh == full:
+            out = linear(h.narrow(-1, self.mi * nw, nw), w)
+        elif nw == full:
+            out = linear(h, w.narrow(0, self.mi * nh, nh))
+        else:
+            out = linear(h, w)
+        return self.reduce(out)
+
+    def head_split(self, ws: Sequence[torch.Tensor], nh: int, full: int):
+        """``(ws, h0, hl)``: column-parallel head projections ``ws``
+        (``full`` columns, ``nh`` heads) and the heads ``h0 .. h0 + hl``
+        they give this rank.  Where the column blocks are whole heads
+        (``nh`` divides over 'model') each rank runs its own heads; else
+        the weights are gathered whole and every rank runs all heads."""
+        if self.m == 1 or all(w.shape[-1] == full for w in ws):
+            return list(ws), 0, nh
+        if nh % self.m == 0:
+            hl = nh // self.m
+            return list(ws), self.mi * hl, hl
+        return [self.whole(w, w.ndim - 1, full) for w in ws], 0, nh
+
+    def join_heads(self, t: torch.Tensor, nh: int) -> torch.Tensor:
+        """A state of this rank's heads (dim 1) joined over 'model' into
+        every head's (serving: no gradient)."""
+        if t.shape[1] == nh:
+            return t
+        return spmd.all_gather(t, "model", axis=1, tiled=True)
+
+    def relayout(self, t: torch.Tensor, src: P, dst: P) -> torch.Tensor:
+        """This rank's block of a value laid out by ``src``, re-laid out by
+        ``dst``: each dim gathered over the axes only ``src`` splits it on,
+        then cut to this rank's block over those only ``dst`` does.  Every
+        gather comes before every cut (one axis may move from one dim to
+        another).  ``t`` itself where the two agree; else a fresh tensor."""
+        def axes(spec, d):
+            return tuple(x for x in _split(spec, d) if self.mesh.shape.get(x, 1) > 1)
+
+        moved = [d for d in range(t.ndim) if axes(src, d) != axes(dst, d)]
+        out = t
+        for d in moved:
+            if axes(src, d):
+                out = spmd.all_gather(out, axes(src, d), axis=d, tiled=True)
+        for d in moved:
+            b = axes(dst, d)
+            if b:
+                w = out.shape[d] // _size(self.mesh, b)
+                out = out.narrow(d, spmd.axis_index(b) * w, w)
+        return out if out is t else out.clone()
+
+    def states_in(self, cache: Any, cspecs: Any, family: Family):
+        """The cache with each recurrent state (``family.states``) re-laid
+        out from the cache's layout (``cache_specs``: 'model' on the last
+        dim that divides; where the batch divides, 'data' on the first dim
+        as long as the batch, which may be a stacked layer dim) into the
+        one the rank computes in (the batch as the stream's, every other
+        dim whole), and what :meth:`states_out` writes back."""
+        if family.states is None:
+            return cache, []
+        pairs, treedef = T.flatten_with_path(cache)
+        out, back = [], []
+        n = len(family.states)
+        for (path, t), spec in zip(pairs, _flat_specs(cspecs)):
+            if tuple(path[:n]) == family.states:
+                want = P(*(None,) * family.state_batch, DP if self.dp else None)
+                w = self.relayout(t, spec, want)
+                if w is not t:
+                    back.append((t, w, want, spec))
+                t = w
+            out.append(t)
+        return T.unflatten(treedef, out), back
+
+    def states_out(self, back) -> None:
+        """Write each rank's block of the new states into the cache."""
+        for t, w, src, dst in back:
+            t.copy_(self.relayout(w, src, dst))
+
     # -------------------------------------------------------------------- MoE
     def enter_moe(self, x: torch.Tensor) -> torch.Tensor:
         """f, and the tokens this rank routes: its own where the batch is
@@ -478,7 +671,7 @@ class Rank:
     def moe_experts(self, e: int) -> Tuple[int, int]:
         if self.m == 1:
             return 0, e
-        if "model" not in _split(self.moe_specs["w_gate"], 1):
+        if "model" not in _split(self.moe_specs["w_gate"], 0):
             raise NotImplementedError(f"{e} experts do not split over 'model' = {self.m}")
         el = e // self.m
         return self.mi * el, el
@@ -514,7 +707,7 @@ class Rank:
             if name not in p:
                 continue
             w = p[name]
-            if "data" in _split(self.moe_specs[name], 2):
+            if "data" in _split(self.moe_specs[name], 1):
                 w = self._gather(w, DP, 1, partial=True)
             out[name] = w
         return out
@@ -551,19 +744,27 @@ def place_opt_state(mesh: Mesh, state: Any) -> Any:
 
 
 def init_cache(model, mesh: Mesh, batch: int, max_len: int, dtype=None) -> Any:
-    """A zero decode cache placed on ``mesh`` by ``cache_specs`` (each
-    rank's block made on its device; the global cache is never built)."""
+    """The model's initial decode cache placed on ``mesh`` by
+    ``cache_specs`` (each rank's block made on its device; the global
+    cache is never built).  Each leaf of ``model.init_cache`` holds one
+    value (zeros; an sLSTM's normalizer ``n`` ones), read from a cache of
+    batch 1 and length 1."""
     meta = model.init_cache(batch, max_len, dtype=dtype, device="meta")
+    fill = model.init_cache(1, 1, dtype=dtype, device="cpu")
     specs = shd.cache_specs(meta, batch, _size(mesh, DP), DP, _sizes(mesh))
 
-    def one(sh: shd.Sharding, leaf: torch.Tensor) -> Placed:
+    def one(sh: shd.Sharding, leaf: torch.Tensor, probe: torch.Tensor) -> Placed:
+        value = probe.reshape(-1)[0].item()
+        if not torch.all(probe == value):
+            raise ValueError(f"init_cache: a leaf of shape {tuple(leaf.shape)} does not hold "
+                             f"one value")
         shards = []
         for r, dev in enumerate(mesh.flat_devices()):
             blk = spmd.block_of(mesh, r, leaf, sh.spec)
-            shards.append(torch.zeros(blk.shape, dtype=leaf.dtype, device=dev))
+            shards.append(torch.full(blk.shape, value, dtype=leaf.dtype, device=dev))
         return Placed(mesh, sh.spec, shards, leaf.shape, leaf.dtype)
 
-    return shd.map_specs(one, shd.make_sharding(mesh, specs), meta)
+    return shd.map_specs(one, shd.make_sharding(mesh, specs), meta, fill)
 
 
 def _specs_of(mesh: Mesh, tree: Any, rule) -> Any:
@@ -578,22 +779,25 @@ def _batch_specs(mesh: Mesh, batch: Dict[str, Any]) -> Dict[str, P]:
     return _on_mesh(mesh, shd.batch_specs(batch, DP, _sizes(mesh)))
 
 
-def _lm(model):
-    if model.cfg.family not in ("dense", "moe", "vlm"):
-        raise NotImplementedError(f"the sharded step covers the LM family (dense, moe, vlm), "
+def _family(model) -> Family:
+    """The model's family; one the sharded step does not cover raises
+    (it never runs unsharded)."""
+    fam = FAMILIES.get(model.cfg.family)
+    if fam is None:
+        raise NotImplementedError(f"the sharded step covers the families {sorted(FAMILIES)}, "
                                   f"not {model.cfg.family} ({model.cfg.name})")
-    return model.cfg
+    return fam
 
 
 # --------------------------------------------------------------------------
 # the entry points
 # --------------------------------------------------------------------------
-def _loss_and_grads(rank: Rank, cfg, params: Any, batch: Dict[str, torch.Tensor],
+def _loss_and_grads(rank: Rank, fam: Family, cfg, params: Any, batch: Dict[str, torch.Tensor],
                     pspecs: Any) -> Tuple[torch.Tensor, dict, list]:
     pairs, treedef = T.flatten_with_path(params)
     leaves = [leaf.detach().requires_grad_() for _, leaf in pairs]
-    total, metrics = lm.loss_fn(T.unflatten(treedef, leaves), cfg, batch, remat=False,
-                                dist=rank)
+    total, metrics = fam.module.loss_fn(T.unflatten(treedef, leaves), cfg, batch, remat=False,
+                                        dist=rank)
     paths = [tuple(str(k) for k in path) for path, _ in pairs]
     grads = rank.grads(paths, _flat_specs(pspecs), rank.backward(total, leaves))
     return total.detach(), {k: v.detach() for k, v in metrics.items()}, grads
@@ -606,7 +810,7 @@ def _flat_specs(specs: Any) -> list:
 
 
 def _train_args(model, mesh: Mesh, params: Any, batch: Dict[str, Any]):
-    cfg = _lm(model)
+    fam = _family(model)
     _check_mesh(mesh)
     pspecs = _specs_of(mesh, params, lambda t: shd.param_specs(t, _sizes(mesh)))
     bspecs = _batch_specs(mesh, batch)
@@ -614,7 +818,7 @@ def _train_args(model, mesh: Mesh, params: Any, batch: Dict[str, Any]):
     if _size(mesh, DP) > 1 and not dp:
         raise ValueError(f"the sharded train step splits the batch on 'data': batch "
                          f"{batch['tokens'].shape[0]} over {_size(mesh, DP)} ranks")
-    return cfg, pspecs, bspecs, dp
+    return fam, pspecs, bspecs, dp
 
 
 def sharded_loss_and_grads(model, mesh: Mesh, params: Any, batch: Dict[str, torch.Tensor],
@@ -623,11 +827,11 @@ def sharded_loss_and_grads(model, mesh: Mesh, params: Any, batch: Dict[str, torc
     (the model's total, with the MoE auxiliary term) and every
     parameter's gradient in the tree's leaf order, assembled.  ``params``
     may be placed (``place_params``) or global; ``batch`` is global."""
-    cfg, pspecs, bspecs, dp = _train_args(model, mesh, params, batch)
+    fam, pspecs, bspecs, dp = _train_args(model, mesh, params, batch)
 
     def body(p, b):
-        rank = Rank(mesh, pspecs, dp, train=True)
-        loss, _, grads = _loss_and_grads(rank, cfg, p, b, pspecs)
+        rank = Rank(mesh, pspecs, dp, train=True, family=fam)
+        loss, _, grads = _loss_and_grads(rank, fam, model.cfg, p, b, pspecs)
         return loss, grads
 
     fn = spmd.shard_map(body, mesh, (pspecs, bspecs), (P(), _flat_specs(pspecs)),
@@ -637,14 +841,15 @@ def sharded_loss_and_grads(model, mesh: Mesh, params: Any, batch: Dict[str, torc
 
 def sharded_loss(model, mesh: Mesh, params: Any, batch: Dict[str, torch.Tensor],
                  timeout: Optional[float] = None) -> Tuple[torch.Tensor, dict]:
-    """``model.loss(params, batch)`` on ``mesh``: ``(total, {"loss",
-    "aux"})``, global values."""
-    cfg, pspecs, bspecs, dp = _train_args(model, mesh, params, batch)
+    """``model.loss(params, batch)`` on ``mesh``: ``(total, metrics)``,
+    global values (``{"loss", "aux"}`` for the LM family, ``{"loss"}``
+    for the others)."""
+    fam, pspecs, bspecs, dp = _train_args(model, mesh, params, batch)
 
     def body(p, b):
-        rank = Rank(mesh, pspecs, dp)
+        rank = Rank(mesh, pspecs, dp, family=fam)
         with torch.no_grad():
-            total, metrics = lm.loss_fn(p, cfg, b, remat=False, dist=rank)
+            total, metrics = fam.module.loss_fn(p, model.cfg, b, remat=False, dist=rank)
         return total, metrics
 
     return spmd.shard_map(body, mesh, (pspecs, bspecs), P(), timeout=timeout)(params, batch)
@@ -661,12 +866,12 @@ def sharded_train_step(model, mesh: Mesh, params: Any, opt_state: Any,
         if not isinstance(leaf, Placed):
             raise TypeError("sharded_train_step updates placed trees in place: pass "
                             "place_params(mesh, params) and place_opt_state(mesh, state)")
-    cfg, pspecs, bspecs, dp = _train_args(model, mesh, params, batch)
+    fam, pspecs, bspecs, dp = _train_args(model, mesh, params, batch)
     ospecs = shd.map_specs(lambda s, leaf: leaf.spec, shd.opt_specs(pspecs, opt_state), opt_state)
 
     def body(p, o, b):
-        rank = Rank(mesh, pspecs, dp, train=True)
-        loss, _, grads = _loss_and_grads(rank, cfg, p, b, pspecs)
+        rank = Rank(mesh, pspecs, dp, train=True, family=fam)
+        loss, _, grads = _loss_and_grads(rank, fam, model.cfg, p, b, pspecs)
         gnorm = rank.global_norm(_flat_specs(pspecs), grads)
         step = o["step"]
         info = adamw.apply_updates_(p, T.unflatten(T.flatten(p)[1], grads), o, opt_cfg,
@@ -679,15 +884,14 @@ def sharded_train_step(model, mesh: Mesh, params: Any, opt_state: Any,
 
 
 def _serve_args(model, mesh: Mesh, params: Any, cache: Any):
-    cfg = _lm(model)
+    fam = _family(model)
     _check_mesh(mesh)
     for leaf in T.leaves(cache):
         if not isinstance(leaf, Placed):
             raise TypeError("the sharded cache is written in place: pass "
                             "sharded.init_cache(model, mesh, batch, max_len)")
     pspecs = _specs_of(mesh, params, lambda t: shd.param_specs(t, _sizes(mesh)))
-    cspecs = T.tree_map(lambda leaf: leaf.spec, cache)
-    return cfg, pspecs, cspecs
+    return fam, pspecs
 
 
 def _logit_spec(pspecs, dp: bool) -> P:
@@ -696,31 +900,60 @@ def _logit_spec(pspecs, dp: bool) -> P:
     return P(DP if dp else None, None, vocab[0] if vocab else None)
 
 
-def _serve(model, mesh, params, cache, inputs: Dict[str, torch.Tensor], step, timeout):
-    cfg, pspecs, cspecs = _serve_args(model, mesh, params, cache)
+def _serve(model, mesh, params, cache, inputs: Dict[str, torch.Tensor], step, timeout,
+           prefill: bool):
+    """One serving call: each rank re-lays its recurrent states out (if the
+    family has them), runs ``step``, advances ``pos`` and writes the
+    states back; an encoder-decoder's prefill places the encoder's output
+    in the cache as ``memory``: batch on 'data' as the stream, else
+    replicated (the reference has no spec for it)."""
+    fam, pspecs = _serve_args(model, mesh, params, cache)
     bspecs = _batch_specs(mesh, inputs)
     dp = bool(_axes_of(bspecs["tokens"][0]))
+    # a key with no value (an encoder-decoder's memory before its prefill)
+    # is not passed to the ranks
+    given = {k: v for k, v in cache.items() if v is not None} if isinstance(cache, dict) else cache
+    cspecs = T.tree_map(lambda leaf: leaf.spec, given)
+    kv_spec = None if fam.kv is None else _at(cspecs, fam.kv)["k"]
+    memory = [None] * mesh.size
 
     def body(p, b, c):
-        pos = c["pos"]
-        rank = Rank(mesh, pspecs, dp, kv_spec=cspecs["k"], pos0=int(pos[0]))
+        kv = _at(c, fam.kv)
+        pos = None if kv is None else kv["pos"]
+        rank = Rank(mesh, pspecs, dp, kv_spec=kv_spec, pos0=0 if pos is None else int(pos[0]),
+                    family=fam)
         with torch.no_grad():
-            logits, new = step(p, b, c, rank)
-            pos.copy_(new["pos"])
+            work, back = rank.states_in(c, cspecs, fam)
+            logits, new = step(p, b, work, rank)
+            if pos is not None:
+                new_pos = _at(new, fam.kv)["pos"]
+                if new_pos is not pos:
+                    pos.copy_(new_pos)
+            rank.states_out(back)
+        if fam.memory:
+            memory[spmd.current_rank()] = new["memory"]
         return logits
 
     fn = spmd.shard_map(body, mesh, (pspecs, bspecs, cspecs), _logit_spec(pspecs, dp),
                         timeout=timeout)
-    return fn(params, inputs, cache), cache
+    logits = fn(params, inputs, given)
+    if fam.memory and prefill:
+        first = memory[0]
+        b = first.shape[0] * (_size(mesh, DP) if dp else 1)
+        cache["memory"] = Placed(mesh, P(DP if dp else None), memory,
+                                 (b, *first.shape[1:]), first.dtype)
+    return logits, cache
 
 
 def sharded_prefill(model, mesh: Mesh, params: Any, batch: Dict[str, torch.Tensor], cache: Any,
                     timeout: Optional[float] = None) -> Tuple[torch.Tensor, Any]:
     """``model.prefill(params, batch, cache)`` on ``mesh``: the last
     position's logits (global) and the placed cache (``init_cache``),
-    written in place."""
+    written in place (an encoder-decoder's ``memory`` placed in it)."""
+    mod = _family(model).module
     return _serve(model, mesh, params, cache, batch,
-                  lambda p, b, c, r: lm.prefill(p, model.cfg, b, c, dist=r), timeout)
+                  lambda p, b, c, r: mod.prefill(p, model.cfg, b, c, dist=r), timeout,
+                  prefill=True)
 
 
 def sharded_decode_step(model, mesh: Mesh, params: Any, cache: Any, tokens: torch.Tensor,
@@ -728,6 +961,7 @@ def sharded_decode_step(model, mesh: Mesh, params: Any, cache: Any, tokens: torc
     """``model.decode_step(params, cache, tokens)`` on ``mesh``: tokens
     (B, 1) global; the logits (global) and the placed cache, written in
     place."""
+    mod = _family(model).module
     return _serve(model, mesh, params, cache, {"tokens": tokens},
-                  lambda p, b, c, r: lm.decode_step(p, model.cfg, c, b["tokens"], dist=r),
-                  timeout)
+                  lambda p, b, c, r: mod.decode_step(p, model.cfg, c, b["tokens"], dist=r),
+                  timeout, prefill=False)

@@ -1620,3 +1620,49 @@ def test_restore_with_shardings_on_the_card(monkeypatch, tmp_path):
     _card()
     cs, api = _small_shard(monkeypatch)
     assert cs.shard_restore_case(torch, api, tmp_path)["bit_equal"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["zamba2-2.7b", "xlstm-125m", "seamless-m4t-large-v2"])
+def test_sharded_family_step_on_eight_ranks_of_the_card(monkeypatch, name):
+    """The hybrid, ssm and audio families' ``sharded_loss_and_grads`` on
+    (2, 4) ranks of the card against the single-device ``loss_and_grads``
+    (loss within rtol 2e-4, each gradient leaf within 1e-4 x (1 + max)),
+    then one ``sharded_train_step`` against ``apply_updates_`` (1e-5).
+    Their new cuts (the gathers of ``in_proj``'s output, ``conv_w``,
+    ``up_proj``, the sLSTM's gate weights, ``frame_proj``; cross-attention's
+    ``memory`` entering each region) all run on the rank threads: one
+    inside autograd would wait on the card's single backward thread."""
+    _card()
+    cs, api = _small_shard(monkeypatch)
+    row = cs.shard_train_case(torch, api, name, 2, phase=16)
+    assert row["loss_rel_err"] <= cs.SHARD_LOSS_RTOL and row["grad_err"] <= cs.SHARD_GRAD_RTOL
+    step = cs.shard_step_case(torch, api, 2, name=name, phase=16)
+    assert step["param_err"] <= cs.SHARD_PARAM_RTOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,shape,batch", [("zamba2-2.7b", (1, 4), 4),
+                                              ("zamba2-2.7b", (2, 2), 1),
+                                              ("xlstm-125m", (1, 4), 4),
+                                              ("xlstm-125m", (2, 2), 1)])
+def test_sharded_family_decode_on_ranks_of_the_card(monkeypatch, name, shape, batch):
+    """Sharded prefill and 3 decode steps of zamba2 and xlstm with oplib on
+    ``cuda``: one contraction launch a projection a rank a call (or a unit
+    the legality check sends to torch, recorded), the recurrent states
+    re-laid out around each call; the logits within 5e-2 of the row's
+    largest of the single-device ``Model`` (zamba2's with every block of the
+    sharded run fed the single run's input, each block's output held)."""
+    _card()
+    cs, api = _small_shard(monkeypatch)
+    from repro_torch.kernels import contraction as K
+
+    cfg = api.configs.get(name)
+    params = api.build_model(cfg).init(torch.Generator(device="cuda").manual_seed(0))
+    row = cs.shard_serve_case(torch, api, K, cfg, params, shape, batch, 8, 3, phase=16)
+    assert len(row["launches_by_rank"]) == shape[0] * shape[1]
+    units = sum(c.get("torch_units", 0) for c in row["launches_by_rank"].values())
+    assert row["launches"]["contraction"] + units == (shape[0] * shape[1]
+                                                      * len(cs._model_ops(cfg)) * 4)
+    if name == "zamba2-2.7b":
+        assert row["blocks_held"] > 0 and row["block_err_max"] <= cs.LOGIT_RTOL
