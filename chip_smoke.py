@@ -322,9 +322,27 @@ and prints no result):
    run takes the single-device run's input and its output is held
    (``hybrid_blocks``, as phase 12 does: ROADMAP C10), then the replay's
    logits.  Times, peaks and rank 0's collectives print as in phase 15.
+17. **dry run** — ``launch/dryrun.py`` on the 16 x 16 production mesh of
+   ``meta`` devices, rank 0 traced alone (``spmd.tracing``).  (a)
+   ``run_cell`` of ``DRYRUN_CELLS``: every row ``ok`` with its FLOPs,
+   argument bytes and collectives, printed.  (b) phase 15's llama3-8b
+   train-step case on ``SHARD_MESH`` traced on meta devices against a
+   ``sharded_train_step`` of it on as many ranks of the card: the
+   predicted argument bytes must equal those of rank 0's placed shards and
+   batch block on the card, and the predicted collectives (kind, count,
+   bytes sent) phase 15's ``collective_census`` of the card's run under
+   the HLO kinds (``psum`` and ``pmax`` all-reduce, ``psum_scatter``
+   reduce-scatter, ``all_gather`` all-gather).  (c) ``roofline.analyze``
+   of (a)'s rows under the H100's data-sheet figures: the table and the
+   five worst rows.  (d) the four example twins (``examples/torch_*.py``)
+   at their default presets on the card, each in its own process within
+   ``EXAMPLE_TIMEOUT``, exit code 0; their kernels' launches (the
+   contraction kernel's in quickstart, compile_op and serve, the windowed
+   kernel's in compile_op's ``stripe_jit``; the trainer launches none,
+   C11) counted into the summary.
 
-The run order is 1-6, 10, 11, 12, 13, 7, 9, 8, 14, 15, 16: phase 10 reuses
-the serve phase's weights, which are freed before phase 11.
+The run order is 1-6, 10, 11, 12, 13, 7, 9, 8, 14, 15, 16, 17: phase 10
+reuses the serve phase's weights, which are freed before phase 11.
 
 Launch counts are read per path: every count is set to 0 just before the
 serve phase (path 1), before the sweep (path 2), before phase 8's calls
@@ -334,7 +352,8 @@ of phase 11's timed waves (path 7), before each of phase 12's (path
 8), before phase 13 (path 9, which must launch none), before phase
 14's mesh calls (path 10), before each of phase 15's sharded serving
 runs (path 11) and before each of phase 16's (path 12), and read just
-after each; the contraction kernel's
+after each; each example twin of phase 17 (path 13) counts from 0 in its
+own process and prints its counts at its end; the contraction kernel's
 ``launches_by_path`` (skinny, tiled, general) is read the same way for
 the serve, sweep, tune, model, wave and families paths, and none of the
 serve, model, wave and families paths may launch the general loop;
@@ -509,6 +528,42 @@ SHARD_TIMEOUT = 120.0
 FAMILY_SHARD_LAYERS = {"zamba2-2.7b": 6, "xlstm-125m": 12, "seamless-m4t-large-v2": 12}
 FAMILY_STEP_LAYERS = 6
 FAMILY_SP_LAYERS = 12
+# phase 17: the dry run (launch/dryrun.py) on the 16 x 16 production mesh
+# of meta devices, rank 0 traced alone.  (a) its cells: decode_32k for all
+# ten configs, prefill_32k for every config but zamba2-2.7b and
+# xlstm-125m, train_4k for llama3-8b and qwen3-moe-30b-a3b, long_500k for
+# the two sub-quadratic configs; the other cells take 24 s to 7 min each
+# on a host (zamba2's and the sLSTM's time loops), past this phase's
+# 3-minute share of the run.  (b) phase 15's llama3-8b train-step case
+# (SHARD_STEP_LAYERS deep, float32, SHARD_BATCH x SHARD_SEQ, SHARD_MESH)
+# traced on meta and run as a sharded_train_step on ranks of the card.  (d) the four example
+# twins, each in a subprocess within EXAMPLE_TIMEOUT.
+DRYRUN_CONFIGS = ("llama3-8b", "qwen3-4b", "chatglm3-6b", "nemotron-4-15b", "internvl2-26b",
+                  "qwen3-moe-30b-a3b", "dbrx-132b", "zamba2-2.7b", "xlstm-125m",
+                  "seamless-m4t-large-v2")
+DRYRUN_CELLS = ([(a, "decode_32k") for a in DRYRUN_CONFIGS]
+                + [(a, s) for a in ("llama3-8b", "qwen3-moe-30b-a3b")
+                   for s in ("train_4k", "prefill_32k")]
+                + [(a, "prefill_32k") for a in DRYRUN_CONFIGS
+                   if a not in ("llama3-8b", "qwen3-moe-30b-a3b", "zamba2-2.7b", "xlstm-125m")]
+                + [(a, "long_500k") for a in ("zamba2-2.7b", "xlstm-125m")])
+EXAMPLES = ("torch_quickstart.py", "torch_compile_op_with_stripe.py", "torch_serve_batched.py",
+            "torch_train_tiny_lm.py")
+EXAMPLE_TIMEOUT = 300
+# runs one example as its own __main__, then prints the kernels' launch
+# counts of that process (which start at 0)
+EXAMPLE_RUNNER = """
+import json, runpy, sys
+sys.argv = sys.argv[1:]
+runpy.run_path(sys.argv[0], run_name="__main__")
+from repro_torch.kernels import contraction, elementwise, windowed
+from repro_torch.kernels.flash_attention import kernel as flash
+from repro_torch.kernels.mlstm_chunk import kernel as gla
+print("example launches " + json.dumps({
+    "contraction": contraction.launches, "elementwise": elementwise.launches,
+    "windowed": windowed.launches, "flash_attention": flash.launches, "gla": gla.launches,
+    "contraction_by_path": dict(contraction.launches_by_path)}))
+"""
 
 
 def _fail(msg: str) -> None:
@@ -3268,6 +3323,164 @@ def family_phase(torch, api, K, card: str, layers: int | None) -> dict:
     return out
 
 
+def dryrun_cells(cells) -> list:
+    """Phase 17 (a): ``dryrun.run_cell`` of each cell on the 16 x 16
+    production mesh of meta devices, rank 0 alone; each row ``ok``, with
+    FLOPs, argument bytes and collectives."""
+    from repro_torch.launch import dryrun
+
+    rows = []
+    for arch, shape in cells:
+        t0 = time.perf_counter()
+        row = dryrun.run_cell(arch, shape)
+        row["wall_s"] = time.perf_counter() - t0
+        if not (row["ok"] and row["rank0_only"] and row["n_devices"] == 256
+                and row["cost"]["flops"] > 0 and row["memory"]["argument_size_in_bytes"] > 0
+                and row["collective_bytes"] > 0):
+            raise AssertionError(f"phase 17 (a) {arch} x {shape}: {row}")
+        rows.append(row)
+        print("  dryrun " + json.dumps(row), flush=True)
+    return rows
+
+
+def _census_kinds(census) -> dict:
+    """``collective_census``'s calls and bytes by the dry run's HLO kind."""
+    from repro_torch.launch import dryrun
+
+    out: dict = {}
+    for name, row in census.items():
+        kind = out.setdefault(dryrun.HLO_KIND[name], {"count": 0, "operand_bytes": 0})
+        kind["count"] += row["calls"]
+        kind["operand_bytes"] += row["bytes"]
+    return out
+
+
+def dryrun_against_card(torch, api, name: str = "llama3-8b",
+                        layers: int = SHARD_STEP_LAYERS, shape=SHARD_MESH) -> dict:
+    """Phase 17 (b): the dry run of phase 15's train-step case (``name``
+    at full width, ``layers`` deep, float32, ``SHARD_BATCH`` x
+    ``SHARD_SEQ`` tokens) on ``shape`` meta devices, rank 0 alone,
+    against a ``sharded_train_step`` of it on as many ranks of the card:
+    the argument bytes must equal those of rank 0's placed shards and
+    batch block, and the collectives (kind, count, bytes sent) phase 15's
+    ``collective_census`` of the card's first step; a second step is
+    timed (the first pays the card's warm-up)."""
+    from repro_torch import tree as T
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.parallel import sharded, spmd
+    from repro_torch.parallel.spmd import Placed
+
+    cfg = dataclasses.replace(api.configs.get(name), n_layers=layers, dtype="float32")
+    spec = ShapeSpec("phase15", SHARD_SEQ, SHARD_BATCH, "train")
+    n = shape[0] * shape[1]
+    t0 = time.perf_counter()
+    row = dryrun.run_cell(name, spec, cfg=cfg,
+                          mesh=make_mesh(shape, ("data", "model"), ["meta"] * n))
+    meta_s = time.perf_counter() - t0
+    model = api.build_model(cfg)
+    _peak_reset(torch)
+    params = model.init(torch.Generator(device=DEVICE).manual_seed(SEED + 17), device=DEVICE)
+    batch = api.make_batch(cfg, "train", SHARD_BATCH, SHARD_SEQ, seed=SEED, device=DEVICE)
+    mesh = _card_mesh(shape)
+    placed = sharded.place_params(mesh, params)
+    state = sharded.place_opt_state(mesh, api.adamw.init_state(params))
+    del params
+    card_bytes = sum(leaf.shards[0].numel() * leaf.shards[0].element_size()
+                     for tree in (placed, state) for leaf in T.leaves(tree)
+                     if isinstance(leaf, Placed))
+    card_bytes += sum(spmd.block_of(mesh, 0, t, spmd.P("data")).numel() * t.element_size()
+                      for t in batch.values())
+    step = lambda: sharded.sharded_train_step(model, mesh, placed, state, batch,
+                                              api.adamw.AdamWConfig(), timeout=SHARD_TIMEOUT)
+    with collective_census() as census:
+        info, first, _ = _timed(torch, step)
+    _, ev, host = _timed(torch, step)
+    card = _census_kinds(census)
+    meta = {k: {"count": d["count"], "operand_bytes": d["operand_bytes"]}
+            for k, d in row["collectives"].items()}
+    out = {"config": name, "layers": layers, "mesh": list(shape), "dtype": "float32",
+           "tokens": SHARD_BATCH * SHARD_SEQ,
+           "predicted_argument_bytes": row["memory"]["argument_size_in_bytes"],
+           "card_argument_bytes": card_bytes, "predicted_collectives": meta,
+           "card_collectives": card, "rank0_flops": row["cost"]["flops"],
+           "loss": float(info["loss"]), "trace_s": meta_s, "card_first_ms": first,
+           "card_ms": ev, "card_host_ms": host, "peak_gb": _peak_gb(torch)}
+    if card_bytes != out["predicted_argument_bytes"] or card != meta:
+        raise AssertionError(f"phase 17 (b): the dry run's prediction parts from the card: {out}")
+    return out
+
+
+def run_examples(env_dir: Path, args=()) -> list:
+    """Phase 17 (d): each example twin at its default preset on the card
+    (``args`` added to each command line), in its own process within
+    ``EXAMPLE_TIMEOUT``; its exit code must be 0, and its kernels'
+    launches are read from its last line."""
+    import os
+
+    rows = []
+    env = dict(os.environ, PYTHONPATH=str(SRC), STRIPE_CACHE_DIR=str(env_dir / "cache"))
+    for script in EXAMPLES:
+        t0 = time.perf_counter()
+        run = subprocess.run([sys.executable, "-c", EXAMPLE_RUNNER,
+                              str(ROOT / "examples" / script), *args],
+                             env=env, cwd=str(env_dir), capture_output=True, text=True,
+                             timeout=EXAMPLE_TIMEOUT)
+        wall = time.perf_counter() - t0
+        if run.returncode != 0:
+            raise AssertionError(f"phase 17 (d) {script} exited {run.returncode}:\n"
+                                 f"{run.stdout[-3000:]}\n{run.stderr[-3000:]}")
+        last = run.stdout.strip().splitlines()[-1]
+        if not last.startswith("example launches "):
+            raise AssertionError(f"phase 17 (d) {script}: no launch counts: {last}")
+        launches = json.loads(last[len("example launches "):])
+        rows.append({"example": script, "rc": run.returncode, "wall_s": wall,
+                     "launches": launches,
+                     "tail": run.stdout.strip().splitlines()[-4:-1]})
+        print("  example " + json.dumps(rows[-1]), flush=True)
+    return rows
+
+
+def dryrun_phase(torch, api, card: str) -> dict:
+    """Phase 17: (a), (b), (c) and (d) (see the module docstring)."""
+    from repro_torch.launch import roofline
+
+    out = {}
+    t0 = time.perf_counter()
+    out["rows"] = dryrun_cells(DRYRUN_CELLS)
+    out["cells_s"] = time.perf_counter() - t0
+    print(f"dryrun: {len(out['rows'])} cells on the 16x16 mesh of meta devices, rank 0 "
+          f"alone, in {out['cells_s']:.1f} s on the host", flush=True)
+    _free(torch)
+    t0 = time.perf_counter()
+    out["card"] = dryrun_against_card(torch, api)
+    out["card"]["wall_s"] = time.perf_counter() - t0
+    print("  dryrun against the card " + json.dumps(out["card"]), flush=True)
+    _free(torch)
+    roof = roofline.analyze(out["rows"])
+    print(roofline.markdown_table(roof), flush=True)
+    print("dryrun: the five worst roofline fractions (H100 data-sheet figures):", flush=True)
+    for r in roofline.worst(roof):
+        print(f"  {r['arch']} x {r['shape']}: {r['roofline_fraction']:.3f} ({r['dominant']}) "
+              f"-> {roofline.NOTES[r['dominant']]}", flush=True)
+    out["roofline"] = roof
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as d:
+        t0 = time.perf_counter()
+        out["examples"] = run_examples(Path(d))
+        out["examples_s"] = time.perf_counter() - t0
+    launches: dict = {}
+    for row in out["examples"]:
+        for name, n in row["launches"].items():
+            if isinstance(n, int):
+                launches[name] = launches.get(name, 0) + n
+    if not launches.get("contraction") or not launches.get("windowed"):
+        raise AssertionError(f"phase 17 (d): the examples launched {launches}")
+    out["launches"] = launches
+    return out
+
+
 def _pick(rows, prefix):
     return [r for r in rows if r["unit"].startswith(prefix)]
 
@@ -3529,6 +3742,15 @@ def main() -> None:
           f"{json.dumps(fam_shard['launches'])}; ranks on one card, as phase 15; card {card}",
           flush=True)
 
+    # phase 17: the dry run on a mesh of meta devices, its prediction
+    # against the card, the roofline, and the example twins
+    t0 = time.perf_counter()
+    dry = dryrun_phase(torch, api, card)
+    print(f"dryrun: phase 17 in {time.perf_counter() - t0:.1f} s (cells "
+          f"{dry['cells_s']:.1f} s, against the card {dry['card']['wall_s']:.1f} s, examples "
+          f"{dry['examples_s']:.1f} s); launches {json.dumps(dry['launches'])}; card {card}",
+          flush=True)
+
     decode = _pick(rows, "decode/")
     ew = [r for r in new_rows if r["kernel"] == ["elementwise"]]
     conv = _pick(new_rows, f"h100/resnet50_conv2_3x3_b{RESNET_BATCH}_float32")
@@ -3542,7 +3764,8 @@ def main() -> None:
         serve_launches + sw["launches"]["contraction"] + md["launches"]
         + sum(w["launches"] for w in (*wv.values(), *fam.values()))
         + tn["launches"]["contraction"] + mesh["launches"]["contraction"]["launches"]
-        + shard["launches"]["contraction"] + fam_shard["launches"]["contraction"], decode,
+        + shard["launches"]["contraction"] + fam_shard["launches"]["contraction"]
+        + dry["launches"].get("contraction", 0), decode,
         max([r["max_abs_err"] for r in rows]
             + [r["max_abs_err"] for r in new_rows if r["kernel"] == ["contraction"]]
             + [mm_err, md["max_abs_err"]]
@@ -3566,18 +3789,22 @@ def main() -> None:
                                                "by_path": r["contraction_by_path"],
                                                "by_rank": r["launches_by_rank"]}
                                            for r in fam_shard["serve"]
-                                           if r["backend"] == "cuda"}}
+                                           if r["backend"] == "cuda"},
+                                       "examples": {r["example"]: r["launches"][
+                                           "contraction_by_path"] for r in dry["examples"]}}
     windowed = _kernel_entry(
         "windowed", "src/repro_torch/csrc/windowed.cu", "src/repro/core/lower_pallas.py:812",
         sw["launches"]["windowed"] + rn["launches"] + tn["launches"]["windowed"]
         + mesh["launches"]["windowed"]["launches"] + shard["launches"]["windowed"]
-        + fam_shard["launches"]["windowed"], conv,
+        + fam_shard["launches"]["windowed"] + dry["launches"].get("windowed", 0), conv,
         max(r["max_abs_err"] for r in new_rows if r["kernel"] == ["windowed"]))
     windowed["general_ms"] = sum(r["general_ms"] for r in conv)
     windowed["launches_by_path"] = {"sweep": sw["windowed_launches_by_path"],
                                     "resnet": rn["launches_by_path"],
                                     "tune": tn["windowed_launches_by_path"],
-                                    "mesh": mesh["launches"]["windowed"]["by_path"]}
+                                    "mesh": mesh["launches"]["windowed"]["by_path"],
+                                    "examples": {r["example"]: r["launches"]["windowed"]
+                                                 for r in dry["examples"]}}
     # flash: llama3-8b's bf16 prefill attention at S 4096 (wgmma), the
     # CUDA-core design's time beside it; launches: phase 8's path
     flash = _kernel_entry("flash_attention", "src/repro_torch/csrc/flash_attention.cu",
@@ -3624,7 +3851,8 @@ def main() -> None:
                                 sw["launches"]["elementwise"] + tn["launches"]["elementwise"]
                                 + mesh["launches"]["elementwise"]["launches"]
                                 + shard["launches"]["elementwise"]
-                                + fam_shard["launches"]["elementwise"],
+                                + fam_shard["launches"]["elementwise"]
+                                + dry["launches"].get("elementwise", 0),
                                 ew,
                                 max(r["max_abs_err"] for r in ew))
     elementwise["general_ms"] = sum(r["general_ms"] for r in ew)

@@ -901,12 +901,13 @@ def _logit_spec(pspecs, dp: bool) -> P:
 
 
 def _serve(model, mesh, params, cache, inputs: Dict[str, torch.Tensor], step, timeout,
-           prefill: bool):
+           prefill: bool, pos: Optional[int]):
     """One serving call: each rank re-lays its recurrent states out (if the
     family has them), runs ``step``, advances ``pos`` and writes the
     states back; an encoder-decoder's prefill places the encoder's output
     in the cache as ``memory``: batch on 'data' as the stream, else
-    replicated (the reference has no spec for it)."""
+    replicated (the reference has no spec for it).  ``pos`` is the cache's
+    position where its ``pos`` holds no value (on ``meta`` devices)."""
     fam, pspecs = _serve_args(model, mesh, params, cache)
     bspecs = _batch_specs(mesh, inputs)
     dp = bool(_axes_of(bspecs["tokens"][0]))
@@ -919,16 +920,15 @@ def _serve(model, mesh, params, cache, inputs: Dict[str, torch.Tensor], step, ti
 
     def body(p, b, c):
         kv = _at(c, fam.kv)
-        pos = None if kv is None else kv["pos"]
-        rank = Rank(mesh, pspecs, dp, kv_spec=kv_spec, pos0=0 if pos is None else int(pos[0]),
-                    family=fam)
+        at = None if kv is None else kv["pos"]
+        rank = Rank(mesh, pspecs, dp, kv_spec=kv_spec, pos0=_pos0(at, pos), family=fam)
         with torch.no_grad():
             work, back = rank.states_in(c, cspecs, fam)
             logits, new = step(p, b, work, rank)
-            if pos is not None:
+            if at is not None:
                 new_pos = _at(new, fam.kv)["pos"]
-                if new_pos is not pos:
-                    pos.copy_(new_pos)
+                if new_pos is not at:
+                    at.copy_(new_pos)
             rank.states_out(back)
         if fam.memory:
             memory[spmd.current_rank()] = new["memory"]
@@ -945,23 +945,40 @@ def _serve(model, mesh, params, cache, inputs: Dict[str, torch.Tensor], step, ti
     return logits, cache
 
 
+def _pos0(at: Optional[torch.Tensor], pos: Optional[int]) -> int:
+    """The position a serving call writes first: the cache's own ``pos``
+    (read from the rank's copy), or the caller's ``pos`` where the cache
+    lies on ``meta`` devices and holds no value."""
+    if at is None:
+        return 0
+    if at.device.type == "meta":
+        if pos is None:
+            raise ValueError("a cache on meta devices holds no position: pass pos=")
+        return int(pos)
+    return int(at[0])
+
+
 def sharded_prefill(model, mesh: Mesh, params: Any, batch: Dict[str, torch.Tensor], cache: Any,
-                    timeout: Optional[float] = None) -> Tuple[torch.Tensor, Any]:
+                    timeout: Optional[float] = None, pos: Optional[int] = None
+                    ) -> Tuple[torch.Tensor, Any]:
     """``model.prefill(params, batch, cache)`` on ``mesh``: the last
     position's logits (global) and the placed cache (``init_cache``),
-    written in place (an encoder-decoder's ``memory`` placed in it)."""
+    written in place (an encoder-decoder's ``memory`` placed in it).
+    ``pos``: the cache's position, needed only on ``meta`` devices."""
     mod = _family(model).module
     return _serve(model, mesh, params, cache, batch,
                   lambda p, b, c, r: mod.prefill(p, model.cfg, b, c, dist=r), timeout,
-                  prefill=True)
+                  prefill=True, pos=pos)
 
 
 def sharded_decode_step(model, mesh: Mesh, params: Any, cache: Any, tokens: torch.Tensor,
-                        timeout: Optional[float] = None) -> Tuple[torch.Tensor, Any]:
+                        timeout: Optional[float] = None, pos: Optional[int] = None
+                        ) -> Tuple[torch.Tensor, Any]:
     """``model.decode_step(params, cache, tokens)`` on ``mesh``: tokens
     (B, 1) global; the logits (global) and the placed cache, written in
-    place."""
+    place.  ``pos``: the cache's position, needed only on ``meta``
+    devices."""
     mod = _family(model).module
     return _serve(model, mesh, params, cache, {"tokens": tokens},
                   lambda p, b, c, r: mod.decode_step(p, model.cfg, c, b["tokens"], dist=r),
-                  timeout, prefill=False)
+                  timeout, prefill=False, pos=pos)

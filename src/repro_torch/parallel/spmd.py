@@ -35,6 +35,16 @@ Each collective call of rank 0 is recorded when a caller asks for it
 (:func:`recording`): ``core.mesh_lower.count_collectives`` counts the
 collective call sites of one call that way, where the JAX package counts
 the primitives of a jaxpr.
+
+:func:`tracing` keeps what rank 0 of each call took, returned and sent
+(:class:`Trace`: its shards, its result, each collective with the bytes
+it sends and receives) and runs a caller's context inside rank 0's
+thread (a dispatch mode such as ``FlopCounterMode`` is per thread).
+``tracing(rank0_only=True)`` runs rank 0 alone, where every collective
+returns its result's shape without a rendezvous: the twin of compiling
+one SPMD program for every device (``launch/dryrun.py``).  It needs a
+mesh of ``meta`` devices, whose values hold no data, and raises on any
+other: it never leaves out ranks that compute.
 """
 from __future__ import annotations
 
@@ -49,8 +59,8 @@ import torch
 from .. import tree as T
 
 __all__ = ["Mesh", "P", "Placed", "shard_map", "psum", "pmax", "psum_scatter", "all_gather",
-           "ppermute", "axis_index", "axis_size", "current_rank", "site", "recording", "ambient_mesh",
-           "RankAborted", "CollectiveTimeout", "DEFAULT_TIMEOUT_S"]
+           "ppermute", "axis_index", "axis_size", "current_rank", "site", "recording", "tracing",
+           "Trace", "ambient_mesh", "RankAborted", "CollectiveTimeout", "DEFAULT_TIMEOUT_S"]
 
 # how long a rank waits in one collective for the others (seconds)
 DEFAULT_TIMEOUT_S = 300.0
@@ -89,6 +99,8 @@ class Mesh:
         self.devices = arr
         self.axis_names = axis_names
         self.shape = dict(zip(axis_names, (int(s) for s in arr.shape)))
+        # (rank, axes) -> that rank's group along the axes (``_members``)
+        self.members: Dict[Tuple[int, Tuple[str, ...]], List[int]] = {}
 
     @property
     def size(self) -> int:
@@ -196,6 +208,52 @@ def recording():
         _caller.recorder = prev
 
 
+class Trace:
+    """What rank 0 did in the ``shard_map`` calls made under
+    :func:`tracing`: ``calls`` holds, per call, the bytes of rank 0's
+    shards of the arguments (``"args"``), of its result (``"result"``)
+    and of the shards it wrote in place (``"written"``: their version
+    counters moved);
+    ``collectives`` each of its collective calls as ``(name, group size,
+    bytes sent, bytes received)``, the name the public function's
+    (``psum``, ``pmax``, ``psum_scatter``, ``all_gather``, ``ppermute``),
+    the bytes its input's and its result's."""
+
+    def __init__(self, rank0_only: bool, rank0_context: Optional[Callable[[], Any]]):
+        self.rank0_only = rank0_only
+        self.rank0_context = rank0_context
+        self.calls: List[Dict[str, Any]] = []
+        self.collectives: List[Tuple[str, int, int, int]] = []
+
+
+@contextlib.contextmanager
+def tracing(rank0_only: bool = False, rank0_context: Optional[Callable[[], Any]] = None):
+    """Trace rank 0 of every ``shard_map`` call made in this thread inside
+    the block: yields a :class:`Trace`.  ``rank0_context()``, where given,
+    makes a context manager that rank 0's thread enters around its body.
+    ``rank0_only`` runs rank 0 alone, each collective returning a value of
+    its result's shape and type computed from rank 0's own value with no
+    rendezvous; the call returns the global results' shapes (``meta``
+    tensors).  Allowed only on a mesh of ``meta`` devices: on any other
+    ``shard_map`` raises ``ValueError``."""
+    tr = Trace(rank0_only, rank0_context)
+    prev = getattr(_caller, "trace", None)
+    _caller.trace = tr
+    try:
+        yield tr
+    finally:
+        _caller.trace = prev
+
+
+def _nbytes(x: Any) -> int:
+    return sum(t.numel() * t.element_size() for t in T.leaves(x) if isinstance(t, torch.Tensor))
+
+
+def _log(ctx: "_Rank", name: str, n: int, x: Any, out: Any) -> None:
+    if ctx.trace is not None and ctx.rank == 0:
+        ctx.trace.collectives.append((name, n, _nbytes(x), _nbytes(out)))
+
+
 @contextlib.contextmanager
 def site(tag):
     """Name a scope of collective calls inside a rank (``mesh_lower.emit``
@@ -248,11 +306,16 @@ class _Group:
 
 
 class _Rank:
-    def __init__(self, mesh: Mesh, rank: int, group: _Group, recorder):
+    """A rank's context; ``group`` None when it runs alone
+    (``tracing(rank0_only=True)``)."""
+
+    def __init__(self, mesh: Mesh, rank: int, group: Optional[_Group], recorder,
+                 trace: Optional[Trace] = None):
         self.mesh = mesh
         self.rank = rank
         self.group = group
         self.recorder = recorder
+        self.trace = trace
         self.device = mesh.flat_devices()[rank]
         self.coords = mesh.coords(rank)
         self.scope: tuple = ()
@@ -283,14 +346,19 @@ def _index_in(mesh: Mesh, coords: Dict[str, int], axes: Tuple[str, ...]) -> int:
 
 
 def _members(ctx: _Rank, axes: Tuple[str, ...]) -> List[int]:
-    """The flat ranks of this rank's group along ``axes``, in group order."""
+    """The flat ranks of this rank's group along ``axes``, in group order
+    (kept on the mesh: a 256-rank mesh would walk every rank a call)."""
     mesh = ctx.mesh
-    out: List[Tuple[int, int]] = []
-    for r in range(mesh.size):
-        c = mesh.coords(r)
-        if all(c[a] == ctx.coords[a] for a in mesh.axis_names if a not in axes):
-            out.append((_index_in(mesh, c, axes), r))
-    return [r for _, r in sorted(out)]
+    memo = mesh.members
+    key = (ctx.rank, axes)
+    if key not in memo:
+        out: List[Tuple[int, int]] = []
+        for r in range(mesh.size):
+            c = mesh.coords(r)
+            if all(c[a] == ctx.coords[a] for a in mesh.axis_names if a not in axes):
+                out.append((_index_in(mesh, c, axes), r))
+        memo[key] = [r for _, r in sorted(out)]
+    return memo[key]
 
 
 def _record(ctx: _Rank, prim: str, stacklevel: int) -> None:
@@ -309,8 +377,11 @@ def _gather_group(prim: str, x: Any, axis_name: AxisName,
     ctx = _ctx()
     _record(ctx, prim, stacklevel)
     axes = _axes(ctx, axis_name)
-    values = ctx.group.exchange(ctx.rank, x, prim)
     members = _members(ctx, axes)
+    if ctx.group is None:
+        # rank 0 alone: every member's value stands in as this rank's
+        return ctx, [x] * len(members), members.index(ctx.rank)
+    values = ctx.group.exchange(ctx.rank, x, prim)
     return ctx, [values[r] for r in members], members.index(ctx.rank)
 
 
@@ -328,7 +399,9 @@ def _reduce(prim: str, x: Any, axis_name: AxisName, op) -> Any:
         for p in flat[1:]:
             acc = op(acc, _here(ctx, p[j]))
         out.append(acc)
-    return T.unflatten(treedef, out)
+    out = T.unflatten(treedef, out)
+    _log(ctx, prim, len(parts), x, out)
+    return out
 
 
 def psum(x: Any, axis_name: AxisName) -> Any:
@@ -359,7 +432,9 @@ def psum_scatter(x: torch.Tensor, axis_name: AxisName, *, scatter_dimension: int
     for p in parts:
         blk = _here(ctx, p.narrow(d, i * size, size))
         acc = blk.clone() if acc is None else acc + blk
-    return acc if tiled else acc.squeeze(d)
+    out = acc if tiled else acc.squeeze(d)
+    _log(ctx, "psum_scatter", n, x, out)
+    return out
 
 
 def all_gather(x: torch.Tensor, axis_name: AxisName, *, axis: int = 0,
@@ -368,7 +443,9 @@ def all_gather(x: torch.Tensor, axis_name: AxisName, *, axis: int = 0,
     ``axis`` (``tiled``) or stacked in a new dim there."""
     ctx, parts, _ = _gather_group("all_gather", x, axis_name)
     parts = [_here(ctx, p) for p in parts]
-    return torch.cat(parts, dim=axis) if tiled else torch.stack(parts, dim=axis)
+    out = torch.cat(parts, dim=axis) if tiled else torch.stack(parts, dim=axis)
+    _log(ctx, "all_gather", len(parts), x, out)
+    return out
 
 
 def ppermute(x: torch.Tensor, axis_name: AxisName, perm: Sequence[Tuple[int, int]]
@@ -379,9 +456,9 @@ def ppermute(x: torch.Tensor, axis_name: AxisName, perm: Sequence[Tuple[int, int
     srcs = [s for s, d in perm if d == i]
     if len(srcs) > 1:
         raise ValueError(f"ppermute: group rank {i} receives from {srcs}")
-    if not srcs:
-        return torch.zeros_like(x)
-    return _here(ctx, parts[srcs[0]]).clone()
+    out = _here(ctx, parts[srcs[0]]).clone() if srcs else torch.zeros_like(x)
+    _log(ctx, "ppermute", len(parts), x, out)
+    return out
 
 
 def axis_index(axis_name: AxisName) -> int:
@@ -515,34 +592,50 @@ def shard_map(body: Callable, mesh: Mesh, in_specs: Any, out_specs: Any, *,
         if len(specs) != len(args):
             raise ValueError(f"shard_map: {len(args)} arguments, {len(specs)} in_specs")
         n = mesh.size
-        shards = [[_map_spec(lambda leaf, s, r=r: _shard(mesh, r, leaf, s), a, sp)
-                   for a, sp in zip(args, specs)] for r in range(n)]
-        group = _Group(n, limit)
         recorder = getattr(_caller, "recorder", None)
+        trace = getattr(_caller, "trace", None)
+        solo = trace is not None and trace.rank0_only
+        if solo and any(d.type != "meta" for d in mesh.flat_devices()):
+            raise ValueError(f"shard_map: rank 0 runs alone only on a mesh of meta devices, "
+                             f"not on {mesh}")
+        ranks = [0] if solo else list(range(n))
+        shards = [[_map_spec(lambda leaf, s, r=r: _shard(mesh, r, leaf, s), a, sp)
+                   for a, sp in zip(args, specs)] for r in ranks]
+        group = None if solo else _Group(n, limit)
         grad = torch.is_grad_enabled()
-        results: List[Any] = [None] * n
-        errors: List[Optional[BaseException]] = [None] * n
+        results: List[Any] = [None] * len(ranks)
+        errors: List[Optional[BaseException]] = [None] * len(ranks)
 
         def run(r: int) -> None:
-            ctx = _Rank(mesh, r, group, recorder)
+            ctx = _Rank(mesh, r, group, recorder, trace)
             _local.ctx = ctx
             try:
                 if ctx.device.type == "cuda":
                     # bind the card's context to this thread before any launch
                     torch.cuda.set_device(ctx.device)
-                with torch.set_grad_enabled(grad):
+                traced = trace is not None and r == 0
+                around = contextlib.nullcontext()
+                if traced:
+                    mine = [t for t in T.leaves(shards[r]) if isinstance(t, torch.Tensor)]
+                    versions = [t._version for t in mine]
+                    around = trace.rank0_context() if trace.rank0_context else around
+                with torch.set_grad_enabled(grad), around:
                     results[r] = body(*shards[r])
+                if traced:
+                    trace.calls.append({"args": _nbytes(mine), "result": _nbytes(results[r]),
+                                        "written": _nbytes([t for t, v in zip(mine, versions)
+                                                            if t._version != v])})
             except BaseException as e:  # noqa: BLE001 - re-raised by the caller
                 errors[r] = e
-                if isinstance(e, (RankAborted, CollectiveTimeout)):
+                if group is not None and isinstance(e, (RankAborted, CollectiveTimeout)):
                     group.barrier.abort()
-                else:
+                elif group is not None:
                     group.fail(r)
             finally:
                 _local.ctx = None
 
         threads = [threading.Thread(target=run, args=(r,), name=f"spmd-rank-{r}",
-                                    daemon=True) for r in range(n)]
+                                    daemon=True) for r in ranks]
         for t in threads:
             t.start()
         for t in threads:
@@ -552,6 +645,8 @@ def shard_map(body: Callable, mesh: Mesh, in_specs: Any, out_specs: Any, *,
                 if e is not None and (isinstance(e, kind) if kind else not isinstance(
                         e, (RankAborted, CollectiveTimeout))):
                     raise e
+        if solo:
+            return _shapes_tree(mesh, results[0], out_specs)
         return _assemble_tree(mesh, results, out_specs)
 
     return call
@@ -566,6 +661,24 @@ def _assemble_tree(mesh: Mesh, results: List[Any], out_specs: Any) -> Any:
     out = [_assemble(mesh, [f[0][j] for f in flat], specs[j].spec)
            for j in range(len(leaves0))]
     return T.unflatten(treedef, out)
+
+
+def _shapes_tree(mesh: Mesh, result: Any, out_specs: Any) -> Any:
+    """The global results' shapes from rank 0's alone (rank 0 alone runs
+    on meta devices): every split dim times its axes' sizes."""
+    leaves0, treedef = T.flatten(result)
+    specs = T.leaves(_map_spec(lambda leaf, s: _SpecLeaf(s), result, out_specs))
+
+    def one(leaf, spec: P):
+        if not isinstance(leaf, torch.Tensor):
+            return leaf
+        shape = list(leaf.shape)
+        for d, entry in enumerate(spec):
+            for a in _spec_axes(entry):
+                shape[d] *= mesh.shape[a]
+        return torch.empty(shape, dtype=leaf.dtype, device="meta")
+
+    return T.unflatten(treedef, [one(leaf, s.spec) for leaf, s in zip(leaves0, specs)])
 
 
 class _SpecLeaf:

@@ -1666,3 +1666,52 @@ def test_sharded_family_decode_on_ranks_of_the_card(monkeypatch, name, shape, ba
                                                       * len(cs._model_ops(cfg)) * 4)
     if name == "zamba2-2.7b":
         assert row["blocks_held"] > 0 and row["block_err_max"] <= cs.LOGIT_RTOL
+
+
+@pytest.mark.cuda
+def test_dryrun_prediction_matches_the_card(monkeypatch):
+    """chip_smoke phase 17 (b) at scaled() widths (2 layers): llama3-8b's
+    train step traced with rank 0 alone on a (2, 4) mesh of meta devices
+    predicts the argument bytes of rank 0's placed shards on (2, 4) ranks
+    of the card, and its collectives (kind, count, bytes sent), exactly."""
+    _card()
+    cs, api = _small_shard(monkeypatch)
+    row = cs.dryrun_against_card(torch, api, layers=2)
+    assert row["card_argument_bytes"] == row["predicted_argument_bytes"] > 0
+    assert row["card_collectives"] == row["predicted_collectives"]
+    assert set(row["card_collectives"]) == {"all-reduce", "all-gather", "reduce-scatter"}
+
+
+@pytest.mark.cuda
+def test_examples_quickstart_twin_on_the_card(tmp_path):
+    """``examples/torch_quickstart.py`` at its default (the card) exits 0
+    with its products held, and launches the contraction kernel; its
+    ``api.matmul`` (the Stripe-compiled matmul on the contraction kernel)
+    against ``matmul_ref`` at its shapes, on the card."""
+    import json
+    import os
+    import subprocess
+    import sys
+
+    from repro_torch import api
+
+    _card()
+    cs = _chip_smoke()
+    env = dict(os.environ, PYTHONPATH=str(cs.SRC), STRIPE_CACHE_DIR=str(tmp_path / "c"))
+    run = subprocess.run([sys.executable, "-c", cs.EXAMPLE_RUNNER,
+                          str(cs.ROOT / "examples" / "torch_quickstart.py")],
+                         env=env, cwd=str(tmp_path), capture_output=True, text=True,
+                         timeout=cs.EXAMPLE_TIMEOUT)
+    assert run.returncode == 0, run.stdout[-2000:] + run.stderr[-2000:]
+    assert "contraction kernel (cuda:0) matches numpy: OK" in run.stdout
+    counts = json.loads(run.stdout.strip().splitlines()[-1][len("example launches "):])
+    assert counts["contraction"] >= 1
+    rng = np.random.RandomState(0)
+    x, w, b = (torch.from_numpy(rng.randn(*s).astype(np.float32)).cuda()
+               for s in ((256, 512), (512, 384), (384,)))
+    before = K.launches
+    got = api.matmul(x, w, b, act="relu")
+    torch.cuda.synchronize()
+    assert K.launches == before + 1
+    want = api.matmul_ref(x, w, b, act="relu")
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
