@@ -339,10 +339,40 @@ and prints no result):
    ``EXAMPLE_TIMEOUT``, exit code 0; their kernels' launches (the
    contraction kernel's in quickstart, compile_op and serve, the windowed
    kernel's in compile_op's ``stripe_jit``; the trainer launches none,
-   C11) counted into the summary.
+   C11) counted into the summary.  (a)'s cells run in ``DRYRUN_WORKERS``
+   processes at once (host work on ``meta`` devices alone).
+18. **the multi-pod mesh** — the sharded step on ``('pod', 'data',
+   'model')`` meshes ('pod' pure data parallelism: the batch, or a batch-1
+   cache's sequence, cut over ``('pod', 'data')``, 'pod' major; every
+   parameter whole over 'pod'), ranks emulated on the one card as in
+   phases 15-16.  (a) ``sharded_loss_and_grads`` of llama3-8b,
+   qwen3-moe-30b-a3b (capacity 1.0: tokens drop), zamba2-2.7b (one group:
+   C10) and xlstm-125m (whole) at full width, float32, oplib on ``torch``,
+   on ``POD_MESH`` (8 ranks) against the single-device ``loss_and_grads``
+   (phase 15's holds) and against the same call on ``POD_DATA_MESH``
+   ``('data', 'model')``, whose batch blocks are the same, within
+   ``POD_SAME_RTOL`` x (1 + max); then one ``sharded_train_step`` of each
+   against ``apply_updates_`` (phase 15's hold) and against the same step
+   on the 'data' mesh of the same blocks, within ``POD_SAME_RTOL`` x (1 +
+   max): on ``POD_MESH`` for zamba2 and the xLSTM, on ``(2, 1, 4)`` for
+   llama3-8b and qwen3-moe, whose 8 ranks' AdamW state on ``POD_MESH``
+   does not fit one card (``POD_STEP_MESH``).  (b) llama3-8b bf16 at full
+   width and depth on ``POD_SERVE_MESH``: ``MODEL_BATCH`` x
+   ``MODEL_PROMPT`` tokens and ``MODEL_STEPS`` decode steps, B1 on every
+   rank (counted per rank as in phase 15), then batch 1 at
+   ``SHARD_SP_LAYERS`` on ``POD_SP_MESH`` (the cache's sequence on
+   ``('pod', 'data')``), the logits held within ``LOGIT_RTOL`` of the
+   row's largest against the single-device ``Model``.  (c) phase 17 (b)
+   on the multi-pod mesh: (a)'s llama3-8b step traced on ``meta`` devices
+   of its mesh, and zamba2-2.7b's on ``POD_MESH``, each against the same
+   step on ranks of the card: argument bytes and collectives (kind,
+   count, bytes sent) equal, exactly.  (d) ``run_cell(..., multi_pod=True)``
+   of ``DRYRUN_CELLS`` on the 2 x 16 x 16 mesh of 512 ``meta`` devices,
+   every row ``ok``, in ``DRYRUN_WORKERS`` processes; the roofline table
+   of both meshes' rows and the five worst single-pod rows.
 
-The run order is 1-6, 10, 11, 12, 13, 7, 9, 8, 14, 15, 16, 17: phase 10
-reuses the serve phase's weights, which are freed before phase 11.
+The run order is 1-6, 10, 11, 12, 13, 7, 9, 8, 14, 15, 16, 17, 18: phase
+10 reuses the serve phase's weights, which are freed before phase 11.
 
 Launch counts are read per path: every count is set to 0 just before the
 serve phase (path 1), before the sweep (path 2), before phase 8's calls
@@ -351,9 +381,10 @@ phase 9 (path 5), before phase 10's timed calls (path 6), before each
 of phase 11's timed waves (path 7), before each of phase 12's (path
 8), before phase 13 (path 9, which must launch none), before phase
 14's mesh calls (path 10), before each of phase 15's sharded serving
-runs (path 11) and before each of phase 16's (path 12), and read just
-after each; each example twin of phase 17 (path 13) counts from 0 in its
-own process and prints its counts at its end; the contraction kernel's
+runs (path 11), before each of phase 16's (path 12) and before each of
+phase 18's (path 14), and read just after each; each example twin of
+phase 17 (path 13) counts from 0 in its own process and prints its
+counts at its end; the contraction kernel's
 ``launches_by_path`` (skinny, tiled, general) is read the same way for
 the serve, sweep, tune, model, wave and families paths, and none of the
 serve, model, wave and families paths may launch the general loop;
@@ -547,6 +578,27 @@ DRYRUN_CELLS = ([(a, "decode_32k") for a in DRYRUN_CONFIGS]
                 + [(a, "prefill_32k") for a in DRYRUN_CONFIGS
                    if a not in ("llama3-8b", "qwen3-moe-30b-a3b", "zamba2-2.7b", "xlstm-125m")]
                 + [(a, "long_500k") for a in ("zamba2-2.7b", "xlstm-125m")])
+# the dry run's cells (phases 17 (a) and 18 (d)) run in this many
+# processes at once: host work on meta devices, each cell on one core
+DRYRUN_WORKERS = 4
+# phase 18: the multi-pod mesh.  (a) the 8 ranks of POD_MESH ('pod', 'data',
+# 'model') and the 'data' mesh with the same batch blocks (a rank's block
+# of the batch is its index over ('pod', 'data'), 'pod' major); float32 at
+# full width, the depth cut until the single-device reference and the 8
+# ranks' weights, gradients and their psum fit in 80 GB (POD_MESH places
+# every weight 4 times: llama3-8b at 1 layer, where phase 15 runs 3);
+# qwen3-moe at SHARD_MOE_CAPACITY; zamba2 at one group (C10).  The AdamW
+# step's mesh and its 'data' twin: llama3-8b's and qwen3-moe's placed
+# weights and AdamW state on POD_MESH come to 60.9 and 45.3 GB before the
+# gradients (the dry run of the step), past one card with them, so their
+# step runs on (2, 1, 4), which places each weight twice.  (b) serving on
+# POD_SERVE_MESH, then batch 1 on POD_SP_MESH.
+POD_MESH, POD_DATA_MESH = (2, 2, 2), (4, 2)
+POD_LAYERS = {"llama3-8b": 1, "qwen3-moe-30b-a3b": 1, "zamba2-2.7b": 6, "xlstm-125m": 12}
+POD_STEP_MESH = {"llama3-8b": ((2, 1, 4), (2, 4)), "qwen3-moe-30b-a3b": ((2, 1, 4), (2, 4)),
+                 "zamba2-2.7b": (POD_MESH, POD_DATA_MESH), "xlstm-125m": (POD_MESH, POD_DATA_MESH)}
+POD_SAME_RTOL = 1e-6
+POD_SERVE_MESH, POD_SP_MESH = (2, 1, 4), (2, 2, 1)
 EXAMPLES = ("torch_quickstart.py", "torch_compile_op_with_stripe.py", "torch_serve_batched.py",
             "torch_train_tiny_lm.py")
 EXAMPLE_TIMEOUT = 300
@@ -2813,12 +2865,18 @@ def mesh_without_cards(api) -> str:
 
 
 # ------------------------------------------------------- the sharded step
+def _mesh_names(shape) -> tuple:
+    """A mesh's axes by its rank: ('data', 'model'), or the multi-pod
+    ('pod', 'data', 'model')."""
+    return ("data", "model") if len(shape) == 2 else ("pod", "data", "model")
+
+
 def _card_mesh(shape):
     import numpy as np
     from repro_torch.parallel.spmd import Mesh
 
-    n = shape[0] * shape[1]
-    return Mesh(np.array([_rank_device()] * n, dtype=object).reshape(shape), ("data", "model"))
+    return Mesh(np.array([_rank_device()] * math.prod(shape), dtype=object).reshape(shape),
+                _mesh_names(shape))
 
 
 def _timed(torch, fn) -> tuple:
@@ -3323,22 +3381,37 @@ def family_phase(torch, api, K, card: str, layers: int | None) -> dict:
     return out
 
 
-def dryrun_cells(cells) -> list:
-    """Phase 17 (a): ``dryrun.run_cell`` of each cell on the 16 x 16
-    production mesh of meta devices, rank 0 alone; each row ``ok``, with
-    FLOPs, argument bytes and collectives."""
+def _dry_cell(arch: str, shape: str, multi_pod: bool) -> dict:
+    """One cell of ``dryrun_cells``, in a worker process."""
+    if str(SRC) not in sys.path:
+        sys.path.insert(0, str(SRC))
     from repro_torch.launch import dryrun
 
-    rows = []
-    for arch, shape in cells:
-        t0 = time.perf_counter()
-        row = dryrun.run_cell(arch, shape)
-        row["wall_s"] = time.perf_counter() - t0
-        if not (row["ok"] and row["rank0_only"] and row["n_devices"] == 256
+    t0 = time.perf_counter()
+    row = dryrun.run_cell(arch, shape, multi_pod=multi_pod)
+    row["wall_s"] = time.perf_counter() - t0
+    return row
+
+
+def dryrun_cells(cells, multi_pod: bool = False, phase: str = "17 (a)") -> list:
+    """Phases 17 (a) and 18 (d): ``dryrun.run_cell`` of each cell on the
+    16 x 16 production mesh of meta devices (``multi_pod``: 2 x 16 x 16),
+    rank 0 alone, in ``DRYRUN_WORKERS`` processes at once (started fresh:
+    they touch no card); each row ``ok``, with FLOPs, argument bytes and
+    collectives."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    ctx = multiprocessing.get_context("spawn")
+    with ProcessPoolExecutor(DRYRUN_WORKERS, mp_context=ctx) as pool:
+        rows = list(pool.map(_dry_cell, [a for a, _ in cells], [s for _, s in cells],
+                             [multi_pod] * len(cells)))
+    n, mesh = (512, "2x16x16") if multi_pod else (256, "16x16")
+    for (arch, shape), row in zip(cells, rows):
+        if not (row["ok"] and row["rank0_only"] and row["n_devices"] == n and row["mesh"] == mesh
                 and row["cost"]["flops"] > 0 and row["memory"]["argument_size_in_bytes"] > 0
                 and row["collective_bytes"] > 0):
-            raise AssertionError(f"phase 17 (a) {arch} x {shape}: {row}")
-        rows.append(row)
+            raise AssertionError(f"phase {phase} {arch} x {shape}: {row}")
         print("  dryrun " + json.dumps(row), flush=True)
     return rows
 
@@ -3356,8 +3429,9 @@ def _census_kinds(census) -> dict:
 
 
 def dryrun_against_card(torch, api, name: str = "llama3-8b",
-                        layers: int = SHARD_STEP_LAYERS, shape=SHARD_MESH) -> dict:
-    """Phase 17 (b): the dry run of phase 15's train-step case (``name``
+                        layers: int = SHARD_STEP_LAYERS, shape=SHARD_MESH,
+                        phase: str = "17 (b)") -> dict:
+    """Phases 17 (b) and 18 (c): the dry run of a train-step case (``name``
     at full width, ``layers`` deep, float32, ``SHARD_BATCH`` x
     ``SHARD_SEQ`` tokens) on ``shape`` meta devices, rank 0 alone,
     against a ``sharded_train_step`` of it on as many ranks of the card:
@@ -3368,16 +3442,15 @@ def dryrun_against_card(torch, api, name: str = "llama3-8b",
     from repro_torch import tree as T
     from repro_torch.configs.base import ShapeSpec
     from repro_torch.launch import dryrun
-    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.mesh import dp_axes, make_mesh
     from repro_torch.parallel import sharded, spmd
     from repro_torch.parallel.spmd import Placed
 
     cfg = dataclasses.replace(api.configs.get(name), n_layers=layers, dtype="float32")
     spec = ShapeSpec("phase15", SHARD_SEQ, SHARD_BATCH, "train")
-    n = shape[0] * shape[1]
     t0 = time.perf_counter()
-    row = dryrun.run_cell(name, spec, cfg=cfg,
-                          mesh=make_mesh(shape, ("data", "model"), ["meta"] * n))
+    row = dryrun.run_cell(name, spec, cfg=cfg, mesh=make_mesh(
+        shape, _mesh_names(shape), ["meta"] * math.prod(shape)))
     meta_s = time.perf_counter() - t0
     model = api.build_model(cfg)
     _peak_reset(torch)
@@ -3390,8 +3463,8 @@ def dryrun_against_card(torch, api, name: str = "llama3-8b",
     card_bytes = sum(leaf.shards[0].numel() * leaf.shards[0].element_size()
                      for tree in (placed, state) for leaf in T.leaves(tree)
                      if isinstance(leaf, Placed))
-    card_bytes += sum(spmd.block_of(mesh, 0, t, spmd.P("data")).numel() * t.element_size()
-                      for t in batch.values())
+    card_bytes += sum(spmd.block_of(mesh, 0, t, spmd.P(dp_axes(mesh))).numel()
+                      * t.element_size() for t in batch.values())
     step = lambda: sharded.sharded_train_step(model, mesh, placed, state, batch,
                                               api.adamw.AdamWConfig(), timeout=SHARD_TIMEOUT)
     with collective_census() as census:
@@ -3408,7 +3481,7 @@ def dryrun_against_card(torch, api, name: str = "llama3-8b",
            "loss": float(info["loss"]), "trace_s": meta_s, "card_first_ms": first,
            "card_ms": ev, "card_host_ms": host, "peak_gb": _peak_gb(torch)}
     if card_bytes != out["predicted_argument_bytes"] or card != meta:
-        raise AssertionError(f"phase 17 (b): the dry run's prediction parts from the card: {out}")
+        raise AssertionError(f"phase {phase}: the dry run's prediction parts from the card: {out}")
     return out
 
 
@@ -3477,6 +3550,232 @@ def dryrun_phase(torch, api, card: str) -> dict:
                 launches[name] = launches.get(name, 0) + n
     if not launches.get("contraction") or not launches.get("windowed"):
         raise AssertionError(f"phase 17 (d): the examples launched {launches}")
+    out["launches"] = launches
+    return out
+
+
+# ------------------------------------------------------- the multi-pod mesh
+def _pod_cfg(api, name: str, layers: int):
+    """``name`` at full width, ``layers`` deep, float32 (a MoE at
+    ``SHARD_MOE_CAPACITY``)."""
+    cfg = api.configs.get(name)
+    kw = {"n_layers": layers, "dtype": "float32"}
+    if cfg.moe:
+        kw["moe"] = dataclasses.replace(cfg.moe, capacity_factor=SHARD_MOE_CAPACITY)
+    return dataclasses.replace(cfg, **kw)
+
+
+def _on_host(tensors) -> list:
+    """Copies on the host: what a later hold reads while the card runs
+    the next mesh."""
+    return [t.detach().cpu() for t in tensors]
+
+
+def _same_rel(a: float, b: float) -> float:
+    return abs(a - b) / abs(b)
+
+
+def pod_train_case(torch, api, name: str, layers: int) -> dict:
+    """Phase 18 (a): ``sharded_loss_and_grads`` of ``name`` on POD_MESH
+    against the single-device ``loss_and_grads`` (phase 15's holds) and
+    against the same call on POD_DATA_MESH (``POD_SAME_RTOL``); each run's
+    gradients kept on the host while the next one runs."""
+    from repro_torch import tree as T
+    from repro_torch.nn import moe as moe_mod
+    from repro_torch.parallel import sharded
+    from repro_torch.train.loop import loss_and_grads
+
+    cfg = _pod_cfg(api, name, layers)
+    model = api.build_model(cfg)
+    _peak_reset(torch)
+    params = model.init(torch.Generator(device=DEVICE).manual_seed(SEED + 18), device=DEVICE)
+    batch = api.make_batch(cfg, "train", SHARD_BATCH, SHARD_SEQ, seed=SEED, device=DEVICE)
+    routed, route = [], moe_mod.route
+
+    def recorded(p, x, c):
+        probs, idx = route(p, x, c)
+        routed.append(idx.detach())
+        return probs, idx
+
+    moe_mod.route = recorded
+    try:
+        (loss, grads), single_ms, single_host = _timed(
+            torch, lambda: loss_and_grads(model, params, batch, remat=False))
+    finally:
+        moe_mod.route = route
+    want = _on_host(grads)
+    del grads
+    runs = {}
+    for shape in (POD_MESH, POD_DATA_MESH):
+        mesh = _card_mesh(shape)
+        placed = sharded.place_params(mesh, params)
+        with collective_census() as census:
+            (sloss, sgrads), ev, host = _timed(torch, lambda: sharded.sharded_loss_and_grads(
+                model, mesh, placed, batch, timeout=SHARD_TIMEOUT))
+        runs[shape] = {"loss": float(sloss), "grads": _on_host(sgrads), "ms": ev, "host_ms": host,
+                       "collectives_rank0": census}
+        del placed, sgrads
+        _free(torch)
+    pod, data = runs[POD_MESH], runs[POD_DATA_MESH]
+    paths = [T.key_path(path) for path, _ in T.flatten_with_path(params)[0]]
+    errs = {path: _leaf_err(g, w) for path, g, w in zip(paths, pod["grads"], want)}
+    row = {"config": name, "layers": layers, "mesh": list(POD_MESH),
+           "data_mesh": list(POD_DATA_MESH), "dtype": "float32",
+           "tokens": SHARD_BATCH * SHARD_SEQ, "loss": float(loss), "pod_loss": pod["loss"],
+           "loss_rel_err": _same_rel(pod["loss"], float(loss)),
+           "grad_err": max(errs.values()),
+           "data_mesh_loss_rel_err": _same_rel(pod["loss"], data["loss"]),
+           "data_mesh_grad_err": max(_leaf_err(g, d) for g, d in zip(pod["grads"], data["grads"])),
+           "single_first_ms": single_ms, "single_first_host_ms": single_host,
+           "pod_first_ms": pod["ms"], "pod_first_host_ms": pod["host_ms"],
+           "data_mesh_first_ms": data["ms"], "data_mesh_first_host_ms": data["host_ms"],
+           "peak_gb": _peak_gb(torch), "collectives_rank0": pod["collectives_rank0"],
+           "data_mesh_collectives_rank0": data["collectives_rank0"]}
+    if cfg.moe:
+        row["capacity_factor"] = cfg.moe.capacity_factor
+        row["dropped_pairs"] = _moe_drops(cfg, routed)
+        if row["dropped_pairs"] == 0:
+            raise AssertionError(f"phase 18 {name}: the capacity dropped no token")
+    if row["loss_rel_err"] > SHARD_LOSS_RTOL or row["grad_err"] > SHARD_GRAD_RTOL:
+        raise AssertionError(f"phase 18 {name} on {POD_MESH}: the sharded loss or gradients part "
+                             f"from one device: {row}, by leaf {errs}")
+    if row["data_mesh_loss_rel_err"] > POD_SAME_RTOL or row["data_mesh_grad_err"] > POD_SAME_RTOL:
+        raise AssertionError(f"phase 18 {name}: {POD_MESH} parts from {POD_DATA_MESH}: {row}")
+    return row
+
+
+def pod_step_case(torch, api, name: str, layers: int) -> dict:
+    """Phase 18 (a): one ``sharded_train_step`` of ``name`` on its
+    ``POD_STEP_MESH`` mesh against ``apply_updates_`` on one device and
+    against the same step on the 'data' mesh of the same batch blocks.
+    Each mesh's step runs first from the same weights (its parameters
+    assembled onto the host, its placed state freed), then the
+    single-device step in place."""
+    from repro_torch import tree as T
+    from repro_torch.parallel import sharded
+    from repro_torch.parallel import sharding as shd
+    from repro_torch.train.loop import loss_and_grads
+
+    cfg = _pod_cfg(api, name, layers)
+    model = api.build_model(cfg)
+    ocfg = api.adamw.AdamWConfig()
+    _peak_reset(torch)
+    params = model.init(torch.Generator(device=DEVICE).manual_seed(SEED + 19), device=DEVICE)
+    batch = api.make_batch(cfg, "train", SHARD_BATCH, SHARD_SEQ, seed=SEED, device=DEVICE)
+    runs = {}
+    for shape in POD_STEP_MESH[name]:
+        mesh = _card_mesh(shape)
+        placed = sharded.place_params(mesh, params)
+        pstate = sharded.place_opt_state(mesh, api.adamw.init_state(params))
+        info, ev, host = _timed(torch, lambda: sharded.sharded_train_step(
+            model, mesh, placed, pstate, batch, ocfg, timeout=SHARD_TIMEOUT))
+        runs[shape] = {"grad_norm": float(info["grad_norm"]), "ms": ev, "host_ms": host,
+                       "params": [shd.assemble(leaf).cpu() for leaf in T.leaves(placed)]}
+        del placed, pstate
+        _free(torch)
+    state = api.adamw.init_state(params)
+
+    def single():
+        loss, grads = loss_and_grads(model, params, batch, remat=False)
+        return api.adamw.apply_updates_(params, T.unflatten(T.flatten(params)[1], grads),
+                                        state, ocfg)
+
+    info, single_ev, single_host = _timed(torch, single)
+    want = _on_host(T.leaves(params))
+    mesh_shape, data_shape = POD_STEP_MESH[name]
+    pod, data = runs[mesh_shape], runs[data_shape]
+    row = {"config": name, "layers": layers, "mesh": list(mesh_shape),
+           "data_mesh": list(data_shape), "dtype": "float32",
+           "grad_norm": float(info["grad_norm"]), "pod_grad_norm": pod["grad_norm"],
+           "param_err": max(_leaf_err(a, b) for a, b in zip(pod["params"], want)),
+           "data_mesh_grad_norm_rel_err": _same_rel(pod["grad_norm"], data["grad_norm"]),
+           "data_mesh_param_err": max(_leaf_err(a, b) for a, b in zip(pod["params"],
+                                                                      data["params"])),
+           "single_ms": single_ev, "single_host_ms": single_host, "pod_first_ms": pod["ms"],
+           "pod_first_host_ms": pod["host_ms"], "data_mesh_first_ms": data["ms"],
+           "peak_gb": _peak_gb(torch)}
+    gap = _same_rel(row["pod_grad_norm"], row["grad_norm"])
+    if row["param_err"] > SHARD_PARAM_RTOL or gap > SHARD_GRAD_RTOL:
+        raise AssertionError(f"phase 18 {name}: the sharded AdamW step parts from one device: "
+                             f"{row}")
+    if row["data_mesh_param_err"] > POD_SAME_RTOL or \
+            row["data_mesh_grad_norm_rel_err"] > POD_SAME_RTOL:
+        raise AssertionError(f"phase 18 {name}: the step on {mesh_shape} parts from "
+                             f"{data_shape}: {row}")
+    return row
+
+
+def pod_phase(torch, api, K, card: str, layers: int | None, single_pod_rows: list) -> dict:
+    """Phase 18: (a), (b), (c) and (d) (see the module docstring);
+    ``single_pod_rows``: phase 17 (a)'s, for the roofline of both
+    meshes."""
+    from repro_torch.launch import roofline
+
+    out = {"train": [], "step": [], "memory_at_start_gb": (torch.cuda.memory_allocated() / 1e9
+                                                           if DEVICE == "cuda" else None)}
+    print(f"multi-pod: {out['memory_at_start_gb']} GB allocated on the card at the start of "
+          f"phase 18; card {card}", flush=True)
+    for name, depth in POD_LAYERS.items():
+        depth = min(depth, layers or depth)
+        for case, key in ((pod_train_case, "train"), (pod_step_case, "step")):
+            _free(torch)
+            t0 = time.perf_counter()
+            row = case(torch, api, name, depth)
+            row["wall_s"] = time.perf_counter() - t0
+            out[key].append(row)
+            print(f"  multi-pod {'loss' if key == 'train' else 'step'} " + json.dumps(row),
+                  flush=True)
+    _free(torch)
+    # (b) llama3-8b at full width and depth, bf16
+    full = api.configs.get("llama3-8b")
+    cfg = dataclasses.replace(full, n_layers=layers or full.n_layers)
+    params = api.build_model(cfg).init(torch.Generator(device=DEVICE).manual_seed(SEED),
+                                       device=DEVICE)
+    sp = dataclasses.replace(cfg, n_layers=min(SHARD_SP_LAYERS, cfg.n_layers))
+    sp_params = dict(params, blocks={k: {n: t[:sp.n_layers] for n, t in v.items()}
+                                     if isinstance(v, dict) else v[:sp.n_layers]
+                                     for k, v in params["blocks"].items()})
+    out["serve"] = []
+    for c, p, shape, b in ((cfg, params, POD_SERVE_MESH, MODEL_BATCH),
+                           (sp, sp_params, POD_SP_MESH, 1)):
+        t0 = time.perf_counter()
+        row = shard_serve_case(torch, api, K, c, p, shape, b, MODEL_PROMPT, MODEL_STEPS, phase=18)
+        row["wall_s"] = time.perf_counter() - t0
+        out["serve"].append(row)
+        print("  multi-pod serve " + json.dumps(row), flush=True)
+    del params, sp_params
+    _free(torch)
+    # (c) the dry run's prediction against the card on multi-pod meshes
+    out["card"] = []
+    for name, depth, shape in (("llama3-8b", POD_LAYERS["llama3-8b"],
+                                POD_STEP_MESH["llama3-8b"][0]),
+                               ("zamba2-2.7b", POD_LAYERS["zamba2-2.7b"], POD_MESH)):
+        t0 = time.perf_counter()
+        row = dryrun_against_card(torch, api, name, min(depth, layers or depth), shape,
+                                  phase="18 (c)")
+        row["wall_s"] = time.perf_counter() - t0
+        out["card"].append(row)
+        print("  multi-pod dryrun against the card " + json.dumps(row), flush=True)
+        _free(torch)
+    # (d) the multi-pod rows, and the roofline of both meshes
+    t0 = time.perf_counter()
+    out["rows"] = dryrun_cells(DRYRUN_CELLS, multi_pod=True, phase="18 (d)")
+    out["cells_s"] = time.perf_counter() - t0
+    print(f"multi-pod: {len(out['rows'])} cells on the 2x16x16 mesh of meta devices, rank 0 "
+          f"alone, in {out['cells_s']:.1f} s on the host ({DRYRUN_WORKERS} processes)",
+          flush=True)
+    roof = roofline.analyze(single_pod_rows + out["rows"])
+    print(roofline.markdown_table(roof), flush=True)
+    print("multi-pod: the five worst single-pod roofline fractions (H100 data-sheet figures):",
+          flush=True)
+    for r in roofline.worst(roof):
+        print(f"  {r['arch']} x {r['shape']}: {r['roofline_fraction']:.3f} ({r['dominant']})",
+              flush=True)
+    out["roofline"] = roof
+    launches: dict = {}
+    for row in out["serve"]:
+        for name, n in row["launches"].items():
+            launches[name] = launches.get(name, 0) + n
     out["launches"] = launches
     return out
 
@@ -3751,6 +4050,14 @@ def main() -> None:
           f"{dry['examples_s']:.1f} s); launches {json.dumps(dry['launches'])}; card {card}",
           flush=True)
 
+    # phase 18: the multi-pod mesh ('pod', 'data', 'model'), ranks on the
+    # one card
+    t0 = time.perf_counter()
+    pod = pod_phase(torch, api, K, card, args.layers, dry["rows"])
+    print(f"multi-pod: phase 18 in {time.perf_counter() - t0:.1f} s (cells "
+          f"{pod['cells_s']:.1f} s); launches {json.dumps(pod['launches'])}; ranks on one card, "
+          f"as phase 15; card {card}", flush=True)
+
     decode = _pick(rows, "decode/")
     ew = [r for r in new_rows if r["kernel"] == ["elementwise"]]
     conv = _pick(new_rows, f"h100/resnet50_conv2_3x3_b{RESNET_BATCH}_float32")
@@ -3765,7 +4072,7 @@ def main() -> None:
         + sum(w["launches"] for w in (*wv.values(), *fam.values()))
         + tn["launches"]["contraction"] + mesh["launches"]["contraction"]["launches"]
         + shard["launches"]["contraction"] + fam_shard["launches"]["contraction"]
-        + dry["launches"].get("contraction", 0), decode,
+        + dry["launches"].get("contraction", 0) + pod["launches"]["contraction"], decode,
         max([r["max_abs_err"] for r in rows]
             + [r["max_abs_err"] for r in new_rows if r["kernel"] == ["contraction"]]
             + [mm_err, md["max_abs_err"]]
@@ -3791,12 +4098,17 @@ def main() -> None:
                                            for r in fam_shard["serve"]
                                            if r["backend"] == "cuda"},
                                        "examples": {r["example"]: r["launches"][
-                                           "contraction_by_path"] for r in dry["examples"]}}
+                                           "contraction_by_path"] for r in dry["examples"]},
+                                       "multi_pod": {"x".join(map(str, r["mesh"])): {
+                                           "by_path": r["contraction_by_path"],
+                                           "by_rank": r["launches_by_rank"]}
+                                           for r in pod["serve"]}}
     windowed = _kernel_entry(
         "windowed", "src/repro_torch/csrc/windowed.cu", "src/repro/core/lower_pallas.py:812",
         sw["launches"]["windowed"] + rn["launches"] + tn["launches"]["windowed"]
         + mesh["launches"]["windowed"]["launches"] + shard["launches"]["windowed"]
-        + fam_shard["launches"]["windowed"] + dry["launches"].get("windowed", 0), conv,
+        + fam_shard["launches"]["windowed"] + dry["launches"].get("windowed", 0)
+        + pod["launches"]["windowed"], conv,
         max(r["max_abs_err"] for r in new_rows if r["kernel"] == ["windowed"]))
     windowed["general_ms"] = sum(r["general_ms"] for r in conv)
     windowed["launches_by_path"] = {"sweep": sw["windowed_launches_by_path"],
@@ -3852,7 +4164,8 @@ def main() -> None:
                                 + mesh["launches"]["elementwise"]["launches"]
                                 + shard["launches"]["elementwise"]
                                 + fam_shard["launches"]["elementwise"]
-                                + dry["launches"].get("elementwise", 0),
+                                + dry["launches"].get("elementwise", 0)
+                                + pod["launches"]["elementwise"],
                                 ew,
                                 max(r["max_abs_err"] for r in ew))
     elementwise["general_ms"] = sum(r["general_ms"] for r in ew)

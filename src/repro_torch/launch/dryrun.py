@@ -40,12 +40,14 @@ The row keeps the reference's keys, filled from rank 0:
 * ``trace_s`` (host seconds to place the arguments and trace the step)
   stands for the reference's ``lower_s`` and ``compile_s``.
 
-The port's sharded step has the axes 'data' and 'model': the multi-pod
-mesh's 'pod' axis raises in it (ROADMAP C19), and its rows come out
-``ok: false``.
+On the multi-pod mesh (``--multi-pod``: 2 x 16 x 16, ``('pod', 'data',
+'model')``, 512 ``meta`` devices) the step cuts the batch, and a batch-1
+cache's sequence, over ``('pod', 'data')`` and keeps every parameter
+whole over 'pod', as the reference's rules do.
 
     PYTHONPATH=src python -m repro_torch.launch.dryrun --arch llama3-8b --shape train_4k
-    PYTHONPATH=src python -m repro_torch.launch.dryrun --all --out dryrun_results.json
+    PYTHONPATH=src python -m repro_torch.launch.dryrun --multi-pod --arch llama3-8b --shape train_4k
+    PYTHONPATH=src python -m repro_torch.launch.dryrun --all --both-meshes --out dryrun_results.json
 """
 from __future__ import annotations
 
@@ -144,7 +146,7 @@ def build_step(model, cfg, shape, mesh):
         # cross-attention then attends to the new token alone)
         memory = {"memory": torch.empty((shape.global_batch, shape.seq_len, cfg.d_model),
                                         dtype=torch_dtype(cfg.dtype), device="meta")}
-        spec = shd.batch_specs(memory, sharded.DP, sizes)
+        spec = shd.batch_specs(memory, dpx, sizes)
         cache["memory"] = shd.place(memory, shd.make_sharding(mesh, spec))["memory"]
 
     def serve_step(params, cache, batch):

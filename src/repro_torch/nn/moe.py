@@ -88,7 +88,7 @@ def moe_apply(p: Params, x: torch.Tensor, cfg, dist=None) -> Tuple[torch.Tensor,
     onehot = _one_hot(eid, e, torch.int32)
     pos = torch.cumsum(onehot, dim=0) - 1                        # running count
     if dist is not None:
-        pos = pos + dist.moe_offsets(onehot.sum(dim=0))          # the ranks before
+        pos = pos + dist.moe_offsets(onehot)                     # the blocks before
     pos_in_e = pos.gather(1, eid[:, None])[:, 0]
     keep = pos_in_e < cap
     e0, el = (0, e) if dist is None else dist.moe_experts(e)

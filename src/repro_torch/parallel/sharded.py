@@ -24,22 +24,30 @@ raises.  The LM family (dense, moe, vlm; ``models/lm.py``):
   cross-entropy is vocabulary-parallel (``pmax`` and ``psum`` over
   'model', the gold logit from its owner, padded columns masked by
   global index);
-* the mean over tokens and the gradients are summed over 'data';
+* the mean over tokens and the gradients are summed over the
+  data-parallel axes (``launch/mesh.dp_axes``: ``('pod', 'data')`` on a
+  multi-pod mesh, else ``('data',)``), which cut the batch; parameters are
+  never split on 'pod', so every leaf's gradient is summed over it;
 * where a spec cuts what the local math needs whole, the step gathers it
   and reduce-scatters its gradient: ``wk`` / ``wv`` when the KV heads do
   not divide over 'model', the expert weights' second dim on 'data';
 * MoE: each 'model' rank runs its experts, then a ``psum``; the capacity
   comes from the global token count, each token's position in its
   expert is counted in the global token order (an exclusive prefix of
-  the per-expert counts over the 'data' ranks), the auxiliary loss is
-  ``e * sum(me * ce)`` of the global means, and the dispatch buffer is
-  cut along the capacity over 'data' as ``constrain`` pins it;
-* the decode cache is laid out by ``cache_specs``: batch on 'data', or
-  (batch 1) the sequence on 'data'; the cached positions on 'model'
-  flash-decode style, else the KV heads, else the head dim.  A rank
-  combines partial softmaxes over the split positions (as
-  ``sp_attention.sp_decode_attention`` does) and each new K/V position
-  is written by the rank that holds it.
+  the per-expert counts over the data-parallel blocks, 'pod' major), the
+  auxiliary loss is ``e * sum(me * ce)`` of the global means, and the
+  dispatch buffer is cut along the capacity over 'data' as ``constrain``
+  pins it.  ``constrain`` names 'data' alone for the expert-major
+  buffers and the layer's output, so the MoE's tensors are replicated
+  over 'pod': where the batch is cut over 'pod' too, each rank gathers
+  its pod group's tokens (the ranks that differ only in 'pod') over
+  'pod', routes all of them, and keeps its own block of the output;
+* the decode cache is laid out by ``cache_specs``: batch on the
+  data-parallel axes, or (batch 1) the sequence on them; the cached
+  positions on 'model' flash-decode style, else the KV heads, else the
+  head dim.  A rank combines partial softmaxes over the split positions
+  (as ``sp_attention.sp_decode_attention`` does) and each new K/V
+  position is written by the rank that holds it ('pod' major).
 
 The other families reuse those hooks and add a region per recurrent
 block (``Rank.whole``, ``rows``, ``head_split``):
@@ -67,14 +75,14 @@ its g after the last projection), so its replicated parameters
 (``A_log``, ``D``, ``dt_bias``, ``norm_scale``, the gates' weights and
 biases, ``skip_scale``) are summed over 'model' and its gathers' adjoints
 reduce-scatter.  ``cache_specs`` lays the recurrent states out with
-'model' on their last dim that divides and 'data' on the first dim as
-long as the batch (where the batch divides); a rank computes with the
-batch as the stream's and every other dim whole, so each serving call
-re-lays them out at its entry (gathers) and writes its block back at
-its exit (:meth:`Rank.states_in`, :meth:`Rank.states_out`).  An
+'model' on their last dim that divides and the data-parallel axes on the
+first dim as long as the batch (where the batch divides); a rank
+computes with the batch as the stream's and every other dim whole, so
+each serving call re-lays them out at its entry (gathers) and writes its
+block back at its exit (:meth:`Rank.states_in`, :meth:`Rank.states_out`).  An
 encoder-decoder's prefill places ``memory`` in the cache (the reference
-has no spec for it): batch on 'data' where the batch divides, else
-replicated.
+has no spec for it): batch on the data-parallel axes where the batch
+divides, else replicated.
 
 The backward keeps every collective on the rank threads.  On the card
 PyTorch runs the backward of every rank of one device on one autograd
@@ -91,8 +99,10 @@ share of the global one.  The forward keeps its graph (no remat: the
 step's activations are small beside its weights).
 
 The entry points run on the mesh's explicit devices (the card unless the
-caller builds a CPU mesh); a mesh has the axes ``'data'`` and / or
-``'model'``.
+caller builds a CPU mesh); a mesh has some of the axes ``'pod'``,
+``'data'`` and ``'model'``, in that order.  'pod' is pure data
+parallelism, as the reference's rules make it
+(``parallel/sharding.py``): the step never runs the pipeline over it.
 """
 from __future__ import annotations
 
@@ -102,6 +112,7 @@ from typing import Any, Dict, Optional, Sequence, Tuple
 import torch
 
 from .. import tree as T
+from ..launch.mesh import dp_axes
 from ..models import encdec, hybrid, lm, xlstm_model
 from ..nn.attention import NEG_INF, _gqa_scores, _gqa_values, attention
 from ..nn.core import apply_rope, linear, rms_head_norm
@@ -112,12 +123,10 @@ from .spmd import Mesh, P, Placed
 
 __all__ = ["Rank", "Family", "FAMILIES", "sharded_loss", "sharded_loss_and_grads",
            "sharded_train_step", "sharded_prefill", "sharded_decode_step", "place_params",
-           "place_opt_state", "init_cache", "DP"]
+           "place_opt_state", "init_cache"]
 
-# the data-parallel axes of the step (the reference's tests shard the
-# batch on ('data',))
-DP = ("data",)
-_AXES = ("data", "model")
+# the axes a mesh of the step may have, in the order it must have them
+_AXES = ("pod", "data", "model")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -197,10 +206,10 @@ def _layer_specs(pspecs: Any, path, stack: int) -> Any:
 
 
 def _check_mesh(mesh: Mesh) -> None:
-    extra = [a for a in mesh.axis_names if a not in _AXES]
-    if extra:
-        raise ValueError(f"the sharded step runs on meshes with axes {_AXES}; this one has "
-                         f"{mesh.axis_names}")
+    names = tuple(mesh.axis_names)
+    if any(a not in _AXES for a in names) or names != tuple(a for a in _AXES if a in names):
+        raise ValueError(f"the sharded step runs on meshes with some of the axes {_AXES}, in "
+                         f"that order; this one has {names}")
 
 
 class Rank:
@@ -216,8 +225,14 @@ class Rank:
         self.mesh = mesh
         self.m = mesh.shape.get("model", 1)
         self.mi = spmd.axis_index("model") if self.m > 1 else 0
-        self.dsz = _size(mesh, DP)
-        self.di = spmd.axis_index(DP) if self.dsz > 1 else 0
+        # the data-parallel axes, 'pod' first where the mesh has it
+        self.dpx = dp_axes(mesh)
+        self.dsz = _size(mesh, self.dpx)
+        # 'pod' and 'data' apart: the MoE's tensors are cut over 'data' alone
+        self.pods = mesh.shape.get("pod", 1)
+        self.pi = spmd.axis_index("pod") if self.pods > 1 else 0
+        self.data = mesh.shape.get("data", 1)
+        self.dai = spmd.axis_index("data") if self.data > 1 else 0
         self.dp = dp
         self.tape = [] if train else None
         self.kv_spec = kv_spec
@@ -229,6 +244,7 @@ class Rank:
         self.moe_specs = _layer_specs(pspecs, family.moe, family.stack)
         self.embed_split = "model" in _split(pspecs["embed"], 0)
         self._moe_slice = None
+        self._moe_pod = None
         self._cap_cut = False
 
     # ------------------------------------------------------------ collectives
@@ -303,16 +319,18 @@ class Rank:
 
     def grads(self, paths, specs, grads: list) -> list:
         """Each leaf's gradient, reduced over the axes it is neither split
-        on nor already reduced over: 'data' where the batch is split on it;
-        'model' for a replicated leaf inside a tensor-parallel region.  A
-        leaf split on 'data' was reduce-scattered at its gather."""
+        on nor already reduced over: each data-parallel axis where the
+        batch is split on them ('pod' for every leaf: no parameter is split
+        on it); 'model' for a replicated leaf inside a tensor-parallel
+        region.  A leaf split on 'data' was reduce-scattered over 'data' at
+        its gather."""
         grads = list(grads)
         groups: Dict[tuple, list] = {}
         for j, (path, spec) in enumerate(zip(paths, specs)):
             named = _named(spec)
             axes = []
-            if "data" not in named and self.dp:
-                axes.append("data")
+            if self.dp:
+                axes += [a for a in self.dpx if a not in named]
             if "model" not in named and any(r in path for r in self.regions):
                 axes.append("model")
             axes = tuple(a for a in _AXES if a in axes and self.mesh.shape.get(a, 1) > 1)
@@ -394,7 +412,7 @@ class Rank:
             se, g = self._psum([torch.exp(lf - mx[..., None]).sum(dim=-1), gold], ("model",))
             total = torch.sum(torch.log(se) + mx - g)
             if self.dp:
-                total = self._psum(total, DP)
+                total = self._psum(total, self.dpx)
             value = total / n
             prob = torch.exp(lf - mx[..., None]) / se[..., None]
         sur = (torch.sum(prob * lf) - torch.sum(gold)) / n
@@ -609,7 +627,7 @@ class Rank:
         n = len(family.states)
         for (path, t), spec in zip(pairs, _flat_specs(cspecs)):
             if tuple(path[:n]) == family.states:
-                want = P(*(None,) * family.state_batch, DP if self.dp else None)
+                want = P(*(None,) * family.state_batch, self.dpx if self.dp else None)
                 w = self.relayout(t, spec, want)
                 if w is not t:
                     back.append((t, w, want, spec))
@@ -623,50 +641,79 @@ class Rank:
             t.copy_(self.relayout(w, src, dst))
 
     # -------------------------------------------------------------------- MoE
+    # ``constrain`` pins the expert-major buffers on ('model', 'data') and
+    # the layer's output on ('data',): the MoE's tensors are cut over
+    # 'data' alone and replicated over 'pod'.
     def enter_moe(self, x: torch.Tensor) -> torch.Tensor:
         """f, and the tokens this rank routes: its own where the batch is
-        split on 'data'; else, where they divide, its block of the
-        replicated tokens (gathered back at :meth:`leave_moe`)."""
+        split on 'data' alone; its pod group's (gathered over 'pod', 'pod'
+        major) where the batch is split on 'pod' too; else, where they
+        divide, its 'data' block of the replicated tokens (gathered back at
+        :meth:`leave_moe`)."""
         x = self.enter(x)
-        self._moe_slice = None
+        self._moe_slice = self._moe_pod = None
         b, s, d = x.shape
-        if not self.dp and self.dsz > 1 and (b * s) % self.dsz == 0:
+        if self.dp and self.pods > 1:
+            self._moe_pod = b
+            return self._gather(x, ("pod",), 0, partial=True)
+        if not self.dp and self.data > 1 and (b * s) % self.data == 0:
             if self.tape is not None:
-                raise NotImplementedError("the sharded train step splits the batch on 'data'")
-            n = b * s // self.dsz
+                raise NotImplementedError(f"the sharded train step splits the batch on "
+                                          f"{self.dpx}")
+            n = b * s // self.data
             self._moe_slice = (b, s)
-            return x.reshape(1, b * s, d).narrow(1, self.di * n, n)
+            return x.reshape(1, b * s, d).narrow(1, self.dai * n, n)
         return x
 
     def _moe_split(self) -> bool:
-        return self.dsz > 1 and (self.dp or self._moe_slice is not None)
+        return self.data > 1 and (self.dp or self._moe_slice is not None)
+
+    def _own_rows(self, t: torch.Tensor) -> torch.Tensor:
+        """This rank's own rows of a token-major tensor of the routed
+        tokens (its block where they are its pod group's)."""
+        if self._moe_pod is None:
+            return t
+        n = t.shape[0] // self.pods
+        return t.narrow(0, self.pi * n, n)
 
     def moe_tokens(self, t: int) -> int:
-        return t * self.dsz if self._moe_split() else t
+        return t * self.data if self._moe_split() else t
 
     def moe_aux(self, probs: torch.Tensor, top1: torch.Tensor, t_all: int) -> torch.Tensor:
         """``e * sum(me * ce)`` of the global means; its gradient this
-        rank's share, on 'model' rank 0 alone (the others route the same
-        tokens)."""
+        rank's share (its own tokens'), on 'model' rank 0 alone (the others
+        route the same tokens)."""
         e = probs.shape[-1]
         with torch.no_grad():
             sp, sc = probs.sum(dim=0), top1.sum(dim=0)
             if self._moe_split():
-                sp, sc = spmd.psum([sp, sc], DP)
+                sp, sc = spmd.psum([sp, sc], "data")
             me, ce = sp / t_all, sc / t_all
             value = e * torch.sum(me * ce)
-        sur = e * torch.sum(ce * probs.sum(dim=0)) / t_all
+        sur = e * torch.sum(ce * self._own_rows(probs).sum(dim=0)) / t_all
         if self.mi:
             sur = sur * 0.0
         return value + (sur - sur.detach())
 
-    def moe_offsets(self, counts: torch.Tensor) -> torch.Tensor:
-        """Per expert, the (token, choice) pairs of the 'data' ranks before
-        this one: positions counted in the global token order."""
-        if not self._moe_split():
-            return torch.zeros_like(counts)
-        every = spmd.all_gather(counts, DP, axis=0, tiled=False)    # (ranks, e)
-        return every[: self.di].sum(dim=0)
+    def moe_offsets(self, onehot: torch.Tensor) -> torch.Tensor:
+        """Per (token, choice) row and expert, what to add to the rank's
+        running count so that it counts in the global token order: the
+        pairs of every block of tokens before the row's (the data-parallel
+        blocks, 'pod' major), less those of the rank's own blocks before
+        it, which the running count holds (the rank routes one block, or
+        one a pod where they are its pod group's)."""
+        nb = self.pods if self._moe_pod is not None else 1
+        e = onehot.shape[-1]
+        counts = onehot.reshape(nb, -1, e).sum(dim=1)                 # (blocks, e)
+        if self._moe_split():
+            every = spmd.all_gather(counts, "data", axis=1, tiled=False)  # (blocks, data, e)
+            di = self.dai
+        else:
+            every, di = counts[:, None], 0
+        flat = every.reshape(-1, e)                                    # 'pod' major
+        before = (torch.cumsum(flat, dim=0) - flat).reshape(every.shape)[:, di]
+        off = before - (torch.cumsum(counts, dim=0) - counts)
+        return off if nb == 1 else off.repeat_interleave(onehot.shape[0] // nb, dim=0)
 
     def moe_experts(self, e: int) -> Tuple[int, int]:
         if self.m == 1:
@@ -677,27 +724,29 @@ class Rank:
         return self.mi * el, el
 
     def _cap_split(self, cap: int) -> bool:
-        return self.dsz > 1 and cap % self.dsz == 0
+        return self.data > 1 and cap % self.data == 0
 
     def moe_dispatch(self, h: torch.Tensor) -> torch.Tensor:
         """The capacity rows of this rank's experts, every 'data' rank's
         tokens in them: cut along the capacity over 'data' where it divides
-        (as ``constrain`` pins it), else whole."""
+        (as ``constrain`` pins it), else whole.  The ranks of a pod group
+        route the same tokens, so nothing is summed over 'pod'."""
         cap = h.shape[1]
         self._cap_cut = self._cap_split(cap)
         if not self._moe_split():
-            if self._cap_split(cap):
-                n = cap // self.dsz
-                return h.narrow(1, self.di * n, n)
+            if self._cap_cut:
+                n = cap // self.data
+                return h.narrow(1, self.dai * n, n)
             return h
-        if self._cap_split(cap):
-            return self._cut(h, lambda t: spmd.psum_scatter(t, DP, scatter_dimension=1, tiled=True),
-                             lambda g: spmd.all_gather(g, DP, axis=1, tiled=True))
-        return self._cut(h, lambda t: spmd.psum(t, DP), lambda g: spmd.psum(g, DP))
+        if self._cap_cut:
+            return self._cut(h, lambda t: spmd.psum_scatter(t, "data", scatter_dimension=1,
+                                                            tiled=True),
+                             lambda g: spmd.all_gather(g, "data", axis=1, tiled=True))
+        return self._cut(h, lambda t: spmd.psum(t, "data"), lambda g: spmd.psum(g, "data"))
 
     def moe_collect(self, o: torch.Tensor) -> torch.Tensor:
         """The experts' outputs over the whole capacity."""
-        return self._gather(o, DP, 1, partial=True) if self._cap_cut else o
+        return self._gather(o, ("data",), 1, partial=True) if self._cap_cut else o
 
     def moe_weights(self, p) -> dict:
         """The rank's experts' weights whole: a second dim split on 'data'
@@ -708,16 +757,19 @@ class Rank:
                 continue
             w = p[name]
             if "data" in _split(self.moe_specs[name], 1):
-                w = self._gather(w, DP, 1, partial=True)
+                w = self._gather(w, ("data",), 1, partial=True)
             out[name] = w
         return out
 
     def leave_moe(self, out: torch.Tensor) -> torch.Tensor:
+        if self._moe_pod is not None:
+            b, self._moe_pod = self._moe_pod, None
+            return out.narrow(0, self.pi * b, b)
         if self._moe_slice is None:
             return out
         b, s = self._moe_slice
         self._moe_slice = None
-        return self._gather(out, DP, 1, partial=False).reshape(b, s, out.shape[-1])
+        return self._gather(out, ("data",), 1, partial=False).reshape(b, s, out.shape[-1])
 
 
 # --------------------------------------------------------------------------
@@ -751,7 +803,8 @@ def init_cache(model, mesh: Mesh, batch: int, max_len: int, dtype=None) -> Any:
     batch 1 and length 1."""
     meta = model.init_cache(batch, max_len, dtype=dtype, device="meta")
     fill = model.init_cache(1, 1, dtype=dtype, device="cpu")
-    specs = shd.cache_specs(meta, batch, _size(mesh, DP), DP, _sizes(mesh))
+    dpx = dp_axes(mesh)
+    specs = shd.cache_specs(meta, batch, _size(mesh, dpx), dpx, _sizes(mesh))
 
     def one(sh: shd.Sharding, leaf: torch.Tensor, probe: torch.Tensor) -> Placed:
         value = probe.reshape(-1)[0].item()
@@ -776,7 +829,7 @@ def _specs_of(mesh: Mesh, tree: Any, rule) -> Any:
 
 
 def _batch_specs(mesh: Mesh, batch: Dict[str, Any]) -> Dict[str, P]:
-    return _on_mesh(mesh, shd.batch_specs(batch, DP, _sizes(mesh)))
+    return _on_mesh(mesh, shd.batch_specs(batch, dp_axes(mesh), _sizes(mesh)))
 
 
 def _family(model) -> Family:
@@ -815,9 +868,10 @@ def _train_args(model, mesh: Mesh, params: Any, batch: Dict[str, Any]):
     pspecs = _specs_of(mesh, params, lambda t: shd.param_specs(t, _sizes(mesh)))
     bspecs = _batch_specs(mesh, batch)
     dp = bool(_axes_of(bspecs["tokens"][0]))
-    if _size(mesh, DP) > 1 and not dp:
-        raise ValueError(f"the sharded train step splits the batch on 'data': batch "
-                         f"{batch['tokens'].shape[0]} over {_size(mesh, DP)} ranks")
+    dpx = dp_axes(mesh)
+    if _size(mesh, dpx) > 1 and not dp:
+        raise ValueError(f"the sharded train step splits the batch on {dpx}: batch "
+                         f"{batch['tokens'].shape[0]} over {_size(mesh, dpx)} ranks")
     return fam, pspecs, bspecs, dp
 
 
@@ -894,10 +948,10 @@ def _serve_args(model, mesh: Mesh, params: Any, cache: Any):
     return fam, pspecs
 
 
-def _logit_spec(pspecs, dp: bool) -> P:
+def _logit_spec(mesh: Mesh, pspecs, dp: bool) -> P:
     table = pspecs["embed"] if "unembed" not in pspecs else pspecs["unembed"]
     vocab = _split(table, 0 if "unembed" not in pspecs else 1)
-    return P(DP if dp else None, None, vocab[0] if vocab else None)
+    return P(dp_axes(mesh) if dp else None, None, vocab[0] if vocab else None)
 
 
 def _serve(model, mesh, params, cache, inputs: Dict[str, torch.Tensor], step, timeout,
@@ -905,7 +959,8 @@ def _serve(model, mesh, params, cache, inputs: Dict[str, torch.Tensor], step, ti
     """One serving call: each rank re-lays its recurrent states out (if the
     family has them), runs ``step``, advances ``pos`` and writes the
     states back; an encoder-decoder's prefill places the encoder's output
-    in the cache as ``memory``: batch on 'data' as the stream, else
+    in the cache as ``memory``: batch on the data-parallel axes as the
+    stream, else
     replicated (the reference has no spec for it).  ``pos`` is the cache's
     position where its ``pos`` holds no value (on ``meta`` devices)."""
     fam, pspecs = _serve_args(model, mesh, params, cache)
@@ -934,13 +989,14 @@ def _serve(model, mesh, params, cache, inputs: Dict[str, torch.Tensor], step, ti
             memory[spmd.current_rank()] = new["memory"]
         return logits
 
-    fn = spmd.shard_map(body, mesh, (pspecs, bspecs, cspecs), _logit_spec(pspecs, dp),
+    fn = spmd.shard_map(body, mesh, (pspecs, bspecs, cspecs), _logit_spec(mesh, pspecs, dp),
                         timeout=timeout)
     logits = fn(params, inputs, given)
     if fam.memory and prefill:
         first = memory[0]
-        b = first.shape[0] * (_size(mesh, DP) if dp else 1)
-        cache["memory"] = Placed(mesh, P(DP if dp else None), memory,
+        dpx = dp_axes(mesh)
+        b = first.shape[0] * (_size(mesh, dpx) if dp else 1)
+        cache["memory"] = Placed(mesh, P(dpx if dp else None), memory,
                                  (b, *first.shape[1:]), first.dtype)
     return logits, cache
 

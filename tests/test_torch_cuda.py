@@ -1683,6 +1683,50 @@ def test_dryrun_prediction_matches_the_card(monkeypatch):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("name", ["llama3-8b", "qwen3-moe-30b-a3b"])
+def test_pod_train_step_on_eight_ranks_of_the_card(monkeypatch, name):
+    """chip_smoke phase 18 (a) at scaled() widths (2 layers, float32):
+    ``sharded_loss_and_grads`` and one ``sharded_train_step`` on (2, 2, 2)
+    ('pod', 'data', 'model') ranks of the card against one device (the
+    loss within rtol 2e-4, each gradient leaf within 1e-4 x (1 + max),
+    each parameter after the step within 1e-5 x (1 + max)) and against
+    the same calls on (4, 2) ('data', 'model'), whose batch blocks are the
+    same, within 1e-6 x (1 + max); the MoE with tokens dropped."""
+    _card()
+    cs, api = _small_shard(monkeypatch)
+    monkeypatch.setattr(cs, "POD_STEP_MESH", {name: (cs.POD_MESH, cs.POD_DATA_MESH)})
+    row = cs.pod_train_case(torch, api, name, 2)
+    assert row["mesh"] == [2, 2, 2] and row.get("dropped_pairs", 1) > 0
+    assert row["loss_rel_err"] <= cs.SHARD_LOSS_RTOL and row["grad_err"] <= cs.SHARD_GRAD_RTOL
+    assert row["data_mesh_grad_err"] <= cs.POD_SAME_RTOL
+    step = cs.pod_step_case(torch, api, name, 2)
+    assert step["mesh"] == [2, 2, 2] and step["param_err"] <= cs.SHARD_PARAM_RTOL
+    assert step["data_mesh_param_err"] <= cs.POD_SAME_RTOL
+
+
+@pytest.mark.cuda
+def test_pod_sequence_parallel_decode_on_the_card(monkeypatch):
+    """Batch 1 on (2, 2, 1) ('pod', 'data', 'model') ranks of the card:
+    the KV cache's positions cut over ('pod', 'data'), each new position
+    written by the rank that owns it, 'pod' major; sharded prefill and 3
+    decode steps with oplib on ``cuda`` launch one contraction kernel a
+    projection a rank a call (or record a unit the legality check sends to
+    torch: C17), the logits within 5e-2 of the row's largest of the
+    single-device ``Model``."""
+    _card()
+    cs, api = _small_shard(monkeypatch)
+    from repro_torch.kernels import contraction as K
+
+    cfg = api.configs.get("llama3-8b")
+    params = api.build_model(cfg).init(torch.Generator(device="cuda").manual_seed(0))
+    row = cs.shard_serve_case(torch, api, K, cfg, params, (2, 2, 1), 1, 8, 3, phase=18)
+    assert row["cache_spec"][:3] == [None, None, ["pod", "data"]]
+    assert len(row["launches_by_rank"]) == 4 and row["held_max"] <= cs.LOGIT_RTOL
+    units = sum(c.get("torch_units", 0) for c in row["launches_by_rank"].values())
+    assert row["launches"]["contraction"] + units == 4 * 7 * cfg.n_layers * 4
+
+
+@pytest.mark.cuda
 def test_examples_quickstart_twin_on_the_card(tmp_path):
     """``examples/torch_quickstart.py`` at its default (the card) exits 0
     with its products held, and launches the contraction kernel; its
