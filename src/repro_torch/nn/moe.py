@@ -15,6 +15,7 @@ from typing import Tuple
 import torch
 import torch.nn.functional as F
 
+from ..obs import trace as obs_trace
 from ..parallel.constrain import constrain
 from .core import Params, _normal, dense_init
 
@@ -82,25 +83,33 @@ def moe_apply(p: Params, x: torch.Tensor, cfg, dist=None) -> Tuple[torch.Tensor,
     else:
         aux = dist.moe_aux(probs, top1, t_all)
 
-    # position of each (token, choice) within its expert's capacity, in
-    # token-major, choice-minor order
-    eid = gate_idx.reshape(-1)                                   # (t*k,)
-    onehot = _one_hot(eid, e, torch.int32)
-    pos = torch.cumsum(onehot, dim=0) - 1                        # running count
-    if dist is not None:
-        pos = pos + dist.moe_offsets(onehot)                     # the blocks before
-    pos_in_e = pos.gather(1, eid[:, None])[:, 0]
-    keep = pos_in_e < cap
-    e0, el = (0, e) if dist is None else dist.moe_experts(e)
-    if dist is not None:
-        keep = keep & (eid >= e0) & (eid < e0 + el)              # this rank's experts
-    slot = torch.where(keep, (eid - e0) * cap + pos_in_e, el * cap)  # overflow slot
+    with obs_trace.span("moe.dispatch", device=True, tokens=t, pairs=t * k) as sp:
+        # position of each (token, choice) within its expert's capacity, in
+        # token-major, choice-minor order
+        eid = gate_idx.reshape(-1)                                   # (t*k,)
+        onehot = _one_hot(eid, e, torch.int32)
+        pos = torch.cumsum(onehot, dim=0) - 1                        # running count
+        if dist is not None:
+            pos = pos + dist.moe_offsets(onehot)                     # the blocks before
+        pos_in_e = pos.gather(1, eid[:, None])[:, 0]
+        if obs_trace.enabled():
+            # the pairs past capacity, counted on the device.  A rank counts
+            # the tokens it routes, as ``pairs`` does, before its expert
+            # mask: ranks that split the tokens sum to the layer's count, and
+            # the ranks of a 'model' group, which route the same tokens,
+            # count them alike
+            sp.set(dropped=(pos_in_e >= cap).sum())
+        keep = pos_in_e < cap
+        e0, el = (0, e) if dist is None else dist.moe_experts(e)
+        if dist is not None:
+            keep = keep & (eid >= e0) & (eid < e0 + el)              # this rank's experts
+        slot = torch.where(keep, (eid - e0) * cap + pos_in_e, el * cap)  # overflow slot
 
-    # scatter tokens into (el*cap+1, d), compute experts, gather back
-    src = xt.repeat_interleave(k, dim=0)                          # (t*k, d)
-    buf = torch.zeros((el * cap + 1, d), dtype=x.dtype, device=x.device).index_add_(
-        0, slot, src * keep[:, None].to(x.dtype))
-    h = buf[: el * cap].reshape(el, cap, d)
+        # scatter tokens into (el*cap+1, d), compute experts, gather back
+        src = xt.repeat_interleave(k, dim=0)                          # (t*k, d)
+        buf = torch.zeros((el * cap + 1, d), dtype=x.dtype, device=x.device).index_add_(
+            0, slot, src * keep[:, None].to(x.dtype))
+        h = buf[: el * cap].reshape(el, cap, d)
     w = p
     if dist is not None:
         h = dist.moe_dispatch(h)

@@ -1,9 +1,10 @@
 """repro_torch.obs — unified observability: tracing, metrics, kernel profiling.
 
-Three coordinated pieces, all zero-dependency:
+Three coordinated pieces:
 
 - :mod:`repro_torch.obs.trace` — structured spans recorded into a bounded ring
-  buffer, exported as Chrome trace-event JSON (Perfetto-loadable).
+  buffer, exported as Chrome trace-event JSON (Perfetto-loadable); timed on
+  the device where asked, and mirrored into a recording ``torch.profiler``.
 - :mod:`repro_torch.obs.metrics` — labeled counters / gauges / histograms with
   a deterministic snapshot; backs ``cache_stats()`` and the serving
   engine's ``metrics()`` via shims.

@@ -1,12 +1,13 @@
-"""Structured tracing: zero-dependency spans exporting to Chrome trace JSON.
+"""Structured tracing: spans exporting to Chrome trace JSON, on the host's
+clock and, where asked, on the device's.
 
 A *span* is a named wall-clock interval with attributes, recorded into a
 process-wide bounded ring buffer.  Spans nest per thread (the tracer
 keeps a thread-local stack, so each record knows its parent and depth)
 and are cheap enough for serving hot paths: when tracing is disabled
-(the default), ``span()`` returns a shared no-op context manager and the
-cost is one attribute read; when enabled, finishing a span is one lock
-acquisition and a deque append.
+(the default) and no profiler records, ``span()`` returns a shared no-op
+context manager and the cost is two attribute reads; when enabled,
+finishing a span is one lock acquisition and a deque append.
 
 The buffer exports to Chrome trace-event JSON (``ph: "X"`` complete
 events on the ``traceEvents`` array) loadable in Perfetto / DevTools via
@@ -28,6 +29,31 @@ thread and closed at admission on the serving thread) are recorded
 retroactively with :func:`span_at`, passing explicit
 ``time.perf_counter()`` endpoints.
 
+Device time.  ``span(name, device=True)`` also records a pair of CUDA
+events on the current stream at the span's two ends, while tracing is on
+and CUDA is initialised.  The record's ``device_dur`` is the stream's
+elapsed time between them, in seconds: the device work the span
+enqueued, and any time the stream sat idle in between (waiting for the
+host to launch), so it sits beside the host ``dur`` rather than inside
+it.  It is ``None`` off the card.  The events come from a small pool:
+a pair goes back to it once its time is read, which happens when the
+spans are read (:func:`spans`, export), or earlier, without waiting,
+when the pool runs dry and the oldest pairs have completed.  An
+attribute may be a 0-d tensor (a count kept on the device); it is
+turned into a number with ``.item()`` when the spans are read, so the
+hot path never waits for the device.
+
+The profiler mirror.  While a ``torch.profiler`` is recording, every
+``span()`` also opens a ``torch.profiler.record_function`` of the same
+name, whether or not tracing is on, so the program's spans sit in the
+profiler's trace on the profiler's clock, around the kernels they
+launched.  Load the exported profiler trace (``prof.export_chrome_trace``)
+in Perfetto and read the program's spans (category ``user_annotation``)
+over the kernel rows: a kernel's launch lies inside the span that caused
+it.  ``span_at`` and ``instant`` are not mirrored.  With tracing and the
+profiler both off, ``span()`` returns the shared no-op after two
+attribute reads.
+
 Enable at import time with ``STRIPE_TRACE=1`` in the environment.
 """
 from __future__ import annotations
@@ -39,20 +65,28 @@ import time
 from collections import deque
 from typing import Any, Dict, Iterable, List, Optional
 
+import torch
+import torch.autograd.profiler as _profiler
+
 ENV_TRACE = "STRIPE_TRACE"
 
 #: default ring-buffer capacity (finished spans retained); beyond it the
 #: oldest spans are dropped and counted in ``Tracer.dropped``
 DEFAULT_CAPACITY = 200_000
 
+#: CUDA events kept for reuse by device-timed spans
+EVENT_POOL = 64
+
 
 class SpanRecord:
     """One finished span: name, start time and duration (seconds on the
     ``time.perf_counter`` clock), recording thread, parent span name and
-    nesting depth, plus free-form attributes."""
+    nesting depth, plus free-form attributes.  ``device_dur`` is the
+    stream's elapsed seconds between the span's two ends for a span
+    opened with ``device=True`` on the card, else ``None``."""
 
     __slots__ = ("name", "ts", "dur", "tid", "thread", "parent", "depth",
-                 "attrs", "phase")
+                 "attrs", "phase", "device_dur", "_events")
 
     def __init__(self, name: str, ts: float, dur: float, tid: int,
                  thread: str, parent: str = "", depth: int = 0,
@@ -66,12 +100,14 @@ class SpanRecord:
         self.depth = depth
         self.attrs = attrs or {}
         self.phase = phase  # "X" complete span | "i" instant
+        self.device_dur: Optional[float] = None
+        self._events = None  # the (start, end) CUDA events until read
 
     def to_json(self) -> Dict[str, Any]:
         return {"name": self.name, "ts": self.ts, "dur": self.dur,
                 "tid": self.tid, "thread": self.thread, "parent": self.parent,
                 "depth": self.depth, "attrs": dict(self.attrs),
-                "phase": self.phase}
+                "phase": self.phase, "device_dur": self.device_dur}
 
     def __repr__(self) -> str:  # pragma: no cover - debugging aid
         return (f"SpanRecord({self.name!r}, dur={self.dur * 1e3:.3f}ms, "
@@ -96,40 +132,77 @@ class _NullSpan:
 _NULL = _NullSpan()
 
 
+class _Mirror:
+    """A span that only the profiler sees (tracing off, profiler on)."""
+
+    __slots__ = ("_rf",)
+
+    def __init__(self, name: str):
+        self._rf = _profiler.record_function(name)
+
+    def __enter__(self) -> "_Mirror":
+        self._rf.__enter__()
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        self._rf.__exit__(*exc)
+        return False
+
+    def set(self, **attrs) -> "_Mirror":
+        return self
+
+
 class _Span:
     """A live span (context manager).  ``set(**attrs)`` attaches
     attributes discovered mid-span (e.g. which cache level hit)."""
 
-    __slots__ = ("_tracer", "name", "attrs", "_t0", "_parent", "_depth")
+    __slots__ = ("_tracer", "name", "attrs", "_t0", "_parent", "_depth",
+                 "_device", "_events", "_rf")
 
-    def __init__(self, tracer: "Tracer", name: str, attrs: Dict[str, Any]):
+    def __init__(self, tracer: "Tracer", name: str, attrs: Dict[str, Any],
+                 device: bool = False):
         self._tracer = tracer
         self.name = name
         self.attrs = attrs
+        self._device = device
 
     def set(self, **attrs) -> "_Span":
         self.attrs.update(attrs)
         return self
 
     def __enter__(self) -> "_Span":
+        self._rf = None
+        if _profiler._is_profiler_enabled:
+            self._rf = _profiler.record_function(self.name)
+            self._rf.__enter__()
         stack = self._tracer._stack()
         self._parent = stack[-1] if stack else ""
         self._depth = len(stack)
         stack.append(self.name)
+        self._events = None
+        if self._device:
+            self._events = (self._tracer._event(), self._tracer._event())
+            self._events[0].record()
         self._t0 = time.perf_counter()
         return self
 
     def __exit__(self, exc_type, exc, tb) -> bool:
         dur = time.perf_counter() - self._t0
+        if self._events is not None:
+            self._events[1].record()
         stack = self._tracer._stack()
         if stack and stack[-1] == self.name:
             stack.pop()
         if exc_type is not None:
             self.attrs.setdefault("error", exc_type.__name__)
-        self._tracer._record(SpanRecord(
+        rec = SpanRecord(
             self.name, self._t0, dur, threading.get_ident(),
             threading.current_thread().name, self._parent, self._depth,
-            self.attrs))
+            self.attrs)
+        rec._events = self._events
+        self._tracer._record(rec)
+        if self._rf is not None:
+            self._rf.__exit__(exc_type, exc, tb)
         return False
 
 
@@ -145,6 +218,11 @@ class Tracer:
         self.dropped = 0
         self._lock = threading.Lock()
         self._spans: "deque[SpanRecord]" = deque(maxlen=self.capacity)
+        # records whose device time or tensor attributes are still unread,
+        # in the order they finished; spare CUDA events
+        self._timed: "deque[SpanRecord]" = deque()
+        self._tensors: List[SpanRecord] = []
+        self._pool: List[Any] = []
         self._local = threading.local()
         self.epoch = time.perf_counter()
 
@@ -158,6 +236,8 @@ class Tracer:
     def clear(self) -> None:
         with self._lock:
             self._spans.clear()
+            self._timed.clear()
+            self._tensors.clear()
             self.dropped = 0
             self.epoch = time.perf_counter()
 
@@ -169,17 +249,60 @@ class Tracer:
         return stack
 
     def _record(self, rec: SpanRecord) -> None:
+        tensors = any(isinstance(v, torch.Tensor) for v in rec.attrs.values())
         with self._lock:
             if len(self._spans) == self.capacity:
                 self.dropped += 1
             self._spans.append(rec)
+            if rec._events is not None:
+                self._timed.append(rec)
+            if tensors:
+                self._tensors.append(rec)
 
-    def span(self, name: str, **attrs):
-        """Context manager timing a block as one span.  No-op (and
-        allocation-free) while tracing is disabled."""
+    def _event(self):
+        """A timing CUDA event: a spare one, else one freed from the
+        oldest spans whose events have completed (read without waiting),
+        else a new one."""
+        with self._lock:
+            if not self._pool:
+                while self._timed:
+                    rec = self._timed[0]
+                    if not (rec._events[0].query() and rec._events[1].query()):
+                        break
+                    self._timed.popleft()
+                    self._pool.extend(_read_device(rec))
+            if self._pool:
+                return self._pool.pop()
+        return torch.cuda.Event(enable_timing=True)
+
+    def _resolve(self) -> None:
+        """Read the device time and the tensor attributes of every span
+        recorded so far (waits for the device)."""
+        with self._lock:
+            timed, self._timed = self._timed, deque()
+            tensors, self._tensors = self._tensors, []
+        spare = []
+        for rec in timed:
+            rec._events[1].synchronize()
+            spare.extend(_read_device(rec))
+        for rec in tensors:
+            for k, v in rec.attrs.items():
+                if isinstance(v, torch.Tensor):
+                    rec.attrs[k] = v.item()
+        with self._lock:
+            self._pool.extend(spare[: max(0, EVENT_POOL - len(self._pool))])
+
+    def span(self, name: str, device: bool = False, **attrs):
+        """Context manager timing a block as one span; with ``device``
+        also on the device's clock (``SpanRecord.device_dur``).  While
+        tracing is disabled it is the shared no-op, or, while a
+        ``torch.profiler`` records, only a ``record_function`` of the
+        same name."""
         if not self.enabled:
-            return _NULL
-        return _Span(self, name, attrs)
+            if not _profiler._is_profiler_enabled:
+                return _NULL
+            return _Mirror(name)
+        return _Span(self, name, attrs, device and torch.cuda.is_initialized())
 
     def span_at(self, name: str, start_s: float, end_s: float, **attrs) -> None:
         """Record a span with explicit ``time.perf_counter`` endpoints —
@@ -203,6 +326,9 @@ class Tracer:
 
     # -------------------------------------------------------------- export
     def spans(self) -> List[SpanRecord]:
+        """The retained spans, oldest first, with their device times and
+        tensor attributes read."""
+        self._resolve()
         with self._lock:
             return list(self._spans)
 
@@ -234,6 +360,8 @@ class Tracer:
             }
             if s.phase == "X":
                 ev["dur"] = round(s.dur * 1e6, 3)
+            if s.device_dur is not None:
+                ev["args"]["device_dur_us"] = round(s.device_dur * 1e6, 3)
             else:
                 ev["s"] = "t"  # instant scoped to its thread
             events.append(ev)
@@ -248,6 +376,14 @@ class Tracer:
         with open(path, "w") as f:
             json.dump(data, f)
         return str(path)
+
+
+def _read_device(rec: SpanRecord):
+    """Set ``rec.device_dur`` from its completed events; returns them."""
+    start, end = rec._events
+    rec._events = None
+    rec.device_dur = start.elapsed_time(end) / 1e3
+    return start, end
 
 
 def _json_safe(attrs: Dict[str, Any]) -> Dict[str, Any]:
@@ -275,8 +411,8 @@ def set_tracer(tracer: Tracer) -> None:
     _default = tracer
 
 
-def span(name: str, **attrs):
-    return _default.span(name, **attrs)
+def span(name: str, device: bool = False, **attrs):
+    return _default.span(name, device, **attrs)
 
 
 def span_at(name: str, start_s: float, end_s: float, **attrs) -> None:

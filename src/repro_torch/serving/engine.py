@@ -250,18 +250,14 @@ class ServingEngine:
         self._retries_total = 0
         self._warmed = False
         self._decode_warm = False
-        self._h_decode = self._obs.histogram("serve.decode_step_s")
-        self._h_prefill = self._obs.histogram("serve.prefill_s")
-        self._h_queue = self._obs.histogram("serve.queue_wait_s")
-        self._h_request = self._obs.histogram("serve.request_s")
         for fields in self._pending_tuned:  # decode compiles pre-date the log
             self._event("tuned_replay", **fields)
         self._pending_tuned.clear()
 
     # -------------------------------------------------------------- events
     def _event(self, event: str, **fields) -> None:
-        """Append one structured event to the bounded log, count it in the
-        metrics registry, and (when tracing) mark it on the trace."""
+        """Append one structured event to the bounded log and count it in
+        the metrics registry."""
         if self._event_cap is not None and len(self._events) == self._event_cap:
             self._dropped_events += 1
         self._events.append({"step": self._steps, "event": event, **fields})
@@ -270,14 +266,12 @@ class ServingEngine:
             ctr = self._m_events[event] = self._obs.counter(
                 "serve.events", event=event)
         ctr.inc()
-        obs_trace.instant(f"serve.{event}", **fields)
 
     def _finish_obs(self, r: Request) -> None:
-        """Request-lifecycle observability at terminal time: total-latency
-        histogram plus a retroactive ``serve.request`` span covering the
-        request's whole life (submit -> terminal)."""
+        """Request-lifecycle observability at terminal time: a retroactive
+        ``serve.request`` span covering the request's whole life (submit ->
+        terminal)."""
         if r.submit_time and r.finish_time:
-            self._h_request.observe(r.finish_time - r.submit_time)
             obs_trace.span_at("serve.request", r.submit_time, r.finish_time,
                               uid=r.uid, status=r.status,
                               tokens=len(r.out_tokens))
@@ -695,7 +689,6 @@ class ServingEngine:
             # the submit-side timestamp (submit and admission run on
             # different threads, so this cannot be a ``with`` block)
             now = time.perf_counter()
-            self._h_queue.observe(now - r.submit_time)
             obs_trace.span_at("serve.queue", r.submit_time, now, uid=r.uid)
             row = np.full(self._pps, self._garbage[slot], np.int32)
             row[: len(pages)] = pages
@@ -705,13 +698,11 @@ class ServingEngine:
             self._slot_eff[slot] = prep.eff_new
             with obs_trace.span("serve.prefill", uid=r.uid,
                                 bucket=prep.bucket, slot=slot):
-                t_pf = time.perf_counter()
                 fn = self._get_prefill(prep.bucket, params)
                 tok, self._pk, self._pv = fn(
                     params, self._tensor(prep.tokens), prep.plen,
                     self._tensor(row), self._pk, self._pv)
                 first = int(tok)
-            self._h_prefill.observe(time.perf_counter() - t_pf)
             self._pos[slot] = prep.plen
             self._last[slot] = first
             replay = r.replay_len
@@ -841,10 +832,12 @@ class ServingEngine:
                              step=self._steps, n_live=len(live))
                 with obs_trace.span("serve.decode_step", step=self._steps,
                                     n_live=len(live)):
-                    nxt, pk, pv = self._decode_fn(
-                        params, self._pk, self._pv,
-                        self._tensor(self._page_table), self._tensor(self._pos),
-                        self._tensor(self._last))
+                    # the host's enqueue of the step, apart from its wait
+                    with obs_trace.span("serve.decode_launch"):
+                        nxt, pk, pv = self._decode_fn(
+                            params, self._pk, self._pv,
+                            self._tensor(self._page_table), self._tensor(self._pos),
+                            self._tensor(self._last))
                     nxt = nxt.cpu().numpy()
             except Exception as e:  # noqa: BLE001 — device-step crash:
                 # nothing was committed (pages/pos/output update below, only
@@ -852,7 +845,6 @@ class ServingEngine:
                 self._on_step_failure(live, e)
                 continue
             self._pk, self._pv = pk, pv
-            self._h_decode.observe(time.perf_counter() - t0)
             steps += 1
             self._steps += 1
             self._live_steps += len(live)
@@ -928,8 +920,9 @@ class ServingEngine:
         return dict(self._records)
 
     def events(self) -> List[Dict[str, Any]]:
-        """Admission/eviction/fault-recovery event log (used by tests and
-        benches for slot-reuse, utilization and resilience accounting)."""
+        """Admission/eviction/fault-recovery event log, the one record of
+        each event (used by tests and benches for slot-reuse, utilization
+        and resilience accounting)."""
         return list(self._events)
 
     def shed(self) -> List[Request]:
@@ -989,13 +982,13 @@ class ServingEngine:
         reg.gauge("serve.dropped_events").set(self._dropped_events)
 
     def metrics_registry(self) -> obs_metrics.Registry:
-        """The engine's private metrics registry (counters per event type,
-        latency histograms ``serve.{queue_wait,prefill,decode_step,request}_s``)."""
+        """The engine's private metrics registry: counters per event type
+        and the gauges.  Latencies are in the ``serve.*`` trace spans."""
         self._sync_registry()
         return self._obs
 
     def metrics_snapshot(self) -> Dict[str, Any]:
-        """Deterministic snapshot of the engine registry: event counters,
-        gauges, and the four latency histograms."""
+        """Deterministic snapshot of the engine registry: event counters
+        and gauges."""
         self._sync_registry()
         return self._obs.snapshot()

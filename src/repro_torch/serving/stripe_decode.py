@@ -39,6 +39,7 @@ from ..core import cache as _cache
 from ..core.driver import CompiledProgram, CompileRecord, stripe_jit
 from ..core.frontend import TileProgram
 from ..core.hwconfig import HardwareConfig
+from ..obs import trace as obs_trace
 
 # activations whose Stripe intrinsic chain is semantically identical to
 # the framework's nn.core._ACT implementation (see module docstring)
@@ -258,15 +259,19 @@ def build_programs(cfg, m: int, jc: EngineLikeConfig,
 # ------------------------------------------------------------------ apply
 # The weights are cast to float32 on every call, as the JAX package does
 # (its programs compute in float32): with bf16 weights this is a
-# read-and-write pass over every weight per call.
+# read-and-write pass over every weight per call.  Each group of casts is
+# one ``block.cast`` span, timed on the device.
 def run_qkv(progs: DecodePrograms, x2d: torch.Tensor, wq, wk, wv):
-    out = progs.qkv({"X": x2d.float(), "WQ": wq.float(), "WK": wk.float(),
-                     "WV": wv.float()})
+    with obs_trace.span("block.cast", device=True):
+        wq, wk, wv = wq.float(), wk.float(), wv.float()
+    out = progs.qkv({"X": x2d.float(), "WQ": wq, "WK": wk, "WV": wv})
     return out["Q"], out["K"], out["V"]
 
 
 def run_attn_out(progs: DecodePrograms, attn2d: torch.Tensor, resid2d: torch.Tensor, wo):
-    out = progs.attn_out({"A": attn2d.float(), "R": resid2d.float(), "WO": wo.float()})
+    with obs_trace.span("block.cast", device=True):
+        wo = wo.float()
+    out = progs.attn_out({"A": attn2d.float(), "R": resid2d.float(), "WO": wo})
     return out["Y"]
 
 
@@ -280,16 +285,20 @@ def run_mlp(progs: DecodePrograms, x2d: torch.Tensor, resid2d: torch.Tensor, mlp
     mlp = progs.mlp
     glu = act.endswith("_glu")
     if isinstance(mlp, _SplitMLP):
+        with obs_trace.span("block.cast", device=True):
+            up = {"Wg": mlp_params["w_gate"].float()} if glu else {}
+            up["Wu"] = mlp_params["w_up"].float()
+        got = mlp.up({"X": x2d, **up})
         if glu:
-            got = mlp.up({"X": x2d, "Wg": mlp_params["w_gate"].float(),
-                          "Wu": mlp_params["w_up"].float()})
             a = _ACT[progs.act_outside](got["G"]) * got["U"]
         else:
-            got = mlp.up({"X": x2d, "Wu": mlp_params["w_up"].float()})
             a = _ACT[progs.act_outside](got["H"])
-        return mlp.down({"A": a, "R": resid2d, "Wd": mlp_params["w_down"].float()})["Y"]
-    arrays = {"X": x2d, "R": resid2d, "Wd": mlp_params["w_down"].float()}
-    if glu:
-        arrays["Wg"] = mlp_params["w_gate"].float()
-    arrays["Wu"] = mlp_params["w_up"].float()
-    return mlp(arrays)["Y"]
+        with obs_trace.span("block.cast", device=True):
+            wd = mlp_params["w_down"].float()
+        return mlp.down({"A": a, "R": resid2d, "Wd": wd})["Y"]
+    with obs_trace.span("block.cast", device=True):
+        w = {"Wd": mlp_params["w_down"].float()}
+        if glu:
+            w["Wg"] = mlp_params["w_gate"].float()
+        w["Wu"] = mlp_params["w_up"].float()
+    return mlp({"X": x2d, "R": resid2d, **w})["Y"]

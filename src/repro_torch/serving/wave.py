@@ -30,6 +30,7 @@ import torch
 
 from ..core import cache as stripe_cache
 from ..core.lower_torch import torch_dtype
+from ..obs import trace as obs_trace
 from .request import Request
 
 
@@ -115,8 +116,12 @@ class WaveEngine:
             bucket = self._bucket(plen)
             cold = self._compile_cache.get_memory(bucket) is None
             t0 = time.perf_counter()
-            logits, cache = self._prefill(params, batch, cache)
-            self._sync()
+            # ``real``: the prompt tokens of the wave's requests; the rest of
+            # rows x width (left padding, filler rows) serves no request
+            with obs_trace.span("wave.prefill", rows=self.slots, width=plen,
+                                real=sum(len(r.prompt) for r in wave)):
+                logits, cache = self._prefill(params, batch, cache)
+                self._sync()
             if cold:
                 rec = {"slots": self.slots, "plen": plen,
                        "first_call_s": time.perf_counter() - t0}
@@ -132,8 +137,10 @@ class WaveEngine:
             while any(live[: len(wave)]) and steps < max_steps:
                 steps += 1
                 tok = torch.from_numpy(last[:, None].astype(np.int32)).to(self.device)
-                logits, cache = self._decode(params, cache, tok)
-                last = self._greedy(logits)
+                with obs_trace.span("wave.decode_step", rows=self.slots,
+                                    live=int(live.sum())):
+                    logits, cache = self._decode(params, cache, tok)
+                    last = self._greedy(logits)
                 now = time.perf_counter()
                 for i, r in enumerate(wave):
                     if not live[i]:
