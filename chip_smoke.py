@@ -8,8 +8,8 @@ NVIDIA card.
 Phases, each of which raises on failure (the script then exits non-zero
 and prints no result):
 
-1. **build** — compile the five CUDA kernels (contraction, elementwise,
-   windowed, flash_attention, gla) from the sources in this checkout, one
+1. **build** — compile the six CUDA kernels (contraction, elementwise,
+   windowed, flash_attention, gla, moe_dispatch) from the sources in this checkout, one
    ``nvcc`` per source for ``sm_90a``, all started together, and bind
    them.
 2. **kernel vs plain** — every fusion group of the full-width llama3-8b
@@ -185,8 +185,10 @@ and prints no result):
    (q, k, v, o; and the VLM's dense MLP) must be one launch of the
    contraction kernel a layer a call, ``tiled`` on wgmma at prefill and
    ``skinny`` at decode, ``general`` 0 (read from ``launches_by_path``
-   around each call), every ``oplib`` unit on ``cuda``; each projection
-   at the prefill's and the decode's rows is held against its kernel's
+   around each call), every ``oplib`` unit on ``cuda``; every call of
+   qwen3-moe, on either backend, must launch the MoE dispatch's positions
+   kernel twice a layer; each projection at the prefill's and the
+   decode's rows is held against its kernel's
    plain version (``BF16_RTOL``), and the logits between the backends as
    in phase 5.  For qwen3-moe they are held between two untimed runs
    that take the same expert choices (the torch run replays the cuda
@@ -370,9 +372,20 @@ and prints no result):
    of ``DRYRUN_CELLS`` on the 2 x 16 x 16 mesh of 512 ``meta`` devices,
    every row ``ok``, in ``DRYRUN_WORKERS`` processes; the roofline table
    of both meshes' rows and the five worst single-pod rows.
+19. **the MoE dispatch** — the positions kernel (``csrc/moe_dispatch.cu``)
+   at ``MOE_DISPATCH_SHAPES`` (qwen3-moe-30b-a3b's wave prefill of 16384
+   tokens and a decode call of 16; 128 experts, top-8, capacity factor
+   1.25): its ``pair_of_slot`` and drop count equal to its plain
+   version's (the ``cumsum`` formulation, on the card) and to a stable
+   sort's (``_sorted_positions``) exactly, two launches a call, and the
+   experts' rows gathered from its map equal to the scatter of the
+   dispatch before it bit for bit; the kernel, the plain positions, the
+   sort, the gather, and the whole dispatch in turns with the one before
+   it timed with CUDA events beside their bounds by bytes.
 
-The run order is 1-6, 10, 11, 12, 13, 7, 9, 8, 14, 15, 16, 17, 18: phase
-10 reuses the serve phase's weights, which are freed before phase 11.
+The run order is 1-6, 10, 11, 19, 12, 13, 7, 9, 8, 14, 15, 16, 17, 18:
+phase 10 reuses the serve phase's weights, which are freed before phase
+11.
 
 Launch counts are read per path: every count is set to 0 just before the
 serve phase (path 1), before the sweep (path 2), before phase 8's calls
@@ -394,7 +407,11 @@ tune paths (and phase 4's units, from their rows), flash attention's and the GLA
 tf32x3, cuda_cores) for path 3, all in
 the summary, which lists the six TPU kernels' counterparts
 (``stripe_matmul`` rides on the contraction kernel; its launches are
-phase 3's).  The
+phase 3's) and the MoE dispatch's positions kernel, which replaces none:
+its launches are those of phase 11's timed ``cuda`` wave of
+qwen3-moe-30b-a3b (path 7; two a MoE layer a model call, on each call,
+held), phase 19's beside them (the other model paths launch it too,
+training included, since it reads only the experts' ids).  The
 last lines are the kernel summary (JSON), the card's name and power
 limit as ``nvidia-smi`` reports them, and the result line
 ``{"ok": true, "device": {...}}``.  TF32 is off wherever the plain
@@ -457,6 +474,11 @@ RESNET_BATCH = 8
 WAVE_SLOTS = 4
 WAVE_MOE, WAVE_MOE_MAX_LEN = "qwen3-moe-30b-a3b", 128
 WAVE_VLM, WAVE_VLM_MAX_LEN, WAVE_VLM_LAYERS = "internvl2-26b", 384, 4
+# phase 19: the MoE dispatch at qwen3-moe-30b-a3b's routing (128 experts,
+# top-8, width 2048): a wave prefill of 16 x 1024 tokens and a decode
+# call of 16, (t, k, e, cap) with the capacity of factor 1.25
+MOE_DISPATCH_SHAPES = ((16384, 8, 128, 1280), (16, 8, 128, 4))
+MOE_DISPATCH_D = 2048
 # phase 12: the hybrid, ssm and audio families, and their KV window
 FAMILIES = ("zamba2-2.7b", "xlstm-125m", "seamless-m4t-large-v2")
 FAMILY_MAX_LEN = 128
@@ -1759,7 +1781,10 @@ def wave(torch, api, K, cfg, max_len: int, new_tokens: int) -> dict:
     Every projection is one launch of the contraction kernel (4 a layer a
     call for MoE, 7 for a dense MLP): ``tiled`` on wgmma at prefill,
     ``skinny`` at decode, never ``general``; each is then held against its
-    kernel's plain version at the prefill's and the decode's rows.
+    kernel's plain version at the prefill's and the decode's rows.  Every
+    call of a MoE model, on either backend, launches the MoE dispatch's
+    positions kernel twice a layer (its count is set to 0 before each run
+    and read around each call).
 
     The timed runs' logits are held (``_held_logits``), but for two kinds
     of model, whose untimed ``cuda`` run keeps what the untimed ``torch``
@@ -1781,6 +1806,7 @@ def wave(torch, api, K, cfg, max_len: int, new_tokens: int) -> dict:
     prefill parts the same way, ``tests/zamba2_reference_witness.py``)."""
     import numpy as np
     from repro_torch.core import oplib
+    from repro_torch.kernels import moe_dispatch as MD
     from repro_torch.nn import moe
 
     cuda = DEVICE == "cuda"
@@ -1852,17 +1878,19 @@ def wave(torch, api, K, cfg, max_len: int, new_tokens: int) -> dict:
     try:
         for run, backend, n_new, patch in plan:
             oplib.set_backend(backend)
-            rec = {"ms": [], "by_call": [], "rows": []}
+            rec = {"ms": [], "by_call": [], "dispatch_by_call": [], "rows": []}
 
             def recorded(fn, rec=rec):
                 def call(*a):
                     before = dict(K.launches_by_path)
+                    dispatch_before = MD.launches
                     _sync(torch)
                     t0 = time.perf_counter()
                     logits, cache = fn(*a)
                     _sync(torch)
                     rec["ms"].append((time.perf_counter() - t0) * 1e3)
                     rec["by_call"].append({p: K.launches_by_path[p] - before[p] for p in before})
+                    rec["dispatch_by_call"].append(MD.launches - dispatch_before)
                     rec["rows"].append(logits[:, -1, : cfg.vocab].float().cpu())
                     return logits, cache
                 return call
@@ -1873,7 +1901,7 @@ def wave(torch, api, K, cfg, max_len: int, new_tokens: int) -> dict:
             for uid, prompt in enumerate(prompts):
                 engine.submit(api.Request(uid=uid, prompt=prompt,
                                           sampling=api.SamplingParams(max_new_tokens=n_new)))
-            _zero_counts(K)
+            _zero_counts(K, MD)
             if cuda:
                 torch.cuda.reset_peak_memory_stats()
             t0 = time.perf_counter()
@@ -1890,6 +1918,7 @@ def wave(torch, api, K, cfg, max_len: int, new_tokens: int) -> dict:
                 "backend": backend,
                 "tokens": {r.uid: list(r.out_tokens) for r in done}, "rows": rec["rows"],
                 "by_call": rec["by_call"], "launches": K.launches,
+                "dispatch_by_call": rec["dispatch_by_call"], "dispatch_launches": MD.launches,
                 "prefill_ms": rec["ms"][0], "decode_step_ms": rec["ms"][1:],
                 "decode_step_ms_median": statistics.median(rec["ms"][1:]),
                 "wall_s": wall, "tok_per_s": n_tok / wall,
@@ -1899,12 +1928,19 @@ def wave(torch, api, K, cfg, max_len: int, new_tokens: int) -> dict:
     finally:
         oplib.set_backend(old)
     del kept
+    # the MoE dispatch's positions kernel: two launches a MoE layer a call,
+    # whatever the backend (it reads only the experts' ids)
+    dispatch = 2 * cfg.n_layers if cfg.moe and cuda else 0
     for run, r in runs.items():
+        calls = len(r["by_call"])
+        if r["dispatch_by_call"] != [dispatch] * calls or r["dispatch_launches"] != dispatch * calls:
+            raise AssertionError(f"wave {cfg.name} {run}: the MoE dispatch kernel launched "
+                                 f"{r['dispatch_by_call']} by call, {r['dispatch_launches']} in "
+                                 f"all; want {dispatch} a call")
         if r["backend"] == "torch":
             if r["launches"]:
                 raise AssertionError(f"wave {cfg.name} {run}: the torch backend launched the kernel")
             continue
-        calls = len(r["by_call"])
         want = [{"skinny": 0, "tiled": per_call, "general": 0}] + \
             [{"skinny": per_call, "tiled": 0, "general": 0}] * (calls - 1)
         if r["by_call"] != want or r["launches"] != per_call * calls:
@@ -1948,7 +1984,9 @@ def wave(torch, api, K, cfg, max_len: int, new_tokens: int) -> dict:
                                   "decode": projection_bound(cfg, WAVE_SLOTS)},
                 launches=runs["cuda"]["launches"], launches_per_call=per_call,
                 launches_by_call={"prefill": runs["cuda"]["by_call"][0],
-                                  "decode": runs["cuda"]["by_call"][1]})
+                                  "decode": runs["cuda"]["by_call"][1]},
+                dispatch_launches=runs["cuda"]["dispatch_launches"],
+                dispatch_launches_per_call=dispatch)
 
 
 def _c9(torch, cfg, params, rows: int) -> str:
@@ -3780,6 +3818,110 @@ def pod_phase(torch, api, K, card: str, layers: int | None, single_pod_rows: lis
     return out
 
 
+def _scatter_dispatch(torch, xt, eid, e: int, k: int, cap: int):
+    """The dispatch as ``moe_apply`` took it before the positions kernel:
+    a running count (``cumsum``) of the pairs' one-hot, k copies of each
+    token, the kept ones scatter-added into zeroed rows; returns the
+    experts' rows (e * cap, d)."""
+    t, d = xt.shape
+    onehot = (eid[:, None] == torch.arange(e, device=eid.device)).to(torch.int32)
+    pos = (torch.cumsum(onehot, dim=0) - 1).gather(1, eid[:, None])[:, 0]
+    keep = pos < cap
+    slot = torch.where(keep, eid * cap + pos, e * cap)
+    buf = torch.zeros((e * cap + 1, d), dtype=xt.dtype, device=xt.device).index_add_(
+        0, slot, xt.repeat_interleave(k, dim=0) * keep[:, None].to(xt.dtype))
+    return buf[: e * cap]
+
+
+def _sorted_positions(torch, eid, e: int, cap: int):
+    """The positions kernel's ``(pair_of_slot, dropped)`` (one block, every
+    expert) from a stable sort of the expert ids: each pair's position is
+    its place in the sorted order less its expert's start (an exclusive
+    running count of ``bincount``).  Timed in phase 19 as the simplest
+    exact formulation without a (pairs x experts) tensor."""
+    n = eid.numel()
+    eid_sorted, order = torch.sort(eid, stable=True)
+    counts = torch.bincount(eid, minlength=e)
+    pos = torch.arange(n, device=eid.device) - (torch.cumsum(counts, 0) - counts)[eid_sorted]
+    keep = pos < cap
+    slot = torch.where(keep, eid_sorted * cap + pos, e * cap)
+    pair_of_slot = torch.full((e * cap + 1,), n, dtype=torch.int64, device=eid.device).scatter_(
+        0, slot, torch.where(keep, order, n))[: e * cap]
+    return pair_of_slot, (~keep).sum()
+
+
+def moe_dispatch_phase(torch, timer) -> dict:
+    """Phase 19: the MoE dispatch's positions kernel (``csrc/moe_dispatch.cu``)
+    and the gather of the experts' rows at ``MOE_DISPATCH_SHAPES``, on
+    routing drawn from the seed (each token's k experts distinct).  The
+    kernel's ``pair_of_slot`` and drop count must equal its plain
+    version's (the ``cumsum`` formulation, run on the card) and the stable
+    sort's (``_sorted_positions``) exactly, and the gathered rows the rows
+    of the dispatch before it (``_scatter_dispatch``) bit for bit.  Timed
+    with CUDA events (median, L2 flushed): the positions alone, as the
+    kernel's two launches (``ms``), the plain version (``plain_ms``) and
+    the sort (``sort_ms``); the gather; and the whole new dispatch (the
+    kernel, the slots' tokens, the zero row, the gather: ``whole_ms``) in
+    turns with the whole dispatch before it (``before_ms``).  Bounds by
+    bytes at ``HBM_BYTES_PER_S``, each input read once and each output
+    written once: the positions' (``bound_ms``: the ids and
+    ``pair_of_slot``) and the whole dispatch's (``whole_bound_ms``: the
+    ids, the tokens and the experts' rows)."""
+    import numpy as np
+    from repro_torch.kernels import moe_dispatch as MD
+
+    rows = []
+    MD.launches = 0
+    for t, k, e, cap in MOE_DISPATCH_SHAPES:
+        rng = np.random.RandomState(SEED + t)
+        ids = np.argsort(-rng.randn(t, e), axis=1, kind="stable")[:, :k]
+        eid = torch.from_numpy(ids.reshape(-1).copy()).to(DEVICE)
+        xt = torch.from_numpy(rng.randn(t, MOE_DISPATCH_D).astype(np.float32)).to(
+            device=DEVICE, dtype=torch.bfloat16)
+        n = t * k
+        before = MD.launches
+        got = MD.dispatch(eid, e, cap)
+        _sync(torch)
+        if MD.launches != before + 2:
+            raise AssertionError(f"moe_dispatch: {MD.launches - before} launches a call, want 2")
+        for name, want in (("plain version", MD.dispatch_plain(eid, e, cap, (0, e))),
+                           ("stable sort", _sorted_positions(torch, eid, e, cap))):
+            for g, w, what in zip(got, want, ("pair_of_slot", "dropped")):
+                if not torch.equal(g, w):
+                    raise AssertionError(f"moe_dispatch t={t}: the kernel's {what} differs "
+                                         f"from the {name}'s")
+        tok = got[0] // k
+
+        def new():
+            pair_of_slot = MD.dispatch(eid, e, cap)[0]
+            xz = torch.cat([xt, torch.zeros((1, MOE_DISPATCH_D), dtype=xt.dtype,
+                                            device=xt.device)])
+            return xz[pair_of_slot // k]
+
+        def old():
+            return _scatter_dispatch(torch, xt, eid, e, k, cap)
+
+        if not torch.equal(new(), old()):
+            raise AssertionError(f"moe_dispatch t={t}: the gathered rows differ from the "
+                                 f"scatter's")
+        xz = torch.cat([xt, torch.zeros((1, MOE_DISPATCH_D), dtype=xt.dtype, device=xt.device)])
+        ms = timer(lambda: MD.dispatch(eid, e, cap))
+        plain_ms = timer(lambda: MD.dispatch_plain(eid, e, cap, (0, e)))
+        sort_ms = timer(lambda: _sorted_positions(torch, eid, e, cap))
+        gather_ms = timer(lambda: xz[tok])
+        whole_ms, before_ms = timer.turns(new, old)
+        positions_bytes = 8 * (n + e * cap)
+        whole_bytes = 8 * n + t * MOE_DISPATCH_D * 2 + e * cap * MOE_DISPATCH_D * 2
+        bound_ms = positions_bytes / HBM_BYTES_PER_S * 1e3
+        rows.append({"unit": f"moe_dispatch/t{t}_k{k}_e{e}_cap{cap}", "pairs": n,
+                     "dropped": int(got[1]), "ms": ms, "plain_ms": plain_ms, "sort_ms": sort_ms,
+                     "bound_ms": bound_ms, "t_bytes_ms": bound_ms, "t_ops_ms": 0.0,
+                     "bound_by": "bytes", "library_ms": None, "max_abs_err": 0.0,
+                     "gather_ms": gather_ms, "whole_ms": whole_ms, "before_ms": before_ms,
+                     "whole_bound_ms": whole_bytes / HBM_BYTES_PER_S * 1e3})
+    return {"rows": rows, "launches": MD.launches}
+
+
 def _pick(rows, prefix):
     return [r for r in rows if r["unit"].startswith(prefix)]
 
@@ -3825,14 +3967,16 @@ def main() -> None:
 
     t0 = time.perf_counter()
     _build.build_all()
-    for name in KERNEL_MODULES:
-        _kernel_modules()[name].load_library()
+    from repro_torch.kernels import moe_dispatch
+
+    for name, mod in {**_kernel_modules(), "moe_dispatch": moe_dispatch}.items():
+        mod.load_library()
         info = _build.BUILD_INFO[name]
         print(f"build {name}: {info['path']} (cached={info['cached']})", flush=True)
         for line in str(info.get("ptxas", "")).splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  ptxas: {line.strip()}")
-    print(f"build: {len(KERNEL_MODULES)} kernels in {time.perf_counter() - t0:.2f} s", flush=True)
+    print(f"build: {len(_build.SOURCES)} kernels in {time.perf_counter() - t0:.2f} s", flush=True)
 
     full = api.configs.get("llama3-8b")
     rows = check_units(torch, api, K, full, args.reps)
@@ -3924,6 +4068,15 @@ def main() -> None:
               f"GB, host clock with torch.cuda.synchronize(); launches by call "
               f"{json.dumps(w['launches_by_call'])}; steps "
               f"{json.dumps(w['cuda_decode_step_ms'])}; card {card}", flush=True)
+
+    # phase 19: the MoE dispatch's positions kernel and the gather
+    t0 = time.perf_counter()
+    mdp = moe_dispatch_phase(torch, timer)
+    print(f"moe dispatch: phase 19 in {time.perf_counter() - t0:.1f} s; kernel equal to its "
+          f"plain version and the sort, the gathered rows to the scatter's; launches {mdp['launches']}; "
+          f"card {card}", flush=True)
+    for r in mdp["rows"]:
+        print("  unit " + json.dumps(r), flush=True)
 
     # phase 12: the hybrid, ssm and audio families through the wave
     # engine at full width and depth
@@ -4179,6 +4332,18 @@ def main() -> None:
         "mesh": mesh["launches"]["elementwise"]["by_path"],
         "phase4": {p: phase4.count(p) for p in ("vec", "general")}}
     elementwise["empty_kernel_ms"] = empty_ms
+    # the MoE dispatch's positions: replaces no TPU kernel; its launches
+    # the wave's (the model's own path), its times the positions' at phase
+    # 19's two shapes against the plain version's, the whole dispatch's
+    # (the kernel and the gather) beside the one before it
+    moe_wave = wv[WAVE_MOE]["dispatch_launches"]
+    dispatch = _kernel_entry("moe_dispatch", "src/repro_torch/csrc/moe_dispatch.cu",
+                             "none (the JAX package's dispatch is jnp.cumsum: "
+                             "src/repro/nn/moe.py::moe_apply)", moe_wave, mdp["rows"], 0.0)
+    dispatch["launches_by_path"] = {"wave": moe_wave}
+    dispatch["launches_phase19"] = mdp["launches"]
+    for key in ("sort_ms", "gather_ms", "whole_ms", "whole_bound_ms", "before_ms"):
+        dispatch[key] = sum(r[key] for r in mdp["rows"])
     summary = {"kernels": [
         contraction,
         elementwise,
@@ -4186,6 +4351,7 @@ def main() -> None:
         flash,
         gla,
         matmul_entry,
+        dispatch,
     ]}
     print(json.dumps(summary))
     print(card)

@@ -17,7 +17,9 @@ PyTorch version beside it and a launch counter.
 * ``mlstm_chunk``     -- chunkwise gated linear attention (xLSTM's mLSTM);
                          ``csrc/gla.cu``
 * ``ssd_chunk``       -- Mamba2's SSD scan, a wrapper over ``mlstm_chunk``
+* ``moe_dispatch``    -- the MoE dispatch's positions in the experts'
+                         capacity rows; ``csrc/moe_dispatch.cu``
 
-``_build`` compiles the five sources (one ``nvcc`` each, started
+``_build`` compiles the six sources (one ``nvcc`` each, started
 together) at first use and binds them with ``ctypes``.
 """

@@ -2,9 +2,9 @@
 
 Each kernel is one CUDA C++ source under ``csrc/`` with a plain C
 interface (``contraction.cu``, ``elementwise.cu``, ``windowed.cu``,
-``flash_attention.cu``, ``gla.cu``); all of them include ``csrc/dag.cuh``,
-the shared device code (element types, typed loads and stores, the
-postfix DAG evaluator), and the tensor-core kernels (contraction,
+``flash_attention.cu``, ``gla.cu``, ``moe_dispatch.cu``); the first five
+include ``csrc/dag.cuh``, the shared device code (element types, typed
+loads and stores, the postfix DAG evaluator), and the tensor-core kernels (contraction,
 windowed, flash_attention) ``csrc/hopper.cuh``, the Hopper building
 blocks (cp.async, mbarriers, TMA and its tensor maps, wgmma).  Each source
 compiles with ``nvcc`` for ``sm_90a`` into its own shared object under
@@ -13,7 +13,7 @@ source, the headers and the flags (ptxas's report of its kernels'
 registers, stack frame and spills beside it, as
 ``libstripe_<name>.ptxas.txt``), and is bound with ``ctypes``.  The first
 load starts one ``nvcc`` per missing library, all at once, and waits for
-them together, so the five builds cost the time of the slowest.
+them together, so the six builds cost the time of the slowest.
 
 Nothing is built on import: only a kernel launch (or an explicit
 :func:`build_all`) compiles, which happens only where ``nvcc`` exists.
@@ -36,7 +36,7 @@ import torch
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = {"contraction": "contraction.cu", "elementwise": "elementwise.cu",
            "windowed": "windowed.cu", "flash_attention": "flash_attention.cu",
-           "gla": "gla.cu"}
+           "gla": "gla.cu", "moe_dispatch": "moe_dispatch.cu"}
 HEADERS = ("dag.cuh", "hopper.cuh")
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

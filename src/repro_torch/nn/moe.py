@@ -1,5 +1,7 @@
-"""Mixture-of-Experts layer: top-k routing with capacity-bounded
-scatter/gather dispatch (Switch-style).  Expert weights are stacked on a
+"""Mixture-of-Experts layer: top-k routing with a capacity-bounded
+dispatch (Switch-style): each (token, choice) pair's slot in its expert's
+rows from ``kernels/moe_dispatch``, the experts' rows gathered from the
+tokens, their outputs scatter-added back.  Expert weights are stacked on a
 leading expert axis, as in the JAX package.
 
 The dispatch runs every expert on its ``cap`` rows, empty or not, so a
@@ -15,6 +17,7 @@ from typing import Tuple
 import torch
 import torch.nn.functional as F
 
+from ..kernels import moe_dispatch
 from ..obs import trace as obs_trace
 from ..parallel.constrain import constrain
 from .core import Params, _normal, dense_init
@@ -83,33 +86,27 @@ def moe_apply(p: Params, x: torch.Tensor, cfg, dist=None) -> Tuple[torch.Tensor,
     else:
         aux = dist.moe_aux(probs, top1, t_all)
 
-    with obs_trace.span("moe.dispatch", device=True, tokens=t, pairs=t * k) as sp:
-        # position of each (token, choice) within its expert's capacity, in
-        # token-major, choice-minor order
-        eid = gate_idx.reshape(-1)                                   # (t*k,)
-        onehot = _one_hot(eid, e, torch.int32)
-        pos = torch.cumsum(onehot, dim=0) - 1                        # running count
-        if dist is not None:
-            pos = pos + dist.moe_offsets(onehot)                     # the blocks before
-        pos_in_e = pos.gather(1, eid[:, None])[:, 0]
+    e0, el = (0, e) if dist is None else dist.moe_experts(e)
+    with obs_trace.span("moe.dispatch", device=True, tokens=t, pairs=t * k,
+                        kernel=int(xt.is_cuda)) as sp:
+        # the pair that fills each slot of the experts' capacity rows (t * k
+        # where none does), positions counted in token-major, choice-minor
+        # order (the kernel on the card, a running count on the CPU)
+        pair_of_slot, dropped = moe_dispatch.dispatch(
+            gate_idx.reshape(-1), e, cap, (e0, el),
+            blocks=1 if dist is None else dist.moe_blocks(),
+            offsets=None if dist is None else dist.moe_offsets)
         if obs_trace.enabled():
             # the pairs past capacity, counted on the device.  A rank counts
             # the tokens it routes, as ``pairs`` does, before its expert
             # mask: ranks that split the tokens sum to the layer's count, and
             # the ranks of a 'model' group, which route the same tokens,
             # count them alike
-            sp.set(dropped=(pos_in_e >= cap).sum())
-        keep = pos_in_e < cap
-        e0, el = (0, e) if dist is None else dist.moe_experts(e)
-        if dist is not None:
-            keep = keep & (eid >= e0) & (eid < e0 + el)              # this rank's experts
-        slot = torch.where(keep, (eid - e0) * cap + pos_in_e, el * cap)  # overflow slot
-
-        # scatter tokens into (el*cap+1, d), compute experts, gather back
-        src = xt.repeat_interleave(k, dim=0)                          # (t*k, d)
-        buf = torch.zeros((el * cap + 1, d), dtype=x.dtype, device=x.device).index_add_(
-            0, slot, src * keep[:, None].to(x.dtype))
-        h = buf[: el * cap].reshape(el, cap, d)
+            sp.set(dropped=dropped)
+        # gather the experts' rows (el*cap, d); an empty slot reads the zero row t
+        tok_of_slot = pair_of_slot // k
+        xz = torch.cat([xt, torch.zeros((1, d), dtype=xt.dtype, device=xt.device)])
+        h = xz[tok_of_slot].reshape(el, cap, d)
     w = p
     if dist is not None:
         h = dist.moe_dispatch(h)
@@ -128,19 +125,15 @@ def moe_apply(p: Params, x: torch.Tensor, cfg, dist=None) -> Tuple[torch.Tensor,
     o = constrain(o, "model", "data", None, shape=(e, cap, d))
     if dist is not None:
         o = dist.moe_collect(o)
-    flat = torch.cat([o.reshape(el * cap, d), torch.zeros((1, d), dtype=o.dtype, device=o.device)])
     # combine: weight in expert-major layout, then one scatter-add back to
     # token-major (t, d); empty slots go to the sink row t.  On the card
     # the adds are atomic, k of them a token in no fixed order, so a bf16
     # output may differ by a rounding step from run to run.
-    w_buf = torch.zeros((el * cap + 1,), dtype=torch.float32, device=x.device).index_add_(
-        0, slot, gate_vals.reshape(-1) * keep)
-    ow = flat * w_buf[:, None].to(flat.dtype)                     # (el*cap+1, d)
-    tok_ids = torch.arange(t, device=x.device).repeat_interleave(k)  # (t*k,)
-    tok_of_slot = torch.full((el * cap + 1,), -1, dtype=torch.int64, device=x.device).scatter_reduce_(
-        0, slot, torch.where(keep, tok_ids, -1), "amax", include_self=True)
-    dest = torch.where(tok_of_slot >= 0, tok_of_slot, t)
-    out = torch.zeros((t + 1, d), dtype=flat.dtype, device=x.device).index_add_(0, dest, ow)[:t]
+    gz = torch.cat([gate_vals.reshape(-1), torch.zeros((1,), dtype=gate_vals.dtype,
+                                                        device=gate_vals.device)])
+    ow = o.reshape(el * cap, d) * gz[pair_of_slot][:, None].to(o.dtype)   # (el*cap, d)
+    out = torch.zeros((t + 1, d), dtype=o.dtype, device=x.device).index_add_(
+        0, tok_of_slot, ow)[:t]
     if dist is not None:
         out = dist.reduce(out)
     out = constrain(out, ("data",), None, shape=(t_all, d))

@@ -695,25 +695,25 @@ class Rank:
             sur = sur * 0.0
         return value + (sur - sur.detach())
 
-    def moe_offsets(self, onehot: torch.Tensor) -> torch.Tensor:
-        """Per (token, choice) row and expert, what to add to the rank's
-        running count so that it counts in the global token order: the
-        pairs of every block of tokens before the row's (the data-parallel
-        blocks, 'pod' major), less those of the rank's own blocks before
-        it, which the running count holds (the rank routes one block, or
-        one a pod where they are its pod group's)."""
-        nb = self.pods if self._moe_pod is not None else 1
-        e = onehot.shape[-1]
-        counts = onehot.reshape(nb, -1, e).sum(dim=1)                 # (blocks, e)
+    def moe_blocks(self) -> int:
+        """The blocks of the global token order among the tokens this rank
+        routes: its pod group's ('pod' major), else its own one."""
+        return self.pods if self._moe_pod is not None else 1
+
+    def moe_offsets(self, counts: torch.Tensor) -> torch.Tensor:
+        """(blocks, e) of the rank's pairs per block of tokens
+        (:meth:`moe_blocks`) and expert -> for each of those blocks and
+        expert, the pairs of every block of tokens before it in the global
+        token order (the data-parallel blocks, 'pod' major): what to add to
+        a position counted within its block."""
+        e = counts.shape[-1]
         if self._moe_split():
             every = spmd.all_gather(counts, "data", axis=1, tiled=False)  # (blocks, data, e)
             di = self.dai
         else:
             every, di = counts[:, None], 0
         flat = every.reshape(-1, e)                                    # 'pod' major
-        before = (torch.cumsum(flat, dim=0) - flat).reshape(every.shape)[:, di]
-        off = before - (torch.cumsum(counts, dim=0) - counts)
-        return off if nb == 1 else off.repeat_interleave(onehot.shape[0] // nb, dim=0)
+        return (torch.cumsum(flat, dim=0) - flat).reshape(every.shape)[:, di]
 
     def moe_experts(self, e: int) -> Tuple[int, int]:
         if self.m == 1:
