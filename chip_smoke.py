@@ -200,7 +200,18 @@ and prints no result):
    way (``scripts/moe_routing.py``).  The prefill time, the decode-step median (host clock with
    ``torch.cuda.synchronize()``), tokens/s, the peak of
    ``torch.cuda.max_memory_allocated()`` and the launches by path print
-   beside the card's name and power limit.
+   beside the card's name and power limit.  Then the same wave of
+   granite-4.0-h-small at full width and two layers of each kind
+   (Mamba2, attention; each followed by 72 experts top-10 and a shared
+   expert), as qwen3-moe (its routes replayed; two launches of the MoE
+   dispatch's kernel a layer a call, at 72 experts; one of the
+   contraction kernel a projection, 24 a call; each projection shape,
+   the Mamba2 ``in_proj`` 4096x16768 and ``out_proj`` 8192x4096 and the
+   shared expert's 4096x1536 and 1536x4096 among them, held against its
+   plain version), on the benchmark's seeded weights, and the timed
+   ``cuda`` run's served logits read against the benchmark's plain
+   reference (``bench/check.py``) under ``REFERENCE_LIMITS``, which the
+   4-layer reading sets.
 12. **families** — the hybrid, ssm and audio families through the same
    wave (``WaveEngine(model, 4, 128)``, the serve phase's 4 prompts, 16
    new tokens: one prefill of 4 x 100 rows and 15 decode steps), each
@@ -374,8 +385,9 @@ and prints no result):
    of both meshes' rows and the five worst single-pod rows.
 19. **the MoE dispatch** — the positions kernel (``csrc/moe_dispatch.cu``)
    at ``MOE_DISPATCH_SHAPES`` (qwen3-moe-30b-a3b's wave prefill of 16384
-   tokens and a decode call of 16; 128 experts, top-8, capacity factor
-   1.25): its ``pair_of_slot`` and drop count equal to its plain
+   tokens and a decode call of 16, 128 experts, top-8; granite-4.0-h-
+   small's extraction prefill of 4 x 2506 tokens, 72 experts, top-10;
+   capacity factor 1.25): its ``pair_of_slot`` and drop count equal to its plain
    version's (the ``cumsum`` formulation, on the card) and to a stable
    sort's (``_sorted_positions``) exactly, two launches a call, and the
    experts' rows gathered from its map equal to the scatter of the
@@ -474,11 +486,24 @@ RESNET_BATCH = 8
 WAVE_SLOTS = 4
 WAVE_MOE, WAVE_MOE_MAX_LEN = "qwen3-moe-30b-a3b", 128
 WAVE_VLM, WAVE_VLM_MAX_LEN, WAVE_VLM_LAYERS = "internvl2-26b", 384, 4
+# phase 11's granite wave: granite-4.0-h-small (the benchmark's
+# configuration file) at full width, two layers of each kind, and its KV
+# window; its wave read against the plain reference (bench/check.py's
+# numbers, the share counting tokens over REFERENCE_OVER): at these 4
+# layers the program read logit_error_q10 0.009 and error_share 0, the
+# float8 control about 0.10 (the 40-layer cell's limits are 0.21 and 0.3);
+# one slot of the 4 served wrong reads a share of 0.25
+GRANITE, GRANITE_LAYERS = "granite-4.0-h-small", ("mamba", "attention", "mamba", "attention")
+GRANITE_MAX_LEN = 128
+REFERENCE_LIMITS = {"logit_error_q10": 0.03, "error_share": 0.1}
+REFERENCE_OVER = 0.1
 # phase 19: the MoE dispatch at qwen3-moe-30b-a3b's routing (128 experts,
 # top-8, width 2048): a wave prefill of 16 x 1024 tokens and a decode
-# call of 16, (t, k, e, cap) with the capacity of factor 1.25
-MOE_DISPATCH_SHAPES = ((16384, 8, 128, 1280), (16, 8, 128, 4))
-MOE_DISPATCH_D = 2048
+# call of 16; and at granite-4.0-h-small's (72 experts, top-10, width
+# 4096): the extraction cell's widest wave prefill, 4 x 2506 tokens;
+# (t, k, e, cap, d) with the capacity of factor 1.25
+MOE_DISPATCH_SHAPES = ((16384, 8, 128, 1280, 2048), (16, 8, 128, 4, 2048),
+                       (10024, 10, 72, 1741, 4096))
 # phase 12: the hybrid, ssm and audio families, and their KV window
 FAMILIES = ("zamba2-2.7b", "xlstm-125m", "seamless-m4t-large-v2")
 FAMILY_MAX_LEN = 128
@@ -1570,19 +1595,32 @@ def _model_ops(cfg):
     layer, then a dense GLU MLP's 3 (7 a layer; a MoE layer's experts are
     plain ``torch.einsum``s, so 4).  The hybrid: a group's shared block
     (7), then each of its Mamba2 layers' ``in_proj`` and ``out_proj``.
+    The layered family: each layer's mixer (attention's 4, or a Mamba2
+    layer's 2), then its MoE's shared expert (3).
     xLSTM: an mLSTM block's 5 (``up_proj``, ``wq``, ``wk``, ``wv``,
     ``down_proj``), an sLSTM block's 3 (``w_gates``, ``w_up``,
     ``w_down``); its gates are float32 ``einsum``s outside ``oplib``."""
+    from repro_torch.nn.ssm import mamba2_dims
+
     d, hd = cfg.d_model, cfg.hd
     block = [(d, cfg.n_heads * hd, None), (d, cfg.n_kv_heads * hd, None),
              (d, cfg.n_kv_heads * hd, None), (cfg.n_heads * hd, d, None)]
+
+    def glu(f):
+        return [(d, f, cfg.act.split("_")[0]), (d, f, None), (f, d, None)]
+
     if not cfg.moe:
-        block += [(d, cfg.d_ff, cfg.act.split("_")[0]), (d, cfg.d_ff, None), (cfg.d_ff, d, None)]
+        block += glu(cfg.d_ff)
+    if cfg.family in ("hybrid", "layered"):
+        inner, nh, ns = mamba2_dims(cfg)
+        mamba = [(d, 2 * inner + 2 * ns + nh, None), (inner, d, None)]
     if cfg.family == "hybrid":
         per_group = cfg.hybrid.shared_attn_every
-        inner, ns = cfg.ssm.expand * d, cfg.ssm.d_state
-        mamba = [(d, 2 * inner + 2 * ns + inner // cfg.ssm.head_dim, None), (inner, d, None)]
         return (block + mamba * per_group) * -(-cfg.n_layers // per_group)
+    if cfg.family == "layered":
+        shared = glu(cfg.moe.d_ff_shared) if cfg.moe.d_ff_shared else []
+        return [op for kind in cfg.layer_types
+                for op in (block if kind == "attention" else mamba) + shared]
     if cfg.family == "ssm":
         inner, dff = int(cfg.xlstm.proj_factor_mlstm * d), int(cfg.xlstm.proj_factor_slstm * d)
         mlstm = [(d, 2 * inner, None)] + [(inner, inner, None)] * 3 + [(inner, d, None)]
@@ -1766,7 +1804,7 @@ def hybrid_blocks(kept: list, hold=None):
             setattr(hybrid, n, fn)
 
 
-def wave(torch, api, K, cfg, max_len: int, new_tokens: int) -> dict:
+def wave(torch, api, K, cfg, max_len: int, new_tokens: int, reference=None) -> dict:
     """Phases 11 and 12 for one model: seeded random weights drawn on the
     card, a layer at a time; the serve phase's prompts through
     ``WaveEngine(model, WAVE_SLOTS, max_len)`` with ``oplib`` on each of
@@ -1784,7 +1822,11 @@ def wave(torch, api, K, cfg, max_len: int, new_tokens: int) -> dict:
     kernel's plain version at the prefill's and the decode's rows.  Every
     call of a MoE model, on either backend, launches the MoE dispatch's
     positions kernel twice a layer (its count is set to 0 before each run
-    and read around each call).
+    and read around each call).  With ``reference`` (a plain reference
+    of ``bench/reference/`` and its configuration file's dict) the
+    weights are the benchmark's (``bench/weights.py``), and the timed
+    ``cuda`` run's wave is read against the reference
+    (``_against_reference``).
 
     The timed runs' logits are held (``_held_logits``), but for two kinds
     of model, whose untimed ``cuda`` run keeps what the untimed ``torch``
@@ -1813,7 +1855,12 @@ def wave(torch, api, K, cfg, max_len: int, new_tokens: int) -> dict:
     gen = torch.Generator(device=DEVICE).manual_seed(SEED)
     mdl = api.build_model(cfg)
     t0 = time.perf_counter()
-    params = mdl.init(gen, device=DEVICE)
+    if reference is None:
+        params = mdl.init(gen, device=DEVICE)
+    else:
+        from bench import weights
+
+        params = weights.make(mdl, SEED, DEVICE)
     _sync(torch)
     init_s = time.perf_counter() - t0
     weights_gb = torch.cuda.memory_allocated() / 1e9 if cuda else None
@@ -1946,6 +1993,8 @@ def wave(torch, api, K, cfg, max_len: int, new_tokens: int) -> dict:
         if r["by_call"] != want or r["launches"] != per_call * calls:
             raise AssertionError(f"wave {cfg.name} {run}: launches by call {r['by_call']}, "
                                  f"want {want}")
+    checked = (_against_reference(torch, params, prompts, runs["cuda"], reference)
+               if reference else None)
     del params
     if cuda:
         torch.cuda.empty_cache()
@@ -1986,7 +2035,43 @@ def wave(torch, api, K, cfg, max_len: int, new_tokens: int) -> dict:
                 launches_by_call={"prefill": runs["cuda"]["by_call"][0],
                                   "decode": runs["cuda"]["by_call"][1]},
                 dispatch_launches=runs["cuda"]["dispatch_launches"],
-                dispatch_launches_per_call=dispatch)
+                dispatch_launches_per_call=dispatch,
+                **({"reference_check": checked, "reference_limits": REFERENCE_LIMITS}
+                   if checked else {}))
+
+
+def _against_reference(torch, params, prompts, run, reference) -> dict:
+    """A wave run's served logits read against the plain reference, as
+    the benchmark's wave driver hands a wave to its check
+    (``bench/check.py``): every row left-padded with token 0 to the
+    longest prompt, then the tokens each decode call was fed (every
+    request is served all its tokens, so those are its served tokens but
+    the last); the prefill's tokens one group of the MoE's capacity, each
+    decode call's another.  Each number is held under
+    ``REFERENCE_LIMITS``."""
+    import numpy as np
+    from bench import check
+    from bench.served import Job
+
+    ref, arch = reference
+    width, n = max(len(p) for p in prompts), len(run["tokens"][0])
+    toks = np.zeros((len(prompts), width + n - 1), np.int64)
+    for uid, prompt in enumerate(prompts):
+        toks[uid, width - len(prompt):width] = prompt
+        toks[uid, width:] = run["tokens"][uid][:-1]
+    served = [(uid, j) for uid in range(len(prompts)) for j in range(n)]
+    at = np.asarray([(uid, width - 1 + j) for uid, j in served], np.int64)
+    job = Job(tokens=toks, at=at,
+              served=np.asarray([run["tokens"][uid][j] for uid, j in served], np.int64),
+              groups=[(0, width)] + [(width + j, width + j + 1) for j in range(n - 1)],
+              logits=torch.stack([run["rows"][j][uid] for uid, j in served]),
+              stage=np.minimum(at[:, 1] - (width - 1), 2))
+    reading = check.read(ref, params, arch, [job], DEVICE, over=REFERENCE_OVER)
+    for name, limit in REFERENCE_LIMITS.items():
+        if not reading[name] <= limit:
+            raise AssertionError(f"wave {arch['name']}: {name} {reading[name]:.5f} against the "
+                                 f"plain reference, over {limit}")
+    return {k: reading[k] for k in (*REFERENCE_LIMITS, "tokens_checked")}
 
 
 def _c9(torch, cfg, params, rows: int) -> str:
@@ -3872,11 +3957,11 @@ def moe_dispatch_phase(torch, timer) -> dict:
 
     rows = []
     MD.launches = 0
-    for t, k, e, cap in MOE_DISPATCH_SHAPES:
+    for t, k, e, cap, d in MOE_DISPATCH_SHAPES:
         rng = np.random.RandomState(SEED + t)
         ids = np.argsort(-rng.randn(t, e), axis=1, kind="stable")[:, :k]
         eid = torch.from_numpy(ids.reshape(-1).copy()).to(DEVICE)
-        xt = torch.from_numpy(rng.randn(t, MOE_DISPATCH_D).astype(np.float32)).to(
+        xt = torch.from_numpy(rng.randn(t, d).astype(np.float32)).to(
             device=DEVICE, dtype=torch.bfloat16)
         n = t * k
         before = MD.launches
@@ -3894,8 +3979,7 @@ def moe_dispatch_phase(torch, timer) -> dict:
 
         def new():
             pair_of_slot = MD.dispatch(eid, e, cap)[0]
-            xz = torch.cat([xt, torch.zeros((1, MOE_DISPATCH_D), dtype=xt.dtype,
-                                            device=xt.device)])
+            xz = torch.cat([xt, torch.zeros((1, d), dtype=xt.dtype, device=xt.device)])
             return xz[pair_of_slot // k]
 
         def old():
@@ -3904,14 +3988,14 @@ def moe_dispatch_phase(torch, timer) -> dict:
         if not torch.equal(new(), old()):
             raise AssertionError(f"moe_dispatch t={t}: the gathered rows differ from the "
                                  f"scatter's")
-        xz = torch.cat([xt, torch.zeros((1, MOE_DISPATCH_D), dtype=xt.dtype, device=xt.device)])
+        xz = torch.cat([xt, torch.zeros((1, d), dtype=xt.dtype, device=xt.device)])
         ms = timer(lambda: MD.dispatch(eid, e, cap))
         plain_ms = timer(lambda: MD.dispatch_plain(eid, e, cap, (0, e)))
         sort_ms = timer(lambda: _sorted_positions(torch, eid, e, cap))
         gather_ms = timer(lambda: xz[tok])
         whole_ms, before_ms = timer.turns(new, old)
         positions_bytes = 8 * (n + e * cap)
-        whole_bytes = 8 * n + t * MOE_DISPATCH_D * 2 + e * cap * MOE_DISPATCH_D * 2
+        whole_bytes = 8 * n + t * d * 2 + e * cap * d * 2
         bound_ms = positions_bytes / HBM_BYTES_PER_S * 1e3
         rows.append({"unit": f"moe_dispatch/t{t}_k{k}_e{e}_cap{cap}", "pairs": n,
                      "dropped": int(got[1]), "ms": ms, "plain_ms": plain_ms, "sort_ms": sort_ms,
@@ -4047,14 +4131,23 @@ def main() -> None:
     # internvl2-26b at 4 layers, on the card alone
     del params, params32
     torch.cuda.empty_cache()
+    from bench import harness
+    from bench.reference import granite_hybrid_lm
+
     wv = {}
+    cases = []
     for name, max_len, layers in ((WAVE_MOE, WAVE_MOE_MAX_LEN, args.layers),
                                   (WAVE_VLM, WAVE_VLM_MAX_LEN,
                                    min(WAVE_VLM_LAYERS, args.layers or WAVE_VLM_LAYERS))):
         wcfg = api.configs.get(name)
-        wcfg = dataclasses.replace(wcfg, n_layers=layers or wcfg.n_layers)
+        cases.append((dataclasses.replace(wcfg, n_layers=layers or wcfg.n_layers), max_len, None))
+    arch = json.loads((ROOT / "bench" / "configs" / f"{GRANITE}.json").read_text())
+    arch.update(n_layers=len(GRANITE_LAYERS), layer_types=list(GRANITE_LAYERS))
+    cases.append((harness.arch_config(arch), GRANITE_MAX_LEN, (granite_hybrid_lm, arch)))
+    for wcfg, max_len, reference in cases:
+        name = wcfg.name
         t0 = time.perf_counter()
-        wv[name] = w = wave(torch, api, K, wcfg, max_len, args.new_tokens)
+        wv[name] = w = wave(torch, api, K, wcfg, max_len, args.new_tokens, reference)
         print(f"wave: {name} {wcfg.n_layers} layers, d_model {wcfg.d_model}, WaveEngine "
               f"{WAVE_SLOTS} slots, prompts {PROMPT_LENS}, {args.new_tokens} new tokens, oplib "
               f"cuda against torch, in {time.perf_counter() - t0:.1f} s; card {card}: "
@@ -4337,10 +4430,12 @@ def main() -> None:
     # 19's two shapes against the plain version's, the whole dispatch's
     # (the kernel and the gather) beside the one before it
     moe_wave = wv[WAVE_MOE]["dispatch_launches"]
+    granite = wv[GRANITE]["dispatch_launches"]
     dispatch = _kernel_entry("moe_dispatch", "src/repro_torch/csrc/moe_dispatch.cu",
                              "none (the JAX package's dispatch is jnp.cumsum: "
-                             "src/repro/nn/moe.py::moe_apply)", moe_wave, mdp["rows"], 0.0)
-    dispatch["launches_by_path"] = {"wave": moe_wave}
+                             "src/repro/nn/moe.py::moe_apply)", moe_wave + granite, mdp["rows"],
+                             0.0)
+    dispatch["launches_by_path"] = {"wave": moe_wave, "wave_granite": granite}
     dispatch["launches_phase19"] = mdp["launches"]
     for key in ("sort_ms", "gather_ms", "whole_ms", "whole_bound_ms", "before_ms"):
         dispatch[key] = sum(r[key] for r in mdp["rows"])

@@ -8,7 +8,7 @@ decode_32k / long_500k) are ``ShapeSpec``\\ s shared across archs.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 
 @dataclasses.dataclass(frozen=True)
@@ -17,6 +17,7 @@ class MoECfg:
     top_k: int
     d_ff_expert: int
     capacity_factor: float = 1.25
+    d_ff_shared: int = 0      # an always-on shared GLU expert of this width (0: none)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -26,6 +27,7 @@ class SSMCfg:
     head_dim: int = 64        # channels per SSD head
     expand: int = 2
     conv_width: int = 4
+    conv_bias: bool = False   # the causal conv adds a bias per channel
 
 
 @dataclasses.dataclass(frozen=True)
@@ -42,10 +44,14 @@ class HybridCfg:
     shared_attn_every: int = 6  # a shared transformer block every k layers
 
 
+def _nested(kind, value: Dict[str, Any]):
+    return kind(**{k: tuple(v) if isinstance(v, list) else v for k, v in value.items()})
+
+
 @dataclasses.dataclass(frozen=True)
 class ArchConfig:
     name: str
-    family: str                  # dense | moe | ssm | hybrid | vlm | audio
+    family: str                  # dense | moe | ssm | hybrid | layered | vlm | audio
     n_layers: int
     d_model: int
     n_heads: int
@@ -70,6 +76,33 @@ class ArchConfig:
     vocab_pad_multiple: int = 256
     dtype: str = "bfloat16"
     source: str = ""             # provenance note "[arXiv:...; tier]"
+    # read by the layered family alone (``models/layered.py``), and refused
+    # elsewhere unless at their defaults: each layer's mixer, "mamba" or
+    # "attention", each followed by the MoE
+    layer_types: Tuple[str, ...] = ()
+    embedding_multiplier: float = 1.0   # the embeddings are scaled by it
+    residual_multiplier: float = 1.0    # each residual branch is scaled by it
+    logits_scaling: float = 1.0         # the logits are divided by it
+    attention_multiplier: float = 0.0   # the softmax scale; 0 => 1 / sqrt(head dim)
+    norm_eps: float = 1e-6              # every norm's, its Mamba2 gated norms' too
+
+    def __post_init__(self):
+        """Nested settings may come as mappings and sequences as lists (a
+        configuration read from JSON); both become what the fields hold.
+        Another family than the layered one refuses a layered setting
+        away from its default: no path of it would read the value."""
+        for name, kind in _NESTED.items():
+            value = getattr(self, name)
+            if isinstance(value, dict):
+                object.__setattr__(self, name, _nested(kind, value))
+        if isinstance(self.layer_types, list):
+            object.__setattr__(self, "layer_types", tuple(self.layer_types))
+        if self.family != "layered":
+            unread = [f.name for f in dataclasses.fields(self)
+                      if f.name in _LAYERED_ONLY and getattr(self, f.name) != f.default]
+            if unread:
+                raise ValueError(f"{self.name}: {', '.join(unread)} read only by the layered "
+                                 f"family, not by {self.family!r}")
 
     # ------------------------------------------------------------------ api
     @property
@@ -139,6 +172,11 @@ class ArchConfig:
             base["frontend_len"] = 8
         base.update(kw)
         return dataclasses.replace(self, **base)
+
+
+_NESTED = {"moe": MoECfg, "ssm": SSMCfg, "xlstm": XLSTMCfg, "hybrid": HybridCfg}
+_LAYERED_ONLY = ("layer_types", "embedding_multiplier", "residual_multiplier",
+                 "logits_scaling", "attention_multiplier", "norm_eps")
 
 
 @dataclasses.dataclass(frozen=True)

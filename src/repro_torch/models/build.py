@@ -1,7 +1,8 @@
 """Uniform model API: ``build_model(cfg)`` returns a ``Model`` with
 init / loss / prefill / decode_step / init_cache, dispatching on family
 as the JAX package does: dense, moe and vlm (``lm``), hybrid
-(``hybrid``), ssm (``xlstm_model``) and audio (``encdec``).
+(``hybrid``), ssm (``xlstm_model``) and audio (``encdec``); and layered
+(``layered``), which the JAX package lacks.
 
 Also provides ``input_specs(cfg, shape)`` (meta-device tensors standing in
 for every model input of a cell) and ``make_batch`` (small real batches
@@ -17,7 +18,7 @@ import torch
 
 from ..configs.base import ArchConfig, ShapeSpec
 from ..core.lower_torch import torch_dtype
-from . import encdec, hybrid, lm, xlstm_model
+from . import encdec, hybrid, layered, lm, xlstm_model
 
 
 @dataclasses.dataclass
@@ -38,6 +39,8 @@ def build_model(cfg: ArchConfig) -> Model:
         mod = lm
     elif cfg.family == "hybrid":
         mod = hybrid
+    elif cfg.family == "layered":
+        mod = layered
     elif cfg.family == "ssm" and cfg.xlstm is not None:
         mod = xlstm_model
     elif cfg.family == "audio" and cfg.enc_dec:

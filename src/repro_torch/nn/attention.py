@@ -65,6 +65,12 @@ def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out.to(q.dtype)
 
 
+def softmax_scale(cfg) -> float:
+    """The configured scale of the scores (``attention_multiplier``), or
+    1 / sqrt(head dim)."""
+    return cfg.attention_multiplier or 1.0 / float(cfg.hd) ** 0.5
+
+
 def causal_mask(s: int, device=None) -> torch.Tensor:
     return torch.tril(torch.ones((s, s), dtype=torch.bool, device=device))[None, None]
 
@@ -96,7 +102,7 @@ def attention(p: Params, x: torch.Tensor, cfg, *,
     """
     b, s, d = x.shape
     h, kvh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
-    sm_scale = 1.0 / float(hd) ** 0.5
+    sm_scale = softmax_scale(cfg)
 
     q = _split_heads(linear(x, p["wq"]), h)
     kv_src = memory if memory is not None else x

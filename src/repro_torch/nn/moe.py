@@ -6,7 +6,10 @@ leading expert axis, as in the JAX package.
 
 The dispatch runs every expert on its ``cap`` rows, empty or not, so a
 call reads every expert's weights whatever the routing picked (the JAX
-package's design, ported as it is).  The capacity comes from shapes on
+package's design, ported as it is).  Where the configuration gives a
+shared expert a width (``MoECfg.d_ff_shared``), that GLU runs on every
+token and its output is added to the experts'; without one the layer
+runs what it ran before.  The capacity comes from shapes on
 the host; everything that depends on the routing stays on the device, so
 the layer never waits for the host."""
 from __future__ import annotations
@@ -20,7 +23,7 @@ import torch.nn.functional as F
 from ..kernels import moe_dispatch
 from ..obs import trace as obs_trace
 from ..parallel.constrain import constrain
-from .core import Params, _normal, dense_init
+from .core import Params, _normal, dense_init, mlp_apply, mlp_init
 
 
 def moe_init(gen: torch.Generator, cfg, dtype, device=None) -> Params:
@@ -28,13 +31,16 @@ def moe_init(gen: torch.Generator, cfg, dtype, device=None) -> Params:
     e, f = cfg.moe.n_experts, cfg.moe.d_ff_expert
     scale = 1.0 / float(d) ** 0.5
     fscale = 1.0 / float(f) ** 0.5
-    return {
+    p = {
         # the router stays float32 whatever the model's type
         "router": dense_init(gen, d, e, torch.float32, device),
         "w_gate": _normal(gen, (e, d, f), scale, dtype, device),
         "w_up": _normal(gen, (e, d, f), scale, dtype, device),
         "w_down": _normal(gen, (e, f, d), fscale, dtype, device),
     }
+    if cfg.moe.d_ff_shared:
+        p["shared"] = mlp_init(gen, d, cfg.moe.d_ff_shared, cfg.act, dtype, device)
+    return p
 
 
 def _one_hot(idx: torch.Tensor, n: int, dtype) -> torch.Tensor:
@@ -65,6 +71,8 @@ def moe_apply(p: Params, x: torch.Tensor, cfg, dist=None) -> Tuple[torch.Tensor,
     expert-major tensors' sharding is pinned here (``constrain``), as the
     JAX package pins it."""
     if dist is not None:
+        if cfg.moe.d_ff_shared:
+            raise NotImplementedError("a shared expert in the sharded step")
         x = dist.enter_moe(x)
     b, s, d = x.shape
     e, k = cfg.moe.n_experts, cfg.moe.top_k
@@ -138,6 +146,8 @@ def moe_apply(p: Params, x: torch.Tensor, cfg, dist=None) -> Tuple[torch.Tensor,
         out = dist.reduce(out)
     out = constrain(out, ("data",), None, shape=(t_all, d))
     out = out.reshape(b, s, d)
+    if cfg.moe.d_ff_shared:
+        out = out + mlp_apply(p["shared"], x, cfg.act)
     if dist is not None:
         out = dist.leave_moe(out)
     return out, aux

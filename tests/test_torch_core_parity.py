@@ -3,6 +3,7 @@ programs compile to the same optimized IR (``ir_fingerprint``), the same
 pass trace (fusion decisions included), the same tilings and fusion
 groups, and the reference interpreter gives the same outputs — exactly —
 under the three configs both packages share."""
+import dataclasses
 import json
 
 import numpy as np
@@ -29,6 +30,7 @@ from repro_torch.core.interp import execute_reference as t_interp  # noqa: E402
 from repro_torch.core.ir import ir_fingerprint as t_fp  # noqa: E402
 from repro_torch.explore.workloads import get_workloads as t_workloads  # noqa: E402
 from repro_torch.serving import stripe_decode as t_sd  # noqa: E402
+from test_torch_moe import _as_reference  # noqa: E402
 
 CONFIGS = ("cpu_test", "tpu_v5e", "paper_fig4")
 SCALED = dict(n_layers=2, d_model=32, n_heads=4, n_kv_heads=2, d_ff=64, vocab=64,
@@ -220,7 +222,9 @@ def test_serving_programs_compile_identically_scaled(phase, hw):
 @pytest.mark.parametrize("phase", ["decode", "prefill"])
 def test_serving_programs_compile_identically_full_width(phase):
     jcfg, tcfg = j_configs.get("llama3-8b"), t_configs.get("llama3-8b")
-    assert jcfg == tcfg or repr(jcfg) == repr(tcfg)
+    # the reference's config, field by field; the port's own fields (the
+    # layered family's, ``test_torch_moe``) at their defaults
+    assert _as_reference(tcfg, jcfg) == dataclasses.asdict(jcfg)
     m, window = (8, 256) if phase == "decode" else (64, None)
     _assert_same_serving(jcfg, tcfg, "tpu_v5e", m, window)
 

@@ -20,9 +20,12 @@ package's, on the CPU.
 * prefill then decode equals the full forward (``test_arch_smoke``'s
   identity, rtol and atol 2e-3), MoE with ``capacity_factor =
   n_experts``, as the reference's test runs it.
-* every config equals the reference's (``dataclasses.asdict``), and the
-  port's registry passes the reference's assignment table and parameter
-  count bounds.
+* every config equals the reference's (``dataclasses.asdict``, field by
+  field; the fields the port alone has, those of the layered family, the
+  shared expert, the Mamba2 conv bias and the norms' eps, stay at their
+  defaults, which are the reference's semantics), and the port's
+  registry passes the reference's assignment table and parameter count
+  bounds.
 * ``Model.init`` puts the parameters on the card unless asked for the CPU.
 """
 import dataclasses
@@ -312,12 +315,27 @@ def test_init_draws_the_reference_tree_and_defaults_to_the_card():
 
 
 # --------------------------------------------------------------- configs
+def _as_reference(port, ref):
+    """``port``'s fields that ``ref`` has, as ``dataclasses.asdict`` gives
+    them; each field that the port alone has must hold its default."""
+    if not dataclasses.is_dataclass(port):
+        return port
+    out = {}
+    for f in dataclasses.fields(port):
+        value = getattr(port, f.name)
+        if hasattr(ref, f.name):
+            out[f.name] = _as_reference(value, getattr(ref, f.name))
+        else:
+            assert value == f.default, (type(port).__name__, f.name, value)
+    return out
+
+
 @pytest.mark.parametrize("name", j_configs.names())
 def test_config_matches_reference(name):
-    assert dataclasses.asdict(api.configs.get(name)) == dataclasses.asdict(j_configs.get(name))
-    assert api.configs.get(name).param_count() == j_configs.get(name).param_count()
-    assert (dataclasses.asdict(api.configs.get(name).scaled())
-            == dataclasses.asdict(j_configs.get(name).scaled()))
+    t_cfg, j_cfg = api.configs.get(name), j_configs.get(name)
+    assert _as_reference(t_cfg, j_cfg) == dataclasses.asdict(j_cfg)
+    assert t_cfg.param_count() == j_cfg.param_count()
+    assert _as_reference(t_cfg.scaled(), j_cfg.scaled()) == dataclasses.asdict(j_cfg.scaled())
 
 
 def test_registry_passes_the_reference_assignment_table():
